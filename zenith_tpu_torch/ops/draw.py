@@ -1,0 +1,438 @@
+"""The draw call: programmable + fixed-function pipeline for one draw (torch
+port of zenith_tpu/ops/draw.py::draw_indexed, single sample, no stencil).
+
+    vertex fetch (VertexLayout.unpack)
+    → vertex shader (user fn, dense over vertices)
+    → near clip + triangle setup (ops.geometry)
+    → tile binning (ops.binning)
+    → forward-interpolating raster, kernel K1 (ops.raster)
+    → varying finalize (ops.shade)
+    → fragment shader (user fn, dense over pixels)
+    → blend/output merger (ops.blend)
+
+Attributes are interpolated inside the raster pass as attr·(1/w) planes, so
+fragment shading runs once per pixel with no gathers. Ops run eagerly in
+stream order, which sequences split parts without the reference's
+optimization barriers.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Sequence
+
+import torch
+
+from zenith_tpu_torch.core import log
+from zenith_tpu_torch.core import validate as _validate
+from zenith_tpu_torch.ops import blend as blend_ops
+from zenith_tpu_torch.ops import geometry, shade
+from zenith_tpu_torch.ops.binning import TileGrid, bin_segmented
+from zenith_tpu_torch.ops.raster import raster_segmented
+from zenith_tpu_torch.rhi.pipeline import GraphicPipeline
+from zenith_tpu_torch.rhi.shader import BindingError, BoundResources
+from zenith_tpu_torch.rhi.state import (
+    ColorAttachmentDesc,
+    InputAssemblyState,
+    PolygonMode,
+    PrimitiveTopology,
+)
+
+logger = log.get(__name__)
+
+# Default per-tile candidate capacity; renderers override per scene.
+DEFAULT_BIN_CAPACITY = 256
+
+# Records per sequential raster part and primitives per geometry part, at
+# the reference's values (draw.py:65-78) so that part splitting stays
+# bit-equal with it.
+MAX_RECORDS_PER_RASTER = 6 * 1024 * 1024
+MAX_PRIMS_PER_PART = 2 * 1024 * 1024
+
+
+def _geo_specs(prim_kind, clip, prims, flat_vary, grid, rast_state,
+               viewport, depth_bias):
+    """Deferred geometry-part builders for one draw: a list of
+    ``(est_records, build)``; triangle draws above MAX_PRIMS_PER_PART split
+    into contiguous primitive ranges (draw.py:81-109)."""
+
+    def make_build(pr):
+        def build():
+            return _setup_records(prim_kind, clip, pr, flat_vary, grid,
+                                  rast_state, viewport, depth_bias)
+        return build
+
+    t = prims.shape[0]
+    if t <= MAX_PRIMS_PER_PART:
+        return [(2 * t, make_build(prims))]
+    k = -(-t // MAX_PRIMS_PER_PART)
+    step = -(-t // k)
+    return [
+        (2 * (min(t, s + step) - s), make_build(prims[s:s + step]))
+        for s in range(0, t, step)
+    ]
+
+
+def _bin_spec_parts(specs, grid, entry_budget=None, budget_scale=1):
+    """Bin a submission-ordered list of geometry-part specs (draw.py:112-166):
+    adjacent parts coalesce into groups of ≤ MAX_RECORDS_PER_RASTER
+    estimated records, each group binned with its share of the budget."""
+    total_est = sum(e for e, _ in specs) or 1
+    scale = max(int(budget_scale), 1)
+    total_budget = (
+        int(entry_budget) if entry_budget is not None
+        else sum(max(2 * e, 8192) for e, _ in specs)
+    ) * scale
+
+    groups = []
+    cur, cur_est = [], 0
+    for e, build in specs:
+        if cur and cur_est + e > MAX_RECORDS_PER_RASTER:
+            groups.append((cur_est, cur))
+            cur, cur_est = [], 0
+        cur.append(build)
+        cur_est += e
+    if cur:
+        groups.append((cur_est, cur))
+
+    all_parts = []
+    for g_est, builds in groups:
+        built = [b() for b in builds]
+        if len(built) == 1:
+            records, corner = built[0]
+        else:
+            records = geometry.TriangleRecords(
+                *[torch.cat([getattr(r, f) for r, _ in built])
+                  for f in geometry.TriangleRecords._fields]
+            )
+            corner = torch.cat([c for _, c in built])
+        g_budget = max(int(round(total_budget * g_est / total_est)), 1)
+        all_parts.extend(_bin_parts(records, corner, grid, entry_budget=g_budget).parts)
+    return _BinParts(all_parts)
+
+
+class _BinParts:
+    """1..K sequential binning units for one draw (see _bin_parts)."""
+
+    def __init__(self, parts: list):
+        self.parts = parts
+
+    @property
+    def overflow(self):
+        total = self.parts[0].overflow
+        for p in self.parts[1:]:
+            total = total + p.overflow
+        return total
+
+
+def _bin_parts(records, corner_data, grid, entry_budget=None,
+               budget_scale=1) -> _BinParts:
+    """Bin a draw's records, splitting into sequential parts above
+    MAX_RECORDS_PER_RASTER records (draw.py:183-238; the port has no SMEM
+    routing cap, see ops.binning)."""
+    r = records.rast16.shape[0]
+    scale = max(int(budget_scale), 1)
+    budget = (
+        int(entry_budget) if entry_budget is not None else max(2 * r, 8192)
+    ) * scale
+    k = max(1, -(-max(r, 1) // MAX_RECORDS_PER_RASTER))
+    if k <= 1:
+        return _BinParts([
+            bin_segmented(records, corner_data, grid,
+                          entry_budget=entry_budget, budget_scale=budget_scale)
+        ])
+    step = -(-r // k)
+    parts = []
+    for s in range(0, r, step):
+        e = min(r, s + step)
+        rec = geometry.TriangleRecords(*[f[s:e] for f in records])
+        sub = max(-(-budget // k), 2 * (e - s), 8192)
+        parts.append(bin_segmented(rec, corner_data[s:e], grid, entry_budget=sub))
+    return _BinParts(parts)
+
+
+def _raster_parts(bin_parts: _BinParts, grid, init_z, **kw):
+    """raster_segmented over a _BinParts: parts run in order with the depth
+    plane threaded through; attribute planes merge by part coverage
+    (draw.py:241-269)."""
+    z = init_z
+    acc = None
+    for bins in bin_parts.parts:
+        z, acc_i = raster_segmented(bins, grid, z, **kw)
+        if acc is None:
+            acc = acc_i
+        else:
+            acc = torch.where((acc_i[-1] > 0.0)[None], acc_i, acc)
+    return z, acc
+
+
+class _CheckedAttrs(dict):
+    """Vertex-attribute dict with a named error on a missing key."""
+
+    def __init__(self, data, shader_name: str):
+        super().__init__(data)
+        self._shader_name = shader_name
+
+    def __missing__(self, key):
+        raise BindingError(
+            f"vertex shader {self._shader_name!r} reads attribute {key!r} "
+            f"which the vertex layout / instance data does not provide "
+            f"(available: {sorted(k for k in self)}). Declare the shader's "
+            f"inputs (Shader.vertex(..., inputs=[attr(...)])) to catch this "
+            f"at pipeline build time."
+        )
+
+
+# Unused-binding diagnostics (validate mode): warn once per (shader, name).
+_UNUSED_WARNED: "set[tuple[int, str]]" = set()
+
+
+def _warn_unused_bindings(shader, res: BoundResources) -> None:
+    """Declared-but-never-read binding warning (descriptor.rs:298-456)."""
+    if not _validate.enabled():
+        return
+    for name in shader.reflection.binding_names():
+        if name in res.accessed:
+            continue
+        k = (id(shader), name)
+        if k not in _UNUSED_WARNED:
+            _UNUSED_WARNED.add(k)
+            logger.warning(
+                "[validate] shader %r declares binding '%s' but never read "
+                "it this draw — drop the declaration or use the resource",
+                shader.name, name,
+            )
+
+
+def _check_instance_inputs(pipeline, instance_data, instance_count) -> None:
+    """Draw-time validation of per_instance vertex inputs."""
+    declared = pipeline.vertex_shader.vertex_inputs
+    if declared is None:
+        return
+    inst_names = {d.name for d in declared if d.per_instance}
+    if not inst_names:
+        return
+    got = set(instance_data or ()) | {"instance_index"}
+    missing = inst_names - got
+    if missing:
+        raise BindingError(
+            f"vertex shader {pipeline.vertex_shader.name!r} declares "
+            f"per-instance inputs {sorted(missing)} but the draw's "
+            f"instance_data provides {sorted(got)}"
+        )
+
+
+def assemble_triangles(index_buffer: torch.Tensor, ia: InputAssemblyState) -> torch.Tensor:
+    """Primitive assembly: index buffer → (T, 3) triangle list
+    (draw.py:343-385). TRIANGLE_STRIP follows the Vulkan rule, with odd
+    triangles' first two corners swapped; with ``primitive_restart`` the
+    restart index (-1 as int32) cuts strips, triangles touching it collapse
+    to (0, 0, 0) and the parity restarts at each cut."""
+    if ia.topology == PrimitiveTopology.TRIANGLE_LIST:
+        return index_buffer.reshape(-1, 3)
+
+    flat = index_buffer.reshape(-1).to(torch.int32)
+    n = flat.shape[0]
+    if n < 3:
+        raise ValueError(f"triangle strip needs >= 3 indices, got {n}")
+    i0, i1, i2 = flat[:-2], flat[1:-1], flat[2:]
+    pos = torch.arange(n - 2, dtype=torch.int32, device=flat.device)
+
+    if ia.primitive_restart:
+        is_restart = flat == -1
+        ar = torch.arange(n, dtype=torch.int32, device=flat.device)
+        seg_start = torch.cummax(
+            torch.where(is_restart, ar, torch.full_like(ar, -1)), 0
+        ).values + 1
+        parity = (pos - seg_start[: n - 2]) & 1
+        bad = is_restart[:-2] | is_restart[1:-1] | is_restart[2:]
+    else:
+        parity = pos & 1
+        bad = torch.zeros((n - 2,), dtype=torch.bool, device=flat.device)
+
+    odd = parity == 1
+    a = torch.where(odd, i1, i0)
+    b = torch.where(odd, i0, i1)
+    tris = torch.stack([a, b, i2], dim=1)
+    return torch.where(bad[:, None], torch.zeros_like(tris), tris)
+
+
+def _assemble_primitives(index_buffer, ia: InputAssemblyState, polygon_mode: PolygonMode):
+    """Primitive assembly dispatch → (kind, (P, 3) primitive indices). Only
+    filled triangles are ported."""
+    topo = ia.topology
+    if topo in (PrimitiveTopology.LINE_LIST, PrimitiveTopology.LINE_STRIP,
+                PrimitiveTopology.POINT_LIST) or polygon_mode != PolygonMode.FILL:
+        raise NotImplementedError(
+            "line/point topologies and LINE/POINT polygon modes are not "
+            "ported yet (ROADMAP item 19: lines, points and polygon modes)"
+        )
+    return "tri", assemble_triangles(index_buffer, ia)
+
+
+def _setup_records(kind, clip, prims, flat_vary, grid, rast_state, viewport, depth_bias):
+    """Primitive setup → (TriangleRecords, corner_data)."""
+    assert kind == "tri", kind
+    return geometry.setup_with_attrs(
+        clip, prims, flat_vary, grid.width, grid.height,
+        cull_mode=rast_state.cull_mode, front_face=rast_state.front_face,
+        viewport=viewport, depth_bias=depth_bias, depth_clamp=rast_state.depth_clamp,
+    )
+
+
+def _normalize_frag_out(frag_out) -> list:
+    """Fragment-stage output → ordered list of attachment images (single
+    tensor, list/tuple in attachment order, or dict sorted by key for MRT)."""
+    if isinstance(frag_out, (list, tuple)):
+        return list(frag_out)
+    if isinstance(frag_out, dict):
+        return [frag_out[k] for k in sorted(frag_out)]
+    return [frag_out]
+
+
+@dataclass
+class DrawStats:
+    """Per-draw counters folded into frame stats."""
+
+    bin_overflow: Any = None  # device scalar (never read inside a frame)
+    stencil: Any = None
+
+
+def draw_indexed(
+    colors: "Sequence[torch.Tensor]",  # current color attachment contents
+    depth: Optional[torch.Tensor],  # current depth contents or None
+    pipeline: GraphicPipeline,
+    vertex_buffer: torch.Tensor,  # (Nv, stride) f32
+    index_buffer: torch.Tensor,  # (T, 3) or (3T,) int
+    resources: "Dict[str, Any]",
+    grid: TileGrid,
+    bin_capacity: int = DEFAULT_BIN_CAPACITY,
+    viewport: "Optional[tuple]" = None,  # (x0, y0, full_w, full_h)
+    entry_budget: Optional[int] = None,  # tile×record pair budget (see binning)
+    stencil: Optional[torch.Tensor] = None,
+    instance_count: int = 1,
+    instance_data: "Optional[Dict[str, Any]]" = None,  # name → (I, C) tensors
+    budget_scale: int = 1,
+) -> "tuple[list[torch.Tensor], Optional[torch.Tensor], DrawStats]":
+    """Run one indexed draw (draw.py:513-671); returns (colors', depth',
+    stats). ``instance_count`` > 1 runs the vertex stage over a written-out
+    instance dimension: instances see ``instance_data`` rows as extra attrs
+    plus ``instance_index``, and records concatenate in instance order."""
+    state = pipeline.desc.state
+    rast_state = state.rasterization
+    ds = state.depth_stencil
+    if state.multisample.samples > 1:
+        raise NotImplementedError("MSAA is not ported yet (ROADMAP item 18: MSAA)")
+    if ds.stencil_test_enable:
+        raise NotImplementedError(
+            "the stencil test (kernel K3) is not ported yet (ROADMAP item 17: stencil)"
+        )
+
+    # -- vertex stage --------------------------------------------------------
+    layout = pipeline.vertex_layout
+    if layout is not None:
+        attrs = layout.unpack(vertex_buffer)
+    else:
+        attrs = {"position": vertex_buffer}
+    vs_res = BoundResources(pipeline.vertex_shader.reflection, resources)
+    prim_kind, indices = _assemble_primitives(
+        index_buffer, state.input_assembly, rast_state.polygon_mode
+    )
+
+    if instance_count > 1 or instance_data:
+        _check_instance_inputs(pipeline, instance_data, instance_count)
+        nv = vertex_buffer.shape[0]
+        dev = vertex_buffer.device
+        a = _CheckedAttrs(
+            {k: v.unsqueeze(0).expand(instance_count, *v.shape).reshape(instance_count * nv, -1)
+             for k, v in attrs.items()},
+            pipeline.vertex_shader.name,
+        )
+        for k, v in (instance_data or {}).items():
+            v = torch.as_tensor(v, dtype=torch.float32, device=dev).reshape(instance_count, -1)
+            a[k] = v.repeat_interleave(nv, dim=0)
+        a["instance_index"] = torch.arange(
+            instance_count, dtype=torch.float32, device=dev
+        ).repeat_interleave(nv)[:, None]
+        vs_out = dict(pipeline.vertex_shader.fn(a, vs_res))
+        clip = vs_out.pop("position")
+        offs = (torch.arange(instance_count, dtype=indices.dtype, device=dev) * nv)[:, None, None]
+        indices = (indices[None, :, :] + offs).reshape(-1, indices.shape[1])
+    else:
+        vs_out = dict(pipeline.vertex_shader.fn(
+            _CheckedAttrs(attrs, pipeline.vertex_shader.name), vs_res))
+        clip = vs_out.pop("position")
+    if vs_out.pop("point_size", None) is not None:
+        raise NotImplementedError(
+            "point_size is a point-primitive builtin (ROADMAP item 19)"
+        )
+    _warn_unused_bindings(pipeline.vertex_shader, vs_res)
+    if clip.ndim != 2 or clip.shape[1] != 4:
+        raise ValueError(
+            f"vertex shader must return clip-space 'position' (N, 4), got {tuple(clip.shape)}"
+        )
+
+    # -- primitive assembly + setup (fused with attribute gathering) ----------
+    attr_layout = [(name, int(v.shape[-1]) if v.ndim > 1 else 1)
+                   for name, v in vs_out.items()]
+    if vs_out:
+        flat_vary = torch.cat(
+            [v.reshape(v.shape[0], -1).to(torch.float32) for v in vs_out.values()], dim=1
+        )
+    else:
+        flat_vary = torch.zeros((clip.shape[0], 0), dtype=torch.float32, device=clip.device)
+    depth_bias = None
+    if rast_state.depth_bias_enable:
+        depth_bias = (rast_state.depth_bias_constant, rast_state.depth_bias_slope)
+    specs = _geo_specs(
+        prim_kind, clip, indices, flat_vary, grid, rast_state, viewport, depth_bias,
+    )
+    attr_layout.append(("__front", 1))
+
+    # -- binning + raster ------------------------------------------------------
+    bins = _bin_spec_parts(specs, grid, entry_budget=entry_budget,
+                           budget_scale=budget_scale)
+    if depth is not None:
+        init_z = depth
+    else:
+        init_z = torch.zeros((grid.height, grid.width), dtype=torch.float32, device=clip.device)
+    z_out, acc = _raster_parts(
+        bins,
+        grid,
+        init_z,
+        depth_test=ds.depth_test_enable,
+        depth_write=ds.depth_write_enable,
+        compare_op=ds.depth_compare_op,
+        depth_clamp=rast_state.depth_clamp,
+    )
+
+    new_colors = _shade_and_blend(colors, z_out, acc, attr_layout, pipeline, resources)
+    new_depth = z_out if depth is not None else None
+    return new_colors, new_depth, DrawStats(bin_overflow=bins.overflow)
+
+
+def _shade_and_blend(colors, z_out, acc, attr_layout, pipeline, resources):
+    """Varying finalize → fragment shader → output merger for one sample."""
+    state = pipeline.desc.state
+    varyings, mask, builtins = shade.finalize_attrs(z_out, acc, attr_layout)
+    fs = pipeline.fragment_shader
+    new_colors = list(colors)
+    if fs is not None:
+        fs_res = BoundResources(fs.reflection, resources)
+        frag_out = fs.fn(varyings, fs_res, builtins)
+        _warn_unused_bindings(fs, fs_res)
+        frag_list = _normalize_frag_out(frag_out)
+        descs = pipeline.desc.color_attachment_descs or tuple(
+            None for _ in new_colors
+        )
+        if len(frag_list) != len(new_colors):
+            raise ValueError(
+                f"fragment shader wrote {len(frag_list)} outputs for "
+                f"{len(new_colors)} color attachments"
+            )
+        for i, (dst, src) in enumerate(zip(new_colors, frag_list)):
+            desc = descs[i] if descs[i] is not None else ColorAttachmentDesc()
+            new_colors[i] = blend_ops.apply_color_output(
+                dst, src, mask, desc, state.color_blend.blend_constants
+            )
+    return new_colors

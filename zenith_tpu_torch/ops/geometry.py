@@ -1,0 +1,306 @@
+"""Vertex transform, near clipping, and triangle setup (torch port of
+zenith_tpu/ops/geometry.py).
+
+Dense tensor ops over all triangles at once. Outputs are static-shape
+*triangle records* consumed by binning and the raster kernel (ops.raster):
+
+- ``rast16``  (R, 16) f32 — the raster core record (see RAST_* indices):
+  three oriented edge equations (inside > 0), top-left flags, 1/|det|, and
+  per-corner NDC depth. Kernel K1 reads these columns.
+- ``shade16`` (R, 16) f32 — per-corner 1/w and original-triangle
+  barycentrics (identity here) plus the front-facing flag.
+- ``tri_id``  (R,) i32, ``valid`` (R,) bool, ``aabb`` (R, 4) f32.
+
+R = 2 × number of input triangles (static near-clip expansion).
+
+Conventions match the reference for per-pixel parity: pixel centres at
+(px+0.5, py+0.5), y down; det > 0 ⇔ clockwise on screen; top-left fill rule.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from zenith_tpu_torch.rhi.state import CullMode, FrontFace
+
+# rast16 column indices (zenith_tpu/ops/geometry.py:42-48, column for column).
+RAST_A01, RAST_B01, RAST_C01 = 0, 1, 2
+RAST_A12, RAST_B12, RAST_C12 = 3, 4, 5
+RAST_A20, RAST_B20, RAST_C20 = 6, 7, 8
+RAST_TL01, RAST_TL12, RAST_TL20 = 9, 10, 11
+RAST_INV_DET = 12
+RAST_Z0, RAST_Z1, RAST_Z2 = 13, 14, 15
+
+# shade16 column indices.
+SHADE_IW0, SHADE_IW1, SHADE_IW2 = 0, 1, 2
+SHADE_B0X, SHADE_B0Y = 3, 4
+SHADE_B1X, SHADE_B1Y = 5, 6
+SHADE_B2X, SHADE_B2Y = 7, 8
+SHADE_FRONT = 9
+
+NEAR_W_EPS = 1e-5
+
+
+class TriangleRecords(NamedTuple):
+    rast16: torch.Tensor  # (R, 16) f32
+    shade16: torch.Tensor  # (R, 16) f32
+    tri_id: torch.Tensor  # (R,) i32
+    valid: torch.Tensor  # (R,) bool
+    aabb: torch.Tensor  # (R, 4) f32: xmin, ymin, xmax, ymax (pixels)
+
+
+def transform_vertices(positions: torch.Tensor, mvp: torch.Tensor) -> torch.Tensor:
+    """Model/world positions (N, 3) → clip space (N, 4)."""
+    n = positions.shape[0]
+    pos = positions.to(torch.float32)
+    hom = torch.cat([pos, torch.ones((n, 1), dtype=torch.float32, device=pos.device)], dim=1)
+    return hom @ mvp.to(torch.float32).T
+
+
+def setup_with_attrs(
+    clip_positions: torch.Tensor,  # (Nv, 4)
+    indices: torch.Tensor,  # (T, 3)
+    varyings: torch.Tensor,  # (Nv, A) flattened vertex-stage outputs
+    width: int,
+    height: int,
+    cull_mode: CullMode = CullMode.BACK,
+    front_face: FrontFace = FrontFace.COUNTER_CLOCKWISE,
+    viewport: "tuple | None" = None,
+    depth_bias: "tuple[float, float] | None" = None,  # (constant, slope)
+    depth_clamp: bool = False,
+) -> "tuple[TriangleRecords, torch.Tensor]":
+    """Fused triangle setup + corner-attribute production
+    (geometry.py:68-130). Returns the records and the FLAT corner data
+    (R, 3·(A+2)): per corner [attr·iw…, front·iw, iw], which K1 reads."""
+    indices = indices.to(torch.int64)
+    t = indices.shape[0]
+    a = varyings.shape[1]
+    combined = torch.cat(
+        [clip_positions.to(torch.float32), varyings.to(torch.float32)], dim=1
+    )
+    corners = combined[indices.reshape(-1)].reshape(t, 3, 4 + a)
+
+    # depth_clamp disables near/far z clipping (Vulkan 27.4); only the w > 0
+    # clip remains, which keeps screen coordinates finite.
+    corners2, valid = _clip_payload(corners, clamp_z=depth_clamp)
+    ar = torch.arange(t, dtype=torch.int32, device=corners.device)
+    tri_id = torch.cat([ar, ar])
+
+    records = _records_from_corners(
+        corners2[..., :4], valid, tri_id, width, height,
+        cull_mode, front_face, viewport,
+        depth_bias=depth_bias, depth_clamp=depth_clamp,
+    )
+
+    w = torch.clamp(corners2[..., 3], min=NEAR_W_EPS)  # (R, 3)
+    iw = 1.0 / w
+    front = records.shade16[:, SHADE_FRONT][:, None]  # (R, 1)
+    blocks = []
+    for c in range(3):
+        iw_c = iw[:, c][:, None]
+        blocks.append(corners2[:, c, 4:] * iw_c)  # (R, A)
+        blocks.append(front * iw_c)
+        blocks.append(iw_c)
+    corner_flat = torch.cat(blocks, dim=1)
+    return records, corner_flat.to(torch.float32)
+
+
+def setup_lines_with_attrs(*args, **kwargs):
+    raise NotImplementedError(
+        "line setup is not ported yet (ROADMAP item 19: lines, points and "
+        "polygon modes)"
+    )
+
+
+def setup_points_with_attrs(*args, **kwargs):
+    raise NotImplementedError(
+        "point setup is not ported yet (ROADMAP item 19: lines, points and "
+        "polygon modes)"
+    )
+
+
+def triangle_facing(
+    clip_positions: torch.Tensor,  # (Nv, 4)
+    indices: torch.Tensor,  # (T, 3)
+    front_face: FrontFace,
+) -> "tuple[torch.Tensor, torch.Tensor]":
+    """(front, degenerate) facing classification per triangle in NDC
+    (geometry.py:354-378)."""
+    indices = indices.to(torch.int64)
+    t = indices.shape[0]
+    corners = clip_positions.to(torch.float32)[indices.reshape(-1)].reshape(t, 3, 4)
+    w = torch.clamp(corners[..., 3], min=NEAR_W_EPS)
+    nx = corners[..., 0] / w
+    ny = corners[..., 1] / w
+    det = (nx[:, 1] - nx[:, 0]) * (ny[:, 2] - ny[:, 0]) - (
+        nx[:, 2] - nx[:, 0]
+    ) * (ny[:, 1] - ny[:, 0])
+    is_cw = det > 0.0
+    front = is_cw if front_face == FrontFace.CLOCKWISE else ~is_cw
+    return front, det == 0.0
+
+
+def _clip_payload(corners: torch.Tensor, w_eps: float = NEAR_W_EPS,
+                  clamp_z: bool = False):
+    """Lerp the whole per-corner payload (xyzw | attrs…) across the z ≤ w
+    plane (or, with ``clamp_z``, across w > 0 only), with static 2×
+    expansion (geometry.py:381-419)."""
+    if clamp_z:
+        d = corners[..., 3]
+    else:
+        d = corners[..., 3] - corners[..., 2]
+    inside = d > w_eps
+    c = inside.sum(dim=1)
+    inside_i = inside.to(torch.int8)
+
+    rot1 = torch.argmax(inside_i, dim=1)
+    rot2 = (torch.argmin(inside_i, dim=1) + 1) % 3
+    rot = torch.where(c == 1, rot1, torch.where(c == 2, rot2, torch.zeros_like(rot1)))
+    idx = (rot[:, None] + torch.arange(3, device=corners.device)[None, :]) % 3
+    v = torch.take_along_dim(corners, idx[:, :, None], dim=1)
+    dv = v[..., 3] if clamp_z else v[..., 3] - v[..., 2]
+
+    def isect(i, j):
+        denom = dv[:, i] - dv[:, j]
+        denom = torch.where(torch.abs(denom) > 1e-20, denom, torch.ones_like(denom))
+        tt = torch.clamp((dv[:, i] - w_eps) / denom, 0.0, 1.0)[:, None]
+        return v[:, i] + (v[:, j] - v[:, i]) * tt
+
+    p01 = isect(0, 1)
+    p12 = isect(1, 2)
+    p02 = isect(0, 2)
+
+    full = torch.stack([v[:, 0], v[:, 1], v[:, 2]], 1)
+    one = torch.stack([v[:, 0], p01, p02], 1)
+    two_a = torch.stack([v[:, 0], v[:, 1], p12], 1)
+    two_b = torch.stack([v[:, 0], p12, p02], 1)
+
+    c_ = c[:, None, None]
+    out1 = torch.where(c_ == 3, full, torch.where(c_ == 2, two_a, one))
+    corners2 = torch.cat([out1, two_b], dim=0)
+    valid = torch.cat([c >= 1, c == 2], dim=0)
+    return corners2, valid
+
+
+def _records_from_corners(
+    corners: torch.Tensor,  # (R, 3, 4) clipped clip-space positions
+    valid: torch.Tensor,
+    tri_id: torch.Tensor,
+    width: int,
+    height: int,
+    cull_mode: CullMode,
+    front_face: FrontFace,
+    viewport: "tuple | None",
+    depth_bias: "tuple[float, float] | None" = None,
+    depth_clamp: bool = False,
+) -> TriangleRecords:
+    """Viewport transform + edge setup (geometry.py:422-456)."""
+    w = torch.clamp(corners[..., 3], min=NEAR_W_EPS)
+    iw = 1.0 / w
+    ndc = corners[..., :3] * iw[..., None]
+    if viewport is not None:
+        vx0, vy0, full_w, full_h = viewport
+    else:
+        vx0, vy0, full_w, full_h = 0, 0, width, height
+    sx = (ndc[..., 0] + 1.0) * (0.5 * full_w) - vx0
+    sy = (ndc[..., 1] + 1.0) * (0.5 * full_h) - vy0
+    sz = ndc[..., 2]
+    return _edge_setup(
+        sx, sy, sz, iw, valid, tri_id, width, height,
+        cull_mode, front_face, depth_bias=depth_bias, depth_clamp=depth_clamp,
+    )
+
+
+def _edge_setup(
+    sx: torch.Tensor,  # (R, 3) screen-space corner x (pixels)
+    sy: torch.Tensor,
+    sz: torch.Tensor,  # (R, 3) NDC depth
+    iw: torch.Tensor,  # (R, 3) 1/w per corner
+    valid: torch.Tensor,
+    tri_id: torch.Tensor,
+    width: int,
+    height: int,
+    cull_mode: CullMode,
+    front_face: FrontFace,
+    depth_bias: "tuple[float, float] | None" = None,
+    depth_clamp: bool = False,
+    force_front: bool = False,
+) -> TriangleRecords:
+    """Edge-equation setup from screen-space corners (geometry.py:459-555)."""
+    x0, x1, x2 = sx[:, 0], sx[:, 1], sx[:, 2]
+    y0, y1, y2 = sy[:, 0], sy[:, 1], sy[:, 2]
+
+    det = (x1 - x0) * (y2 - y0) - (x2 - x0) * (y1 - y0)
+    is_cw = det > 0.0
+    if force_front:
+        front = torch.ones_like(is_cw)
+    else:
+        front = is_cw if front_face == FrontFace.CLOCKWISE else ~is_cw
+
+    valid = valid & (det != 0.0)
+    if not force_front:
+        if cull_mode == CullMode.BACK:
+            valid = valid & front
+        elif cull_mode == CullMode.FRONT:
+            valid = valid & ~front
+
+    one = torch.ones_like(det)
+    s = torch.where(is_cw, one, -one)
+
+    def edge(xi, yi, xj, yj):
+        aa = (yi - yj) * s
+        bb = (xj - xi) * s
+        cc = -(aa * xi + bb * yi)
+        dx = (xj - xi) * s
+        dy = (yj - yi) * s
+        tl = (dy < 0.0) | ((dy == 0.0) & (dx > 0.0))
+        return aa, bb, cc, tl.to(torch.float32)
+
+    a01, b01, c01, tl01 = edge(x0, y0, x1, y1)
+    a12, b12, c12, tl12 = edge(x1, y1, x2, y2)
+    a20, b20, c20, tl20 = edge(x2, y2, x0, y0)
+
+    abs_det = torch.abs(det)
+    pos = abs_det > 0.0
+    inv_det = torch.where(pos, 1.0 / torch.where(pos, abs_det, one), torch.zeros_like(det))
+
+    if depth_bias is not None and (depth_bias[0] or depth_bias[1]):
+        bias_c, bias_s = float(depth_bias[0]), float(depth_bias[1])
+        dzdx = inv_det * (a12 * sz[:, 0] + a20 * sz[:, 1] + a01 * sz[:, 2])
+        dzdy = inv_det * (b12 * sz[:, 0] + b20 * sz[:, 1] + b01 * sz[:, 2])
+        m = torch.maximum(torch.abs(dzdx), torch.abs(dzdy))
+        zmax_abs = torch.amax(torch.abs(sz), dim=1)
+        r = torch.exp2(torch.floor(torch.log2(torch.clamp(zmax_abs, min=1e-30))) - 23.0)
+        o = bias_c * r + bias_s * m
+        sz = sz + o[:, None]
+
+    rast16 = torch.stack(
+        [a01, b01, c01, a12, b12, c12, a20, b20, c20,
+         tl01, tl12, tl20, inv_det, sz[:, 0], sz[:, 1], sz[:, 2]],
+        dim=1,
+    ).to(torch.float32)
+
+    zeros = torch.zeros_like(det)
+    shade16 = torch.stack(
+        [iw[:, 0], iw[:, 1], iw[:, 2],
+         one, zeros, zeros, one, zeros, zeros,
+         front.to(torch.float32),
+         zeros, zeros, zeros, zeros, zeros, zeros],
+        dim=1,
+    ).to(torch.float32)
+
+    xmin = torch.minimum(torch.minimum(x0, x1), x2)
+    xmax = torch.maximum(torch.maximum(x0, x1), x2)
+    ymin = torch.minimum(torch.minimum(y0, y1), y2)
+    ymax = torch.maximum(torch.maximum(y0, y1), y2)
+    valid = valid & (xmax > 0) & (xmin < width) & (ymax > 0) & (ymin < height)
+    if not depth_clamp:
+        zmin = torch.minimum(torch.minimum(sz[:, 0], sz[:, 1]), sz[:, 2])
+        zmax = torch.maximum(torch.maximum(sz[:, 0], sz[:, 1]), sz[:, 2])
+        valid = valid & (zmax >= 0.0) & (zmin <= 1.0)
+
+    aabb = torch.stack([xmin, ymin, xmax, ymax], dim=1).to(torch.float32)
+    rast16 = torch.where(valid[:, None], rast16, torch.zeros_like(rast16))
+    return TriangleRecords(rast16, shade16, tri_id, valid, aabb)
