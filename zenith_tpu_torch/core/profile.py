@@ -4,9 +4,12 @@ torch port of zenith_tpu/core/profile.py).
 
 ``initialize(trace_dir=...)`` starts a ``torch.profiler`` trace of the host
 and, where there is one, the CUDA device (written as a Chrome trace on
-``shutdown``), and ``scope(name)`` / ``@profiled`` annotate host spans with
-``torch.profiler.record_function`` plus an NVTX range on CUDA, so graph
-build / compile / submit phases show up beside the device timeline.
+``shutdown``); ``session()`` profiles a block without writing a trace and
+yields the profiler, for reading ``key_averages()`` in a measurement.
+While either is active, ``scope(name)`` / ``@profiled`` annotate host spans
+with ``torch.profiler.record_function`` plus an NVTX range on CUDA, so graph
+build / compile / submit phases and every render-graph node show up beside
+the device timeline.
 """
 
 from __future__ import annotations
@@ -20,20 +23,43 @@ _active_trace_dir: str | None = None
 _profiler = None
 
 
+def _start(cpu: bool = True):
+    import torch
+
+    activities = [torch.profiler.ProfilerActivity.CPU] if cpu else []
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=activities)
+    prof.__enter__()
+    return prof
+
+
 def initialize(trace_dir: str | None = None) -> None:
     """Start profiling. No-op unless ``trace_dir`` is given (reference
     profile.rs disables puffin the same way)."""
     global _active_trace_dir, _profiler
     if trace_dir is None:
         return
-    import torch
-
-    activities = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(torch.profiler.ProfilerActivity.CUDA)
-    _profiler = torch.profiler.profile(activities=activities)
-    _profiler.__enter__()
+    _profiler = _start()
     _active_trace_dir = trace_dir
+
+
+@contextlib.contextmanager
+def session(cpu: bool = True) -> Iterator[Any]:
+    """Profile the enclosed block (host spans, scopes and CUDA kernels)
+    without writing a trace; yields the ``torch.profiler.profile``, whose
+    ``events()`` / ``key_averages()`` are complete once the block exits.
+    ``cpu=False`` records the CUDA kernels only, which slows the host far
+    less (no per-operator events)."""
+    global _profiler
+    if _profiler is not None:
+        raise RuntimeError("a profiling session is already active")
+    _profiler = prof = _start(cpu)
+    try:
+        yield prof
+    finally:
+        _profiler = None
+        prof.__exit__(None, None, None)
 
 
 def shutdown() -> None:
@@ -49,7 +75,7 @@ def shutdown() -> None:
 @contextlib.contextmanager
 def scope(name: str) -> Iterator[None]:
     """Named host-side span (analog of ``profiling::scope!``)."""
-    if _active_trace_dir is None:
+    if _profiler is None:
         yield
         return
     import torch

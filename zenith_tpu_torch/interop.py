@@ -1,9 +1,11 @@
 """Host arrays → the port's tensors.
 
 The reference package's results reach the port as numpy arrays (buffer
-contents, ``TriangleRecords``, ``SegmentedBins``); these helpers turn them
-into the port's tensors on a given device, field for field, so the same
-inputs can be fed to both implementations.
+contents, ``TriangleRecords``, ``SegmentedBins``, scene objects, light
+tables, cube textures); these helpers turn them into the port's tensors and
+objects on a given device, field for field, so the same inputs can be fed to
+both implementations. They read the reference's objects by attribute name
+and ``np.asarray`` only, so the port still imports nothing of it.
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ import torch
 
 from zenith_tpu_torch.ops.binning import SegmentedBins
 from zenith_tpu_torch.ops.geometry import TriangleRecords
+from zenith_tpu_torch.rhi.formats import Format
+from zenith_tpu_torch.rhi.resource import Buffer, BufferUsage, Texture
 
 
 def to_tensor(array: Any, device: "torch.device | str") -> torch.Tensor:
@@ -31,3 +35,62 @@ def records_from_numpy(records: Any, device: "torch.device | str") -> TriangleRe
 def bins_from_numpy(bins: Any, device: "torch.device | str") -> SegmentedBins:
     """The seven fields of a SegmentedBins, as arrays → SegmentedBins."""
     return SegmentedBins(*[to_tensor(f, device) for f in bins])
+
+
+def buffer_from(buffer: Any, device: "torch.device | str") -> Buffer:
+    """A buffer with ``.desc.name``, ``.desc.usage`` and ``.array`` → the
+    port's Buffer with the same name, contents and usage flags."""
+    usage = BufferUsage(int(buffer.desc.usage.value))
+    return Buffer.from_numpy(buffer.desc.name, np.array(buffer.array, copy=True), usage,
+                             device=torch.device(device))
+
+
+def cube_texture_from(texture: Any, device: "torch.device | str") -> Texture:
+    """A cube-map texture (6, S, S, C) linear float → the port's cube Texture."""
+    return Texture.from_numpy_layers(texture.desc.name, np.asarray(texture.array, np.float32),
+                                     Format.RGBA32F, cube=True, device=torch.device(device))
+
+
+_OBJECT_FIELDS = ("base_color", "metallic", "roughness", "emissive", "bin_capacity",
+                  "entry_budget", "visible", "tri_count")
+
+
+def scene_object_from(obj: Any, device: "torch.device | str"):
+    """A scene object (buffers, model matrix, material factors) → the port's
+    SceneObject with the same numbers. Textured, instanced, translucent,
+    skinned and morphed objects are not ported (the renderer raises)."""
+    from zenith_tpu_torch.renderer.scene import SceneObject
+
+    kwargs = {k: getattr(obj, k) for k in _OBJECT_FIELDS}
+    if getattr(obj, "bounds", None) is not None:
+        kwargs["bounds"] = np.asarray(obj.bounds, np.float32)
+    return SceneObject(
+        name=obj.name,
+        vertex_buffer=buffer_from(obj.vertex_buffer, device),
+        index_buffer=buffer_from(obj.index_buffer, device),
+        model_matrix=np.asarray(obj.model_matrix, np.float32),
+        translucent=bool(obj.translucent),
+        instance_offsets=(None if obj.instance_offsets is None
+                          else np.asarray(obj.instance_offsets, np.float32)),
+        **kwargs,
+    )
+
+
+def scene_from(scene: Any, device: "torch.device | str"):
+    """A scene (objects, sun, point/spot lights, ambient, skybox) → the
+    port's Scene on ``device`` with the same numbers."""
+    import dataclasses
+
+    from zenith_tpu_torch.renderer.scene import DirectionalLight, PointLight, Scene, SpotLight
+
+    def copy(cls, src):
+        return cls(**{f.name: getattr(src, f.name) for f in dataclasses.fields(cls)})
+
+    return Scene(
+        objects=[scene_object_from(o, device) for o in scene.objects],
+        sun=None if scene.sun is None else copy(DirectionalLight, scene.sun),
+        point_lights=[copy(PointLight, pl) for pl in scene.point_lights],
+        spot_lights=[copy(SpotLight, sl) for sl in scene.spot_lights],
+        ambient=tuple(scene.ambient),
+        skybox=None if scene.skybox is None else cube_texture_from(scene.skybox, device),
+    )

@@ -1,5 +1,6 @@
-"""The draw call: programmable + fixed-function pipeline for one draw (torch
-port of zenith_tpu/ops/draw.py::draw_indexed, single sample, no stencil).
+"""The draw call: programmable + fixed-function pipeline for one draw or a
+batch of draws (torch port of zenith_tpu/ops/draw.py: ``draw_indexed`` and
+the opaque path of ``draw_indexed_batch``; single sample, no stencil).
 
     vertex fetch (VertexLayout.unpack)
     → vertex shader (user fn, dense over vertices)
@@ -18,7 +19,7 @@ optimization barriers.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace as _dc_replace
 from typing import Any, Dict, Optional, Sequence
 
 import torch
@@ -290,6 +291,50 @@ def _normalize_frag_out(frag_out) -> list:
     return [frag_out]
 
 
+def _vertex_stage(pipeline, vertex_buffer, attrs, vs_res, indices,
+                  instance_count=1, instance_data=None):
+    """Run the vertex shader → (clip (N, 4), varyings, primitive indices).
+
+    ``instance_count`` > 1 (or instance data) runs it over a written-out
+    instance dimension: instances see ``instance_data`` rows as extra attrs
+    plus ``instance_index``, and primitives concatenate in instance order
+    (Vulkan's primitive ordering, draw.py:1036-1069)."""
+    if instance_count > 1 or instance_data:
+        _check_instance_inputs(pipeline, instance_data, instance_count)
+        nv = vertex_buffer.shape[0]
+        dev = vertex_buffer.device
+        a = _CheckedAttrs(
+            {k: v.unsqueeze(0).expand(instance_count, *v.shape).reshape(instance_count * nv, -1)
+             for k, v in attrs.items()},
+            pipeline.vertex_shader.name,
+        )
+        for k, v in (instance_data or {}).items():
+            v = torch.as_tensor(v, dtype=torch.float32, device=dev).reshape(instance_count, -1)
+            a[k] = v.repeat_interleave(nv, dim=0)
+        a["instance_index"] = torch.arange(
+            instance_count, dtype=torch.float32, device=dev
+        ).repeat_interleave(nv)[:, None]
+        vs_out = dict(pipeline.vertex_shader.fn(a, vs_res))
+        offs = (torch.arange(instance_count, dtype=indices.dtype, device=dev) * nv)[:, None, None]
+        indices = (indices[None, :, :] + offs).reshape(-1, indices.shape[1])
+    else:
+        vs_out = dict(pipeline.vertex_shader.fn(
+            _CheckedAttrs(attrs, pipeline.vertex_shader.name), vs_res))
+    clip = vs_out.pop("position")
+    if vs_out.pop("point_size", None) is not None:
+        raise NotImplementedError(
+            "point_size is a point-primitive builtin (ROADMAP item 19)"
+        )
+    return clip, vs_out, indices
+
+
+class PerDraw(tuple):
+    """Marker for a fragment-shader resource whose value differs per draw in
+    a batched draw (one element per draw, draw.py:336). Fragment shaders
+    select with ``builtins.draw_id``; plain tuples stay what they always
+    were."""
+
+
 @dataclass
 class DrawStats:
     """Per-draw counters folded into frame stats."""
@@ -339,33 +384,9 @@ def draw_indexed(
         index_buffer, state.input_assembly, rast_state.polygon_mode
     )
 
-    if instance_count > 1 or instance_data:
-        _check_instance_inputs(pipeline, instance_data, instance_count)
-        nv = vertex_buffer.shape[0]
-        dev = vertex_buffer.device
-        a = _CheckedAttrs(
-            {k: v.unsqueeze(0).expand(instance_count, *v.shape).reshape(instance_count * nv, -1)
-             for k, v in attrs.items()},
-            pipeline.vertex_shader.name,
-        )
-        for k, v in (instance_data or {}).items():
-            v = torch.as_tensor(v, dtype=torch.float32, device=dev).reshape(instance_count, -1)
-            a[k] = v.repeat_interleave(nv, dim=0)
-        a["instance_index"] = torch.arange(
-            instance_count, dtype=torch.float32, device=dev
-        ).repeat_interleave(nv)[:, None]
-        vs_out = dict(pipeline.vertex_shader.fn(a, vs_res))
-        clip = vs_out.pop("position")
-        offs = (torch.arange(instance_count, dtype=indices.dtype, device=dev) * nv)[:, None, None]
-        indices = (indices[None, :, :] + offs).reshape(-1, indices.shape[1])
-    else:
-        vs_out = dict(pipeline.vertex_shader.fn(
-            _CheckedAttrs(attrs, pipeline.vertex_shader.name), vs_res))
-        clip = vs_out.pop("position")
-    if vs_out.pop("point_size", None) is not None:
-        raise NotImplementedError(
-            "point_size is a point-primitive builtin (ROADMAP item 19)"
-        )
+    clip, vs_out, indices = _vertex_stage(
+        pipeline, vertex_buffer, attrs, vs_res, indices, instance_count, instance_data
+    )
     _warn_unused_bindings(pipeline.vertex_shader, vs_res)
     if clip.ndim != 2 or clip.shape[1] != 4:
         raise ValueError(
@@ -406,15 +427,16 @@ def draw_indexed(
         depth_clamp=rast_state.depth_clamp,
     )
 
-    new_colors = _shade_and_blend(colors, z_out, acc, attr_layout, pipeline, resources)
+    varyings, mask, builtins = shade.finalize_attrs(z_out, acc, attr_layout)
+    new_colors = _shade_and_blend(colors, varyings, mask, builtins, pipeline, resources)
     new_depth = z_out if depth is not None else None
     return new_colors, new_depth, DrawStats(bin_overflow=bins.overflow)
 
 
-def _shade_and_blend(colors, z_out, acc, attr_layout, pipeline, resources):
-    """Varying finalize → fragment shader → output merger for one sample."""
+def _shade_and_blend(colors, varyings, mask, builtins, pipeline, resources):
+    """Fragment shader → output merger for one sample, over finalized
+    varyings."""
     state = pipeline.desc.state
-    varyings, mask, builtins = shade.finalize_attrs(z_out, acc, attr_layout)
     fs = pipeline.fragment_shader
     new_colors = list(colors)
     if fs is not None:
@@ -436,3 +458,162 @@ def _shade_and_blend(colors, z_out, acc, attr_layout, pipeline, resources):
                 dst, src, mask, desc, state.color_blend.blend_constants
             )
     return new_colors
+
+
+def draw_indexed_batch(
+    colors: "Sequence[torch.Tensor]",
+    depth: Optional[torch.Tensor],
+    pipeline: GraphicPipeline,
+    draws: "Sequence[tuple]",  # (vb, ib, resources[, inst]) per draw
+    grid: TileGrid,
+    per_draw_uniforms: "Sequence[str]" = (),
+    viewport: "Optional[tuple]" = None,
+    entry_budget: Optional[int] = None,
+    stencil: Optional[torch.Tensor] = None,
+    budget_scale: int = 1,
+    peel_layers: Optional[int] = None,
+) -> "tuple[list[torch.Tensor], Optional[torch.Tensor], DrawStats]":
+    """N draws through ONE binning + raster + fragment + blend pass
+    (draw.py:904-1206, the opaque path): per-draw vertex stages, records
+    concatenated in submission order (binning's (tile, record) order keeps
+    cross-draw order), then one raster over K1, one fragment pass, one
+    output merge.
+
+    A ``__draw_id`` varying rides the records. Per-draw fragment uniforms
+    (``per_draw_uniforms``) reach the fragment shader as dense (H, W, C)
+    planes under their binding names: up to 8 draws rebuild each plane from
+    the (N, C) table by a draw-id ``where`` chain; above 8 they ride the
+    records as constant varying columns (``uniforms_in_records``,
+    draw.py:1021). Other fragment bindings that differ across draws become
+    ``PerDraw`` tuples. An instanced draw ``(vb, ib, res, {"instance_count",
+    "instance_data"})`` runs its vertex stage over a flattened instance
+    dimension."""
+    state = pipeline.desc.state
+    rast_state = state.rasterization
+    ds = state.depth_stencil
+    n_draws = len(draws)
+    if n_draws < 1:
+        raise ValueError("draw_indexed_batch needs at least one draw")
+    if peel_layers is not None or any(
+        desc.blend_enable for desc in pipeline.desc.color_attachment_descs or ()
+    ):
+        raise NotImplementedError(
+            "blended batches (kernels K5/K6) and depth peeling (kernel K4) are "
+            "not ported yet (ROADMAP item 20: translucency)"
+        )
+    if ds.stencil_test_enable or stencil is not None:
+        raise NotImplementedError(
+            "the stencil test (kernel K3) is not ported yet (ROADMAP item 17: stencil)"
+        )
+    if state.multisample.samples > 1:
+        raise NotImplementedError("MSAA is not ported yet (ROADMAP item 18: MSAA)")
+
+    layout = pipeline.vertex_layout
+    depth_bias = None
+    if rast_state.depth_bias_enable:
+        depth_bias = (rast_state.depth_bias_constant, rast_state.depth_bias_slope)
+    uniforms_in_records = n_draws > 8 and bool(per_draw_uniforms)
+
+    all_specs = []
+    attr_layout = None
+    for di, draw in enumerate(draws):
+        vb, ib, res = draw[0], draw[1], draw[2]
+        inst = draw[3] if len(draw) > 3 else None
+        attrs = layout.unpack(vb) if layout is not None else {"position": vb}
+        vs_res = BoundResources(pipeline.vertex_shader.reflection, res)
+        prim_kind, prims = _assemble_primitives(
+            ib, state.input_assembly, rast_state.polygon_mode
+        )
+        icount = int(inst.get("instance_count", 1)) if inst else 1
+        idata = (inst.get("instance_data") or {}) if inst else None
+        clip, vs_out, prims = _vertex_stage(
+            pipeline, vb, attrs, vs_res, prims, icount, idata
+        )
+        _warn_unused_bindings(pipeline.vertex_shader, vs_res)
+        nv = clip.shape[0]
+
+        this_layout = [(name, int(v.shape[-1]) if v.ndim > 1 else 1)
+                       for name, v in vs_out.items()]
+        vary_cols = [v.reshape(nv, -1).to(torch.float32) for v in vs_out.values()]
+        this_layout.append(("__draw_id", 1))
+        vary_cols.append(torch.full((nv, 1), float(di), dtype=torch.float32,
+                                    device=clip.device))
+        if uniforms_in_records:
+            for uname in per_draw_uniforms:
+                uval = torch.as_tensor(res[uname], dtype=torch.float32,
+                                       device=clip.device).reshape(-1)
+                this_layout.append((f"__u_{uname}", int(uval.shape[0])))
+                vary_cols.append(uval[None, :].expand(nv, uval.shape[0]))
+
+        if attr_layout is None:
+            attr_layout = this_layout
+        elif attr_layout != this_layout:
+            raise ValueError(
+                f"draw {di}: varying layout {this_layout} differs from draw 0's "
+                f"{attr_layout} — batched draws share one pipeline"
+            )
+        flat_vary = torch.cat(vary_cols, dim=1)
+        all_specs.extend(_geo_specs(
+            prim_kind, clip, prims, flat_vary, grid, rast_state, viewport, depth_bias,
+        ))
+    attr_layout.append(("__front", 1))
+
+    bins = _bin_spec_parts(all_specs, grid, entry_budget=entry_budget,
+                           budget_scale=budget_scale)
+    if depth is not None:
+        init_z = depth
+    else:
+        init_z = torch.zeros((grid.height, grid.width), dtype=torch.float32,
+                             device=draws[0][0].device)
+    z_out, acc = _raster_parts(
+        bins, grid, init_z,
+        depth_test=ds.depth_test_enable, depth_write=ds.depth_write_enable,
+        compare_op=ds.depth_compare_op, depth_clamp=rast_state.depth_clamp,
+    )
+    new_colors = _shade_batch(colors, z_out, acc, attr_layout, pipeline, draws,
+                              per_draw_uniforms, uniforms_in_records)
+    new_depth = z_out if depth is not None else None
+    return new_colors, new_depth, DrawStats(bin_overflow=bins.overflow)
+
+
+def _shade_batch(colors, z_out, acc, attr_layout, pipeline, draws, per_draw_uniforms,
+                 uniforms_in_records):
+    """Varying finalize → fragment shader (with per-draw uniform planes and
+    the draw id) → output merger for a batched draw (draw.py:1140-1205)."""
+    varyings, mask, builtins = shade.finalize_attrs(z_out, acc, attr_layout)
+    draw_id = varyings.pop("__draw_id", None)
+    fs = pipeline.fragment_shader
+    if fs is None:
+        return list(colors)
+    fs_resources: Dict[str, Any] = {}
+    if uniforms_in_records:
+        for uname in per_draw_uniforms:
+            fs_resources[uname] = varyings.pop(f"__u_{uname}")
+    for name in fs.reflection.binding_names():
+        if name in fs_resources:
+            continue
+        if name in per_draw_uniforms and not uniforms_in_records:
+            # (N, C) per-draw table → (H, W, C) plane by draw-id selection.
+            table = [torch.as_tensor(d[2][name], dtype=torch.float32,
+                                     device=z_out.device).reshape(-1) for d in draws]
+            widths = {int(t.shape[0]) for t in table}
+            if len(widths) != 1:
+                raise ValueError(
+                    f"per-draw uniform '{name}': draws disagree on width "
+                    f"({sorted(widths)}) — all draws in a batch must bind the "
+                    f"same-shaped value"
+                )
+            plane = table[0][None, None, :].expand(draw_id.shape[:2] + (table[0].shape[0],))
+            for i in range(1, len(draws)):
+                sel = (torch.abs(draw_id[..., 0] - i) < 0.5)[..., None]
+                plane = torch.where(sel, table[i][None, None, :], plane)
+            fs_resources[name] = plane
+        else:
+            vals = [d[2].get(name) for d in draws]
+            if all(v is vals[0] for v in vals):
+                fs_resources[name] = vals[0]
+            else:
+                fs_resources[name] = PerDraw(vals)
+    if draw_id is not None:
+        builtins = _dc_replace(builtins, draw_id=draw_id[..., 0])
+    return _shade_and_blend(colors, varyings, mask, builtins, pipeline, fs_resources)

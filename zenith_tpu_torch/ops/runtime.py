@@ -7,9 +7,12 @@ or raises.
 
 ``load_kernels`` builds every source under ``zenith_tpu_torch/csrc/`` into
 one shared library with a plain C interface, on first use, with ``nvcc`` for
-``sm_90a``, and loads it with ``ctypes``. The library lands in
+``sm_90a`` (one ``nvcc`` per source, all started together, then one link),
+and loads it with ``ctypes``. The library lands in
 ``zenith_tpu_torch/_build/`` under a name derived from a hash of the
-sources, so an edited source rebuilds and an unchanged one is reused.
+sources, so an edited source rebuilds and an unchanged one is reused; the
+compiler's register and spill report (``-Xptxas -v``) lands beside it as
+``<library>.log``.
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+    "-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _lib: "Optional[ctypes.CDLL]" = None
@@ -73,19 +76,39 @@ def library_path() -> Path:
 
 
 def build_kernels() -> Path:
-    """Compile ``csrc/*.cu`` into the hashed library unless it exists."""
+    """Compile ``csrc/*.cu`` into the hashed library unless it exists: one
+    ``nvcc -c`` per source, run in parallel, then one ``nvcc -shared``."""
     so = library_path()
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(p) for p in _sources() if p.suffix == ".cu"]]
+    tag = f"{so.stem}.{os.getpid()}"
+    nvcc = _nvcc()
+    jobs = []
+    for src in (p for p in _sources() if p.suffix == ".cu"):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    log = []
+    failed = None
+    for cmd, _, proc in jobs:
+        out, err = proc.communicate(timeout=900)
+        log.append(f"$ {' '.join(cmd)}\n{out}{err}")
+        if proc.returncode != 0 and failed is None:
+            failed = f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}\n{err}"
+    if failed is not None:
+        raise RuntimeError(failed)
+    tmp = BUILD_DIR / f"{tag}.so.tmp"
+    cmd = [nvcc, "-shared", "-o", str(tmp), *[str(obj) for _, obj, _ in jobs]]
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
     if proc.returncode != 0:
         raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
+            f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
         )
+    for _, obj, _ in jobs:
+        obj.unlink()
+    so.with_suffix(".log").write_text("\n".join(log))
     os.replace(tmp, so)
     return so
 
@@ -106,6 +129,14 @@ def load_kernels() -> ctypes.CDLL:
         i, i, i,  # hp, tile_h, tile_w
         i, i, i,  # compare, depth_write, depth_clamp
         f, f,  # sample offset
+        p,  # stream
+    ]
+    lib.zn_tiled_lights.restype = ctypes.c_int
+    lib.zn_tiled_lights.argtypes = [
+        p, p, p, p,  # albedo_metal, normal_rough, pos_emissive (H, W, 4), depth (H, W)
+        p, p,  # lights (L, 16), camera (3,)
+        p,  # out (H, W, 3)
+        i, i, i, i, i,  # num_lights, h, w, tile_h, tile_w
         p,  # stream
     ]
     _lib = lib

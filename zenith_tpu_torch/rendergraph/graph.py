@@ -19,9 +19,8 @@ Mirrors zenith-rendergraph/src/graph.rs:
 - ``present`` + ``RetiredRenderGraph`` (graph.rs:227-274, 656-674).
 
 Not ported yet: the SPMD ``mesh``/``parallel`` modes (ROADMAP item 24),
-MSAA attachments (item 18), stencil attachments (item 17), batched draws
-(item 12) and sub-resource (mip/layer/range) views (item 21). Each raises
-when asked for.
+MSAA attachments (item 18), stencil attachments (item 17) and sub-resource
+(mip/layer/range) views (item 21). Each raises when asked for.
 """
 
 from __future__ import annotations
@@ -35,10 +34,14 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as _np
 import torch
 
-from zenith_tpu_torch.core import log
+from zenith_tpu_torch.core import log, profile
 from zenith_tpu_torch.ops import blend as blend_ops
 from zenith_tpu_torch.ops.binning import TileGrid
-from zenith_tpu_torch.ops.draw import DEFAULT_BIN_CAPACITY, draw_indexed
+from zenith_tpu_torch.ops.draw import (
+    DEFAULT_BIN_CAPACITY,
+    draw_indexed,
+    draw_indexed_batch,
+)
 from zenith_tpu_torch.rendergraph.builder import GraphNode, RenderGraphBuilder
 from zenith_tpu_torch.rendergraph.resource import (
     InitialResourceStorage,
@@ -321,6 +324,11 @@ class _NodeContextBase:
             self._state[rid] = val
         return val
 
+    def get_full(self, access: RenderGraphResourceAccess):
+        """Full (all-rows) value of a resource (graph.py:481-493): on one
+        device it is ``get``; the row-banded SPMD modes are ROADMAP item 24."""
+        return self.get(access)
+
 
 class LambdaNodeExecutionContext(_NodeContextBase):
     """(graph.rs:635-654) Arbitrary tensor compute over declared resources."""
@@ -438,10 +446,41 @@ class GraphicNodeExecutionContext(_NodeContextBase):
         )
         self.stats.append(stats.bin_overflow)
 
-    def draw_indexed_batch(self, *args, **kwargs) -> None:
-        raise NotImplementedError(
-            "batched draws are not ported yet (ROADMAP item 12: draw_indexed_batch)"
+    def draw_indexed_batch(
+        self,
+        draws: "List[tuple]",  # (vb access/tensor, ib access/tensor, resources[, inst])
+        per_draw_uniforms: "Tuple[str, ...] | list" = (),
+        entry_budget: Optional[int] = None,
+        peel_layers: Optional[int] = None,
+    ) -> None:
+        """Record N draws as ONE binning + raster + shade pass
+        (graph.py:747-808). Per-draw fragment uniforms named in
+        ``per_draw_uniforms`` reach the fragment shader as dense (H, W, C)
+        planes; see ops.draw.draw_indexed_batch."""
+        resolved = []
+        for draw in draws:
+            vb, ib, res = draw[0], draw[1], draw[2]
+            vb_v = self.get(vb) if isinstance(vb, RenderGraphResourceAccess) else vb
+            ib_v = self.get(ib) if isinstance(ib, RenderGraphResourceAccess) else ib
+            merged = dict(self._bindings)
+            if res:
+                merged.update(res)
+            if len(draw) > 3 and draw[3]:
+                resolved.append((vb_v, ib_v, merged, draw[3]))
+            else:
+                resolved.append((vb_v, ib_v, merged))
+        self._colors, self._depth, stats = draw_indexed_batch(
+            self._colors,
+            self._depth,
+            self.pipeline,
+            resolved,
+            self.grid,
+            per_draw_uniforms=tuple(per_draw_uniforms),
+            entry_budget=entry_budget,
+            budget_scale=self._budget_scale,
+            peel_layers=peel_layers,
         )
+        self.stats.append(stats.bin_overflow)
 
 
 @dataclass
@@ -601,80 +640,91 @@ class RenderGraph:
             validate = _validate_enabled()
 
             for node in active_nodes:
-                if node.kind == "lambda":
-                    ctx = LambdaNodeExecutionContext(self, node, state, dynamics, device)
-                    node.job(ctx)
-                    continue
-
-                pipeline = pipelines[node.index]
-                if pipeline.desc.state.multisample.samples > 1:
-                    raise NotImplementedError(
-                        "MSAA attachments are not ported yet (ROADMAP item 18: MSAA)"
+                with profile.scope(node.name):
+                    overflow, nan_pixels = self._run_node(
+                        node, state, dynamics, device, pipelines, options, resources,
+                        overflow, nan_pixels, validate,
                     )
-                if node.stencil_attachment is not None:
-                    raise NotImplementedError(
-                        "stencil attachments are not ported yet (ROADMAP item 17: stencil)"
-                    )
-                atts = list(node.color_attachments)
-                if node.depth_attachment is not None:
-                    atts.append(node.depth_attachment)
-                if any(mip != 0 or layer is not None for _, _, mip, layer in atts):
-                    raise NotImplementedError(
-                        "render-to-mip/-layer attachments are not ported yet "
-                        "(ROADMAP item 21)"
-                    )
-                tdesc = resources[atts[0][0]].texture_desc()
-                grid = TileGrid(
-                    width=tdesc.width,
-                    height=tdesc.height,
-                    tile_h=options.tile_h,
-                    tile_w=options.tile_w,
-                )
-
-                colors = []
-                for rid, cdesc, _, _ in node.color_attachments:
-                    cur = state.get(rid)
-                    if cdesc.load_op == LoadOp.CLEAR or cur is None:
-                        cur = blend_ops.clear_color(
-                            grid.height, grid.width, cdesc.clear_value, device
-                        )
-                    colors.append(cur)
-
-                depth = None
-                if node.depth_attachment is not None:
-                    rid, ddesc, _, _ = node.depth_attachment
-                    cur = state.get(rid)
-                    if ddesc.depth_load_op == LoadOp.CLEAR or cur is None:
-                        depth = blend_ops.clear_depth(
-                            grid.height, grid.width, ddesc.depth_clear_value, device
-                        )
-                    else:
-                        depth = cur[..., 0] if cur.ndim == 3 else cur
-
-                ctx = GraphicNodeExecutionContext(
-                    self, node, state, dynamics, device, pipeline, grid,
-                    colors, depth, options.bin_capacity,
-                    budget_scale=options.budget_scale,
-                )
-                node.job(ctx)
-
-                # Epilogue: store attachments back (store-op STORE semantics).
-                for (rid, _, _, _), arr in zip(node.color_attachments, ctx._colors):
-                    state[rid] = arr
-                if node.depth_attachment is not None and ctx._depth is not None:
-                    state[node.depth_attachment[0]] = ctx._depth
-                for ov in ctx.stats:
-                    overflow = overflow + ov
-                if validate:
-                    for arr in ctx._colors:
-                        nan_pixels = nan_pixels + torch.isnan(arr).sum().to(torch.int32)
-                    if ctx._depth is not None:
-                        nan_pixels = nan_pixels + torch.isnan(ctx._depth).sum().to(torch.int32)
 
             outputs = {str(rid): state[rid] for rid in output_ids if rid in state}
             return outputs, FrameStatsOutput(bin_overflow=overflow, nan_pixels=nan_pixels)
 
         return frame_fn
+
+    def _run_node(self, node, state, dynamics, device, pipelines, options, resources,
+                  overflow, nan_pixels, validate):
+        """Run one node of the frame function; returns the running
+        (overflow, nan_pixels) counters."""
+        if node.kind == "lambda":
+            ctx = LambdaNodeExecutionContext(self, node, state, dynamics, device)
+            node.job(ctx)
+            return overflow, nan_pixels
+        pipeline = pipelines[node.index]
+        if pipeline.desc.state.multisample.samples > 1:
+            raise NotImplementedError(
+                "MSAA attachments are not ported yet (ROADMAP item 18: MSAA)"
+            )
+        if node.stencil_attachment is not None:
+            raise NotImplementedError(
+                "stencil attachments are not ported yet (ROADMAP item 17: stencil)"
+            )
+        atts = list(node.color_attachments)
+        if node.depth_attachment is not None:
+            atts.append(node.depth_attachment)
+        if any(mip != 0 or layer is not None for _, _, mip, layer in atts):
+            raise NotImplementedError(
+                "render-to-mip/-layer attachments are not ported yet "
+                "(ROADMAP item 21)"
+            )
+        tdesc = resources[atts[0][0]].texture_desc()
+        grid = TileGrid(
+            width=tdesc.width,
+            height=tdesc.height,
+            tile_h=options.tile_h,
+            tile_w=options.tile_w,
+        )
+
+        colors = []
+        for rid, cdesc, _, _ in node.color_attachments:
+            cur = state.get(rid)
+            if cdesc.load_op == LoadOp.CLEAR or cur is None:
+                cur = blend_ops.clear_color(
+                    grid.height, grid.width, cdesc.clear_value, device
+                )
+            colors.append(cur)
+
+        depth = None
+        if node.depth_attachment is not None:
+            rid, ddesc, _, _ = node.depth_attachment
+            cur = state.get(rid)
+            if ddesc.depth_load_op == LoadOp.CLEAR or cur is None:
+                depth = blend_ops.clear_depth(
+                    grid.height, grid.width, ddesc.depth_clear_value, device
+                )
+            else:
+                depth = cur[..., 0] if cur.ndim == 3 else cur
+
+        ctx = GraphicNodeExecutionContext(
+            self, node, state, dynamics, device, pipeline, grid,
+            colors, depth, options.bin_capacity,
+            budget_scale=options.budget_scale,
+        )
+        node.job(ctx)
+
+        # Epilogue: store attachments back (store-op STORE semantics).
+        for (rid, _, _, _), arr in zip(node.color_attachments, ctx._colors):
+            state[rid] = arr
+        if node.depth_attachment is not None and ctx._depth is not None:
+            state[node.depth_attachment[0]] = ctx._depth
+        for ov in ctx.stats:
+            overflow = overflow + ov
+        if validate:
+            for arr in ctx._colors:
+                nan_pixels = nan_pixels + torch.isnan(arr).sum().to(torch.int32)
+            if ctx._depth is not None:
+                nan_pixels = nan_pixels + torch.isnan(ctx._depth).sum().to(torch.int32)
+
+        return overflow, nan_pixels
 
 
 # Frame-function cache: structure key → frame function. Module-level so

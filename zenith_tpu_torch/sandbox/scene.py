@@ -1,0 +1,261 @@
+"""The sandbox scene (torch port of zenith_tpu/sandbox/scene.py): the
+gradient sky cube map, and the deferred scene and frame function that the
+card and the tests drive.
+
+``build_scene`` and ``SceneApp`` load the cerberus glTF and wait until that
+content and the asset loaders are in the repository (ROADMAP item 11).
+Until then ``build_standin_scene`` builds ``build_scene``'s deferred scene
+with the cerberus mesh replaced by ``standin_mesh``, a procedural mesh of
+its size, and ``deferred_frame`` is bench.py::bench_scene's frame function.
+``golden_scene`` is the scene of tests/test_golden.py (the reference's
+tests/test_renderers.py::build_test_scene with a sky cube).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+import torch
+
+from zenith_tpu_torch.asset.render_types import Mesh
+from zenith_tpu_torch.rhi import Format, Texture
+
+GOLDEN_W, GOLDEN_H = 128, 64
+YUP_TO_ZUP = np.array(
+    [[1, 0, 0, 0], [0, 0, -1, 0], [0, 1, 0, 0], [0, 0, 0, 1]], np.float32
+)
+
+
+def sky_cube_pixels(size: int = 64) -> np.ndarray:
+    """Procedural gradient sky (6, S, S, 4) linear radiance: zenith→horizon
+    gradient with a warm sun glow."""
+    u = (np.arange(size, dtype=np.float32) + 0.5) / size * 2 - 1
+    uu, vv = np.meshgrid(u, u)
+    ones = np.ones_like(uu)
+    # Direction per texel per face (+X -X +Y -Y +Z -Z, Vulkan 16.5.4).
+    face_dirs = [
+        np.stack([ones, -vv, -uu], -1),
+        np.stack([-ones, -vv, uu], -1),
+        np.stack([uu, ones, vv], -1),
+        np.stack([uu, -ones, -vv], -1),
+        np.stack([uu, -vv, ones], -1),
+        np.stack([-uu, -vv, -ones], -1),
+    ]
+    sun_dir = np.array([0.35, -0.3, 0.88], np.float32)
+    sun_dir /= np.linalg.norm(sun_dir)
+    zenith = np.array([0.18, 0.32, 0.62], np.float32)
+    horizon = np.array([0.55, 0.62, 0.75], np.float32)
+    below = np.array([0.12, 0.11, 0.10], np.float32)
+    faces = []
+    for d in face_dirs:
+        d = d / np.linalg.norm(d, axis=-1, keepdims=True)
+        up = np.clip(d[..., 2:3], 0.0, 1.0)
+        sky = horizon + (zenith - horizon) * np.sqrt(up)
+        col = np.where(d[..., 2:3] >= 0.0, sky, below)
+        glow = np.clip(np.sum(d * sun_dir, axis=-1, keepdims=True), 0, 1) ** 64
+        col = col + glow * np.array([3.0, 2.6, 2.0], np.float32)
+        faces.append(
+            np.concatenate([col, np.ones_like(up)], -1).astype(np.float32)
+        )
+    return np.stack(faces)
+
+
+def sky_cube_texture(size: int = 64, device: "torch.device | str" = "cpu") -> Texture:
+    """The procedural sky as a cube-map Texture on ``device`` (reference
+    texture.rs:94-105)."""
+    return Texture.from_numpy_layers(
+        "sky", sky_cube_pixels(size), Format.RGBA32F, cube=True, device=torch.device(device)
+    )
+
+
+def cube_mesh(size: float = 10.0, z0: float = 10.0) -> Mesh:
+    """Axis-aligned cube as a Mesh (z-up world), the same vertices and
+    winding as the reference's tests/test_renderers.py::make_cube."""
+    s = size / 2.0
+    cz = z0 + s
+    faces, idx = [], []
+    defs = [
+        ((0, 0, 1), [(-s, -s, s), (s, -s, s), (s, s, s), (-s, s, s)]),
+        ((0, 0, -1), [(-s, s, -s), (s, s, -s), (s, -s, -s), (-s, -s, -s)]),
+        ((1, 0, 0), [(s, -s, -s), (s, s, -s), (s, s, s), (s, -s, s)]),
+        ((-1, 0, 0), [(-s, s, -s), (-s, -s, -s), (-s, -s, s), (-s, s, s)]),
+        ((0, 1, 0), [(s, s, -s), (-s, s, -s), (-s, s, s), (s, s, s)]),
+        ((0, -1, 0), [(-s, -s, -s), (s, -s, -s), (s, -s, s), (-s, -s, s)]),
+    ]
+    for f, (n, quad) in enumerate(defs):
+        base = 4 * f
+        for px, py, pz in quad:
+            faces.append([px, py, pz + cz, *n, 0.0, 0.0])
+        idx += [base, base + 1, base + 2, base, base + 2, base + 3]
+    return Mesh("test/cube.mesh", np.asarray(faces, np.float32), np.asarray(idx, np.int32))
+
+
+def golden_scene(render_device, num_lights: int = 8, sky_size: int = 16):
+    """tests/test_golden.py's deferred scene: the reference's
+    build_test_scene (a cube over a ground quad, a sun with a 128² shadow
+    map, ``num_lights`` point lights on a ring) with a ``sky_size`` sky cube,
+    and its 128x64 camera. Returns (scene, camera)."""
+    from zenith_tpu_torch.core.camera import Camera
+    from zenith_tpu_torch.core.mathtypes import Degree, Radians
+    from zenith_tpu_torch.renderer import DirectionalLight, PointLight, Scene, SceneObject
+
+    cube = SceneObject.from_mesh(
+        render_device, cube_mesh(size=14.0, z0=8.0), "cube",
+        base_color=(0.8, 0.2, 0.2, 1.0), metallic=0.0, roughness=0.5, bin_capacity=64,
+    )
+    ground = SceneObject.quad(render_device, "ground", size=200.0, z=0.0,
+                              base_color=(0.4, 0.4, 0.4, 1.0), roughness=0.9)
+    lights = [
+        PointLight(position=(20.0 * math.cos(a), 20.0 * math.sin(a), 12.0),
+                   color=(1.0, 0.8, 0.5), intensity=300.0, radius=60.0)
+        for a in np.linspace(0, 2 * math.pi, num_lights, endpoint=False)
+    ]
+    scene = Scene(
+        objects=[cube, ground],
+        sun=DirectionalLight(direction=(0.05, -0.05, 1.0), intensity=2.5,
+                             shadow_map_size=128, shadow_extent=60.0),
+        point_lights=lights,
+        ambient=(0.05, 0.05, 0.05),
+    )
+    scene = dataclasses.replace(
+        scene, skybox=sky_cube_texture(sky_size, device=render_device.device))
+    cam = Camera(fov_y=Degree(45.0), aspect_ratio=GOLDEN_W / GOLDEN_H)
+    cam.set_position(np.array([0.0, -60.0, 25.0], np.float32))
+    cam.set_yaw_pitch(Radians(0.0), Radians(-0.25))
+    return scene, cam
+
+
+def standin_mesh() -> Mesh:
+    """A procedural stand-in for the cerberus mesh, in the Vertex layout and
+    glTF's y-up frame, with about cerberus's counts (33.5k triangles, 27k
+    vertices): a smooth barrel (a cylinder grid, shared vertices) over a
+    flat-shaded receiver (a subdivided box, 4 vertices per quad)."""
+    verts, idx = [], []
+    # Barrel along +x: 48 segments around, 280 rings, seam duplicated.
+    nu, nv, radius, x0, x1, yc = 48, 280, 3.5, -20.0, 90.0, 5.0
+    a = np.linspace(0.0, 2 * np.pi, nu + 1)
+    xs = np.linspace(x0, x1, nv)
+    xx, aa = np.meshgrid(xs, a, indexing="ij")  # (nv, nu + 1)
+    ny, nz = np.cos(aa), np.sin(aa)
+    grid = np.stack([xx, yc + radius * ny, radius * nz, np.zeros_like(xx), ny, nz,
+                     xx / (x1 - x0), aa / (2 * np.pi)], -1).reshape(-1, 8)
+    verts.append(grid)
+    r, c = np.meshgrid(np.arange(nv - 1), np.arange(nu), indexing="ij")
+    v00 = r * (nu + 1) + c
+    v01, v10, v11 = v00 + 1, v00 + (nu + 1), v00 + (nu + 1) + 1
+    idx.append(np.stack([v00, v11, v10, v00, v01, v11], -1).reshape(-1, 3))
+    base = grid.shape[0]
+    # Receiver: a 50 x 18 x 8 box, each face cut into ~0.92-unit quads.
+    half = np.array([25.0, 9.0, 4.0])
+    for axis in range(3):
+        u_ax, v_ax = [k for k in range(3) if k != axis]
+        nu_q = int(np.ceil(2 * half[u_ax] / 0.92))
+        nv_q = int(np.ceil(2 * half[v_ax] / 0.92))
+        us = np.linspace(-half[u_ax], half[u_ax], nu_q + 1)
+        vs = np.linspace(-half[v_ax], half[v_ax], nv_q + 1)
+        for sign in (1.0, -1.0):
+            normal = np.zeros(3)
+            normal[axis] = sign
+            for i in range(nu_q):
+                for j in range(nv_q):
+                    quad = []
+                    for du, dv in ((0, 0), (1, 0), (1, 1), (0, 1)):
+                        p = np.zeros(3)
+                        p[axis] = sign * half[axis]
+                        p[u_ax], p[v_ax] = us[i + du], vs[j + dv]
+                        quad.append([*p, *normal, du, dv])
+                    verts.append(np.asarray(quad))
+                    # Outward winding: swap the diagonal order on the
+                    # faces whose (u, v, n) frame is left-handed.
+                    flip = (sign < 0) != (axis == 1)
+                    tri = [[0, 2, 1], [0, 3, 2]] if flip else [[0, 1, 2], [0, 2, 3]]
+                    idx.append(base + np.asarray(tri))
+                    base += 4
+    v = np.concatenate(verts).astype(np.float32)
+    return Mesh("procedural/cerberus-standin", v, np.concatenate(idx).astype(np.int32))
+
+
+def build_standin_scene(render_device, num_lights: int, rng: np.random.Generator):
+    """zenith_tpu/sandbox/scene.py::build_scene's deferred scene (untextured,
+    skybox on) with the cerberus mesh replaced by ``standin_mesh``: the same
+    material and model centring, the 400-unit ground quad, ``num_lights``
+    point lights placed as build_scene places them, the sun with a 1024²
+    shadow map over a 90-unit extent, and a 64² sky cube.
+    Returns (scene, mesh)."""
+    from zenith_tpu_torch.core import mathtypes as m
+    from zenith_tpu_torch.renderer import DirectionalLight, PointLight, Scene, SceneObject
+
+    mesh = standin_mesh()
+    bmin = mesh.vertices[:, :3].min(axis=0)
+    bmax = mesh.vertices[:, :3].max(axis=0)
+    model = YUP_TO_ZUP @ m.mat4_translation(-0.5 * (bmin + bmax))
+    corners = np.stack(np.meshgrid(*zip(bmin, bmax), indexing="ij"), -1).reshape(-1, 3)
+    z_min = min(float(m.transform_point(model, c)[2]) for c in corners)
+    gun = SceneObject.from_mesh(
+        render_device, mesh, "cerberus", model_matrix=model,
+        base_color=(0.62, 0.57, 0.55, 1.0), metallic=0.85, roughness=0.45,
+        entry_budget=16 * mesh.num_triangles,
+    )
+    ground = SceneObject.quad(render_device, "ground", size=400.0, z=z_min - 2.0,
+                              base_color=(0.28, 0.3, 0.33, 1.0), metallic=0.0, roughness=0.9)
+    lights = []
+    radius_xy = float(np.linalg.norm(bmax - bmin)) * 0.7
+    for i in range(num_lights):
+        ang = 2 * math.pi * i / max(num_lights, 1)
+        r = radius_xy * (0.4 + 0.6 * rng.uniform())
+        hue = rng.uniform(0, 1)
+        col = np.array(
+            [abs(math.sin(hue * math.pi * 2)), abs(math.sin((hue + 1 / 3) * math.pi * 2)),
+             abs(math.sin((hue + 2 / 3) * math.pi * 2))], np.float32,
+        )
+        lights.append(PointLight(
+            position=(r * math.cos(ang), r * math.sin(ang), z_min + 4.0 + 20.0 * rng.uniform()),
+            color=tuple(col), intensity=400.0 + 600.0 * rng.uniform(), radius=60.0,
+        ))
+    return Scene(
+        objects=[gun, ground],
+        sun=DirectionalLight(direction=(0.35, -0.3, 0.88), intensity=2.5,
+                             shadow_map_size=1024, shadow_extent=90.0),
+        point_lights=lights,
+        ambient=(0.02, 0.02, 0.03),
+        skybox=sky_cube_texture(64, device=render_device.device),
+    ), mesh
+
+
+def orbit_camera(camera, orbit: float) -> None:
+    """bench.py::bench_scene's camera orbit: radius 170, height 25."""
+    from zenith_tpu_torch.core.mathtypes import Radians
+
+    camera.set_position(np.array([math.sin(orbit) * 170.0, -math.cos(orbit) * 170.0, 25.0],
+                                 np.float32))
+    camera.set_yaw_pitch(Radians(orbit), Radians(-math.atan2(20.0, 170.0)))
+
+
+def deferred_frame(render_device, renderer, camera, width: int, height: int, options,
+                   present_format=None, exports=(), pipeline_cache=None):
+    """One frame of the deferred path as bench.py::bench_scene's frame
+    function builds it: rebuild → DeferredRenderer.render_to → PostProcess
+    → PresentEncode(present_format) when given → compile → execute.
+    ``exports`` names G-buffer planes (or "hdr") to keep. Returns
+    (compiled graph, the frame's output handle, the HDR handle, retired)."""
+    from zenith_tpu_torch.rendergraph import RenderGraphBuilder
+    from zenith_tpu_torch.renderer import PostProcess, PresentEncode
+    from zenith_tpu_torch.rhi import PipelineCache, TextureDesc
+
+    builder = RenderGraphBuilder()
+    hdr = builder.create(TextureDesc.color("scene.hdr", width, height, Format.RGBA32F))
+    out = builder.create(TextureDesc.color("scene.out", width, height, Format.RGBA32F))
+    renderer.render_to(builder, hdr, camera, width, height)
+    PostProcess().render_to(builder, hdr, out)
+    final = out
+    if present_format is not None:
+        final = builder.create(TextureDesc.color("scene.enc", width, height, present_format))
+        PresentEncode(present_format).render_to(builder, out, final)
+    builder.export(final)
+    for name in exports:
+        builder.export(hdr if name == "hdr" else renderer.gbuffer_handles[name])
+    compiled = builder.build().compile(render_device, pipeline_cache or PipelineCache(), options)
+    retired = compiled.execute(render_device)
+    return compiled, final, hdr, retired
