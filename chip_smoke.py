@@ -9,7 +9,11 @@ It imports nothing of JAX or of the zenith_tpu package, and fails (exit code
 other than 0, no result line) on the first phase that fails:
 
 1. device and build: checks the card, prints its name and power limit, and
-   builds every kernel from zenith_tpu_torch/csrc/ (timed);
+   builds every kernel from zenith_tpu_torch/csrc/ and the blend kernel of
+   each fragment shader the script draws with, every nvcc at once (timed),
+   with the compiler's registers and spills for each kernel. A later phase
+   whose draw compiles a blend kernel anew fails: the kernel reported here
+   would not be the one it ran;
 2. K1 against its plain PyTorch version, on the card: at the triangle demo's
    own 1920x1080 inputs and on a numpy-seeded 1080p stress draw (tens of
    thousands of triangles, tiles with more than one block of entries,
@@ -21,7 +25,7 @@ other than 0, no result line) on the first phase that fails:
    the card must match tests/golden/triangle_128x32_t1_25.npy (<= 1 LSB,
    < 1% of pixels differing);
 4. the triangle's main path: the triangle app through zenith_tpu_torch.launch
-   at 1920x1080 for 120 frames, on the rebuild and the auto-retained paths.
+   at 1920x1080 for 60 frames, on the rebuild and the auto-retained paths.
    K1 must launch at least once per frame, the last frame must equal the
    frame rendered on the card through the plain raster at the same time, and
    a retained run of the frame function must make no host sync;
@@ -40,7 +44,7 @@ other than 0, no result line) on the first phase that fails:
    values differing);
 7. the deferred main path: bench.py::bench_scene's frame function (rebuild →
    DeferredRenderer.render_to → PostProcess → PresentEncode(BGRA8_SRGB),
-   camera orbit at radius 170, fov 35°) at 1920x1080 for 120 frames, on
+   camera orbit at radius 170, fov 35°) at 1920x1080 for 60 frames, on
    zenith_tpu/sandbox/scene.py::build_scene's settings with the cerberus
    mesh replaced by a procedural stand-in of its size
    (zenith_tpu_torch/sandbox/scene.py::build_standin_scene). Each
@@ -49,17 +53,65 @@ other than 0, no result line) on the first phase that fails:
    both plain versions (<= 1 LSB, < 1% of values); a retained frame must
    make no host sync. It prints FPS, frame time p50/p99, and from
    torch.profiler the kernel launches, device time (per render-graph node)
-   and device-busy share per frame.
+   and device-busy share per frame;
+8. K3 (raster + stencil) against its plain version on the 1080p stress
+   draw: a stencil-write draw (faces that differ, REPLACE,
+   INCREMENT_AND_WRAP, INVERT as the depth-fail op, write masks 0xF3 / 0xBF)
+   and then a stencil-masked draw over its stencil plane (compare masks,
+   fail, depth-fail and pass ops). z, planes and stencil bit-equal;
+9. K4 (raster + peel bound) on the stress draw: peel layers 2 and 3 chained
+   behind K1's layer 1, and the overflow probe (depth write off). Bit-equal;
+10. K5 and K6 (in-order shade and blend, K6 with stencil) on 8 draws of 32
+    screen-sized translucent triangles each (256 triangles, the most the
+    huge-span tier bins at once; mixed winding, a per-draw uniform, the draw
+    id), through draw_indexed_batch with a kernel-safe shader and its device
+    source: src-alpha over with depth writes off; a reverse-subtract / max
+    equation under a write mask with depth writes on; K6 with a read-only
+    stencil mask whose faces differ, and as an overdraw limiter that writes
+    the stencil. z and stencil bit-equal, colour within atol 1e-5 + rtol
+    1e-5 of the plain version;
+11. the deferred main path with build_scene's two glass panes at 1920x1080,
+    100 lights, 40 frames per mode: glass_mode="kernel" (K5, the glass
+    shader's device source) and glass_mode="peel" with the 64² checker and 4
+    layers (K1 for layer 1, K4 for layers 2-4 and the probe). Each frame
+    must launch K1, K2 and K5 or K4 the expected number of times with no bin
+    overflow and no shader build; the last frame must match the same frame
+    through every plain version (<= 1 LSB, < 1% of values) and differ from
+    the frame without panes; a retained frame must make no host sync. The
+    panes stand side by side, so one more frame per mode has one pane moved
+    half over the other: that frame against the plain-path frame, its K5
+    call, and its four K4 calls (a second layer, nothing deeper), against
+    their plain versions. K5 and K4 are then held against their plain
+    versions, and timed, at the glass node's own inputs (where K4's layers
+    must be empty), and one frame draws textured glass in kernel mode (the
+    textured shader's device source), its K5 call and the frame held against
+    the plain versions;
+12. a stencil-attachment frame at 1920x1080 through the render graph: a
+    stencil-only node marks a triangle (K3), a second node draws a quad
+    with interpolated vertex colours through the mask (K3), a third blends
+    two of phase 10's draws through it (K6); stencil plane equal to, colour
+    within atol 1e-5 + rtol 1e-5 of, the plain path; nothing drawn outside
+    the mask. Both K3 calls and the K6 call are then held against their
+    plain versions, and timed, at the frame's own inputs.
 
-The line before the last is a JSON object listing each kernel of the main
-paths with its launches there, its largest difference from the plain
-version, its time, the plain version's, its bound and what bounds it; the
-last line is the device record.
+Every kernel and its plain version are timed with CUDA events (median; a
+plain version that runs for seconds twice, not warmed up) and set beside
+their bound on the H100: the larger of the bytes that must move (the live
+rows of the bins, not their padding; each plane read or written once) over
+3.35 TB/s and the fp32 operations these inputs need over 67 TFLOP/s.
+
+The line before the last is a JSON object listing each kernel (K1-K6) with
+its launches on the main paths (phases 4, 7, 11 and 12), its largest
+difference from the plain version, its time, the plain version's, its bound
+and what bounds it, and the inputs these were taken at; the last line is the
+device record.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -70,8 +122,9 @@ import numpy as np
 
 REPO = Path(__file__).resolve().parent
 W, H = 1920, 1080
-FRAMES = 120
-DEFERRED_FRAMES = 120
+FRAMES = 60
+DEFERRED_FRAMES = 60
+GLASS_FRAMES = 40
 PROFILED_FRAMES = 10
 
 
@@ -179,11 +232,15 @@ def bound(nbytes: float, ops: float) -> "tuple[float, str]":
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def k1_fragments(bins, grid, sample_offset=(0.5, 0.5), chunk: int = 4096) -> int:
-    """The fragments of these bins: over every entry, the image pixels of its
-    tile that its triangle covers (edge functions with the top-left rule, as
-    K1 evaluates them) inside the depth range [0, 1]. Tensor ops on the bins'
-    device, ``chunk`` entries at a time."""
+def count_fragments(bins, grid, passes=None, sample_offset=(0.5, 0.5),
+                    chunk: int = 2048) -> "tuple[int, int]":
+    """(fragments, passing fragments) of these bins. A fragment is an image
+    pixel of an entry's tile that its triangle covers (edge functions with
+    the top-left rule, as the rasterizers evaluate them) inside the depth
+    range [0, 1]. ``passes(rows, zpx, py, px)`` says which fragments pass the
+    tests that do not depend on the walk (a depth test with depth writes off,
+    a read-only stencil mask); without it every fragment counts as passing.
+    Tensor ops on the bins' device, ``chunk`` entries at a time."""
     import torch
 
     rows = bins.rast_pad
@@ -198,9 +255,10 @@ def k1_fragments(bins, grid, sample_offset=(0.5, 0.5), chunk: int = 4096) -> int
     th, tw = grid.tile_h, grid.tile_w
     col = torch.arange(tw, device=dev)[None, None, :]
     row = torch.arange(th, device=dev)[None, :, None]
-    total = 0
+    total = passing = 0
     for s in range(0, ent_row.shape[0], chunk):
-        c = rows[ent_row[s:s + chunk], :16][:, :, None, None]
+        full = rows[ent_row[s:s + chunk]]
+        c = full[:, :16, None, None]
         px = ent_tx[s:s + chunk, None, None] * tw + col
         py = ent_ty[s:s + chunk, None, None] * th + row
         x = px.to(torch.float32) + sample_offset[0]
@@ -214,19 +272,35 @@ def k1_fragments(bins, grid, sample_offset=(0.5, 0.5), chunk: int = 4096) -> int
         z = (e12 * c[:, 12]) * c[:, 13] + (e20 * c[:, 12]) * c[:, 14] + (e01 * c[:, 12]) * c[:, 15]
         cov = cov & (z >= 0) & (z <= 1) & (px < grid.width) & (py < grid.height)
         total += int(cov.sum())
-    return total
+        if passes is not None:
+            ok = passes(full, z, py.clamp(max=grid.height - 1).expand_as(z),
+                        px.clamp(max=grid.width - 1).expand_as(z))
+            passing += int((cov & ok).sum())
+    return total, (passing if passes is not None else total)
+
+
+def k1_fragments(bins, grid) -> int:
+    return count_fragments(bins, grid)[0]
+
+
+def input_bytes(bins) -> int:
+    """The bytes of these bins a raster kernel must read: the rows of the
+    live entries (a block's rows are padded to a fixed length; the padding
+    is never loaded and is not counted) and the four routing tables."""
+    live = int(bins.blk_count.sum())
+    return 4 * (live * bins.rast_pad.shape[1] + 4 * bins.blk_count.shape[0])
 
 
 def k1_bound(bins, grid, covered_px: int) -> "tuple[float, str, int]":
-    """K1's bound on these bins: rows, routing tables and the z plane read
-    once; z and the a_n attribute planes written once; the edge and depth
-    work of each fragment, and the winner's attributes at each of the
-    ``covered_px`` pixels the pass covers. Returns (ms, what bounds it,
-    fragments)."""
+    """K1's bound on these bins: the live rows, the routing tables and the z
+    plane read once; z and the a_n attribute planes written once (the planes
+    are the function's output, zero where nothing is covered, so every value
+    of them is written whatever the coverage); the edge and depth work of
+    each fragment, and the winner's attributes at each of the ``covered_px``
+    pixels the pass covers. Returns (ms, what bounds it, fragments)."""
     a_n = (bins.rast_pad.shape[1] - 16) // 3
     hp, wp = grid.tiles_y * grid.tile_h, grid.tiles_x * grid.tile_w
-    nb = bins.blk_count.shape[0]
-    nbytes = 4 * (bins.rast_pad.numel() + 4 * nb + hp * wp + hp * wp + a_n * hp * wp)
+    nbytes = input_bytes(bins) + 4 * (hp * wp + hp * wp + a_n * hp * wp)
     frags = k1_fragments(bins, grid)
     ops = frags * K1_OPS_PER_FRAGMENT + covered_px * a_n * K1_OPS_PER_PIXEL_PLANE
     return (*bound(nbytes, ops), frags)
@@ -270,7 +344,6 @@ def deferred_phases(dev, card: str, plain_k1) -> dict:
     the deferred main path at 1920x1080. Returns the kernel records."""
     import torch
 
-    from zenith_tpu_torch.core import profile
     from zenith_tpu_torch.core.camera import Camera
     from zenith_tpu_torch.core.mathtypes import Degree
     from zenith_tpu_torch.ops import draw as draw_mod
@@ -484,11 +557,136 @@ def deferred_phases(dev, card: str, plain_k1) -> dict:
     torch.cuda.synchronize()
     print("phase 7: a retained deferred frame at 1080p made no host sync")
 
-    # Where the time goes. Kernels only (little host slow-down): device time,
-    # launches, the busy share and the heaviest kernels per frame. Then host
-    # operators too, for each render-graph node's share of the kernel time.
-    # A one-frame session first keeps the profiler's start-up out of both.
-    nodes = ("shadow", "gbuffer", "lighting", "post", "present.encode")
+    profile_frames(frame, ("shadow", "gbuffer", "lighting", "post", "present.encode"),
+                   "phase 7", card, frame_ms)
+    return {"k1": {"ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound_ms,
+                   "bound_by": k1_bound_by, "max_abs_err": k1_err},
+            "k1_launches": k1_launches, "k2": k2}
+
+
+# fp32 operations per fragment beyond K1's 29, counted from
+# csrc/raster_common.cuh and csrc/raster_blend.cu. K3: the stencil test, op
+# and masked write (two ANDs, a compare, an op, a merge: 8). K4: the bound
+# compare (1). K5/K6 per shaded fragment (one that passes its tests): the a_n
+# planes (5 each), 1/w (one divide) and the finalize (a_n products), the
+# shader's own operations, and the blend equation (factors, products, ops and
+# write mask: 20).
+K3_OPS_PER_FRAGMENT = K1_OPS_PER_FRAGMENT + 8
+K4_OPS_PER_FRAGMENT = K1_OPS_PER_FRAGMENT + 1
+BLEND_OPS = 20
+GLASS_SHADER_OPS = 24
+STRESS_SHADER_OPS = 12
+
+# (tile, record) pairs the translucent stress may bin: every one of its 256
+# triangles (all the huge-span tier holds in one binning) can reach every one
+# of the 510 tiles of a 1080p frame.
+STRESS_ENTRY_BUDGET = 256 * 510
+
+STRESS_FS_CUDA = """
+__device__ __forceinline__ void zn_fragment(const float* a, float frag_x, float frag_y,
+                                            float depth, bool front_facing, float draw_id,
+                                            float* rgba) {
+  const float* c = a + ZN_V_color;
+  const float* g = a + ZN_U_Gain;
+  const float shade = front_facing ? 1.0f : 0.6f;
+  const float k = shade * (1.0f + 0.125f * draw_id);
+  rgba[0] = c[0] * g[0] * k;
+  rgba[1] = c[1] * g[1] * k;
+  rgba[2] = c[2] * g[2] * k;
+  rgba[3] = c[3] * g[3];
+}
+"""
+# The record columns of the three blend shaders the script builds ahead (the
+# 1/w column not included), in the order draw._batch_records lays them out.
+# Phases 10-12 fail if a draw's own layout misses these builds.
+STRESS_LAYOUT = [("color", 4), ("__draw_id", 1), ("__u_Gain", 4), ("__front", 1)]
+GLASS_LAYOUT = [("normal", 3), ("__draw_id", 1), ("__u_BaseColor", 4), ("__u_SunDir", 3),
+                ("__front", 1)]
+GLASS_TEX_LAYOUT = [("normal", 3), ("tint", 4), *GLASS_LAYOUT[1:]]
+
+
+def stress_fs(varyings, res, builtins):
+    """The plain version of STRESS_FS_CUDA: vertex colour times a per-draw
+    gain, darker on back faces, brighter with the draw id."""
+    import torch
+
+    c, g = varyings["color"], res["Gain"]
+    one = torch.ones_like(c[..., 0])
+    shade = torch.where(builtins.front_facing, one, 0.6 * one)
+    k = shade * (1.0 + 0.125 * builtins.draw_id)
+    return torch.stack([c[..., 0] * g[..., 0] * k, c[..., 1] * g[..., 1] * k,
+                        c[..., 2] * g[..., 2] * k, c[..., 3] * g[..., 3]], dim=-1)
+
+
+def translucent_stress(dev, n_draws: int = 8, quads: int = 16, seed: int = 23):
+    """Many overlapping translucent quads at 1080p: ``n_draws`` draws of
+    ``quads`` screen-sized quads each (flat depth, mixed winding, random
+    colour and alpha per vertex), each draw with its own Gain.
+    Returns [(vb (Nv, 8), ib (T, 3), {"Gain": (4,)})] on ``dev``."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    draws = []
+    for _ in range(n_draws):
+        ctr = rng.uniform(-0.6, 0.6, (quads, 1, 2))
+        half = rng.uniform(0.4, 1.0, (quads, 1, 2))
+        corners = np.array([[-1, -1], [1, -1], [1, 1], [-1, 1]], np.float64)[None]
+        xy = ctr + half * corners  # (quads, 4, 2)
+        z = np.broadcast_to(rng.uniform(0.1, 0.9, (quads, 1, 1)), (quads, 4, 1))
+        col = np.concatenate([rng.uniform(0.0, 1.5, (quads, 4, 3)),
+                              rng.uniform(0.1, 0.5, (quads, 4, 1))], -1)
+        vb = np.concatenate([xy, z, np.ones((quads, 4, 1)), col], -1).reshape(-1, 8)
+        base = 4 * np.arange(quads)[:, None]
+        tri_a = base + np.array([0, 1, 2])
+        tri_b = base + np.array([0, 2, 3])
+        flip = rng.uniform(size=quads) < 0.5  # back faces
+        tri_a[flip] = tri_a[flip][:, ::-1]
+        tri_b[flip] = tri_b[flip][:, ::-1]
+        ib = np.stack([tri_a, tri_b], 1).reshape(-1, 3)
+        gain = rng.uniform(0.5, 1.0, 4)
+        draws.append((torch.from_numpy(vb.astype(np.float32)).to(dev),
+                      torch.from_numpy(ib.astype(np.int32)).to(dev),
+                      {"Gain": torch.from_numpy(gain.astype(np.float32)).to(dev)}))
+    return draws
+
+
+def blend_bound(bins, grid, shaded: int, frags: int, shader_ops: int, stencil: bool):
+    """K5's (K6's with ``stencil``) bound: live rows and routing tables read once;
+    the z, colour (and stencil) planes read and written once; the edge and
+    depth work of each fragment and the interpolation, shader and blend of
+    each shaded one."""
+    a_n = (bins.rast_pad.shape[1] - 16) // 3
+    hp, wp = grid.tiles_y * grid.tile_h, grid.tiles_x * grid.tile_w
+    planes = 2 * (1 + 4 + (1 if stencil else 0)) * hp * wp
+    nbytes = input_bytes(bins) + 4 * planes
+    per_frag = K3_OPS_PER_FRAGMENT if stencil else K1_OPS_PER_FRAGMENT
+    per_shaded = 5 * a_n + 1 + a_n + shader_ops + BLEND_OPS
+    return bound(nbytes, frags * per_frag + shaded * per_shaded)
+
+
+def ptxas_lines(log_path) -> "list[str]":
+    """The compiler's report: each kernel's name, then its registers and
+    spills."""
+    out = []
+    for ln in Path(log_path).read_text().splitlines():
+        entry = re.search(r"Compiling entry function '\w*?\d+([a-z_]+_kernel)(?:IL[ib](\d)E)?", ln)
+        if entry:
+            out.append(entry.group(1) + (f"<{entry.group(2)}>:" if entry.group(2) else ":"))
+        elif "registers" in ln or "spill" in ln:
+            out.append(ln.replace("ptxas info    :", "").strip())
+    return out
+
+
+def profile_frames(frame, nodes, tag: str, card: str, frame_ms) -> None:
+    """Where the time goes. Kernels only (little host slow-down): device
+    time, launches, the busy share and the heaviest kernels per frame. Then
+    host operators too, for each render-graph node's share of the kernel
+    time. A one-frame session first keeps the profiler's start-up out of
+    both."""
+    import torch
+
+    from zenith_tpu_torch.core import profile
+
     with profile.session(cpu=False):
         frame(0.3)
         torch.cuda.synchronize()
@@ -505,7 +703,7 @@ def deferred_phases(dev, card: str, plain_k1) -> dict:
         spans = {(e.time_range.start, e.time_range.end, e.name) for e in kernels}
         kernel_ms = sum(b - a for a, b, _ in spans) / 1e3 / PROFILED_FRAMES
         busy_ms = union_us([(a, b) for a, b, _ in spans]) / 1e3 / PROFILED_FRAMES
-        line = (f"phase 7: profile ({'host operators + kernels' if cpu else 'kernels only'}) "
+        line = (f"{tag}: profile ({'host operators + kernels' if cpu else 'kernels only'}) "
                 f"of {PROFILED_FRAMES} frames: {len(spans) / PROFILED_FRAMES:.0f} kernel "
                 f"launches, {kernel_ms:.3f} ms kernel time, device busy {busy_ms:.3f} ms = "
                 f"{busy_ms / wall_ms * 100:.1f}% of {wall_ms:.2f} ms wall per frame; "
@@ -526,9 +724,773 @@ def deferred_phases(dev, card: str, plain_k1) -> dict:
                 f"{name[:60]} {t / 1e3 / PROFILED_FRAMES:.3f} ms x{c / PROFILED_FRAMES:.0f}"
                 for name, (t, c) in top)
         print(line + f" [{card}]")
-    return {"k1": {"ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound_ms,
-                   "bound_by": k1_bound_by, "max_abs_err": k1_err},
-            "k1_launches": k1_launches, "k2": k2}
+
+
+def translucency_phases(dev, card: str, stress, plain_k1) -> "tuple[list, dict]":
+    """Phases 8-12: K3-K6 against their plain versions at 1920x1080, the
+    deferred main path with glass in both modes, and a stencil-attachment
+    frame through the render graph. ``stress`` is phase 2b's (bins, grid,
+    init z). Returns (the records of K3-K6, the launches of K1 and K2 on
+    these paths)."""
+    import contextlib
+
+    import torch
+
+    from zenith_tpu_torch.core.camera import Camera
+    from zenith_tpu_torch.core.mathtypes import Degree
+    from zenith_tpu_torch.ops import draw as draw_mod
+    from zenith_tpu_torch.ops import lighting as lighting_mod
+    from zenith_tpu_torch.ops import raster as raster_mod
+    from zenith_tpu_torch.ops import runtime
+    from zenith_tpu_torch.ops.lighting import accumulate_point_lights
+    from zenith_tpu_torch.ops.raster import raster_segmented, raster_segmented_blend
+    from zenith_tpu_torch.rendergraph import CompileOptions, RenderGraphBuilder
+    from zenith_tpu_torch.renderer import DeferredRenderer
+    from zenith_tpu_torch.rhi import (
+        BlendFactor,
+        BlendOp,
+        Buffer,
+        ColorAttachmentDesc,
+        Format,
+        GraphicShaderInput,
+        LoadOp,
+        PipelineCache,
+        RasterizationState,
+        RhiCore,
+        Shader,
+        TextureDesc,
+        uniform,
+    )
+    from zenith_tpu_torch.rhi import pipeline as pipe
+    from zenith_tpu_torch.rhi.state import (
+        CompareOp,
+        CullMode,
+        DepthStencilDesc,
+        GraphicPipelineAttachments,
+        GraphicPipelineState,
+        StencilOp,
+        StencilOpState,
+        VertexLayout,
+    )
+    from zenith_tpu_torch.sandbox.scene import build_standin_scene, deferred_frame, orbit_camera
+
+    bins, grid, init = stress
+    hp, wp = grid.tiles_y * grid.tile_h, grid.tiles_x * grid.tile_w
+    rng = np.random.default_rng(29)
+
+    # The plain versions, in the launchers' places (the counters stay put).
+    def plain_k2(am, nr, pe, depth, cam, lights, tile_h, tile_w):
+        return lighting_mod._accumulate_point_lights_torch(am, nr, pe, depth, cam, lights,
+                                                           tile_h, tile_w)
+
+    def plain_k3(b, g, z, acc, sten, front, back, compare, write, clamp, off):
+        raster_mod._raster_segmented_torch(b, g, z, acc, compare, write, clamp, off,
+                                           stencil=sten, faces=(front, back))
+
+    def plain_k4(b, g, z, acc, bnd, bound_op, compare, write, clamp, off):
+        raster_mod._raster_segmented_torch(b, g, z, acc, compare, write, clamp, off,
+                                           z_bound=bnd, bound_op=bound_op)
+
+    def plain_k56(b, g, z, color, sten, faces, compare, write, clamp, off, fs, layout, cdesc):
+        shade_blend = draw_mod.make_shade_blend(fs, layout, cdesc, (0.0, 0.0, 0.0, 0.0),
+                                                (g.width, g.height))
+        raster_mod._raster_blend_torch(b, g, z, color, sten, faces, compare, write, clamp, off,
+                                       shade_blend)
+
+    @contextlib.contextmanager
+    def plain_path():
+        with contextlib.ExitStack() as stack:
+            for mod, name, fn in (
+                (raster_mod, "_raster_segmented_cuda", plain_k1),
+                (raster_mod, "_raster_stencil_cuda", plain_k3),
+                (raster_mod, "_raster_peel_cuda", plain_k4),
+                (raster_mod, "_raster_blend_cuda", plain_k56),
+                (lighting_mod, "_accumulate_point_lights_cuda", plain_k2),
+            ):
+                stack.enter_context(mock.patch.object(mod, name, fn))
+            yield
+
+    def both(fn):
+        """(kernel result, plain result) of ``fn()``, synchronised."""
+        k = fn()
+        with plain_path():
+            p = fn()
+        torch.cuda.synchronize()
+        return k, p
+
+    def exact(k, p, what, names):
+        for a, b, name in zip(k, p, names):
+            check(torch.equal(a, b), f"{what}: {name} differs from the plain version "
+                  f"(max {(a.float() - b.float()).abs().max().item():.3e})")
+
+    def timed(fn, reps=10):
+        """(kernel ms, plain ms): medians by CUDA events; the plain version
+        runs for seconds, so it is timed twice, not warmed up."""
+        k_ms = cuda_ms(fn, reps=reps, warmup=2)
+        with plain_path():
+            p_ms = cuda_ms(fn, reps=2, warmup=0)
+        return k_ms, p_ms
+
+    def record(name, num, source, replaces, shape, err, k_ms, p_ms, b_ms, b_by):
+        return {"name": f"K{num} {name}", "route": "cuda",
+                "source": f"zenith_tpu_torch/csrc/{source}",
+                "replaces": f"zenith_tpu/ops/raster.py:{replaces}", "launches": 0,
+                "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                "bound_by": b_by, "library_ms": None, "shape": shape}
+
+    def kept(v):
+        return v.clone() if torch.is_tensor(v) else v
+
+    @contextlib.contextmanager
+    def recording():
+        """The inputs of every K3, K4, K5 and K6 wrapper call that ops.draw
+        makes inside, by kernel: (bins, grid, z, keywords) for K3 and K4,
+        (bins, grid, z, colour, shade_blend, keywords) for K5 and K6."""
+        calls = {"K3": [], "K4": [], "K5": [], "K6": []}
+        real_raster, real_blend = draw_mod.raster_segmented, draw_mod.raster_segmented_blend
+
+        def raster(b, g, z, **kw):
+            key = ("K4" if kw.get("z_bound") is not None
+                   else "K3" if kw.get("stencil_front") is not None else None)
+            if key:
+                calls[key].append((b, g, z.clone(), {k: kept(v) for k, v in kw.items()}))
+            return real_raster(b, g, z, **kw)
+
+        def blend(b, g, z, c, shade_blend, **kw):
+            key = "K6" if kw.get("stencil_front") is not None else "K5"
+            calls[key].append((b, g, z.clone(), c.clone(), shade_blend,
+                               {k: kept(v) for k, v in kw.items()}))
+            return real_blend(b, g, z, c, shade_blend, **kw)
+
+        with mock.patch.object(draw_mod, "raster_segmented", raster), \
+                mock.patch.object(draw_mod, "raster_segmented_blend", blend):
+            yield calls
+
+    def replay(call):
+        """The wrapper call that ``recording`` kept, as a function."""
+        if len(call) == 4:
+            b, g, z, kw = call
+            return lambda: raster_segmented(b, g, z, **kw)
+        b, g, z, c, shade_blend, kw = call
+        return lambda: raster_segmented_blend(b, g, z, c, shade_blend, **kw)
+
+    blend_err = {5: 0.0, 6: 0.0}
+
+    def hold_blend(num, what, call):
+        """A recorded K5 / K6 call against its plain version: z (and stencil)
+        bit-equal, colour within atol 1e-5 + rtol 1e-5. Returns (kernel
+        result, plain result, max colour error)."""
+        k, p = both(replay(call))
+        check(bool(torch.isfinite(k[1]).all()), f"K{num} {what}: non-finite colour")
+        exact((k[0], *k[2:]), (p[0], *p[2:]), f"K{num} {what}", ("z", "stencil"))
+        err = (k[1] - p[1]).abs()
+        blend_err[num] = max(blend_err[num], err.max().item())
+        bad = int((err > 1e-5 + 1e-5 * p[1].abs()).sum())
+        check(bad == 0, f"K{num} {what}: {bad} colour values beyond atol 1e-5 + rtol 1e-5 of "
+              f"the plain version (max {err.max().item():.3e})")
+        return k, p, err.max().item()
+
+    # Every fragment shader these phases draw with was compiled in phase 1.
+    builds_at_start = runtime.shader_builds
+
+    def no_new_build(where):
+        check(runtime.shader_builds == builds_at_start,
+              f"{where}: a blend kernel was compiled here, so the layout phase 1 built for "
+              f"is not the one the draw uses")
+
+    a_n = (bins.rast_pad.shape[1] - 16) // 3
+    plane_bytes = 4 * hp * wp
+    frags = k1_fragments(bins, grid)
+
+    # -- 8. K3 on the stress draw: a stencil-write, then a stencil-masked draw --
+    s0 = torch.from_numpy(rng.integers(0, 256, (H, W)).astype(np.int32)).to(dev)
+    write_front = StencilOpState(pass_op=StencilOp.REPLACE,
+                                 depth_fail_op=StencilOp.INCREMENT_AND_WRAP,
+                                 compare_op=CompareOp.ALWAYS, write_mask=0xF3, reference=0x5A)
+    write_back = StencilOpState(pass_op=StencilOp.INCREMENT_AND_WRAP,
+                                depth_fail_op=StencilOp.INVERT,
+                                compare_op=CompareOp.ALWAYS, write_mask=0xBF)
+    mask_front = StencilOpState(fail_op=StencilOp.DECREMENT_AND_CLAMP,
+                                pass_op=StencilOp.INCREMENT_AND_CLAMP,
+                                depth_fail_op=StencilOp.ZERO, compare_op=CompareOp.LESS,
+                                compare_mask=0x0F, reference=0x05)
+    mask_back = StencilOpState(fail_op=StencilOp.ZERO, pass_op=StencilOp.KEEP,
+                               depth_fail_op=StencilOp.DECREMENT_AND_WRAP,
+                               compare_op=CompareOp.NOT_EQUAL, compare_mask=0xF0,
+                               write_mask=0x7E, reference=0x20)
+
+    def k3_write():
+        return raster_segmented(bins, grid, init, init_stencil=s0, stencil_front=write_front,
+                                stencil_back=write_back)
+
+    k, p = both(k3_write)
+    exact(k, p, "K3 stencil write", ("z", "planes", "stencil"))
+    s1 = k[2]
+    check(not torch.equal(s1, s0), "K3 stencil write left the stencil plane unchanged")
+
+    def k3_masked():
+        return raster_segmented(bins, grid, init, init_stencil=s1, stencil_front=mask_front,
+                                stencil_back=mask_back, compare_op=CompareOp.GREATER_OR_EQUAL,
+                                depth_write=False)
+
+    km, pm = both(k3_masked)
+    exact(km, pm, "K3 stencil-masked draw", ("z", "planes", "stencil"))
+    open_cov = int((raster_segmented(bins, grid, init, compare_op=CompareOp.GREATER_OR_EQUAL,
+                                     depth_write=False)[1][-1] > 0).sum())
+    mask_cov = int((km[1][-1] > 0).sum())
+    check(0 < mask_cov < open_cov, f"K3: the mask passed {mask_cov} of {open_cov} pixels")
+    k3_ms, k3_plain = timed(k3_write)
+    cov3 = int((k[1][-1] > 0).sum())
+    k3_b, k3_by = bound(
+        input_bytes(bins) + (4 + a_n) * plane_bytes,
+        frags * K3_OPS_PER_FRAGMENT + cov3 * a_n * K1_OPS_PER_PIXEL_PLANE)
+    print(f"phase 8: K3 stress 1080p ({int(bins.blk_count.sum())} entries, {frags} fragments): "
+          f"stencil write (faces differ, REPLACE / INCREMENT_AND_WRAP / INVERT, write masks "
+          f"0xF3 / 0xBF) and stencil-masked draw (LESS under mask 0x0F / NOT_EQUAL under 0xF0, "
+          f"fail, depth-fail and pass ops; {mask_cov} of {open_cov} px pass) bit-equal to the "
+          f"plain version in z, planes and stencil; write pass kernel {k3_ms:.4f} ms, plain "
+          f"{k3_plain:.4f} ms, bound {k3_b:.4f} ms ({k3_by}); no one-call PyTorch equivalent "
+          f"[{card}]")
+    k3 = record("segmented raster + stencil (_segmented_stencil_kernel)", 3, "raster.cu", 1025,
+                "stress draw 1080p, stencil write", 0.0, k3_ms, k3_plain, k3_b, k3_by)
+
+    # -- 9. K4 on the stress draw: two chained peels and the overflow probe ----
+    def peel_chain(b, g, z0, what):
+        """Layer 1 is K1's; layers 2, 3 and the probe are K4's, each bounded
+        by the layer before. Returns the last bound."""
+        bound_z = raster_segmented(b, g, z0)[0]
+        for layer in (2, 3):
+            def run(bz=bound_z):
+                return raster_segmented(b, g, z0, z_bound=bz)
+            k, p = both(run)
+            exact(k, p, f"K4 {what} layer {layer}", ("z", "planes"))
+            check(int((k[1][-1] > 0).sum()) > 0, f"K4 {what} layer {layer} is empty")
+            bound_z = k[0]
+
+        def probe(bz=bound_z):
+            return raster_segmented(b, g, z0, z_bound=bz, depth_write=False)
+        k, p = both(probe)
+        exact(k, p, f"K4 {what} probe", ("z", "planes"))
+        return bound_z, int((k[1][-1] > 0).sum())
+
+    _, deeper = peel_chain(bins, grid, init, "stress")
+    layer1 = raster_segmented(bins, grid, init)[0]
+
+    def k4_stress():
+        return raster_segmented(bins, grid, init, z_bound=layer1)
+
+    k4s_ms, k4s_plain = timed(k4_stress)
+    cov4 = int((k4_stress()[1][-1] > 0).sum())
+    k4s_b, k4s_by = bound(
+        input_bytes(bins) + (3 + a_n) * plane_bytes,
+        frags * K4_OPS_PER_FRAGMENT + cov4 * a_n * K1_OPS_PER_PIXEL_PLANE)
+    print(f"phase 9: K4 stress 1080p: peel layers 2 and 3 and the probe (depth write off; "
+          f"{deeper} px hold a deeper layer) bit-equal to the plain version; layer 2 kernel "
+          f"{k4s_ms:.4f} ms, plain {k4s_plain:.4f} ms, bound {k4s_b:.4f} ms ({k4s_by}) [{card}]")
+
+    # -- 10. K5 and K6 on many overlapping translucent quads --------------------
+    layout = VertexLayout.from_fields(("position", 4), ("color", 4))
+    vs = Shader.vertex("stress.vs", lambda attrs, res: {"position": attrs["position"],
+                                                       "color": attrs["color"]})
+    fs = Shader.fragment("stress.fs", stress_fs, bindings=[uniform("Gain")], kernel_safe=True,
+                         device_source=STRESS_FS_CUDA)
+    over = ColorAttachmentDesc(blend_enable=True, src_color_blend=BlendFactor.SRC_ALPHA,
+                               dst_color_blend=BlendFactor.ONE_MINUS_SRC_ALPHA,
+                               src_alpha_blend=BlendFactor.ONE,
+                               dst_alpha_blend=BlendFactor.ONE_MINUS_SRC_ALPHA)
+    odd = ColorAttachmentDesc(blend_enable=True, src_color_blend=BlendFactor.ONE_MINUS_DST_ALPHA,
+                              dst_color_blend=BlendFactor.SRC_COLOR,
+                              color_blend_op=BlendOp.REVERSE_SUBTRACT,
+                              src_alpha_blend=BlendFactor.DST_ALPHA,
+                              dst_alpha_blend=BlendFactor.ONE, alpha_blend_op=BlendOp.MAX,
+                              write_mask=(True, True, False, True))
+    mask_ro_front = StencilOpState(compare_op=CompareOp.EQUAL, compare_mask=0x01, reference=1)
+    mask_ro_back = StencilOpState(compare_op=CompareOp.NOT_EQUAL, compare_mask=0x01, reference=1)
+    limit_front = StencilOpState(pass_op=StencilOp.INCREMENT_AND_CLAMP,
+                                 depth_fail_op=StencilOp.INVERT, compare_op=CompareOp.GREATER,
+                                 write_mask=0x7F, reference=6)
+    limit_back = StencilOpState(fail_op=StencilOp.DECREMENT_AND_WRAP,
+                                pass_op=StencilOp.INCREMENT_AND_WRAP,
+                                compare_op=CompareOp.GREATER_OR_EQUAL, compare_mask=0x0F,
+                                reference=3)
+
+    def blend_pipeline(cdesc, ds):
+        return pipe.GraphicPipeline(pipe.GraphicPipelineDesc(
+            shader_input=GraphicShaderInput(vs, fs, layout),
+            state=GraphicPipelineState(
+                rasterization=RasterizationState(cull_mode=CullMode.NONE), depth_stencil=ds),
+            attachments=GraphicPipelineAttachments(
+                color_formats=(Format.RGBA32F,), depth_format=Format.D32F,
+                stencil_format=Format.S8 if ds.stencil_test_enable else None),
+            color_attachment_descs=(cdesc,),
+        ))
+
+    draws = translucent_stress(dev)
+    n_tri = sum(d[1].shape[0] for d in draws)
+    bg = torch.from_numpy(rng.uniform(0.0, 4.0, (H, W, 4)).astype(np.float32)).to(dev)
+    sten0 = torch.from_numpy(rng.integers(0, 4, (H, W)).astype(np.int32)).to(dev)
+    translucent = DepthStencilDesc(depth_test_enable=True, depth_write_enable=False,
+                                   depth_compare_op=CompareOp.GREATER)
+    writing = DepthStencilDesc(depth_test_enable=True, depth_write_enable=True,
+                               depth_compare_op=CompareOp.GREATER_OR_EQUAL)
+
+    def with_stencil(ds, front, back):
+        return dataclasses.replace(ds, stencil_test_enable=True, stencil_front=front,
+                                   stencil_back=back)
+
+    def check_blend(num, what, k, p):
+        """z (and stencil) bit-equal; colour within atol 1e-5 + rtol 1e-5."""
+        (kc, kz, ks), (pc, pz, ps) = k, p
+        check(bool(torch.isfinite(kc[0]).all()), f"K{num} {what}: non-finite colour")
+        exact((kz,), (pz,), f"K{num} {what}", ("z",))
+        if ks.stencil is not None:
+            exact((ks.stencil,), (ps.stencil,), f"K{num} {what}", ("stencil",))
+        err = (kc[0] - pc[0]).abs()
+        blend_err[num] = max(blend_err[num], err.max().item())
+        bad = int((err > 1e-5 + 1e-5 * pc[0].abs()).sum())
+        check(bad == 0, f"K{num} {what}: {bad} colour values beyond atol 1e-5 + rtol 1e-5 of "
+              f"the plain version (max {err.max().item():.3e})")
+        return err.max().item()
+
+    cases = [
+        (5, "src-alpha over, depth write off", over, translucent, None),
+        (5, "reverse-subtract / max, write mask RGA, depth write on", odd, writing, None),
+        (6, "over, read-only stencil mask (faces differ)", over,
+         with_stencil(translucent, mask_ro_front, mask_ro_back), sten0),
+        (6, "over, overdraw limiter (INCREMENT_AND_CLAMP / INVERT / wrap ops)", over,
+         with_stencil(writing, limit_front, limit_back), sten0),
+    ]
+    stress_blend = {}
+    for num, what, cdesc, ds, sten in cases:
+        pl = blend_pipeline(cdesc, ds)
+
+        def run(pl=pl, sten=sten):
+            return draw_mod.draw_indexed_batch([bg], init, pl, draws, grid, stencil=sten,
+                                               entry_budget=STRESS_ENTRY_BUDGET)
+
+        with recording() as calls:
+            k = run()
+        no_new_build(f"K{num} stress")
+        with plain_path():
+            p = run()
+        torch.cuda.synchronize()
+        err = check_blend(num, what, k, p)
+        check(not torch.equal(k[0][0], bg), f"K{num} {what}: nothing was drawn")
+        check(int(k[2].bin_overflow) == 0, f"K{num} {what}: bin overflow")
+        print(f"phase 10: K{num} stress 1080p, {what}: z{' and stencil' if sten is not None else ''}"
+              f" bit-equal, colour max |kernel - plain| {err:.3e} (values up to "
+              f"{p[0][0].abs().max().item():.3f})")
+        if num not in stress_blend:
+            check(len(calls[f"K{num}"]) == 1, f"K{num} stress made {len(calls[f'K{num}'])} "
+                  f"blend passes, not 1")
+            stress_blend[num] = (calls[f"K{num}"][0], ds)
+    blend_records = {}
+    for num, (call, ds) in stress_blend.items():
+        b, g = call[0], call[1]
+        run = replay(call)
+        front_col = 16 + (b.rast_pad.shape[1] - 16) // 3 - 2
+
+        def passes(rows, zpx, py, px, ds=ds):
+            ok = zpx > init[py, px]
+            if ds.stencil_test_enable:
+                s = sten0[py, px] & 1
+                is_front = (rows[:, front_col] > 0)[:, None, None]
+                ok = ok & torch.where(is_front, s == 1, s != 1)
+            return ok
+
+        n_frag, n_shaded = count_fragments(b, g, passes)
+        k_ms, p_ms = timed(run, reps=5)
+        b_ms, b_by = blend_bound(b, g, n_shaded, n_frag, STRESS_SHADER_OPS, num == 6)
+        print(f"phase 10: K{num} stress 1080p ({len(draws)} draws, {n_tri} triangles, "
+              f"{int(b.blk_count.sum())} entries, {n_frag} fragments, {n_shaded} shaded, up to "
+              f"{int(b.blk_count.sum()) // (g.tiles_x * g.tiles_y)} entries a tile on average): "
+              f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); no "
+              f"one-call PyTorch equivalent [{card}]")
+        blend_records[num] = (k_ms, p_ms, b_ms, b_by)
+
+    def print_ptxas(tag, call):
+        """The compiler's report of the blend kernel this recorded call ran."""
+        kw = call[5]
+        lib = runtime.load_blend_kernel(kw["fragment_shader"].device_source, kw["attr_layout"])
+        no_new_build(f"ptxas report ({tag})")
+        for ln in ptxas_lines(lib.log_path):
+            print(f"  ptxas ({tag}): {ln}")
+
+    print_ptxas("stress shader", stress_blend[5][0])
+
+    # -- 11. the deferred main path with glass, in both modes ------------------
+    device = RhiCore(dev).create_render_device()
+    camera = Camera(fov_y=Degree(35.0), aspect_ratio=W / H)
+    options = CompileOptions()
+    bgra = Format.BGRA8_SRGB
+    counters = {
+        "K1": (raster_segmented, "launches"), "K2": (accumulate_point_lights, "launches"),
+        "K3": (raster_segmented, "stencil_launches"), "K4": (raster_segmented, "peel_launches"),
+        "K5": (raster_segmented_blend, "launches"),
+        "K6": (raster_segmented_blend, "stencil_launches"),
+    }
+
+    def read_counts():
+        return {k: getattr(fn, name) for k, (fn, name) in counters.items()}
+
+    def zero_counts():
+        for fn, name in counters.values():
+            setattr(fn, name, 0)
+
+    path_launches = {k: 0 for k in counters}
+    glass_inputs = {}
+    modes = (("kernel", False, {"K1": 2, "K2": 1, "K5": 1}),
+             ("peel", True, {"K1": 3, "K2": 1, "K4": 4}))
+    for mode, textured, expect in modes:
+        scene, _ = build_standin_scene(device, 100, np.random.default_rng(42), glass=True,
+                                       glass_textured=textured)
+        renderer = DeferredRenderer(scene, glass_mode=mode, glass_peel_layers=4)
+        cache = PipelineCache()
+
+        def frame(orbit, renderer=renderer, cache=cache):
+            orbit_camera(camera, orbit)
+            return deferred_frame(device, renderer, camera, W, H, options, present_format=bgra,
+                                  pipeline_cache=cache)
+
+        # Warm-up: builds the frame function and (kernel mode) finds the
+        # glass shader's kernel; the frame's K4 / K5 inputs are kept.
+        with recording() as calls:
+            frame(0.3)
+        torch.cuda.synchronize()
+        no_new_build(f"glass {mode} warm-up")
+        glass_inputs[mode] = calls["K5"] if mode == "kernel" else calls["K4"]
+
+        zero_counts()
+        ends, overflows, per_frame = [], [], []
+        t0 = time.perf_counter()
+        for i in range(GLASS_FRAMES):
+            start = read_counts()
+            compiled, enc, _, retired = frame(0.3 + i * 0.004)
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            ends.append(ev)
+            overflows.append(retired.bin_overflow)
+            now = read_counts()
+            per_frame.append({k: now[k] - start[k] for k in now})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        for k in counts:
+            path_launches[k] += counts[k]
+        no_new_build(f"glass {mode} timed frames")
+        for k, n in expect.items():
+            check(all(f[k] == n for f in per_frame),
+                  f"glass {mode}: {k} launched {sorted({f[k] for f in per_frame})} times a "
+                  f"frame, not {n}")
+        total_overflow = int(torch.stack(overflows).sum())
+        check(total_overflow == 0, f"glass {mode}: bin overflow {total_overflow}")
+        frame_ms = np.array([ends[i - 1].elapsed_time(ends[i]) for i in range(1, len(ends))])
+        last = compiled.value(enc).cpu().numpy()
+        check(last.shape == (H, W, 4) and last.dtype == np.uint8, f"frame is {last.shape}")
+        print(f"phase 11: glass {mode} ({'64^2 checker, 4 layers' if textured else 'untextured'}"
+              f"): {GLASS_FRAMES} frames at {W}x{H}, 100 lights, 2 panes: "
+              f"{GLASS_FRAMES / wall:.2f} FPS; frame time p50 {np.percentile(frame_ms, 50):.3f} "
+              f"ms, p99 {np.percentile(frame_ms, 99):.3f} ms; launches per frame "
+              + ", ".join(f"{k} {n}" for k, n in expect.items())
+              + f"; bin overflow 0; no shader build in the timed frames [{card}]")
+
+        # The last frame against the same frame through every plain version,
+        # and against the frame without the panes (the glass really drew).
+        orbit_camera(camera, 0.3 + (GLASS_FRAMES - 1) * 0.004)
+        with plain_path():
+            pc, penc, _, _ = deferred_frame(device, renderer, camera, W, H, options,
+                                            present_format=bgra, pipeline_cache=cache)
+            ref = pc.value(penc).cpu().numpy()
+        mx, frac = lsb_diff(last, ref)
+        print(f"phase 11: glass {mode}: last frame vs the plain-path frame: max LSB diff {mx}, "
+              f"{frac * 100:.4f}% values differ")
+        check(mx <= 1 and frac < 0.01, f"glass {mode}: the last frame differs from the "
+              f"plain-path frame")
+        bare = dataclasses.replace(scene, objects=scene.objects[:2])
+        bc, benc, _, _ = deferred_frame(device, DeferredRenderer(bare), camera, W, H, options,
+                                        present_format=bgra)
+        changed = float((bc.value(benc).cpu().numpy() != last).any(-1).mean())
+        check(changed > 0.02, f"glass {mode}: the panes changed only {changed * 100:.2f}% of "
+              f"the pixels")
+        print(f"phase 11: glass {mode}: the panes change {changed * 100:.2f}% of the pixels")
+
+        # The panes stand side by side, so no pixel of the frames above holds
+        # two glass layers. One more frame with the second pane moved to the
+        # middle and nearer the camera, half over the first: pixels with two
+        # layers, which order (K5) or the second peel (K4) must resolve.
+        pane = scene.objects[3]
+        home = pane.model_matrix
+        shift = np.eye(4, dtype=np.float32)
+        shift[:2, 3] = (-home[0, 3], -0.5 * home[0, 3])
+        pane.model_matrix = shift @ home
+        try:
+            with recording() as calls:
+                oc, oenc, _, oret = deferred_frame(device, renderer, camera, W, H, options,
+                                                   present_format=bgra, pipeline_cache=cache)
+            lapped = oc.value(oenc).cpu().numpy()
+            with plain_path():
+                pc, penc, _, _ = deferred_frame(device, renderer, camera, W, H, options,
+                                                present_format=bgra, pipeline_cache=cache)
+                ref = pc.value(penc).cpu().numpy()
+        finally:
+            pane.model_matrix = home
+        check(int(oret.bin_overflow) == 0, f"glass {mode}, overlapping panes: bin overflow")
+        mx, frac = lsb_diff(lapped, ref)
+        check(mx <= 1 and frac < 0.01, f"glass {mode}, overlapping panes: the frame differs "
+              f"from the plain-path frame (max LSB diff {mx}, {frac * 100:.4f}% of values)")
+        check(bool((lapped != last).any()), f"glass {mode}: moving a pane changed nothing")
+        if mode == "kernel":
+            check(len(calls["K5"]) == 1, "overlapping panes: not one K5 pass")
+            hold_blend(5, "overlapping panes", calls["K5"][0])
+            what = "K5 z bit-equal and colour within tolerance of its plain version"
+        else:
+            check(len(calls["K4"]) == 4, "overlapping panes: not four K4 passes")
+            layer_px = []
+            for i, call in enumerate(calls["K4"]):
+                k, p = both(replay(call))
+                exact(k, p, f"K4 overlapping panes pass {i + 2}", ("z", "planes"))
+                layer_px.append(int((k[1][-1] > 0).sum()))
+            check(layer_px[0] > 1000 and layer_px[1:] == [0, 0, 0],
+                  f"overlapping panes: layers 2-4 and the probe hold {layer_px} px; expected a "
+                  f"second layer and nothing deeper")
+            what = (f"K4's layer 2 holds {layer_px[0]} px, layers 3-4 and the probe none, all "
+                    f"bit-equal to the plain version")
+        print(f"phase 11: glass {mode}, one pane moved half over the other: frame vs the "
+              f"plain-path frame max LSB diff {mx}, {frac * 100:.4f}% values differ; {what}")
+
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            compiled.execute(device, dynamics=renderer.frame_dynamics(camera))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        print(f"phase 11: glass {mode}: a retained frame at 1080p made no host sync")
+        profile_frames(frame, ("shadow", "gbuffer", "lighting", "glass", "post",
+                               "present.encode"), f"phase 11: glass {mode}", card, frame_ms)
+
+    # K5 at the glass node's own inputs: the panes over the lit HDR frame.
+    check(len(glass_inputs["kernel"]) == 1, "the kernel-mode glass node made "
+          f"{len(glass_inputs['kernel'])} blend passes, not 1")
+    b, g, z = glass_inputs["kernel"][0][:3]
+    glass_k5 = replay(glass_inputs["kernel"][0])
+    k, p, err = hold_blend(5, "glass panes", glass_inputs["kernel"][0])
+    n_frag, n_shaded = count_fragments(b, g, lambda rows, zpx, py, px: zpx > z[py, px])
+    k5_ms, k5_plain = timed(glass_k5)
+    k5_b, k5_by = blend_bound(b, g, n_shaded, n_frag, GLASS_SHADER_OPS, False)
+    a_glass = (b.rast_pad.shape[1] - 16) // 3
+    print(f"phase 11: K5 glass panes 1080p over the lit HDR frame ({int(b.blk_count.sum())} "
+          f"entries, {n_frag} fragments, {n_shaded} shaded, a_n {a_glass}): z bit-equal, colour "
+          f"max |kernel - plain| {err:.3e} (values up to "
+          f"{p[1].abs().max().item():.3f}); kernel {k5_ms:.4f} ms, plain {k5_plain:.4f} ms, "
+          f"bound {k5_b:.4f} ms ({k5_by}); no one-call PyTorch equivalent [{card}]")
+    print_ptxas("glass shader", glass_inputs["kernel"][0])
+
+    # K4 at the peel-mode glass node's own inputs (layers 2-4 and the probe).
+    check(len(glass_inputs["peel"]) == 4, "the peel-mode glass node made "
+          f"{len(glass_inputs['peel'])} bounded passes, not 4")
+    k4_glass = None
+    for i, call in enumerate(glass_inputs["peel"]):
+        b4, g4 = call[0], call[1]
+        run = replay(call)
+        k, p = both(run)
+        exact(k, p, f"K4 glass panes pass {i + 2}", ("z", "planes"))
+        cov = int((k[1][-1] > 0).sum())
+        check(cov == 0, f"K4 glass panes pass {i + 2} holds {cov} px, but the panes stand side "
+              f"by side: no pixel has a second glass layer")
+        if i == 0:
+            n_frag = k1_fragments(b4, g4)
+            a4 = k[1].shape[0]
+            t_k, t_p = timed(run)
+            b_ms, b_by = bound(
+                input_bytes(b4) + (3 + a4) * plane_bytes,
+                n_frag * K4_OPS_PER_FRAGMENT + cov * a4 * K1_OPS_PER_PIXEL_PLANE)
+            k4_glass = (t_k, t_p, b_ms, b_by)
+            print(f"phase 11: K4 glass panes 1080p, layer 2 ({int(b4.blk_count.sum())} entries, "
+                  f"{n_frag} fragments, {cov} px in the layer, a_n {a4}): bit-equal; kernel "
+                  f"{t_k:.4f} ms, plain {t_p:.4f} ms, bound {b_ms:.4f} ms ({b_by}); no one-call "
+                  f"PyTorch equivalent [{card}]")
+    print("phase 11: K4 glass panes: layers 2-4 and the probe bit-equal to the plain version and "
+          "empty, as side-by-side panes make them (a non-empty layer: the overlapping panes "
+          "above and phase 9)")
+
+    # The textured glass shader in kernel mode (the tint varying, sampled at
+    # the vertices): one 1080p frame, its K5 call against the plain version.
+    scene_t, _ = build_standin_scene(device, 100, np.random.default_rng(42), glass=True,
+                                     glass_textured=True)
+    renderer_t = DeferredRenderer(scene_t, glass_mode="kernel")
+    orbit_camera(camera, 0.3)
+    with recording() as calls:
+        tc, tenc, _, tret = deferred_frame(device, renderer_t, camera, W, H, options,
+                                           present_format=bgra)
+    tex_frame = tc.value(tenc).cpu().numpy()
+    no_new_build("textured glass, kernel mode")
+    check(int(tret.bin_overflow) == 0, "textured glass, kernel mode: bin overflow")
+    check(len(calls["K5"]) == 1, "textured glass, kernel mode: not one K5 pass")
+    check(("tint", 4) in calls["K5"][0][5]["attr_layout"],
+          "textured glass, kernel mode: the records carry no tint column")
+    _, p, err = hold_blend(5, "textured glass panes", calls["K5"][0])
+    with plain_path():
+        pc, penc, _, _ = deferred_frame(device, renderer_t, camera, W, H, options,
+                                        present_format=bgra)
+        ref = pc.value(penc).cpu().numpy()
+    mx, frac = lsb_diff(tex_frame, ref)
+    check(mx <= 1 and frac < 0.01, f"textured glass, kernel mode: the frame differs from the "
+          f"plain-path frame (max LSB diff {mx}, {frac * 100:.4f}% of values)")
+    print(f"phase 11: textured glass in kernel mode (64^2 checker sampled at the vertices, a_n "
+          f"{(calls['K5'][0][0].rast_pad.shape[1] - 16) // 3}): K5 z bit-equal, colour max "
+          f"|kernel - plain| {err:.3e} (values up to {p[1].abs().max().item():.3f}); frame vs "
+          f"the plain-path frame max LSB diff {mx}, {frac * 100:.4f}% values differ")
+    print_ptxas("textured glass shader", calls["K5"][0])
+
+    # -- 12. a stencil-attachment frame through the render graph ----------------
+    # Node "mark" writes a mask (stencil only), node "gated" draws a quad
+    # through it (K3 twice), node "tinted" blends the translucent stress
+    # draws through the same mask (K6).
+    pos_layout = VertexLayout.from_fields(("position", 4))
+    pos_vs = Shader.vertex("mask.vs", lambda attrs, res: {"position": attrs["position"]})
+
+    def gated_fs(varyings, res, builtins):
+        c = varyings["color"]  # interpolated: K3's attribute planes reach the frame
+        return torch.cat([c[..., :3], torch.ones_like(c[..., :1])], dim=-1)
+
+    tri = np.array([[0.0, -0.5, 0.5, 1.0], [0.5, 0.5, 0.5, 1.0], [-0.5, 0.5, 0.5, 1.0]],
+                   np.float32)
+    quad = np.array([[-2, -2, 0.6, 1.0, 1.0, 0.2, 0.1, 1.0], [2, -2, 0.6, 1.0, 0.5, 0.9, 0.3, 1.0],
+                     [2, 2, 0.6, 1.0, 0.25, 0.4, 1.0, 1.0], [-2, 2, 0.6, 1.0, 0.75, 0.6, 0.0, 1.0]],
+                    np.float32)
+    buffers = [Buffer.from_numpy("tri.vb", tri, device=dev),
+               Buffer.from_numpy("tri.ib", np.array([0, 1, 2], np.int32), device=dev),
+               Buffer.from_numpy("quad.vb", quad, device=dev),
+               Buffer.from_numpy("quad.ib", np.array([0, 1, 2, 0, 2, 3], np.int32), device=dev)]
+
+    def stencil_frame():
+        builder = RenderGraphBuilder()
+        v1, i1, v2, i2 = (builder.import_resource(r) for r in buffers)
+        color = builder.create(TextureDesc.color("out", W, H))
+        sten = builder.create(TextureDesc.stencil("mask", W, H))
+        builder.export(color)
+        builder.export(sten)
+        raster = RasterizationState(cull_mode=CullMode.NONE)
+
+        node = builder.add_graphic_node("mark")
+        v1a, i1a, sa = node.read(v1), node.read(i1), node.write(sten)
+        with node.pipeline(GraphicShaderInput(pos_vs, None, pos_layout), GraphicPipelineState(
+                rasterization=raster, depth_stencil=DepthStencilDesc().stencil_write(1))) as bd:
+            bd.set_stencil(sa)
+        node.execute(lambda ctx: ctx.draw_indexed(v1a, i1a))
+
+        node = builder.add_graphic_node("gated")
+        v2a, i2a = node.read(v2), node.read(i2)
+        node.read(sten)
+        ca, sa2 = node.write(color), node.write(sten)
+        with node.pipeline(
+                GraphicShaderInput(vs, Shader.fragment("gated.fs", gated_fs), layout),
+                GraphicPipelineState(rasterization=raster,
+                                     depth_stencil=DepthStencilDesc().stencil_mask(1))) as bd:
+            bd.push_color(ca, ColorAttachmentDesc(clear_value=(0, 0, 0, 1)))
+            bd.set_stencil(sa2)
+        node.execute(lambda ctx: ctx.draw_indexed(v2a, i2a))
+
+        node = builder.add_graphic_node("tinted")
+        node.read(color)
+        node.read(sten)
+        cb, sb = node.write(color), node.write(sten)
+        with node.pipeline(
+                GraphicShaderInput(vs, fs, layout),
+                GraphicPipelineState(rasterization=raster,
+                                     depth_stencil=DepthStencilDesc().stencil_mask(1))) as bd:
+            bd.push_color(cb, dataclasses.replace(over, load_op=LoadOp.LOAD))
+            bd.set_stencil(sb)
+        node.execute(lambda ctx: ctx.draw_indexed_batch(draws[:2],
+                                                        entry_budget=STRESS_ENTRY_BUDGET))
+
+        compiled = builder.build().compile(device, PipelineCache(), options)
+        compiled.execute(device)
+        return compiled.value(color), compiled.value(sten)
+
+    zero_counts()
+    with recording() as calls:
+        k_col, k_sten = stencil_frame()
+    counts = read_counts()
+    no_new_build("stencil frame")
+    with plain_path():
+        p_col, p_sten = stencil_frame()
+    torch.cuda.synchronize()
+    check(counts["K3"] == 2 and counts["K6"] == 1,
+          f"the stencil frame launched K3 {counts['K3']} and K6 {counts['K6']} times, not 2 and 1")
+    for k in counts:
+        path_launches[k] += counts[k]
+    exact((k_sten,), (p_sten,), "stencil frame", ("stencil plane",))
+    err = (k_col - p_col).abs().max().item()
+    blend_err[6] = max(blend_err[6], err)
+    check(bool(torch.isclose(k_col, p_col, atol=1e-5, rtol=1e-5).all()),
+          f"stencil frame: colour differs from the plain path (max {err:.3e})")
+    marked = k_sten == 1
+    n_marked = int(marked.sum())
+    check(100000 < n_marked < W * H // 2, f"stencil frame: the mask marks {n_marked} pixels")
+    check(bool((k_col[..., 3][~marked] == 1.0).all() and (k_col[..., 0][~marked] == 0.0).all()),
+          "stencil frame: something was drawn outside the mask")
+    check(bool((k_col[..., 0][marked] > 0.0).all()), "stencil frame: the mask was not filled")
+    print(f"phase 12: stencil-attachment frame at {W}x{H} through the render graph (mark -> "
+          f"gated quad -> blended batch through the mask): K3 launched 2 times, K6 once; "
+          f"{n_marked} px marked, nothing drawn outside; stencil equal to and colour within "
+          f"atol 1e-5 + rtol 1e-5 (max {err:.3e}) of the plain path")
+
+    # K3 and K6 at that frame's own inputs, against their plain versions.
+    check(len(calls["K3"]) == 2 and len(calls["K6"]) == 1,
+          f"the stencil frame's draws made {len(calls['K3'])} K3 and {len(calls['K6'])} K6 "
+          f"calls, not 2 and 1")
+    for call, node in zip(calls["K3"], ("mark", "gated")):
+        k, p = both(replay(call))
+        exact(k, p, f"K3 stencil frame, node {node}", ("z", "planes", "stencil"))
+    b3, g3 = calls["K3"][1][0], calls["K3"][1][1]
+    a3, cov3p = k[1].shape[0], int((k[1][-1] > 0).sum())
+    check(cov3p == n_marked, f"K3 gated quad covers {cov3p} px, the mask marks {n_marked}")
+    check(not torch.equal(k[1][0], k[1][1]) and float(k[1][:3].abs().max()) > 0,
+          "K3 gated quad: the colour planes are empty or all alike")
+    frag3 = k1_fragments(b3, g3)
+    k3p_ms, k3p_plain = timed(replay(calls["K3"][1]))
+    k3p_b, k3p_by = bound(input_bytes(b3) + (4 + a3) * plane_bytes,
+                          frag3 * K3_OPS_PER_FRAGMENT + cov3p * a3 * K1_OPS_PER_PIXEL_PLANE)
+    print(f"phase 12: K3 at the gated node's inputs ({int(b3.blk_count.sum())} entries, {frag3} "
+          f"fragments, {cov3p} px pass the mask, a_n {a3}): both K3 calls bit-equal to the "
+          f"plain version in z, planes and stencil; kernel {k3p_ms:.4f} ms, plain "
+          f"{k3p_plain:.4f} ms, bound {k3p_b:.4f} ms ({k3p_by}); no one-call PyTorch "
+          f"equivalent [{card}]")
+    k3.update(shape="stencil frame 1080p, full-screen quad through the mask", ms=k3p_ms,
+              plain_ms=k3p_plain, bound_ms=k3p_b, bound_by=k3p_by)
+
+    call6 = calls["K6"][0]
+    b6, g6, kw6 = call6[0], call6[1], call6[5]
+    check(not kw6["depth_test"], "the tinted node was expected to draw without a depth test")
+    _, p6, err6 = hold_blend(6, "stencil frame, node tinted", call6)
+    mask6 = kw6["init_stencil"]
+    frag6, shaded6 = count_fragments(b6, g6, lambda rows, zpx, py, px: mask6[py, px] == 1)
+    k6p_ms, k6p_plain = timed(replay(call6))
+    k6p_b, k6p_by = blend_bound(b6, g6, shaded6, frag6, STRESS_SHADER_OPS, True)
+    print(f"phase 12: K6 at the tinted node's inputs ({int(b6.blk_count.sum())} entries, "
+          f"{frag6} fragments, {shaded6} shaded through the mask): z and stencil bit-equal, "
+          f"colour max |kernel - plain| {err6:.3e} (values up to "
+          f"{p6[1].abs().max().item():.3f}); kernel {k6p_ms:.4f} ms, plain {k6p_plain:.4f} ms, "
+          f"bound {k6p_b:.4f} ms ({k6p_by}); no one-call PyTorch equivalent [{card}]")
+
+    k4 = record("segmented raster + peel bound (_segmented_peel_kernel)", 4, "raster.cu", 410,
+                "glass panes 1080p, peel layer 2", 0.0, *k4_glass)
+    k5 = record("in-order shade + blend (_segmented_blend_kernel)", 5, "raster_blend.cu", 515,
+                "glass panes 1080p over the lit HDR frame", blend_err[5], k5_ms, k5_plain, k5_b,
+                k5_by)
+    k6 = record("in-order shade + blend + stencil (_segmented_blend_stencil_kernel)", 6,
+                "raster_blend.cu", 627, "stencil frame 1080p, 64 translucent triangles "
+                "through the mask", blend_err[6], k6p_ms, k6p_plain, k6p_b, k6p_by)
+    records = [k3, k4, k5, k6]
+    for rec, key in zip(records, ("K3", "K4", "K5", "K6")):
+        rec["launches"] = path_launches[key]
+        check(rec["launches"] > 0, f"{key} was launched no time on a main path")
+    print(f"summary: stress inputs (phases 8-10): K3 {k3_ms:.4f} ms, K4 layer 2 {k4s_ms:.4f} ms, "
+          f"K5 {blend_records[5][0]:.4f} ms, K6 {blend_records[6][0]:.4f} ms; the kernels line "
+          f"below takes K3-K6 at the main paths' own inputs (phases 11-12) [{card}]")
+    return records, {"K1": path_launches["K1"], "K2": path_launches["K2"]}
 
 
 def main() -> int:
@@ -563,15 +1525,30 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
     fresh = not runtime.library_path().exists()
     t0 = time.perf_counter()
-    so = runtime.build_kernels()
+    # Every nvcc at once: the library's sources (one nvcc each, inside
+    # build_kernels) beside the blend kernel of each fragment shader the
+    # script draws with.
+    from concurrent.futures import ThreadPoolExecutor
+
+    from zenith_tpu_torch.renderer.deferred import glass_device_source
+
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        jobs = [pool.submit(runtime.build_kernels),
+                pool.submit(runtime.load_blend_kernel, glass_device_source(False), GLASS_LAYOUT),
+                pool.submit(runtime.load_blend_kernel, glass_device_source(True),
+                            GLASS_TEX_LAYOUT),
+                pool.submit(runtime.load_blend_kernel, STRESS_FS_CUDA, STRESS_LAYOUT)]
+        so = jobs[0].result()
+        for job in jobs[1:]:
+            job.result()
     runtime.load_kernels()
-    print(f"phase 1: {'built' if fresh else 'reused'} {so.relative_to(REPO)} in "
-          f"{time.perf_counter() - t0:.1f} s (one nvcc per source in parallel + link + load)")
+    print(f"phase 1: {'built' if fresh else 'reused'} {so.relative_to(REPO)} and the blend "
+          f"kernels of 3 fragment shaders in {time.perf_counter() - t0:.1f} s (one nvcc per "
+          f"source and per shader, all in parallel, + link + load)")
     log_path = so.with_suffix(".log")
     if log_path.exists():
-        for line in log_path.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas: {line.strip()}")
+        for line in ptxas_lines(log_path):
+            print(f"  ptxas: {line}")
 
     def plain(bins, grid, z, acc, compare, write, clamp, off):
         raster_mod._raster_segmented_torch(bins, grid, z, acc, compare, write, clamp, off)
@@ -788,23 +1765,28 @@ def main() -> int:
           f"67 TFLOP/s fp32]")
 
     deferred = deferred_phases(dev, card, plain)
+    translucent, glass_launches = translucency_phases(dev, card, (bins, grid, init), plain)
     k1_def = deferred["k1"]
+    deferred["k2"]["launches"] += glass_launches["K2"]
     kernels = [{
         "name": "K1 segmented raster (_segmented_kernel)",
         "route": "cuda",
         "source": "zenith_tpu_torch/csrc/raster.cu",
         "replaces": "zenith_tpu/ops/raster.py:311",
-        "launches": main_launches + deferred["k1_launches"],
+        "launches": main_launches + deferred["k1_launches"] + glass_launches["K1"],
         "max_abs_err": max(max_err, k1_def["max_abs_err"]),
         "ms": k1_def["ms"],
         "plain_ms": k1_def["plain_ms"],
         "bound_ms": k1_def["bound_ms"],
         "bound_by": k1_def["bound_by"],
         "library_ms": None,
-    }, deferred["k2"]]
+        "shape": "deferred G-buffer pass 1080p",
+    }, dict(deferred["k2"], shape="1080p G-buffer, 100 point lights"), *translucent]
     print(f"  launches on the main paths: K1 {main_launches} (triangle, phase 4) + "
-          f"{deferred['k1_launches']} (deferred, phase 7); K2 {deferred['k2']['launches']} "
-          f"(deferred, phase 7)")
+          f"{deferred['k1_launches']} (deferred, phase 7) + {glass_launches['K1']} (glass and "
+          f"stencil frames, phases 11-12); K2 {deferred['k2']['launches']} (phases 7 and 11); "
+          + "; ".join(f"{r['name'][:2]} {r['launches']}" for r in translucent)
+          + " (phases 11-12)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,6 +10,8 @@ depth atol 1e-5 (XLA's CPU backend contracts the reference kernel's
 multiply-adds into FMAs, the port rounds each product; ROADMAP §3).
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -186,9 +188,14 @@ def test_unported_batch_modes_name_their_roadmap_item():
     vb = torch.from_numpy(_draws(1, 5)[0][0])
     ib = torch.tensor([[0, 1, 2]], dtype=torch.int32)
     res = {"Model": torch.eye(4), "Tint": torch.ones(4), "Gain": torch.ones(1)}
-    with pytest.raises(NotImplementedError, match="ROADMAP item 20"):
+    # Peeling needs a blending pipeline; multisampling is the mode still unported.
+    with pytest.raises(ValueError, match="requires a blending pipeline"):
         tdraw_mod.draw_indexed_batch([torch.zeros((H, W, 4))], None, tp, [(vb, ib, res)], TG,
                                      peel_layers=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 17"):
-        tdraw_mod.draw_indexed_batch([torch.zeros((H, W, 4))], None, tp, [(vb, ib, res)], TG,
-                                     stencil=torch.zeros((H, W), dtype=torch.int32))
+    msaa = tpipe.GraphicPipeline(dataclasses.replace(
+        tp.desc, state=dataclasses.replace(
+            tp.desc.state, multisample=tstate.MultisampleState(samples=4))))
+    with pytest.raises(NotImplementedError, match="ROADMAP item 18"):
+        tdraw_mod.draw_indexed_batch([torch.zeros((H, W, 4))], None, msaa, [(vb, ib, res)], TG)
+    with pytest.raises(NotImplementedError, match="ROADMAP item 18"):
+        tdraw_mod.draw_indexed([torch.zeros((H, W, 4))], None, msaa, vb, ib, res, TG)

@@ -188,8 +188,8 @@ def test_unported_branches_name_their_roadmap_item():
     quad = SceneObject.quad(device, "q", base_color_texture=tex)
     cases = [
         (dict(objects=[quad]), {}, 13),
-        (dict(objects=[dataclasses.replace(quad, base_color_texture=None,
-                                           translucent=True)]), {}, 20),
+        (dict(objects=[dataclasses.replace(quad, base_color_texture=None, translucent=True,
+                                           morph_deltas=quad.vertex_buffer)]), {}, 21),
         ({}, dict(ssao=True), 21),
         ({}, dict(id_buffer=True), 21),
     ]

@@ -184,9 +184,24 @@ def test_cpu_tensors_take_the_plain_version_and_unported_branches_raise():
     )
     bins = bin_segmented(rec, corner, GRID)
     z0 = torch.zeros((H, W))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 20"):
-        raster_segmented(bins, GRID, z0, z_bound=z0)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 17"):
-        raster_segmented(bins, GRID, z0, stencil_front=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP item 20"):
-        raster_segmented_blend(bins, GRID, z0)
+    # The stencil, peel and blend branches run their plain versions too, and
+    # count no launch of their kernels either.
+    from zenith_tpu_torch.ops.draw import make_shade_blend
+    from zenith_tpu_torch.rhi.shader import Shader
+    from zenith_tpu_torch.rhi.state import ColorAttachmentDesc, StencilOp, StencilOpState
+
+    mark = StencilOpState(pass_op=StencilOp.REPLACE, compare_op=CompareOp.ALWAYS, reference=1)
+    z, acc, sten = raster_segmented(bins, GRID, z0, stencil_front=mark)
+    assert sten.dtype == torch.int32 and torch.equal(sten == 1, acc[-1] > 0)
+    z1, acc1 = raster_segmented(bins, GRID, z0, z_bound=z)  # nothing lies behind the one layer
+    assert not (acc1[-1] > 0).any()
+    with pytest.raises(ValueError, match="cannot combine with stencil"):
+        raster_segmented(bins, GRID, z0, z_bound=z, stencil_front=mark)
+    fs = Shader.fragment("white", lambda v, r, b: torch.ones(b.depth.shape + (4,)),
+                         kernel_safe=True)
+    shade_blend = make_shade_blend(fs, [("c", 1), ("__front", 1)], ColorAttachmentDesc(),
+                                   (0.0,) * 4, (W, H))
+    _, color = raster_segmented_blend(bins, GRID, z0, torch.zeros((H, W, 4)), shade_blend)
+    assert torch.equal(color[..., 0] == 1.0, acc[-1] > 0)
+    assert (raster_segmented.stencil_launches, raster_segmented.peel_launches,
+            raster_segmented_blend.launches, raster_segmented_blend.stencil_launches) == (0,) * 4

@@ -37,46 +37,51 @@
 // global memory traffic (no attribute writes until the end).
 //
 // tile_h, tile_w and a_n are runtime parameters.
+//
+// K3 and K4 are this kernel with one more plane, as compile-time variants of
+// the same template (kPlain is K1, unchanged):
+//
+// K3 (kStencil) replaces _segmented_stencil_kernel (entry raster_segmented
+// with stencil state): an int32 stencil plane (8-bit semantics) rides in
+// registers beside z. Per fragment: coverage -> stencil test (reference &
+// compare_mask against stored & compare_mask) -> depth test; fail_op,
+// depth_fail_op or pass_op fires under write_mask, for fragments that never
+// win the pixel too, so the stencil is updated inside the walk while the
+// planes still only record the winning row (the depth pass decides the
+// winner). The face state is chosen per record by its front*iw column
+// (16 + a_n - 2, staged beside the rast16 columns) when the faces differ.
+//
+// K4 (kPeel) replaces _segmented_peel_kernel (entry raster_segmented with
+// z_bound): one bound value per pixel in registers and one more compare
+// (the strict opposite of the depth compare) before the depth test.
+//
+// Both are bound like K1, by per-entry ALU work; each adds one plane read
+// (and K3 one plane written) to K1's traffic.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "raster_common.cuh"
+
 namespace {
+
+enum Variant { kPlain = 0, kStencil = 1, kPeel = 2 };
 
 constexpr int kThreads = 256;
 constexpr int kMaxPixelsPerThread = 16;  // tile_h * tile_w <= 4096
-constexpr int kRast = 16;                // rast16 columns at the head of a row
 
-// Column layout of a merged row (zenith_tpu/ops/geometry.py RAST_*):
-// 0-8 edge (a, b, c) x3, 9-11 top-left flags, 12 inv_det, 13-15 corner z,
-// then 3 corners x a_n attribute columns [attr*iw..., front*iw, iw].
-
-__device__ __forceinline__ float edge_eval(const float* r, int k, float x, float y) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(r[3 * k], x), __fmul_rn(r[3 * k + 1], y)), r[3 * k + 2]);
-}
-
-__device__ __forceinline__ bool depth_compare(int op, float n, float c) {
-  switch (op) {
-    case 0: return false;   // NEVER
-    case 1: return n < c;   // LESS
-    case 2: return n == c;  // EQUAL
-    case 3: return n <= c;  // LESS_OR_EQUAL
-    case 4: return n > c;   // GREATER
-    case 5: return n != c;  // NOT_EQUAL
-    case 6: return n >= c;  // GREATER_OR_EQUAL
-    default: return true;   // ALWAYS
-  }
-}
-
+template <int V>
 __global__ void __launch_bounds__(kThreads)
 raster_segmented_kernel(const int* __restrict__ blk_tile_y, const int* __restrict__ blk_tile_x,
                         const int* __restrict__ blk_count, const int* __restrict__ blk_init,
                         const float* __restrict__ rows, float* __restrict__ z,
                         float* __restrict__ acc, int num_blocks, int chunk, int row_stride,
                         int a_n, int wp, int hp, int tile_h, int tile_w, int compare,
-                        int depth_write, int depth_clamp, float off_x, float off_y) {
-  extern __shared__ float s_rast[];  // chunk x kRast
+                        int depth_write, int depth_clamp, float off_x, float off_y,
+                        int* __restrict__ stencil, StencilState sstate,
+                        const float* __restrict__ z_bound, int bound_compare) {
+  extern __shared__ float s_rast[];  // chunk x kRast (+ chunk front flags for K3)
   const int b0 = blockIdx.x;
   if (blk_init[b0] != 1) return;
 
@@ -88,6 +93,9 @@ raster_segmented_kernel(const int* __restrict__ blk_tile_y, const int* __restric
   int win[kMaxPixelsPerThread];
   float px[kMaxPixelsPerThread];
   float py[kMaxPixelsPerThread];
+  int sten[V == kStencil ? kMaxPixelsPerThread : 1];
+  float bnd[V == kPeel ? kMaxPixelsPerThread : 1];
+  float* s_front = s_rast + chunk * kRast;  // K3 only
 #pragma unroll
   for (int k = 0; k < kMaxPixelsPerThread; ++k) {
     const int p = threadIdx.x + k * kThreads;
@@ -95,10 +103,14 @@ raster_segmented_kernel(const int* __restrict__ blk_tile_y, const int* __restric
     zr[k] = 0.0f;
     px[k] = 0.0f;
     py[k] = 0.0f;
+    if constexpr (V == kStencil) sten[k] = 0;
+    if constexpr (V == kPeel) bnd[k] = 0.0f;
     if (p < npix) {
       const int gy = y_base + p / tile_w;
       const int gx = x_base + p % tile_w;
       zr[k] = z[(size_t)gy * wp + gx];
+      if constexpr (V == kStencil) sten[k] = stencil[(size_t)gy * wp + gx];
+      if constexpr (V == kPeel) bnd[k] = z_bound[(size_t)gy * wp + gx];
       px[k] = __fadd_rn((float)gx, off_x);
       py[k] = __fadd_rn((float)gy, off_y);
     }
@@ -113,10 +125,18 @@ raster_segmented_kernel(const int* __restrict__ blk_tile_y, const int* __restric
       const int i = e / kRast;
       s_rast[e] = src[(size_t)i * row_stride + (e - i * kRast)];
     }
+    if constexpr (V == kStencil) {
+      for (int i = threadIdx.x; i < count; i += kThreads)
+        s_front[i] = src[(size_t)i * row_stride + kRast + a_n - 2];
+    }
     __syncthreads();
     for (int i = 0; i < count; ++i) {
       const float* r = s_rast + i * kRast;
       const int row_id = b * chunk + i;
+      StencilFace face = sstate.front;
+      if constexpr (V == kStencil) {
+        if (sstate.faces_differ && !(s_front[i] > 0.0f)) face = sstate.back;
+      }
 #pragma unroll
       for (int k = 0; k < kMaxPixelsPerThread; ++k) {
         if (threadIdx.x + k * kThreads < npix) {
@@ -136,7 +156,15 @@ raster_segmented_kernel(const int* __restrict__ blk_tile_y, const int* __restric
           } else {
             cov = cov && (zpx >= 0.0f) && (zpx <= 1.0f);
           }
-          if (cov && depth_compare(compare, zpx, zr[k])) {
+          if constexpr (V == kPeel) cov = cov && depth_compare(bound_compare, zpx, bnd[k]);
+          bool passed;
+          if constexpr (V == kStencil) {
+            // An uncovered pixel fails both tests and keeps its stencil.
+            passed = cov && stencil_depth_test(face, depth_compare(compare, zpx, zr[k]), sten[k]);
+          } else {
+            passed = cov && depth_compare(compare, zpx, zr[k]);
+          }
+          if (passed) {
             if (depth_write) zr[k] = zpx;
             win[k] = row_id;
           }
@@ -154,6 +182,7 @@ raster_segmented_kernel(const int* __restrict__ blk_tile_y, const int* __restric
       const int gx = x_base + p % tile_w;
       const size_t o = (size_t)gy * wp + gx;
       z[o] = zr[k];
+      if constexpr (V == kStencil) stencil[o] = sten[k];
       if (win[k] >= 0) {
         const float* r = rows + (size_t)win[k] * row_stride;
         const float e01 = edge_eval(r, 0, px[k], py[k]);
@@ -174,26 +203,77 @@ raster_segmented_kernel(const int* __restrict__ blk_tile_y, const int* __restric
   }
 }
 
+template <int V>
+int launch_raster(const int* blk_tile_y, const int* blk_tile_x, const int* blk_count,
+                  const int* blk_init, const float* rows, float* z, float* acc, int num_blocks,
+                  int chunk, int row_stride, int a_n, int wp, int hp, int tile_h, int tile_w,
+                  int compare, int depth_write, int depth_clamp, float off_x, float off_y,
+                  int* stencil, const StencilState& sstate, const float* z_bound,
+                  int bound_compare, void* stream) {
+  if (num_blocks <= 0) return 0;
+  if (tile_h * tile_w > kThreads * kMaxPixelsPerThread) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)chunk * (kRast + (V == kStencil ? 1 : 0)) * sizeof(float);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        raster_segmented_kernel<V>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  raster_segmented_kernel<V><<<num_blocks, kThreads, smem, (cudaStream_t)stream>>>(
+      blk_tile_y, blk_tile_x, blk_count, blk_init, rows, z, acc, num_blocks, chunk, row_stride,
+      a_n, wp, hp, tile_h, tile_w, compare, depth_write, depth_clamp, off_x, off_y, stencil,
+      sstate, z_bound, bound_compare);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// Plain C entry point (bound with ctypes). Launches on `stream`, does not
-// synchronise, allocates nothing; returns cudaGetLastError() after the launch.
+// Plain C entry points (bound with ctypes). Each launches on `stream`, does
+// not synchronise, allocates nothing; returns cudaGetLastError() after the
+// launch.
 extern "C" int zn_raster_segmented(const int* blk_tile_y, const int* blk_tile_x,
                                    const int* blk_count, const int* blk_init,
                                    const float* rows, float* z, float* acc, int num_blocks,
                                    int chunk, int row_stride, int a_n, int wp, int hp,
                                    int tile_h, int tile_w, int compare, int depth_write,
                                    int depth_clamp, float off_x, float off_y, void* stream) {
-  if (num_blocks <= 0) return 0;
-  if (tile_h * tile_w > kThreads * kMaxPixelsPerThread) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)chunk * kRast * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        raster_segmented_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  raster_segmented_kernel<<<num_blocks, kThreads, smem, (cudaStream_t)stream>>>(
-      blk_tile_y, blk_tile_x, blk_count, blk_init, rows, z, acc, num_blocks, chunk, row_stride,
-      a_n, wp, hp, tile_h, tile_w, compare, depth_write, depth_clamp, off_x, off_y);
-  return (int)cudaGetLastError();
+  return launch_raster<kPlain>(blk_tile_y, blk_tile_x, blk_count, blk_init, rows, z, acc,
+                               num_blocks, chunk, row_stride, a_n, wp, hp, tile_h, tile_w, compare,
+                               depth_write, depth_clamp, off_x, off_y, nullptr, StencilState{},
+                               nullptr, 0, stream);
+}
+
+// K3. `faces` holds 14 ints: (compare, fail_op, depth_fail_op, pass_op,
+// reference, compare_mask, write_mask) of the front face, then of the back.
+extern "C" int zn_raster_segmented_stencil(const int* blk_tile_y, const int* blk_tile_x,
+                                           const int* blk_count, const int* blk_init,
+                                           const float* rows, float* z, float* acc, int* stencil,
+                                           int num_blocks, int chunk, int row_stride, int a_n,
+                                           int wp, int hp, int tile_h, int tile_w, int compare,
+                                           int depth_write, int depth_clamp, float off_x,
+                                           float off_y, const int* faces, void* stream) {
+  StencilState st;
+  st.front = {faces[0], faces[1], faces[2], faces[3], faces[4], faces[5], faces[6]};
+  st.back = {faces[7], faces[8], faces[9], faces[10], faces[11], faces[12], faces[13]};
+  st.faces_differ = 0;
+  for (int k = 0; k < 7; ++k) st.faces_differ |= (faces[k] != faces[7 + k]);
+  return launch_raster<kStencil>(blk_tile_y, blk_tile_x, blk_count, blk_init, rows, z, acc,
+                                 num_blocks, chunk, row_stride, a_n, wp, hp, tile_h, tile_w,
+                                 compare, depth_write, depth_clamp, off_x, off_y, stencil, st,
+                                 nullptr, 0, stream);
+}
+
+// K4. `bound_compare` is the strict opposite of the depth compare (LESS for
+// GREATER/GREATER_OR_EQUAL, GREATER for LESS/LESS_OR_EQUAL).
+extern "C" int zn_raster_segmented_peel(const int* blk_tile_y, const int* blk_tile_x,
+                                        const int* blk_count, const int* blk_init,
+                                        const float* rows, float* z, float* acc,
+                                        const float* z_bound, int num_blocks, int chunk,
+                                        int row_stride, int a_n, int wp, int hp, int tile_h,
+                                        int tile_w, int compare, int depth_write, int depth_clamp,
+                                        float off_x, float off_y, int bound_compare,
+                                        void* stream) {
+  return launch_raster<kPeel>(blk_tile_y, blk_tile_x, blk_count, blk_init, rows, z, acc,
+                              num_blocks, chunk, row_stride, a_n, wp, hp, tile_h, tile_w, compare,
+                              depth_write, depth_clamp, off_x, off_y, nullptr, StencilState{},
+                              z_bound, bound_compare, stream);
 }

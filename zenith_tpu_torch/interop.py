@@ -1,8 +1,8 @@
 """Host arrays → the port's tensors.
 
 The reference package's results reach the port as numpy arrays (buffer
-contents, ``TriangleRecords``, ``SegmentedBins``, scene objects, light
-tables, cube textures); these helpers turn them into the port's tensors and
+contents, ``TriangleRecords``, ``SegmentedBins``, stencil planes and face
+states, scene objects, light tables, 2D and cube textures); these helpers turn them into the port's tensors and
 objects on a given device, field for field, so the same inputs can be fed to
 both implementations. They read the reference's objects by attribute name
 and ``np.asarray`` only, so the port still imports nothing of it.
@@ -51,14 +51,35 @@ def cube_texture_from(texture: Any, device: "torch.device | str") -> Texture:
                                      Format.RGBA32F, cube=True, device=torch.device(device))
 
 
+def texture_from(texture: Any, device: "torch.device | str") -> Texture:
+    """A single-level 2D texture (H, W, C) linear float → the port's Texture
+    with the same name and linear pixels."""
+    return Texture.from_numpy(texture.desc.name, np.asarray(texture.host_linear(), np.float32),
+                              Format.RGBA32F, device=torch.device(device))
+
+
+def stencil_state_from(face: Any):
+    """A per-face stencil state (ops and compare as enums with ``.name``;
+    masks and reference as ints) → the port's StencilOpState."""
+    from zenith_tpu_torch.rhi.state import CompareOp, StencilOp, StencilOpState
+
+    return StencilOpState(
+        fail_op=StencilOp[face.fail_op.name], pass_op=StencilOp[face.pass_op.name],
+        depth_fail_op=StencilOp[face.depth_fail_op.name],
+        compare_op=CompareOp[face.compare_op.name], compare_mask=int(face.compare_mask),
+        write_mask=int(face.write_mask), reference=int(face.reference),
+    )
+
+
 _OBJECT_FIELDS = ("base_color", "metallic", "roughness", "emissive", "bin_capacity",
                   "entry_budget", "visible", "tri_count")
 
 
 def scene_object_from(obj: Any, device: "torch.device | str"):
     """A scene object (buffers, model matrix, material factors) → the port's
-    SceneObject with the same numbers. Textured, instanced, translucent,
-    skinned and morphed objects are not ported (the renderer raises)."""
+    SceneObject with the same numbers, its base-colour texture included.
+    The other material textures, skins and morph targets are not carried
+    (the renderer raises for them)."""
     from zenith_tpu_torch.renderer.scene import SceneObject
 
     kwargs = {k: getattr(obj, k) for k in _OBJECT_FIELDS}
@@ -70,6 +91,8 @@ def scene_object_from(obj: Any, device: "torch.device | str"):
         index_buffer=buffer_from(obj.index_buffer, device),
         model_matrix=np.asarray(obj.model_matrix, np.float32),
         translucent=bool(obj.translucent),
+        base_color_texture=(None if obj.base_color_texture is None
+                            else texture_from(obj.base_color_texture, device)),
         instance_offsets=(None if obj.instance_offsets is None
                           else np.asarray(obj.instance_offsets, np.float32)),
         **kwargs,

@@ -1,7 +1,7 @@
 """The rasterizer (torch port of zenith_tpu/ops): triangle setup (geometry),
 the coarse rasterizer (binning), the fine rasterizer over the hand-written
-CUDA kernel K1 (raster), attribute finalize (shade) and the output merger
-(blend), composed per draw call by ``draw``."""
+CUDA kernels K1 and K3-K6 (raster), attribute finalize (shade) and the output
+merger (blend), composed per draw call by ``draw``."""
 
 from zenith_tpu_torch.ops import binning, blend, draw, geometry, raster, runtime, shade
 from zenith_tpu_torch.ops.binning import (

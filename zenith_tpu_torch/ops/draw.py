@@ -1,20 +1,29 @@
 """The draw call: programmable + fixed-function pipeline for one draw or a
 batch of draws (torch port of zenith_tpu/ops/draw.py: ``draw_indexed`` and
-the opaque path of ``draw_indexed_batch``; single sample, no stencil).
+``draw_indexed_batch`` with their stencil, depth-peel and in-order blend
+branches; single sample).
 
     vertex fetch (VertexLayout.unpack)
     → vertex shader (user fn, dense over vertices)
     → near clip + triangle setup (ops.geometry)
     → tile binning (ops.binning)
-    → forward-interpolating raster, kernel K1 (ops.raster)
+    → forward-interpolating raster, kernel K1; K3 with the stencil test;
+      K4 per depth-peel layer (ops.raster)
     → varying finalize (ops.shade)
     → fragment shader (user fn, dense over pixels)
     → blend/output merger (ops.blend)
+
+A batch that blends takes the in-order blend kernel instead (K5, K6 with
+stencil): raster, the kernel-safe fragment shader and the output merger run
+per fragment inside one pass (``_draw_batch_blend``).
 
 Attributes are interpolated inside the raster pass as attr·(1/w) planes, so
 fragment shading runs once per pixel with no gathers. Ops run eagerly in
 stream order, which sequences split parts without the reference's
 optimization barriers.
+
+Not ported yet: multisampling (every ``samples > 1`` branch raises, ROADMAP
+item 18) and line/point primitives (item 19).
 """
 
 from __future__ import annotations
@@ -29,11 +38,12 @@ from zenith_tpu_torch.core import validate as _validate
 from zenith_tpu_torch.ops import blend as blend_ops
 from zenith_tpu_torch.ops import geometry, shade
 from zenith_tpu_torch.ops.binning import TileGrid, bin_segmented
-from zenith_tpu_torch.ops.raster import raster_segmented
+from zenith_tpu_torch.ops.raster import raster_segmented, raster_segmented_blend
 from zenith_tpu_torch.rhi.pipeline import GraphicPipeline
-from zenith_tpu_torch.rhi.shader import BindingError, BoundResources
+from zenith_tpu_torch.rhi.shader import BindingError, BoundResources, FragmentBuiltins
 from zenith_tpu_torch.rhi.state import (
     ColorAttachmentDesc,
+    CompareOp,
     InputAssemblyState,
     PolygonMode,
     PrimitiveTopology,
@@ -152,19 +162,45 @@ def _bin_parts(records, corner_data, grid, entry_budget=None,
     return _BinParts(parts)
 
 
-def _raster_parts(bin_parts: _BinParts, grid, init_z, **kw):
+def _raster_parts(bin_parts: _BinParts, grid, init_z, *, init_stencil=None,
+                  stencil_front=None, stencil_back=None, z_bound=None, **kw):
     """raster_segmented over a _BinParts: parts run in order with the depth
-    plane threaded through; attribute planes merge by part coverage
-    (draw.py:241-269)."""
+    (and stencil) plane threaded through; attribute planes merge by part
+    coverage (draw.py:241-269). Returns (z, acc), and the stencil plane as a
+    third value when ``stencil_front`` is given."""
     z = init_z
+    sten = init_stencil
     acc = None
     for bins in bin_parts.parts:
-        z, acc_i = raster_segmented(bins, grid, z, **kw)
+        if stencil_front is not None:
+            z, acc_i, sten = raster_segmented(
+                bins, grid, z, init_stencil=sten, stencil_front=stencil_front,
+                stencil_back=stencil_back, **kw)
+        else:
+            z, acc_i = raster_segmented(bins, grid, z, z_bound=z_bound, **kw)
         if acc is None:
             acc = acc_i
         else:
             acc = torch.where((acc_i[-1] > 0.0)[None], acc_i, acc)
+    if stencil_front is not None:
+        return z, acc, sten
     return z, acc
+
+
+def _msaa_unported() -> NotImplementedError:
+    return NotImplementedError("MSAA is not ported yet (ROADMAP item 18: MSAA)")
+
+
+def _default_stencil(ds, grid, device) -> torch.Tensor:
+    """The stencil plane a draw starts from when none is attached."""
+    return torch.full((grid.height, grid.width), ds.stencil_clear_value & 0xFF,
+                      dtype=torch.int32, device=device)
+
+
+def _raster_state(ds, rast_state) -> dict:
+    """The depth state of a pipeline as raster_segmented's keywords."""
+    return dict(depth_test=ds.depth_test_enable, depth_write=ds.depth_write_enable,
+                compare_op=ds.depth_compare_op, depth_clamp=rast_state.depth_clamp)
 
 
 class _CheckedAttrs(dict):
@@ -360,18 +396,17 @@ def draw_indexed(
     budget_scale: int = 1,
 ) -> "tuple[list[torch.Tensor], Optional[torch.Tensor], DrawStats]":
     """Run one indexed draw (draw.py:513-671); returns (colors', depth',
-    stats). ``instance_count`` > 1 runs the vertex stage over a written-out
-    instance dimension: instances see ``instance_data`` rows as extra attrs
-    plus ``instance_index``, and records concatenate in instance order."""
+    stats). When the pipeline enables the stencil test the raster is kernel
+    K3 and ``stats.stencil`` carries the updated plane (pass ``stencil=`` the
+    current one). ``instance_count`` > 1 runs the vertex stage over a
+    written-out instance dimension: instances see ``instance_data`` rows as
+    extra attrs plus ``instance_index``, and records concatenate in instance
+    order."""
     state = pipeline.desc.state
     rast_state = state.rasterization
     ds = state.depth_stencil
     if state.multisample.samples > 1:
-        raise NotImplementedError("MSAA is not ported yet (ROADMAP item 18: MSAA)")
-    if ds.stencil_test_enable:
-        raise NotImplementedError(
-            "the stencil test (kernel K3) is not ported yet (ROADMAP item 17: stencil)"
-        )
+        raise _msaa_unported()
 
     # -- vertex stage --------------------------------------------------------
     layout = pipeline.vertex_layout
@@ -417,20 +452,19 @@ def draw_indexed(
         init_z = depth
     else:
         init_z = torch.zeros((grid.height, grid.width), dtype=torch.float32, device=clip.device)
-    z_out, acc = _raster_parts(
-        bins,
-        grid,
-        init_z,
-        depth_test=ds.depth_test_enable,
-        depth_write=ds.depth_write_enable,
-        compare_op=ds.depth_compare_op,
-        depth_clamp=rast_state.depth_clamp,
-    )
+    stencil_out = None
+    if ds.stencil_test_enable:
+        init_s = stencil if stencil is not None else _default_stencil(ds, grid, clip.device)
+        z_out, acc, stencil_out = _raster_parts(
+            bins, grid, init_z, init_stencil=init_s, stencil_front=ds.stencil_front,
+            stencil_back=ds.stencil_back, **_raster_state(ds, rast_state))
+    else:
+        z_out, acc = _raster_parts(bins, grid, init_z, **_raster_state(ds, rast_state))
 
     varyings, mask, builtins = shade.finalize_attrs(z_out, acc, attr_layout)
     new_colors = _shade_and_blend(colors, varyings, mask, builtins, pipeline, resources)
     new_depth = z_out if depth is not None else None
-    return new_colors, new_depth, DrawStats(bin_overflow=bins.overflow)
+    return new_colors, new_depth, DrawStats(bin_overflow=bins.overflow, stencil=stencil_out)
 
 
 def _shade_and_blend(colors, varyings, mask, builtins, pipeline, resources):
@@ -460,59 +494,19 @@ def _shade_and_blend(colors, varyings, mask, builtins, pipeline, resources):
     return new_colors
 
 
-def draw_indexed_batch(
-    colors: "Sequence[torch.Tensor]",
-    depth: Optional[torch.Tensor],
-    pipeline: GraphicPipeline,
-    draws: "Sequence[tuple]",  # (vb, ib, resources[, inst]) per draw
-    grid: TileGrid,
-    per_draw_uniforms: "Sequence[str]" = (),
-    viewport: "Optional[tuple]" = None,
-    entry_budget: Optional[int] = None,
-    stencil: Optional[torch.Tensor] = None,
-    budget_scale: int = 1,
-    peel_layers: Optional[int] = None,
-) -> "tuple[list[torch.Tensor], Optional[torch.Tensor], DrawStats]":
-    """N draws through ONE binning + raster + fragment + blend pass
-    (draw.py:904-1206, the opaque path): per-draw vertex stages, records
-    concatenated in submission order (binning's (tile, record) order keeps
-    cross-draw order), then one raster over K1, one fragment pass, one
-    output merge.
-
-    A ``__draw_id`` varying rides the records. Per-draw fragment uniforms
-    (``per_draw_uniforms``) reach the fragment shader as dense (H, W, C)
-    planes under their binding names: up to 8 draws rebuild each plane from
-    the (N, C) table by a draw-id ``where`` chain; above 8 they ride the
-    records as constant varying columns (``uniforms_in_records``,
-    draw.py:1021). Other fragment bindings that differ across draws become
-    ``PerDraw`` tuples. An instanced draw ``(vb, ib, res, {"instance_count",
-    "instance_data"})`` runs its vertex stage over a flattened instance
-    dimension."""
+def _batch_records(pipeline, draws, grid, viewport, uniform_columns,
+                   require_uniforms: bool = False):
+    """The per-draw vertex stages of a batched draw → (geometry-part specs in
+    submission order, the shared attribute layout). A ``__draw_id`` column
+    rides every record; each name in ``uniform_columns`` rides as constant
+    ``__u_<name>`` columns (the same value at all three corners interpolates
+    to itself); ``__front`` closes the layout."""
     state = pipeline.desc.state
     rast_state = state.rasterization
-    ds = state.depth_stencil
-    n_draws = len(draws)
-    if n_draws < 1:
-        raise ValueError("draw_indexed_batch needs at least one draw")
-    if peel_layers is not None or any(
-        desc.blend_enable for desc in pipeline.desc.color_attachment_descs or ()
-    ):
-        raise NotImplementedError(
-            "blended batches (kernels K5/K6) and depth peeling (kernel K4) are "
-            "not ported yet (ROADMAP item 20: translucency)"
-        )
-    if ds.stencil_test_enable or stencil is not None:
-        raise NotImplementedError(
-            "the stencil test (kernel K3) is not ported yet (ROADMAP item 17: stencil)"
-        )
-    if state.multisample.samples > 1:
-        raise NotImplementedError("MSAA is not ported yet (ROADMAP item 18: MSAA)")
-
     layout = pipeline.vertex_layout
     depth_bias = None
     if rast_state.depth_bias_enable:
         depth_bias = (rast_state.depth_bias_constant, rast_state.depth_bias_slope)
-    uniforms_in_records = n_draws > 8 and bool(per_draw_uniforms)
 
     all_specs = []
     attr_layout = None
@@ -538,12 +532,15 @@ def draw_indexed_batch(
         this_layout.append(("__draw_id", 1))
         vary_cols.append(torch.full((nv, 1), float(di), dtype=torch.float32,
                                     device=clip.device))
-        if uniforms_in_records:
-            for uname in per_draw_uniforms:
-                uval = torch.as_tensor(res[uname], dtype=torch.float32,
-                                       device=clip.device).reshape(-1)
-                this_layout.append((f"__u_{uname}", int(uval.shape[0])))
-                vary_cols.append(uval[None, :].expand(nv, uval.shape[0]))
+        for uname in uniform_columns:
+            if require_uniforms and uname not in res:
+                raise BindingError(
+                    f"blend batch draw {di}: fragment binding '{uname}' not provided"
+                )
+            uval = torch.as_tensor(res[uname], dtype=torch.float32,
+                                   device=clip.device).reshape(-1)
+            this_layout.append((f"__u_{uname}", int(uval.shape[0])))
+            vary_cols.append(uval[None, :].expand(nv, uval.shape[0]))
 
         if attr_layout is None:
             attr_layout = this_layout
@@ -557,23 +554,247 @@ def draw_indexed_batch(
             prim_kind, clip, prims, flat_vary, grid, rast_state, viewport, depth_bias,
         ))
     attr_layout.append(("__front", 1))
+    return all_specs, attr_layout
 
+
+def draw_indexed_batch(
+    colors: "Sequence[torch.Tensor]",
+    depth: Optional[torch.Tensor],
+    pipeline: GraphicPipeline,
+    draws: "Sequence[tuple]",  # (vb, ib, resources[, inst]) per draw
+    grid: TileGrid,
+    per_draw_uniforms: "Sequence[str]" = (),
+    viewport: "Optional[tuple]" = None,
+    entry_budget: Optional[int] = None,
+    stencil: Optional[torch.Tensor] = None,
+    budget_scale: int = 1,
+    peel_layers: Optional[int] = None,
+) -> "tuple[list[torch.Tensor], Optional[torch.Tensor], DrawStats]":
+    """N draws through ONE binning + raster + fragment + blend pass
+    (draw.py:904-1328): per-draw vertex stages, records concatenated in
+    submission order (binning's (tile, record) order keeps cross-draw
+    order), then one raster over K1 (K3 when the pipeline enables the stencil
+    test), one fragment pass, one output merge.
+
+    A ``__draw_id`` varying rides the records. Per-draw fragment uniforms
+    (``per_draw_uniforms``) reach the fragment shader as dense (H, W, C)
+    planes under their binding names: up to 8 draws rebuild each plane from
+    the (N, C) table by a draw-id ``where`` chain; above 8 they ride the
+    records as constant varying columns (``uniforms_in_records``,
+    draw.py:1021). Other fragment bindings that differ across draws become
+    ``PerDraw`` tuples. An instanced draw ``(vb, ib, res, {"instance_count",
+    "instance_data"})`` runs its vertex stage over a flattened instance
+    dimension.
+
+    Blending across overlapping draws is order-dependent, and this path
+    resolves one depth winner per pixel. So a blending pipeline takes either
+    the in-order blend kernel (K5/K6, ``_draw_batch_blend``; the fragment
+    shader must be kernel-safe) or, with ``peel_layers=K``, depth peeling: K
+    winner-resolve passes over K4, each bounded by the previous layer's
+    depth, shaded densely (texture sampling allowed) and composited back to
+    front: exact for ≤K overlapping translucent fragments per pixel; deeper
+    fragments are dropped and counted into ``DrawStats.bin_overflow``."""
+    state = pipeline.desc.state
+    rast_state = state.rasterization
+    ds = state.depth_stencil
+    n_draws = len(draws)
+    if n_draws < 1:
+        raise ValueError("draw_indexed_batch needs at least one draw")
+    if state.multisample.samples > 1:
+        raise _msaa_unported()
+
+    blend_enabled = any(
+        desc.blend_enable for desc in pipeline.desc.color_attachment_descs or ()
+    )
+    peel = peel_layers is not None
+    if peel:
+        if not blend_enabled:
+            raise ValueError("peel_layers requires a blending pipeline")
+        if len(colors) != 1:
+            raise ValueError("depth peel: exactly one color attachment")
+        if ds.stencil_test_enable:
+            raise ValueError("depth peel: stencil unsupported (use the in-order "
+                             "blend-kernel path for stencil + blending)")
+        if not ds.depth_test_enable or ds.depth_compare_op not in (
+                CompareOp.GREATER, CompareOp.GREATER_OR_EQUAL,
+                CompareOp.LESS, CompareOp.LESS_OR_EQUAL):
+            raise ValueError(
+                "depth peel needs an ordering depth test (GREATER/GEQ/LESS/LEQ) — "
+                "peeling resolves layers by depth, not submission order")
+        if int(peel_layers) < 1:
+            raise ValueError("peel_layers must be at least 1")
+    if blend_enabled and not peel:
+        # Order-dependent blending takes the per-tile in-order blend kernel.
+        # A SINGLE blended draw whose shader is not kernel-safe keeps the
+        # winner-resolve + dense shade+blend path (correct unless its own
+        # geometry self-overlaps).
+        fs = pipeline.fragment_shader
+        if fs is not None and fs.kernel_safe:
+            if len(colors) != 1:
+                raise ValueError("blend batch: exactly one color attachment")
+            return _draw_batch_blend(
+                colors, depth, pipeline, draws, grid, viewport=viewport,
+                entry_budget=entry_budget, budget_scale=budget_scale, stencil=stencil,
+            )
+        if n_draws > 1:
+            raise ValueError(
+                "draw_indexed_batch with blending across multiple draws needs a "
+                "KERNEL-SAFE fragment shader (Shader.fragment(..., kernel_safe=True, "
+                "device_source=...): pure elementwise torch, no texture sampling) — the "
+                "blend runs per fragment in submission order inside the raster kernel — "
+                "or peel_layers=K for depth-peeled full-fragment-rate translucency "
+                "(texture sampling allowed; exact for ≤K layers). Alternatively submit "
+                "blended draws individually (one full-screen shade+blend per draw)."
+            )
+
+    uniforms_in_records = n_draws > 8 and bool(per_draw_uniforms)
+    all_specs, attr_layout = _batch_records(
+        pipeline, draws, grid, viewport,
+        tuple(per_draw_uniforms) if uniforms_in_records else ())
     bins = _bin_spec_parts(all_specs, grid, entry_budget=entry_budget,
                            budget_scale=budget_scale)
+    dev = draws[0][0].device
     if depth is not None:
         init_z = depth
     else:
-        init_z = torch.zeros((grid.height, grid.width), dtype=torch.float32,
-                             device=draws[0][0].device)
-    z_out, acc = _raster_parts(
-        bins, grid, init_z,
-        depth_test=ds.depth_test_enable, depth_write=ds.depth_write_enable,
-        compare_op=ds.depth_compare_op, depth_clamp=rast_state.depth_clamp,
-    )
-    new_colors = _shade_batch(colors, z_out, acc, attr_layout, pipeline, draws,
-                              per_draw_uniforms, uniforms_in_records)
+        init_z = torch.zeros((grid.height, grid.width), dtype=torch.float32, device=dev)
+    raster_kw = _raster_state(ds, rast_state)
+
+    def shade_layer(z_out, acc, dst_colors):
+        return _shade_batch(dst_colors, z_out, acc, attr_layout, pipeline, draws,
+                            per_draw_uniforms, uniforms_in_records)
+
+    if peel:
+        # Depth peeling (Everitt 2001): peel k rejects fragments at or before
+        # peel k-1's depth, so each pass resolves the next-nearest layer.
+        peel_kw = dict(raster_kw, depth_test=True, depth_write=True)
+        layers = []
+        bound = None
+        for _ in range(int(peel_layers)):
+            z_k, acc_k = _raster_parts(bins, grid, init_z, z_bound=bound, **peel_kw)
+            layers.append((z_k, acc_k))
+            bound = z_k
+        # Overflow probe: one more bounded pass, depth write off; any
+        # surviving fragment is a dropped (K+1)-th layer. The count stays a
+        # device tensor (no host read).
+        _, acc_over = _raster_parts(bins, grid, init_z, z_bound=bound,
+                                    **dict(peel_kw, depth_write=False))
+        over = (acc_over[-1] > 0.0).sum().to(torch.int32)
+        dst = colors[0]
+        for z_k, acc_k in reversed(layers):
+            dst = shade_layer(z_k, acc_k, [dst])[0]
+        new_depth = None
+        if depth is not None:
+            new_depth = layers[0][0] if ds.depth_write_enable else depth
+        return [dst], new_depth, DrawStats(bin_overflow=bins.overflow + over)
+
+    stencil_out = None
+    if ds.stencil_test_enable:
+        init_s = stencil if stencil is not None else _default_stencil(ds, grid, dev)
+        z_out, acc, stencil_out = _raster_parts(
+            bins, grid, init_z, init_stencil=init_s, stencil_front=ds.stencil_front,
+            stencil_back=ds.stencil_back, **raster_kw)
+    else:
+        z_out, acc = _raster_parts(bins, grid, init_z, **raster_kw)
+    new_colors = shade_layer(z_out, acc, colors)
     new_depth = z_out if depth is not None else None
-    return new_colors, new_depth, DrawStats(bin_overflow=bins.overflow)
+    return new_colors, new_depth, DrawStats(bin_overflow=bins.overflow, stencil=stencil_out)
+
+
+def make_shade_blend(fs, attr_layout, cdesc: ColorAttachmentDesc, constants, full_res):
+    """The plain version's per-fragment shader + blend step for
+    raster_segmented_blend (draw.py:1492-1528): finalize the interpolated
+    planes (divide by the interpolated 1/w), split them into varyings,
+    uniforms (``__u_`` columns), ``__front`` and ``__draw_id``, run the
+    fragment shader, apply the blend equation and keep the result where the
+    fragment passed."""
+
+    def shade_blend(planes, passed, x, y, zpx, color):
+        iw = planes[:, -1]
+        ok = iw > 0.0
+        inv = torch.where(ok, 1.0 / torch.where(ok, iw, torch.ones_like(iw)),
+                          torch.zeros_like(iw))
+        varyings = {}
+        res_vals = {}
+        front = None
+        draw_id = None
+        off = 0
+        for name, ch in attr_layout:
+            img = (planes[:, off:off + ch] * inv[:, None]).movedim(1, -1)
+            if name == "__front":
+                front = img[..., 0] > 0.5
+            elif name == "__draw_id":
+                draw_id = img[..., 0]
+            elif name.startswith("__u_"):
+                res_vals[name[4:]] = img
+            else:
+                varyings[name] = img
+            off += ch
+        builtins = FragmentBuiltins(
+            frag_coord=torch.stack([x, y], dim=-1),
+            depth=zpx,
+            front_facing=front if front is not None else passed,
+            resolution=full_res,
+            draw_id=draw_id,
+        )
+        src = fs.fn(varyings, BoundResources(fs.reflection, res_vals), builtins)
+        out = blend_ops.blend_colors(color, src, cdesc, constants)
+        return torch.where(passed[..., None], out, color)
+
+    return shade_blend
+
+
+def _draw_batch_blend(colors, depth, pipeline, draws, grid, viewport=None,
+                      entry_budget=None, budget_scale=1, stencil=None):
+    """Order-correct transparency for batched draws (draw.py:1331-1583): one
+    binning over every draw's records, then the per-tile in-order blend
+    kernel (K5; K6 when the pipeline enables the stencil test), which shades
+    and blends each passing fragment in submission order.
+
+    Every fragment binding rides the records as constant varying columns, so
+    per-draw uniforms need no draw-id select. The fragment shader must be
+    kernel-safe (elementwise only); on CUDA tensors it runs as its device
+    source inside the kernel, on CPU tensors as its torch function. Texture
+    content can still reach it by sampling in the vertex stage and
+    interpolating the sampled colour (the textured glass pipeline does)."""
+    state = pipeline.desc.state
+    rast_state = state.rasterization
+    ds = state.depth_stencil
+    fs = pipeline.fragment_shader
+    if state.multisample.samples > 1:
+        raise _msaa_unported()
+
+    all_specs, attr_layout = _batch_records(
+        pipeline, draws, grid, viewport, tuple(fs.reflection.binding_names()),
+        require_uniforms=True)
+    bins = _bin_spec_parts(all_specs, grid, entry_budget=entry_budget,
+                           budget_scale=budget_scale)
+    cdesc = (pipeline.desc.color_attachment_descs or (ColorAttachmentDesc(),))[0]
+    shade_blend = make_shade_blend(fs, attr_layout, cdesc, state.color_blend.blend_constants,
+                                   (grid.width, grid.height))
+
+    dev = draws[0][0].device
+    z_p = depth if depth is not None else torch.zeros(
+        (grid.height, grid.width), dtype=torch.float32, device=dev)
+    c_p = colors[0]
+    s_p = None
+    if ds.stencil_test_enable:
+        s_p = stencil if stencil is not None else _default_stencil(ds, grid, dev)
+    # The in-order blend carries its state in the planes, so the sequential
+    # bin parts compose exactly.
+    for b in bins.parts:
+        out = raster_segmented_blend(
+            b, grid, z_p, c_p, shade_blend, init_stencil=s_p,
+            stencil_front=ds.stencil_front if s_p is not None else None,
+            stencil_back=ds.stencil_back if s_p is not None else None,
+            fragment_shader=fs, attr_layout=attr_layout, color_desc=cdesc,
+            **_raster_state(ds, rast_state))
+        if s_p is not None:
+            z_p, c_p, s_p = out
+        else:
+            z_p, c_p = out
+    new_depth = z_p if depth is not None else None
+    return [c_p], new_depth, DrawStats(bin_overflow=bins.overflow, stencil=s_p)
 
 
 def _shade_batch(colors, z_out, acc, attr_layout, pipeline, draws, per_draw_uniforms,

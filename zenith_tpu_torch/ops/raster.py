@@ -1,31 +1,51 @@
-"""Segmented raster pass over kernel K1 (torch port of
-zenith_tpu/ops/raster.py::raster_segmented, plain branch).
+"""Segmented raster passes over the hand-written kernels K1 and K3-K6 (torch
+port of zenith_tpu/ops/raster.py::raster_segmented and
+raster_segmented_blend).
 
-For CUDA tensors ``raster_segmented`` launches K1, the hand-written CUDA
-kernel in ``zenith_tpu_torch/csrc/raster.cu`` (its source note says what it
-replaces and how it is laid out). For CPU tensors it runs
-``_raster_segmented_torch``, the plain PyTorch version of the same
-computation, which is also the kernel's oracle on the card. There is no
-fallback between the two: a CUDA tensor launches the kernel or raises.
+``raster_segmented`` resolves one winning fragment per pixel: plain (K1), with
+a stencil plane (K3) or with a depth-peel bound plane (K4).
+``raster_segmented_blend`` shades and blends every passing fragment in
+submission order against carried colour planes (K5), optionally with the
+stencil plane (K6). For CUDA tensors each launches its kernel
+(``zenith_tpu_torch/csrc/raster.cu`` and ``raster_blend.cu``; their source
+notes say what they replace and how they are laid out). For CPU tensors each
+runs the plain PyTorch version beside it (``_raster_segmented_torch``,
+``_raster_blend_torch``), which is also the kernel's oracle on the card.
+There is no fallback between the two: a CUDA tensor launches the kernel or
+raises.
+
+Agreement of kernel and plain version on the card: z, coverage, stencil and
+the attribute planes of K1, K3 and K4 are bit-equal; the colour of K5 and K6
+holds to atol 1e-5 + rtol 1e-5 (the shader and the blend equation are
+compiled with FMA contraction off, so in practice they agree to the last
+bit; the tolerance is the reference's own between its batched and its
+sequential blending).
 
 Triangles are processed strictly in submission order within a tile, so
-depth-EQUAL ties and depth-write-off overdraw resolve exactly as a GPU's
-fixed-function pipeline would.
+depth-EQUAL ties, depth-write-off overdraw and order-dependent blending
+resolve exactly as a GPU's fixed-function pipeline would.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
 
 from zenith_tpu_torch.ops.binning import SegmentedBins, TileGrid
-from zenith_tpu_torch.ops.runtime import load_kernels, on_cuda
-from zenith_tpu_torch.rhi.state import CompareOp
+from zenith_tpu_torch.ops.runtime import load_blend_kernel, load_kernels, on_cuda
+from zenith_tpu_torch.rhi.state import (
+    BlendFactor,
+    BlendOp,
+    ColorAttachmentDesc,
+    CompareOp,
+    StencilOp,
+    StencilOpState,
+)
 
-# Kernel encoding of the depth compare (csrc/raster.cu depth_compare).
+# Kernel encoding of the depth compare (csrc/raster_common.cuh depth_compare).
 _COMPARE_CODE = {
     CompareOp.NEVER: 0,
     CompareOp.LESS: 1,
@@ -36,8 +56,13 @@ _COMPARE_CODE = {
     CompareOp.GREATER_OR_EQUAL: 6,
     CompareOp.ALWAYS: 7,
 }
+# Kernel encodings of the stencil ops (raster_common.cuh stencil_apply) and of
+# the blend equation (raster_blend.cu BlendState).
+_STENCIL_OP_CODE = {op: i for i, op in enumerate(StencilOp)}
+_BLEND_FACTOR_CODE = {f: i for i, f in enumerate(BlendFactor)}
+_BLEND_OP_CODE = {op: i for i, op in enumerate(BlendOp)}
 
-_MAX_TILE_PIXELS = 4096  # csrc/raster.cu: 256 threads x 16 pixels
+_MAX_TILE_PIXELS = 4096  # raster.cu: 256 threads x 16; raster_blend.cu: 512 x 8
 
 
 def _compare(op: CompareOp, new: torch.Tensor, cur: torch.Tensor) -> torch.Tensor:
@@ -58,6 +83,94 @@ def _compare(op: CompareOp, new: torch.Tensor, cur: torch.Tensor) -> torch.Tenso
     return torch.ones_like(new, dtype=torch.bool)
 
 
+def _stencil_apply(op: StencilOp, s: torch.Tensor, reference: int) -> torch.Tensor:
+    """One VkStencilOp over an int32 stencil plane (8-bit semantics)."""
+    if op == StencilOp.KEEP:
+        return s
+    if op == StencilOp.ZERO:
+        return torch.zeros_like(s)
+    if op == StencilOp.REPLACE:
+        return torch.full_like(s, reference & 0xFF)
+    if op == StencilOp.INCREMENT_AND_CLAMP:
+        return torch.clamp(s + 1, max=255)
+    if op == StencilOp.DECREMENT_AND_CLAMP:
+        return torch.clamp(s - 1, min=0)
+    if op == StencilOp.INVERT:
+        return ~s & 0xFF
+    if op == StencilOp.INCREMENT_AND_WRAP:
+        return (s + 1) & 0xFF
+    if op == StencilOp.DECREMENT_AND_WRAP:
+        return (s - 1) & 0xFF
+    raise ValueError(op)
+
+
+def _stencil_face_test(face: StencilOpState, cov: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """The stencil test of one face: ``reference & compare_mask`` against
+    ``stored & compare_mask``."""
+    ref_m = (face.reference & face.compare_mask) & 0xFF
+    s_m = s & (face.compare_mask & 0xFF)
+    return cov & _compare(face.compare_op, torch.full_like(s_m, ref_m), s_m)
+
+
+def _stencil_face_update(face: StencilOpState, cov, spass, dpass, s):
+    """Post-test stencil write for one face state (Vulkan 27.19): stencil
+    fail → fail_op, depth fail → depth_fail_op, pass → pass_op, each under
+    write_mask."""
+    ref = face.reference
+    out = s
+    out = torch.where(cov & ~spass, _stencil_apply(face.fail_op, s, ref), out)
+    out = torch.where(spass & ~dpass, _stencil_apply(face.depth_fail_op, s, ref), out)
+    out = torch.where(dpass, _stencil_apply(face.pass_op, s, ref), out)
+    wmask = face.write_mask & 0xFF
+    if wmask == 0xFF:
+        return out
+    return (s & ~wmask) | (out & wmask)
+
+
+def _stencil_step(front, back, is_front, cov, depth_ok, s):
+    """Stencil test → depth test → stencil write for one rank of fragments;
+    ``is_front`` (broadcastable bool) picks the face when the two differ.
+    Returns (dpass, new stencil)."""
+    if front == back:
+        spass = _stencil_face_test(front, cov, s)
+        dpass = spass & depth_ok
+        return dpass, _stencil_face_update(front, cov, spass, dpass, s)
+    spass_f = _stencil_face_test(front, cov, s)
+    spass_b = _stencil_face_test(back, cov, s)
+    dpass = torch.where(is_front, spass_f, spass_b) & depth_ok
+    snew_f = _stencil_face_update(front, cov, spass_f, dpass, s)
+    snew_b = _stencil_face_update(back, cov, spass_b, dpass, s)
+    return dpass, torch.where(is_front, snew_f, snew_b)
+
+
+def _face_codes(front: StencilOpState, back: StencilOpState):
+    """The two faces as the 14 host ints the stencil kernels take."""
+    vals = []
+    for f in (front, back):
+        vals += [_COMPARE_CODE[f.compare_op], _STENCIL_OP_CODE[f.fail_op],
+                 _STENCIL_OP_CODE[f.depth_fail_op], _STENCIL_OP_CODE[f.pass_op],
+                 int(f.reference), int(f.compare_mask), int(f.write_mask)]
+    return (ctypes.c_int * 14)(*vals)
+
+
+def _bound_op(compare_op: CompareOp) -> CompareOp:
+    """The depth-peel bound compare: the strict opposite of the depth
+    compare."""
+    if compare_op in (CompareOp.GREATER, CompareOp.GREATER_OR_EQUAL):
+        return CompareOp.LESS
+    if compare_op in (CompareOp.LESS, CompareOp.LESS_OR_EQUAL):
+        return CompareOp.GREATER
+    raise ValueError(
+        f"depth peeling needs an ordering depth compare (GREATER/GEQ/LESS/LEQ), got {compare_op}"
+    )
+
+
+def _pad_plane(t: torch.Tensor, h: int, w: int, hp: int, wp: int, dtype) -> torch.Tensor:
+    """``t`` (H, W) as a fresh contiguous (hp, wp) plane of ``dtype``."""
+    out = F.pad(t.to(dtype), (0, wp - w, 0, hp - h)).contiguous()
+    return out.clone() if out.data_ptr() == t.data_ptr() else out
+
+
 def raster_segmented(
     bins: SegmentedBins,
     grid: TileGrid,
@@ -67,25 +180,22 @@ def raster_segmented(
     compare_op: CompareOp = CompareOp.GREATER,
     depth_clamp: bool = False,
     init_stencil: Optional[torch.Tensor] = None,
-    stencil_front=None,
-    stencil_back=None,
+    stencil_front: Optional[StencilOpState] = None,
+    stencil_back: Optional[StencilOpState] = None,
     sample_offset: "tuple[float, float]" = (0.5, 0.5),
     z_bound: Optional[torch.Tensor] = None,
-) -> "tuple[torch.Tensor, torch.Tensor]":
-    """Segmented-binning raster pass → (z (H, W), acc (A+2, H, W)).
+) -> "tuple[torch.Tensor, ...]":
+    """Segmented-binning raster pass → (z (H, W), acc (A+2, H, W)), plus the
+    updated (H, W) int32 stencil plane when ``stencil_front`` is given.
 
     Tiles with no entries keep their seed: ``z`` starts as a copy of
-    ``init_z`` and ``acc`` as zeros, and the pass updates both in place."""
-    if z_bound is not None:
-        raise NotImplementedError(
-            "depth peeling (kernel K4) is not ported yet (ROADMAP item 20: "
-            "translucency)"
-        )
-    if stencil_front is not None or init_stencil is not None:
-        raise NotImplementedError(
-            "the stencil raster (kernel K3) is not ported yet (ROADMAP item "
-            "17: stencil)"
-        )
+    ``init_z`` and ``acc`` as zeros, and the pass updates both in place.
+
+    ``z_bound`` switches on depth peeling: fragments not strictly behind the
+    bound plane (the previous peel's resolved depth) are rejected before the
+    depth test, so the pass resolves the next-nearest layer. It needs an
+    ordering depth compare with the depth test on and cannot combine with
+    stencil; fragments exactly at the bound are rejected."""
     h, w = grid.height, grid.width
     th, tw = grid.tile_h, grid.tile_w
     hp, wp = grid.tiles_y * th, grid.tiles_x * tw
@@ -94,13 +204,37 @@ def raster_segmented(
         raise ValueError(f"corner data has {d} columns, not 3 corners' worth")
     a_n = d // 3
 
-    z = F.pad(init_z.to(torch.float32), (0, wp - w, 0, hp - h)).contiguous()
-    if z.data_ptr() == init_z.data_ptr():
-        z = z.clone()
+    z = _pad_plane(init_z, h, w, hp, wp, torch.float32)
     acc = torch.zeros((a_n, hp, wp), dtype=torch.float32, device=z.device)
 
     compare = compare_op if depth_test else CompareOp.ALWAYS
     write = depth_write and depth_test
+    if z_bound is not None:
+        if stencil_front is not None:
+            raise ValueError("depth peeling cannot combine with stencil")
+        if not depth_test:
+            raise ValueError("depth peeling requires the depth test")
+        bound_op = _bound_op(compare_op)
+        bound = _pad_plane(z_bound, h, w, hp, wp, torch.float32)
+        if on_cuda(z):
+            _raster_peel_cuda(bins, grid, z, acc, bound, bound_op, compare, write,
+                              depth_clamp, sample_offset)
+        else:
+            _raster_segmented_torch(bins, grid, z, acc, compare, write, depth_clamp,
+                                    sample_offset, z_bound=bound, bound_op=bound_op)
+        return z[:h, :w], acc[:, :h, :w]
+    if stencil_front is not None:
+        back = stencil_back if stencil_back is not None else stencil_front
+        if init_stencil is None:
+            init_stencil = torch.zeros((h, w), dtype=torch.int32, device=z.device)
+        sten = _pad_plane(init_stencil, h, w, hp, wp, torch.int32)
+        if on_cuda(z):
+            _raster_stencil_cuda(bins, grid, z, acc, sten, stencil_front, back, compare, write,
+                                 depth_clamp, sample_offset)
+        else:
+            _raster_segmented_torch(bins, grid, z, acc, compare, write, depth_clamp,
+                                    sample_offset, stencil=sten, faces=(stencil_front, back))
+        return z[:h, :w], acc[:, :h, :w], sten[:h, :w]
     if on_cuda(z):
         _raster_segmented_cuda(bins, grid, z, acc, compare, write, depth_clamp, sample_offset)
     else:
@@ -108,31 +242,196 @@ def raster_segmented(
     return z[:h, :w], acc[:, :h, :w]
 
 
-raster_segmented.launches = 0  # K1 launches (counted in _raster_segmented_cuda)
+# Launches of K1, K3 and K4, each counted where its kernel is launched.
+raster_segmented.launches = 0
+raster_segmented.stencil_launches = 0
+raster_segmented.peel_launches = 0
 
 
-def raster_segmented_blend(*args, **kwargs):
-    """The in-order blending raster (kernels K5/K6, raster.py:766-985)."""
-    raise NotImplementedError(
-        "the blending raster (kernels K5/K6) is not ported yet (ROADMAP item "
-        "20: translucency)"
+def raster_segmented_blend(
+    bins: SegmentedBins,
+    grid: TileGrid,
+    init_z: torch.Tensor,  # (H, W)
+    init_color: torch.Tensor,  # (H, W, 4)
+    shade_blend: Callable,
+    depth_test: bool = True,
+    depth_write: bool = False,
+    compare_op: CompareOp = CompareOp.GREATER,
+    depth_clamp: bool = False,
+    sample_offset: "tuple[float, float]" = (0.5, 0.5),
+    init_stencil: Optional[torch.Tensor] = None,
+    stencil_front: Optional[StencilOpState] = None,
+    stencil_back: Optional[StencilOpState] = None,
+    fragment_shader=None,
+    attr_layout=None,
+    color_desc: Optional[ColorAttachmentDesc] = None,
+) -> "tuple[torch.Tensor, ...]":
+    """Order-correct blending raster pass → (z (H, W), color (H, W, 4)), plus
+    the updated stencil plane when ``stencil_front`` is given.
+
+    ``shade_blend(planes, passed, x, y, zpx, color)`` is the plain version's
+    shader + blend step (ops.draw.make_shade_blend builds it): ``planes``
+    (M, A+2, th, tw) interpolated attr·(1/w) planes of M tiles' fragments at
+    one rank, ``passed`` (M, th, tw), ``color`` (M, th, tw, 4) → new colour.
+    CUDA tensors do not use it: they need the kernel-safe
+    ``fragment_shader`` with its device source, the ``attr_layout`` of the
+    record columns (1/w not included) and the ``color_desc`` whose blend
+    equation applies, and launch K5 (K6 with stencil) compiled for that
+    shader."""
+    h, w = grid.height, grid.width
+    th, tw = grid.tile_h, grid.tile_w
+    hp, wp = grid.tiles_y * th, grid.tiles_x * tw
+    compare = compare_op if depth_test else CompareOp.ALWAYS
+    write = depth_write and depth_test
+
+    z = _pad_plane(init_z, h, w, hp, wp, torch.float32)
+    color = F.pad(init_color.to(torch.float32), (0, 0, 0, wp - w, 0, hp - h)).contiguous()
+    if color.data_ptr() == init_color.data_ptr():
+        color = color.clone()
+    sten = faces = None
+    if stencil_front is not None:
+        faces = (stencil_front, stencil_back if stencil_back is not None else stencil_front)
+        if init_stencil is None:
+            init_stencil = torch.zeros((h, w), dtype=torch.int32, device=z.device)
+        sten = _pad_plane(init_stencil, h, w, hp, wp, torch.int32)
+
+    if on_cuda(z):
+        _raster_blend_cuda(bins, grid, z, color, sten, faces, compare, write, depth_clamp,
+                           sample_offset, fragment_shader, attr_layout, color_desc)
+    else:
+        _raster_blend_torch(bins, grid, z, color, sten, faces, compare, write, depth_clamp,
+                            sample_offset, shade_blend)
+    if sten is not None:
+        return z[:h, :w], color[:h, :w], sten[:h, :w]
+    return z[:h, :w], color[:h, :w]
+
+
+# Launches of K5 and K6.
+raster_segmented_blend.launches = 0
+raster_segmented_blend.stencil_launches = 0
+
+
+def _check_inputs(bins, z, what: str):
+    """(routing tables, rows, num_blocks, chunk) after the checks every
+    raster kernel makes of its inputs."""
+    routing = [bins.blk_tile_y, bins.blk_tile_x, bins.blk_count, bins.blk_init]
+    rows = bins.rast_pad
+    for t in routing:
+        if t.dtype != torch.int32 or not t.is_contiguous() or t.device != z.device:
+            raise ValueError(f"{what} routing tables must be contiguous int32 on the z device")
+    if rows.dtype != torch.float32 or not rows.is_contiguous() or rows.device != z.device:
+        raise ValueError(f"{what} rows must be contiguous float32 on the z device")
+    num_blocks = bins.blk_count.shape[0]
+    return routing, rows, num_blocks, rows.shape[0] // max(num_blocks, 1)
+
+
+def _check_tile(grid, what: str) -> None:
+    if grid.tile_h * grid.tile_w > _MAX_TILE_PIXELS:
+        raise ValueError(f"{what} takes tiles of at most {_MAX_TILE_PIXELS} pixels, "
+                         f"got {grid.tile_h}x{grid.tile_w}")
+
+
+def _raster_stencil_cuda(bins, grid, z, acc, sten, front, back, compare, write, clamp,
+                         sample_offset) -> None:
+    """Launch K3 on the current stream; updates ``z``, ``acc`` and ``sten``
+    in place."""
+    _check_tile(grid, "K3")
+    routing, rows, num_blocks, chunk = _check_inputs(bins, z, "K3")
+    if sten.dtype != torch.int32 or not sten.is_contiguous() or sten.shape != z.shape:
+        raise ValueError("K3 takes a contiguous int32 stencil plane of z's shape")
+    lib = load_kernels()
+    err = lib.zn_raster_segmented_stencil(
+        *[t.data_ptr() for t in routing],
+        rows.data_ptr(), z.data_ptr(), acc.data_ptr(), sten.data_ptr(),
+        num_blocks, chunk, rows.shape[1], acc.shape[0], z.shape[1], z.shape[0],
+        grid.tile_h, grid.tile_w, _COMPARE_CODE[compare], int(write), int(clamp),
+        ctypes.c_float(sample_offset[0]), ctypes.c_float(sample_offset[1]),
+        _face_codes(front, back),
+        ctypes.c_void_p(torch.cuda.current_stream(z.device).cuda_stream),
     )
+    if err != 0:
+        raise RuntimeError(f"K3 launch failed: CUDA error {err}")
+    raster_segmented.stencil_launches += 1
+
+
+def _raster_peel_cuda(bins, grid, z, acc, bound, bound_op, compare, write, clamp,
+                      sample_offset) -> None:
+    """Launch K4 on the current stream; updates ``z`` and ``acc`` in place."""
+    _check_tile(grid, "K4")
+    routing, rows, num_blocks, chunk = _check_inputs(bins, z, "K4")
+    if bound.dtype != torch.float32 or not bound.is_contiguous() or bound.shape != z.shape:
+        raise ValueError("K4 takes a contiguous float32 bound plane of z's shape")
+    lib = load_kernels()
+    err = lib.zn_raster_segmented_peel(
+        *[t.data_ptr() for t in routing],
+        rows.data_ptr(), z.data_ptr(), acc.data_ptr(), bound.data_ptr(),
+        num_blocks, chunk, rows.shape[1], acc.shape[0], z.shape[1], z.shape[0],
+        grid.tile_h, grid.tile_w, _COMPARE_CODE[compare], int(write), int(clamp),
+        ctypes.c_float(sample_offset[0]), ctypes.c_float(sample_offset[1]),
+        _COMPARE_CODE[bound_op],
+        ctypes.c_void_p(torch.cuda.current_stream(z.device).cuda_stream),
+    )
+    if err != 0:
+        raise RuntimeError(f"K4 launch failed: CUDA error {err}")
+    raster_segmented.peel_launches += 1
+
+
+def _raster_blend_cuda(bins, grid, z, color, sten, faces, compare, write, clamp,
+                       sample_offset, fragment_shader, attr_layout, color_desc) -> None:
+    """Launch K5 (K6 with a stencil plane) compiled for ``fragment_shader``
+    on the current stream; updates ``z``, ``color`` (and ``sten``) in place."""
+    name = "K6" if sten is not None else "K5"
+    _check_tile(grid, name)
+    routing, rows, num_blocks, chunk = _check_inputs(bins, z, name)
+    if fragment_shader is None or attr_layout is None or color_desc is None:
+        raise ValueError(f"{name} needs the fragment shader, the attribute layout and the "
+                         f"colour attachment's blend state")
+    if not getattr(fragment_shader, "kernel_safe", False) or not fragment_shader.device_source:
+        raise RuntimeError(
+            f"fragment shader {fragment_shader.name!r} has no device source: a kernel-safe "
+            f"shader draws through the blend kernel on CUDA tensors only with "
+            f"Shader.fragment(..., kernel_safe=True, device_source=<CUDA text of zn_fragment>)"
+        )
+    a_n = sum(ch for _, ch in attr_layout) + 1
+    if rows.shape[1] != 16 + 3 * a_n:
+        raise ValueError(f"{name}: rows have {rows.shape[1]} columns, the layout needs "
+                         f"{16 + 3 * a_n}")
+    if not color.is_contiguous() or color.shape != (*z.shape, 4) or color.data_ptr() % 16:
+        raise ValueError(f"{name} takes a contiguous 16-byte-aligned (H, W, 4) colour image")
+    lib = load_blend_kernel(fragment_shader.device_source, attr_layout)
+    mask = sum(1 << k for k in range(4) if color_desc.write_mask[k])
+    blend = (ctypes.c_int * 8)(
+        int(color_desc.blend_enable),
+        _BLEND_FACTOR_CODE[color_desc.src_color_blend], _BLEND_FACTOR_CODE[color_desc.dst_color_blend],
+        _BLEND_OP_CODE[color_desc.color_blend_op],
+        _BLEND_FACTOR_CODE[color_desc.src_alpha_blend], _BLEND_FACTOR_CODE[color_desc.dst_alpha_blend],
+        _BLEND_OP_CODE[color_desc.alpha_blend_op], mask,
+    )
+    head = [*[t.data_ptr() for t in routing], rows.data_ptr(), z.data_ptr(), color.data_ptr()]
+    tail = [num_blocks, chunk, rows.shape[1], z.shape[1], grid.tile_h, grid.tile_w,
+            _COMPARE_CODE[compare], int(write), int(clamp),
+            ctypes.c_float(sample_offset[0]), ctypes.c_float(sample_offset[1]), blend]
+    stream = ctypes.c_void_p(torch.cuda.current_stream(z.device).cuda_stream)
+    if sten is None:
+        err = lib.zn_raster_blend(*head, *tail, stream)
+    else:
+        if sten.dtype != torch.int32 or not sten.is_contiguous() or sten.shape != z.shape:
+            raise ValueError("K6 takes a contiguous int32 stencil plane of z's shape")
+        err = lib.zn_raster_blend_stencil(*head, sten.data_ptr(), *tail, _face_codes(*faces),
+                                          stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    if sten is None:
+        raster_segmented_blend.launches += 1
+    else:
+        raster_segmented_blend.stencil_launches += 1
 
 
 def _raster_segmented_cuda(bins, grid, z, acc, compare, write, clamp, sample_offset) -> None:
     """Launch K1 on the current stream; updates ``z`` and ``acc`` in place."""
     th, tw = grid.tile_h, grid.tile_w
-    if th * tw > _MAX_TILE_PIXELS:
-        raise ValueError(f"K1 takes tiles of at most {_MAX_TILE_PIXELS} pixels, got {th}x{tw}")
-    routing = [bins.blk_tile_y, bins.blk_tile_x, bins.blk_count, bins.blk_init]
-    rows = bins.rast_pad
-    for t in routing:
-        if t.dtype != torch.int32 or not t.is_contiguous() or t.device != z.device:
-            raise ValueError("K1 routing tables must be contiguous int32 on the z device")
-    if rows.dtype != torch.float32 or not rows.is_contiguous() or rows.device != z.device:
-        raise ValueError("K1 rows must be contiguous float32 on the z device")
-    num_blocks = bins.blk_count.shape[0]
-    chunk = rows.shape[0] // max(num_blocks, 1)
+    _check_tile(grid, "K1")
+    routing, rows, num_blocks, chunk = _check_inputs(bins, z, "K1")
     a_n = acc.shape[0]
     lib = load_kernels()
     stream = torch.cuda.current_stream(z.device).cuda_stream
@@ -149,84 +448,172 @@ def _raster_segmented_cuda(bins, grid, z, acc, compare, write, clamp, sample_off
     raster_segmented.launches += 1
 
 
-def _raster_segmented_torch(bins, grid, z, acc, compare, write, clamp, sample_offset) -> None:
-    """Plain PyTorch version of K1: walks entry rank j = 0, 1, … within
-    each tile, vectorised across the tiles that still have an entry at rank
-    j. Same rounded operations in the same order as the reference kernel,
-    so the result is the kernel's bit for bit. Updates ``z``/``acc``."""
-    dev = z.device
-    th, tw = grid.tile_h, grid.tile_w
-    ty_n, tx_n = grid.tiles_y, grid.tiles_x
-    t = ty_n * tx_n
-    a_n = acc.shape[0]
-    rows = bins.rast_pad
-    nb = bins.blk_count.shape[0]
-    chunk = rows.shape[0] // max(nb, 1)
+class _TileWalk:
+    """The rank-by-rank walk the plain versions share: entry rank j = 0, 1, …
+    within each tile, vectorised across the tiles that still have an entry
+    at rank j (tiles sorted by entry count, so they are a prefix)."""
 
-    # Entry table: per tile, its row indices in submission order.
-    b = torch.arange(nb, device=dev)
-    init = bins.blk_init.to(torch.int64) == 1
-    first = torch.cummax(torch.where(init, b, torch.zeros_like(b)), 0).values
-    tile_b = bins.blk_tile_y.to(torch.int64) * tx_n + bins.blk_tile_x.to(torch.int64)
-    lane = torch.arange(chunk, device=dev)[None, :]
-    live = lane < bins.blk_count.to(torch.int64)[:, None]
-    ent_tile = tile_b[:, None].expand(nb, chunk)[live]
-    ent_rank = ((b - first)[:, None] * chunk + lane)[live]
-    ent_row = (b[:, None] * chunk + lane)[live]
-    n_t = torch.bincount(ent_tile, minlength=t)
-    max_n = int(n_t.max()) if t else 0
-    if max_n == 0:
-        return
-    table = torch.full((t, max_n), -1, dtype=torch.int64, device=dev)
-    table[ent_tile, ent_rank] = ent_row
+    def __init__(self, bins, grid, device, sample_offset):
+        dev = device
+        self.th, self.tw = th, tw = grid.tile_h, grid.tile_w
+        self.ty_n, self.tx_n = ty_n, tx_n = grid.tiles_y, grid.tiles_x
+        self.t = t = ty_n * tx_n
+        self.rows = rows = bins.rast_pad
+        nb = bins.blk_count.shape[0]
+        chunk = rows.shape[0] // max(nb, 1)
 
-    # Tiles by entry count, descending: the tiles active at rank j are a
-    # prefix of this order.
-    order = torch.sort(n_t, descending=True, stable=True).indices
-    active = (n_t[order][None, :] > torch.arange(max_n, device=dev)[:, None]).sum(1).tolist()
-    table = table[order]
-    col = torch.arange(tw, device=dev)[None, None, :]
-    row = torch.arange(th, device=dev)[None, :, None]
-    x = ((order % tx_n)[:, None, None] * tw + col).to(torch.float32) + sample_offset[0]
-    y = ((order // tx_n)[:, None, None] * th + row).to(torch.float32) + sample_offset[1]
+        # Entry table: per tile, its row indices in submission order.
+        b = torch.arange(nb, device=dev)
+        init = bins.blk_init.to(torch.int64) == 1
+        first = torch.cummax(torch.where(init, b, torch.zeros_like(b)), 0).values
+        tile_b = bins.blk_tile_y.to(torch.int64) * tx_n + bins.blk_tile_x.to(torch.int64)
+        lane = torch.arange(chunk, device=dev)[None, :]
+        live = lane < bins.blk_count.to(torch.int64)[:, None]
+        ent_tile = tile_b[:, None].expand(nb, chunk)[live]
+        ent_rank = ((b - first)[:, None] * chunk + lane)[live]
+        ent_row = (b[:, None] * chunk + lane)[live]
+        n_t = torch.bincount(ent_tile, minlength=t)
+        self.max_n = max_n = int(n_t.max()) if t else 0
+        if max_n == 0:
+            return
+        table = torch.full((t, max_n), -1, dtype=torch.int64, device=dev)
+        table[ent_tile, ent_rank] = ent_row
 
-    zt = z.view(ty_n, th, tx_n, tw).permute(0, 2, 1, 3).reshape(t, th, tw)[order]
-    at = acc.view(a_n, ty_n, th, tx_n, tw).permute(1, 3, 0, 2, 4).reshape(t, a_n, th, tw)[order]
+        # Tiles by entry count, descending: the tiles active at rank j are a
+        # prefix of this order.
+        self.order = order = torch.sort(n_t, descending=True, stable=True).indices
+        self.active = (n_t[order][None, :]
+                       > torch.arange(max_n, device=dev)[:, None]).sum(1).tolist()
+        self.table = table[order]
+        col = torch.arange(tw, device=dev)[None, None, :]
+        row = torch.arange(th, device=dev)[None, :, None]
+        self.x = ((order % tx_n)[:, None, None] * tw + col).to(torch.float32) + sample_offset[0]
+        self.y = ((order // tx_n)[:, None, None] * th + row).to(torch.float32) + sample_offset[1]
 
-    for j, m in enumerate(active):
-        r = rows[table[:m, j]]  # (m, 16 + 3·a_n)
-        c = r[:, :, None, None]
-        xm, ym = x[:m], y[:m]
-        e01 = c[:, 0] * xm + c[:, 1] * ym + c[:, 2]
-        e12 = c[:, 3] * xm + c[:, 4] * ym + c[:, 5]
-        e20 = c[:, 6] * xm + c[:, 7] * ym + c[:, 8]
-        cov = (
-            ((e01 > 0.0) | ((e01 == 0.0) & (c[:, 9] > 0.0)))
-            & ((e12 > 0.0) | ((e12 == 0.0) & (c[:, 10] > 0.0)))
-            & ((e20 > 0.0) | ((e20 == 0.0) & (c[:, 11] > 0.0)))
-        )
-        inv_det = c[:, 12]
-        w0 = e12 * inv_det
-        w1 = e20 * inv_det
-        w2 = e01 * inv_det
-        zpx = w0 * c[:, 13] + w1 * c[:, 14] + w2 * c[:, 15]
-        if clamp:
-            zpx = torch.clamp(zpx, 0.0, 1.0)
+    def tiles(self, plane: torch.Tensor) -> torch.Tensor:
+        """(hp, wp) → (T, th, tw) in walk order; (C, hp, wp) → (T, C, th, tw)."""
+        if plane.ndim == 2:
+            tiled = plane.view(self.ty_n, self.th, self.tx_n, self.tw).permute(0, 2, 1, 3)
+            return tiled.reshape(self.t, self.th, self.tw)[self.order]
+        c = plane.shape[0]
+        tiled = plane.view(c, self.ty_n, self.th, self.tx_n, self.tw).permute(1, 3, 0, 2, 4)
+        return tiled.reshape(self.t, c, self.th, self.tw)[self.order]
+
+    def store(self, tiled: torch.Tensor, plane: torch.Tensor) -> None:
+        """The inverse of ``tiles``: write walk-ordered tiles back to ``plane``."""
+        full = torch.empty_like(tiled)
+        full[self.order] = tiled
+        if plane.ndim == 2:
+            plane.copy_(full.view(self.ty_n, self.tx_n, self.th, self.tw)
+                        .permute(0, 2, 1, 3).reshape(plane.shape))
         else:
-            cov = cov & (zpx >= 0.0) & (zpx <= 1.0)
+            c = plane.shape[0]
+            plane.copy_(full.view(self.ty_n, self.tx_n, c, self.th, self.tw)
+                        .permute(2, 0, 3, 1, 4).reshape(plane.shape))
+
+    def ranks(self):
+        """Yields (m, c) per rank: the m active tiles' rows as (m, D, 1, 1)."""
+        for j, m in enumerate(self.active):
+            yield m, self.rows[self.table[:m, j]][:, :, None, None]
+
+
+def _fragments(c, xm, ym, clamp):
+    """Coverage, barycentrics·inv_det and depth of one rank of entries: the
+    kernels' rounded operations in the same order. → (cov, w0, w1, w2, zpx)."""
+    e01 = c[:, 0] * xm + c[:, 1] * ym + c[:, 2]
+    e12 = c[:, 3] * xm + c[:, 4] * ym + c[:, 5]
+    e20 = c[:, 6] * xm + c[:, 7] * ym + c[:, 8]
+    cov = (
+        ((e01 > 0.0) | ((e01 == 0.0) & (c[:, 9] > 0.0)))
+        & ((e12 > 0.0) | ((e12 == 0.0) & (c[:, 10] > 0.0)))
+        & ((e20 > 0.0) | ((e20 == 0.0) & (c[:, 11] > 0.0)))
+    )
+    inv_det = c[:, 12]
+    w0 = e12 * inv_det
+    w1 = e20 * inv_det
+    w2 = e01 * inv_det
+    zpx = w0 * c[:, 13] + w1 * c[:, 14] + w2 * c[:, 15]
+    if clamp:
+        zpx = torch.clamp(zpx, 0.0, 1.0)
+    else:
+        cov = cov & (zpx >= 0.0) & (zpx <= 1.0)
+    return cov, w0, w1, w2, zpx
+
+
+def _planes(c, w0, w1, w2, a_n):
+    """The a_n interpolated attr·(1/w) planes of one rank: (m, a_n, th, tw)."""
+    c0 = c[:, 16:16 + a_n]  # (m, a_n, 1, 1): the three corners' columns
+    c1 = c[:, 16 + a_n:16 + 2 * a_n]
+    c2 = c[:, 16 + 2 * a_n:16 + 3 * a_n]
+    return w0[:, None] * c0 + w1[:, None] * c1 + w2[:, None] * c2
+
+
+def _raster_segmented_torch(bins, grid, z, acc, compare, write, clamp, sample_offset,
+                            stencil=None, faces=None, z_bound=None, bound_op=None) -> None:
+    """Plain PyTorch version of K1, and with ``stencil``/``faces`` of K3,
+    with ``z_bound``/``bound_op`` of K4: the same rounded operations in the
+    same order as the kernels, so the result is theirs bit for bit. Updates
+    ``z``, ``acc`` (and ``stencil``) in place."""
+    a_n = acc.shape[0]
+    walk = _TileWalk(bins, grid, z.device, sample_offset)
+    if walk.max_n == 0:
+        return
+    zt, at = walk.tiles(z), walk.tiles(acc)
+    st = walk.tiles(stencil) if stencil is not None else None
+    bt = walk.tiles(z_bound) if z_bound is not None else None
+    for m, c in walk.ranks():
+        cov, w0, w1, w2, zpx = _fragments(c, walk.x[:m], walk.y[:m], clamp)
+        if bt is not None:
+            cov = cov & _compare(bound_op, zpx, bt[:m])  # strictly behind the previous peel
         zcur = zt[:m]
-        passed = cov & _compare(compare, zpx, zcur)
+        depth_ok = _compare(compare, zpx, zcur)
+        if st is not None:
+            # The front flag rides the second-to-last attribute column
+            # (front·iw at corner 0; iw > 0 always).
+            passed, st[:m] = _stencil_step(faces[0], faces[1], c[:, 16 + a_n - 2] > 0.0,
+                                           cov, depth_ok, st[:m])
+        else:
+            passed = cov & depth_ok
         if write:
             zt[:m] = torch.where(passed, zpx, zcur)
-        c0 = c[:, 16:16 + a_n]  # (m, a_n, 1, 1): the three corners' columns
-        c1 = c[:, 16 + a_n:16 + 2 * a_n]
-        c2 = c[:, 16 + 2 * a_n:16 + 3 * a_n]
-        plane = w0[:, None] * c0 + w1[:, None] * c1 + w2[:, None] * c2
-        at[:m] = torch.where(passed[:, None], plane, at[:m])
+        at[:m] = torch.where(passed[:, None], _planes(c, w0, w1, w2, a_n), at[:m])
+    walk.store(zt, z)
+    walk.store(at, acc)
+    if st is not None:
+        walk.store(st, stencil)
 
-    zt_full = torch.empty_like(zt)
-    zt_full[order] = zt
-    at_full = torch.empty_like(at)
-    at_full[order] = at
-    z.copy_(zt_full.view(ty_n, tx_n, th, tw).permute(0, 2, 1, 3).reshape(z.shape))
-    acc.copy_(at_full.view(ty_n, tx_n, a_n, th, tw).permute(2, 0, 3, 1, 4).reshape(acc.shape))
+
+def _raster_blend_torch(bins, grid, z, color, stencil, faces, compare, write, clamp,
+                        sample_offset, shade_blend) -> None:
+    """Plain PyTorch version of K5, and with ``stencil``/``faces`` of K6:
+    per rank, every fragment is shaded and blended and the result selected
+    where the fragment passed (the kernels shade only those; the values are
+    the same). Updates ``z``, ``color`` (hp, wp, 4) (and ``stencil``) in
+    place."""
+    a_n = (bins.rast_pad.shape[-1] - 16) // 3
+    walk = _TileWalk(bins, grid, z.device, sample_offset)
+    if walk.max_n == 0:
+        return
+    zt = walk.tiles(z)
+    ct = walk.tiles(color.permute(2, 0, 1).contiguous()).permute(0, 2, 3, 1).contiguous()
+    st = walk.tiles(stencil) if stencil is not None else None
+    for m, c in walk.ranks():
+        xm, ym = walk.x[:m], walk.y[:m]
+        cov, w0, w1, w2, zpx = _fragments(c, xm, ym, clamp)
+        zcur = zt[:m]
+        depth_ok = _compare(compare, zpx, zcur)
+        if st is not None:
+            passed, st[:m] = _stencil_step(faces[0], faces[1], c[:, 16 + a_n - 2] > 0.0,
+                                           cov, depth_ok, st[:m])
+        else:
+            passed = cov & depth_ok
+        if write:
+            zt[:m] = torch.where(passed, zpx, zcur)
+        ct[:m] = shade_blend(_planes(c, w0, w1, w2, a_n), passed, xm.expand_as(zpx),
+                             ym.expand_as(zpx), zpx, ct[:m])
+    walk.store(zt, z)
+    planes = torch.empty((4, *z.shape), dtype=torch.float32, device=z.device)
+    walk.store(ct.permute(0, 3, 1, 2).contiguous(), planes)
+    color.copy_(planes.permute(1, 2, 0))
+    if st is not None:
+        walk.store(st, stencil)

@@ -13,6 +13,14 @@ and loads it with ``ctypes``. The library lands in
 sources, so an edited source rebuilds and an unchanged one is reused; the
 compiler's register and spill report (``-Xptxas -v``) lands beside it as
 ``<library>.log``.
+
+``load_blend_kernel`` builds ``csrc/raster_blend.cu`` (kernels K5 and K6)
+once per fragment shader: a kernel-safe shader carries the text of a CUDA
+``__device__`` function (``Shader.device_source``), and the build writes a
+translation unit of the attribute layout's column macros, that text and the
+kernel source, compiles it with ``-fmad=false`` into a library named by the
+hash of all three, and loads it. ``shader_builds`` counts the compilations
+(not the reuses), so a caller can show that none fell inside a timed window.
 """
 
 from __future__ import annotations
@@ -23,7 +31,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
@@ -34,7 +42,12 @@ NVCC_FLAGS = (
     "-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+# Compiled per fragment shader (load_blend_kernel), not into the library.
+BLEND_SOURCE = CSRC / "raster_blend.cu"
+
 _lib: "Optional[ctypes.CDLL]" = None
+_blend_libs: "dict[str, ctypes.CDLL]" = {}
+shader_builds = 0  # nvcc runs made by load_blend_kernel in this process
 
 
 def on_cuda(t: torch.Tensor) -> bool:
@@ -51,7 +64,8 @@ def round_up(x: int, m: int) -> int:
 
 
 def _sources() -> "list[Path]":
-    return sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh", ".h"))
+    return sorted(p for p in CSRC.iterdir()
+                  if p.suffix in (".cu", ".cuh", ".h") and p != BLEND_SOURCE)
 
 
 def _nvcc() -> str:
@@ -131,6 +145,27 @@ def load_kernels() -> ctypes.CDLL:
         f, f,  # sample offset
         p,  # stream
     ]
+    lib.zn_raster_segmented_stencil.restype = ctypes.c_int
+    lib.zn_raster_segmented_stencil.argtypes = [
+        p, p, p, p, p,  # routing tables, rows
+        p, p, p,  # z, acc, stencil (updated in place)
+        i, i, i, i, i, i, i, i,  # num_blocks, chunk, row_stride, a_n, wp, hp, tile_h, tile_w
+        i, i, i,  # compare, depth_write, depth_clamp
+        f, f,  # sample offset
+        p,  # faces: 14 host ints
+        p,  # stream
+    ]
+    lib.zn_raster_segmented_peel.restype = ctypes.c_int
+    lib.zn_raster_segmented_peel.argtypes = [
+        p, p, p, p, p,  # routing tables, rows
+        p, p,  # z, acc (updated in place)
+        p,  # z_bound
+        i, i, i, i, i, i, i, i,  # num_blocks, chunk, row_stride, a_n, wp, hp, tile_h, tile_w
+        i, i, i,  # compare, depth_write, depth_clamp
+        f, f,  # sample offset
+        i,  # bound_compare
+        p,  # stream
+    ]
     lib.zn_tiled_lights.restype = ctypes.c_int
     lib.zn_tiled_lights.argtypes = [
         p, p, p, p,  # albedo_metal, normal_rough, pos_emissive (H, W, 4), depth (H, W)
@@ -140,4 +175,85 @@ def load_kernels() -> ctypes.CDLL:
         p,  # stream
     ]
     _lib = lib
+    return lib
+
+
+def _c_name(name: str) -> str:
+    return "".join(ch if ch.isalnum() else "_" for ch in name)
+
+
+def blend_unit_source(device_source: str, attr_layout: "Sequence[tuple[str, int]]") -> str:
+    """The translation unit of K5/K6 for one shader: the layout's column
+    macros (``ZN_V_<varying>``, ``ZN_U_<uniform>``, ``ZN_FRONT_COL``,
+    ``ZN_DRAW_ID_COL``, ``ZN_A_N``), the shader's device function, then the
+    kernel source. ``attr_layout`` is the (name, channels) list whose columns
+    ride the records, the trailing 1/w column not included."""
+    lines = ["// Generated by zenith_tpu_torch.ops.runtime.blend_unit_source."]
+    off = 0
+    front = draw_id = -1
+    for name, ch in attr_layout:
+        if name == "__front":
+            front = off
+        elif name == "__draw_id":
+            draw_id = off
+        elif name.startswith("__u_"):
+            lines.append(f"#define ZN_U_{_c_name(name[4:])} {off}")
+        else:
+            lines.append(f"#define ZN_V_{_c_name(name)} {off}")
+        off += ch
+    lines += [
+        f"#define ZN_A_N {off + 1}",
+        f"#define ZN_FRONT_COL {front}",
+        f"#define ZN_DRAW_ID_COL {draw_id}",
+        "#include <cuda_runtime.h>",
+        "#include <math.h>",
+        device_source,
+        f'#include "{BLEND_SOURCE.name}"',
+        "",
+    ]
+    return "\n".join(lines)
+
+
+def load_blend_kernel(device_source: str,
+                      attr_layout: "Sequence[tuple[str, int]]") -> ctypes.CDLL:
+    """K5/K6 compiled for one (shader device source, attribute layout),
+    built on first use and cached by a hash of the generated unit and the
+    kernel sources."""
+    global shader_builds
+    unit = blend_unit_source(device_source, attr_layout)
+    h = hashlib.sha256(unit.encode())
+    for src in (BLEND_SOURCE, CSRC / "raster_common.cuh"):
+        h.update(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    key = h.hexdigest()[:16]
+    lib = _blend_libs.get(key)
+    if lib is not None:
+        return lib
+    so = BUILD_DIR / f"libzenith_blend_{key}.so"
+    if not so.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        cu = BUILD_DIR / f"blend_{key}.cu"
+        cu.write_text(unit)
+        tmp = BUILD_DIR / f"{so.stem}.{os.getpid()}.so.tmp"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-fmad=false", "-I", str(CSRC), "-shared",
+               str(cu), "-o", str(tmp)]
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}) on the blend kernel of a fragment shader:\n"
+                f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
+            )
+        so.with_suffix(".log").write_text(f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        os.replace(tmp, so)
+        shader_builds += 1
+    lib = ctypes.CDLL(str(so))
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    common = [p, p, p, p, p]  # routing tables, rows
+    tail = [i, i, i, i, i, i, i, i, i, f, f]  # num_blocks .. depth_clamp, sample offset
+    lib.zn_raster_blend.restype = ctypes.c_int
+    lib.zn_raster_blend.argtypes = [*common, p, p, *tail, p, p]  # z, color; blend, stream
+    lib.zn_raster_blend_stencil.restype = ctypes.c_int
+    lib.zn_raster_blend_stencil.argtypes = [*common, p, p, p, *tail, p, p, p]
+    lib.log_path = so.with_suffix(".log")
+    _blend_libs[key] = lib
     return lib

@@ -1,23 +1,24 @@
 """Texture sampling — the sampler hardware of the Vulkan pipeline (torch port
-of zenith_tpu/ops/sampling.py: the layered, cube and shadow-compare paths).
+of zenith_tpu/ops/sampling.py: the single-level, trilinear, layered, cube and
+shadow-compare paths).
 
 Dense gather-based sampling over per-pixel UV images, interpreting
 SamplerConfig (zenith_tpu_torch.rhi.sampler). Vulkan texel conventions:
 unnormalized coords x = u*W - 0.5; bilinear weights from the fractional
 part; wrap applied per tap on texel indices.
 
-Not ported yet: ``sample_2d``, the mip functions, ``sample_cube_lod`` and
-``sample_3d`` (ROADMAP items 13 and 21), and ``sample_shadow_pcf_layered``
-(item 21).
+Not ported yet: anisotropic filtering (``sample_2d_aniso``, ROADMAP item 13),
+``sample_cube_lod`` and ``sample_3d`` (item 21), and
+``sample_shadow_pcf_layered`` (item 21).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
-from zenith_tpu_torch.rhi.sampler import AddressMode, Filter, SamplerConfig
+from zenith_tpu_torch.rhi.sampler import AddressMode, Filter, MipmapMode, SamplerConfig
 from zenith_tpu_torch.rhi.state import CompareOp
 
 
@@ -70,6 +71,159 @@ def _fetch_rows(sheet: torch.Tensor, row: torch.Tensor, col: torch.Tensor) -> to
     flat = (row * w + col).reshape(-1)
     t = sheet.reshape(-1, sheet.shape[-1])[flat]
     return t.reshape(row.shape + (sheet.shape[-1],))
+
+
+def sample_2d(
+    tex: torch.Tensor,  # (H, W, C) linear float
+    uv: torch.Tensor,  # (..., 2)
+    sampler: SamplerConfig = SamplerConfig(),
+) -> torch.Tensor:
+    """Single-level sample, the mag-filter path (sampling.py:56-84).
+    Returns (..., C)."""
+    h, w = tex.shape[0], tex.shape[1]
+    u = uv[..., 0] * w
+    v = uv[..., 1] * h
+    if sampler.mag_filter == Filter.NEAREST:
+        return _fetch(tex, torch.floor(u).to(torch.int64), torch.floor(v).to(torch.int64),
+                      sampler)
+    x = u - 0.5
+    y = v - 0.5
+    x0f = torch.floor(x)
+    y0f = torch.floor(y)
+    fx = (x - x0f)[..., None]
+    fy = (y - y0f)[..., None]
+    x0 = x0f.to(torch.int64)
+    y0 = y0f.to(torch.int64)
+    t00 = _fetch(tex, x0, y0, sampler)
+    t10 = _fetch(tex, x0 + 1, y0, sampler)
+    t01 = _fetch(tex, x0, y0 + 1, sampler)
+    t11 = _fetch(tex, x0 + 1, y0 + 1, sampler)
+    top = t00 * (1 - fx) + t10 * fx
+    bot = t01 * (1 - fx) + t11 * fx
+    return top * (1 - fy) + bot * fy
+
+
+class PackedMips(NamedTuple):
+    """A full mip pyramid flattened for per-pixel LOD gathers."""
+
+    texels: torch.Tensor  # (total, C)
+    offsets: torch.Tensor  # (L,) int64
+    widths: torch.Tensor  # (L,) int64
+    heights: torch.Tensor  # (L,) int64
+
+    @property
+    def num_levels(self) -> int:
+        return self.offsets.shape[0]
+
+
+def pack_mips(mips: "list[torch.Tensor]") -> PackedMips:
+    """Flatten mip levels into one texel table (sampling.py:100-115). The
+    small level tables are made by fills: no host copy, so no sync inside a
+    frame."""
+    dev = mips[0].device
+    n = len(mips)
+    offsets, widths, heights = (torch.empty((n,), dtype=torch.int64, device=dev)
+                                for _ in range(3))
+    off = 0
+    flats = []
+    for k, lvl in enumerate(mips):
+        h, w = int(lvl.shape[0]), int(lvl.shape[1])
+        offsets[k].fill_(off)
+        widths[k].fill_(w)
+        heights[k].fill_(h)
+        flats.append(lvl.reshape(h * w, -1))
+        off += h * w
+    return PackedMips(torch.cat(flats, dim=0).to(torch.float32), offsets, widths, heights)
+
+
+def _sample_level(packed: PackedMips, uv: torch.Tensor, level: torch.Tensor,
+                  sampler: SamplerConfig) -> torch.Tensor:
+    """Bilinear sample at a per-pixel integer mip level (sampling.py:118-151)."""
+    w = packed.widths[level]
+    h = packed.heights[level]
+    off = packed.offsets[level]
+    x = uv[..., 0] * w - 0.5
+    y = uv[..., 1] * h - 0.5
+    x0f = torch.floor(x)
+    y0f = torch.floor(y)
+    fx = (x - x0f)[..., None]
+    fy = (y - y0f)[..., None]
+    x0 = x0f.to(torch.int64)
+    y0 = y0f.to(torch.int64)
+
+    def fetch(ix, iy):
+        # Wrap per level dims (a per-pixel n: arithmetic wrap).
+        if sampler.address_mode_u == AddressMode.REPEAT:
+            jx = torch.remainder(ix, w)
+        else:
+            jx = torch.minimum(torch.clamp(ix, min=0), w - 1)
+        if sampler.address_mode_v == AddressMode.REPEAT:
+            jy = torch.remainder(iy, h)
+        else:
+            jy = torch.minimum(torch.clamp(iy, min=0), h - 1)
+        flat = (off + jy * w + jx).reshape(-1)
+        return packed.texels[flat].reshape(ix.shape + (packed.texels.shape[-1],))
+
+    t00, t10 = fetch(x0, y0), fetch(x0 + 1, y0)
+    t01, t11 = fetch(x0, y0 + 1), fetch(x0 + 1, y0 + 1)
+    top = t00 * (1 - fx) + t10 * fx
+    bot = t01 * (1 - fx) + t11 * fx
+    return top * (1 - fy) + bot * fy
+
+
+def screen_space_lod(uv: torch.Tensor, tex_w: int, tex_h: int) -> torch.Tensor:
+    """Per-pixel LOD from neighbour differences of a dense (H, W, 2) UV
+    image, the quad-derivative analog (sampling.py:154-163)."""
+    du_dx = uv - torch.roll(uv, 1, dims=1)
+    du_dy = uv - torch.roll(uv, 1, dims=0)
+    rx = torch.sqrt((du_dx[..., 0] * tex_w) ** 2 + (du_dx[..., 1] * tex_h) ** 2)
+    ry = torch.sqrt((du_dy[..., 0] * tex_w) ** 2 + (du_dy[..., 1] * tex_h) ** 2)
+    rho = torch.maximum(rx, ry)
+    return torch.log2(torch.clamp(rho, min=1e-8))
+
+
+def sample_2d_lod(
+    packed: PackedMips,
+    uv: torch.Tensor,
+    lod: torch.Tensor,
+    sampler: SamplerConfig = SamplerConfig(),
+) -> torch.Tensor:
+    """Trilinear (or nearest-mip) sample with per-pixel LOD
+    (sampling.py:166-185)."""
+    lmax = packed.num_levels - 1
+    lod = torch.clamp(lod + sampler.mip_lod_bias, sampler.min_lod,
+                      min(sampler.max_lod, lmax))
+    if sampler.mipmap_mode == MipmapMode.NEAREST:
+        return _sample_level(packed, uv, torch.round(lod).to(torch.int64), sampler)
+    l0f = torch.floor(lod)
+    frac = (lod - l0f)[..., None]
+    l0 = l0f.to(torch.int64)
+    l1 = torch.clamp(l0 + 1, max=lmax)
+    s0 = _sample_level(packed, uv, l0, sampler)
+    s1 = _sample_level(packed, uv, l1, sampler)
+    return s0 * (1 - frac) + s1 * frac
+
+
+def sample_texture(
+    tex,  # (H, W, C) tensor | tuple of mip tensors (graph import of a mipped Texture)
+    uv: torch.Tensor,  # (H, W, 2) dense UV image (fragment-stage varying)
+    sampler: SamplerConfig = SamplerConfig(),
+) -> torch.Tensor:
+    """Sample a bound texture resource inside a fragment shader
+    (sampling.py:225-249). Accepts what ``ctx.get`` yields for an imported
+    texture: a plain tensor (single level) or a tuple of mip tensors, which
+    take trilinear filtering with the screen-space-derivative LOD of the
+    dense UV image."""
+    levels = list(tex) if isinstance(tex, (tuple, list)) else [tex]
+    h0, w0 = levels[0].shape[0], levels[0].shape[1]
+    if sampler.anisotropy_enable and uv.ndim == 3:
+        raise NotImplementedError(
+            "anisotropic filtering is not ported yet (ROADMAP item 13: textured materials)"
+        )
+    if len(levels) == 1 or sampler.mipmap_mode is None:
+        return sample_2d(levels[0], uv, sampler)
+    lod = screen_space_lod(uv, w0, h0)
+    return sample_2d_lod(pack_mips(levels), uv, lod, sampler)
 
 
 def sample_2d_array(

@@ -16,12 +16,19 @@ with 2×2 PCF shadows, the point/spot-light sum over the tiled kernel K2
 (ops.lighting), and the cube-map skybox (or a constant background) where no
 surface was drawn.
 
+Node ``glass`` (graphic, after lighting, when the scene holds translucent
+objects): one batched blended draw over the lit HDR frame, depth-tested
+against the G-buffer depth with depth writes off. ``glass_mode="kernel"``
+takes the in-order blend kernel K5 with the kernel-safe glass shader (texture
+content, if any, sampled at the vertices); ``"peel"`` takes depth peeling
+over K4 with the glass atlas sampled per pixel; ``"auto"`` picks peel for
+textured glass.
+
 Not ported yet; each raises NotImplementedError naming its ROADMAP item:
-textured materials (atlases, item 13); instanced, skinned and morphed
-objects, decals, SSAO, shadow-casting point lights, cascades, VSM, contact
-shadows, image-based light, the atmosphere, the velocity plane and the id
-buffer (item 21); translucent objects (item 20); the wireframe view
-(item 19).
+textured opaque materials (the material atlases, item 13); instanced, skinned
+and morphed opaque objects, decals, SSAO, shadow-casting point lights,
+cascades, VSM, contact shadows, image-based light, the atmosphere, the
+velocity plane and the id buffer (item 21); the wireframe view (item 19).
 """
 
 from __future__ import annotations
@@ -35,7 +42,14 @@ from zenith_tpu_torch.asset.render_types import Vertex as VERTEX_LAYOUT
 from zenith_tpu_torch.core import mathtypes as m
 from zenith_tpu_torch.core.camera import Camera
 from zenith_tpu_torch.ops.lighting import accumulate_point_lights
-from zenith_tpu_torch.ops.sampling import sample_cube, sample_shadow_pcf
+from zenith_tpu_torch.core import log
+from zenith_tpu_torch.core import validate as _validate
+from zenith_tpu_torch.ops.sampling import (
+    sample_2d,
+    sample_cube,
+    sample_shadow_pcf,
+    sample_texture,
+)
 from zenith_tpu_torch.rendergraph import RenderGraphBuilder
 from zenith_tpu_torch.rendergraph.resource import RenderGraphResource
 from zenith_tpu_torch.renderer.forward import (
@@ -47,21 +61,31 @@ from zenith_tpu_torch.renderer.forward import (
 from zenith_tpu_torch.renderer.scene import Scene, stacked_models
 from zenith_tpu_torch.renderer.static_batch import StaticGeometryCache
 from zenith_tpu_torch.rhi import (
+    BlendFactor,
     ColorAttachmentDesc,
     CullMode,
+    Format,
     FrontFace,
     GraphicShaderInput,
+    LoadOp,
     RasterizationState,
+    SamplerConfig,
     Shader,
+    Texture,
     TextureDesc,
     attr,
+    texture2d,
     uniform,
 )
+from zenith_tpu_torch.rhi.atlas import build_atlas
 from zenith_tpu_torch.rhi.state import (
     CompareOp,
     DepthStencilDesc,
     GraphicPipelineState,
 )
+
+logger = log.get(__name__)
+
 
 class GBufferHandles(dict):
     """The G-buffer plane handles published for screen-space consumers,
@@ -114,6 +138,136 @@ def _gbuffer_fs(varyings, res, builtins):
     }
 
 
+def _make_glass_vs(textured: bool, instanced: bool):
+    """Translucent (glass) vertex stage (deferred.py:377-419).
+
+    ``textured``: samples the per-draw ``GlassTex`` AT THE VERTICES and emits
+    the sampled RGBA as a ``tint`` varying. This is how texture content
+    reaches the kernel-safe blend fragment shader: the in-order blend kernel
+    cannot gather, but it interpolates varyings. Sampling is level-0 bilinear
+    (no screen-space derivatives exist at vertex rate).
+
+    ``instanced``: adds the per-instance ``inst_offset`` attribute."""
+
+    def _glass_vs(attrs, res):
+        pos = attrs["position"]
+        hom = torch.cat([pos, torch.ones_like(pos[:, :1])], dim=1)
+        world = hom @ res["Model"].T
+        if instanced:
+            clip_hom = torch.cat([world[:, :3] + attrs["inst_offset"], world[:, 3:4]], dim=1)
+        else:
+            clip_hom = world
+        out = {
+            "position": clip_hom @ res["ViewProj"].T,
+            "normal": attrs["normal"] @ res["Model"][:3, :3].T,
+        }
+        if textured:
+            tex = res["GlassTex"]
+            lvl0 = tex[0] if isinstance(tex, (tuple, list)) else tex
+            out["tint"] = sample_2d(lvl0, attrs["tex_coord"], SamplerConfig.linear())
+        return out
+
+    return _glass_vs
+
+
+def _glass_lambert(varyings, res):
+    """(shade, r, g, b, a): the component-wise lambert tint both glass
+    fragment stages share; two-sided panes take |N·L| (abs before any
+    clamp)."""
+    n = varyings["normal"]
+    nx, ny, nz = n[..., 0], n[..., 1], n[..., 2]
+    inv = 1.0 / torch.sqrt(nx * nx + ny * ny + nz * nz + 1e-8)
+    l = res["SunDir"]
+    ndl = torch.abs((nx * l[..., 0] + ny * l[..., 1] + nz * l[..., 2]) * inv)
+    c = res["BaseColor"]
+    shade = 0.35 + 0.65 * ndl
+    return shade, c[..., 0], c[..., 1], c[..., 2], c[..., 3].expand(shade.shape)
+
+
+def _make_glass_fs(textured: bool):
+    def _glass_fs(varyings, res, builtins):
+        """Kernel-safe translucent shading (deferred.py:422-445): only
+        elementwise ops over the varyings and uniforms. Texture content
+        arrives pre-sampled in the interpolated ``tint`` varying. This is the
+        plain version of ``glass_device_source``."""
+        shade, r, g, b, a = _glass_lambert(varyings, res)
+        if textured:
+            t = varyings["tint"]
+            r, g, b = r * t[..., 0], g * t[..., 1], b * t[..., 2]
+            a = a * t[..., 3]
+        return torch.stack([r * shade, g * shade, b * shade, a], dim=-1)
+
+    return _glass_fs
+
+
+def glass_device_source(textured: bool) -> str:
+    """``_make_glass_fs(textured)`` as the CUDA text of ``zn_fragment`` (see
+    rhi.shader.Shader.device_source): the same operations in the same order,
+    compiled without FMA contraction."""
+    tint = """
+  const float* t = a + ZN_V_tint;
+  r = r * t[0];
+  g = g * t[1];
+  b = b * t[2];
+  al = al * t[3];""" if textured else ""
+    return f"""
+__device__ __forceinline__ void zn_fragment(const float* a, float frag_x, float frag_y,
+                                            float depth, bool front_facing, float draw_id,
+                                            float* rgba) {{
+  const float* n = a + ZN_V_normal;
+  const float* l = a + ZN_U_SunDir;
+  const float* c = a + ZN_U_BaseColor;
+  const float inv = 1.0f / sqrtf(n[0] * n[0] + n[1] * n[1] + n[2] * n[2] + 1e-8f);
+  const float ndl = fabsf((n[0] * l[0] + n[1] * l[1] + n[2] * l[2]) * inv);
+  const float shade = 0.35f + 0.65f * ndl;
+  float r = c[0], g = c[1], b = c[2], al = c[3];{tint}
+  rgba[0] = r * shade;
+  rgba[1] = g * shade;
+  rgba[2] = b * shade;
+  rgba[3] = al;
+}}
+"""
+
+
+def _make_glass_peel_vs(instanced: bool):
+    """Translucent vertex stage for the depth-peeled path (deferred.py:448-471):
+    emits the raw ``uv`` varying; the peel layers shade at full fragment
+    rate, so the texture is sampled per pixel."""
+
+    def _vs(attrs, res):
+        pos = attrs["position"]
+        hom = torch.cat([pos, torch.ones_like(pos[:, :1])], dim=1)
+        world = hom @ res["Model"].T
+        if instanced:
+            clip_hom = torch.cat([world[:, :3] + attrs["inst_offset"], world[:, 3:4]], dim=1)
+        else:
+            clip_hom = world
+        return {
+            "position": clip_hom @ res["ViewProj"].T,
+            "normal": attrs["normal"] @ res["Model"][:3, :3].T,
+            "uv": attrs["tex_coord"],
+        }
+
+    return _vs
+
+
+def _glass_peel_fs(varyings, res, builtins):
+    """Fragment-rate translucent shading (deferred.py:474-502; depth-peel
+    layers shade densely): samples the glass atlas per pixel with the
+    per-draw UV transform. Same lambert-tint lighting as _make_glass_fs."""
+    shade, r, g, b, a = _glass_lambert(varyings, res)
+    uv = varyings["uv"]
+    uvx = res["UvxGlass"]  # (4,) or per-draw (H, W, 4) plane
+    auv = torch.stack(
+        [uvx[..., 2] + uv[..., 0] * uvx[..., 0], uvx[..., 3] + uv[..., 1] * uvx[..., 1]],
+        dim=-1,
+    )
+    t = sample_texture(res["GlassAtlas"], auv, SamplerConfig.linear())
+    r, g, b = r * t[..., 0], g * t[..., 1], b * t[..., 2]
+    a = a * t[..., 3]
+    return torch.stack([r * shade, g * shade, b * shade, a], dim=-1)
+
+
 def _ggx_brdf(n, v, l, albedo, metallic, roughness):
     """Cook-Torrance GGX (Trowbridge-Reitz NDF, Smith-Schlick G, Schlick F),
     deferred.py:524-546."""
@@ -152,10 +306,14 @@ class DeferredRenderer:
                  glass_peel_layers: int = 4):
         self.scene = scene
         objs = scene.objects
-        if any(o.base_color_texture is not None or o.normal_texture is not None
+        # A textured translucent object makes the reference's opaque passes
+        # sample the white fallback cell of the base atlas, which is the
+        # untextured result; the port keeps them untextured.
+        if any((o.base_color_texture is not None and not o.translucent)
+               or o.normal_texture is not None
                or o.mra_texture is not None or o.emissive_texture is not None
                for o in objs):
-            raise _unported("textured materials", 13, "sample_2d, mips and rhi/atlas.py")
+            raise _unported("textured opaque materials", 13, "the material atlases")
         if wireframe:
             raise _unported("the wireframe view (LINE polygon mode)", 19,
                             "lines, points and polygon modes")
@@ -211,13 +369,107 @@ class DeferredRenderer:
         self._gbuffer_depth = DepthStencilDesc().reverse_z()
         self._ca_clear0 = ColorAttachmentDesc(clear_value=(0, 0, 0, 0))
         self._ca_clear01 = ColorAttachmentDesc(clear_value=(0, 0, 0, 1))
+        self._init_glass(objs, glass_mode, glass_peel_layers)
+
+    def _init_glass(self, objs, glass_mode: str, glass_peel_layers: int) -> None:
+        """The translucent (glass) pass (deferred.py:864-977): drawn after
+        the lighting resolve, standard src-alpha-over blending, depth-tested
+        against the G-buffer depth with writes off. Two paths:
+
+        "kernel": the in-order blend kernel. Exact submission-order blending
+          for any overlap depth, but its kernel-safe fragment shader cannot
+          gather: texture content arrives at vertex rate (_make_glass_vs).
+        "peel": depth peeling (ops.draw peel_layers): K bounded winner-resolve
+          passes shaded at full fragment rate (per-pixel atlas sampling) and
+          composited back to front. Exact for ≤K overlapping translucent
+          fragments per pixel (dropped deeper layers count into bin overflow).
+        "auto" picks peel for textured glass and kernel otherwise."""
+        self.has_translucents = any(o.translucent for o in objs)
+        if not self.has_translucents:
+            return
+        self.glass_textured = any(
+            o.translucent and o.base_color_texture is not None for o in objs)
+        self.glass_instanced = any(
+            o.translucent and o.instance_offsets is not None for o in objs)
+        if glass_mode not in ("auto", "kernel", "peel"):
+            raise ValueError(f"glass_mode must be 'auto', 'kernel' or 'peel', got {glass_mode!r}")
+        self.glass_peel = glass_mode == "peel" or (glass_mode == "auto" and self.glass_textured)
+        self.glass_peel_layers = int(glass_peel_layers)
+        gt, gi = self.glass_textured, self.glass_instanced
+        device = next(o for o in objs if o.translucent).vertex_buffer.array.device
+        inst_input = [attr("inst_offset", 3, per_instance=True)] if gi else []
+        if self.glass_peel:
+            self._glass_atlas = build_atlas(
+                "atlas.glass", [o.base_color_texture for o in objs if o.translucent],
+                fallback=(1.0, 1.0, 1.0, 1.0), device=device,
+            )
+            self.glass_vs = Shader.vertex(
+                f"glass.peel{'.inst' if gi else ''}.vs", _make_glass_peel_vs(gi),
+                bindings=[uniform("Model"), uniform("ViewProj")],
+                inputs=[attr("position", 3), attr("normal", 3), attr("tex_coord", 2)]
+                + inst_input,
+            )
+            self.glass_fs = Shader.fragment(
+                "glass.peel.fs", _glass_peel_fs,
+                bindings=[uniform("BaseColor"), uniform("SunDir"), uniform("UvxGlass"),
+                          texture2d("GlassAtlas")],
+            )
+        else:
+            if gt and _validate.enabled():
+                logger.warning(
+                    "[validate] textured glass on the blend-kernel path samples at "
+                    "vertex rate (Gouraud), wrong for texture frequencies above the "
+                    "mesh tessellation. Use DeferredRenderer(glass_mode='peel') (the "
+                    "'auto' default) for per-pixel-correct sampling."
+                )
+            if gt:
+                # Untextured translucents drawn through the textured glass
+                # pipeline sample a shared 1x1 white texture.
+                self._white_glass_tex = Texture.from_numpy(
+                    "glass.white", np.ones((1, 1, 4), np.float32), Format.RGBA32F,
+                    device=device)
+            self.glass_vs = Shader.vertex(
+                f"glass{'.tex' if gt else ''}{'.inst' if gi else ''}.vs",
+                _make_glass_vs(gt, gi),
+                bindings=[uniform("Model"), uniform("ViewProj")]
+                + ([texture2d("GlassTex")] if gt else []),
+                inputs=[attr("position", 3), attr("normal", 3)]
+                + ([attr("tex_coord", 2)] if gt else []) + inst_input,
+            )
+            self.glass_fs = Shader.fragment(
+                "glass.tex.fs" if gt else "glass.fs", _make_glass_fs(gt),
+                bindings=[uniform("BaseColor"), uniform("SunDir")],
+                kernel_safe=True, device_source=glass_device_source(gt),
+            )
+        self._glass_si = GraphicShaderInput(self.glass_vs, self.glass_fs, VERTEX_LAYOUT)
+        self._glass_state = GraphicPipelineState(
+            rasterization=RasterizationState(cull_mode=CullMode.NONE),
+        )
+        self._glass_over = ColorAttachmentDesc(
+            blend_enable=True,
+            src_color_blend=BlendFactor.SRC_ALPHA,
+            dst_color_blend=BlendFactor.ONE_MINUS_SRC_ALPHA,
+            src_alpha_blend=BlendFactor.ONE,
+            dst_alpha_blend=BlendFactor.ONE_MINUS_SRC_ALPHA,
+            load_op=LoadOp.LOAD,
+        )
+        self._glass_depth = DepthStencilDesc(
+            depth_test_enable=True,
+            depth_write_enable=False,
+            depth_compare_op=CompareOp.GREATER,
+            depth_load_op=LoadOp.LOAD,
+        )
 
     @staticmethod
     def _check_objects(objs) -> None:
         for o in objs:
             if o.translucent:
-                raise _unported(f"translucent object {o.name!r} (the glass node)", 20,
-                                "translucency")
+                for what, on in (("skinned", o.skin is not None),
+                                 ("morphed", o.morph_deltas is not None)):
+                    if on:
+                        raise _unported(f"{what} object {o.name!r}", 21,
+                                        "screen-space and lighting features")
+                continue
             for what, on in (("instanced", o.instance_offsets is not None),
                              ("skinned", o.skin is not None),
                              ("morphed", o.morph_deltas is not None)):
@@ -310,15 +562,34 @@ class DeferredRenderer:
         builder.set_dynamic("def.mats", np.stack(
             [o.mat_params_array() for o in scene.objects]
         ))
-        # Only plain opaque objects are ported: every object is in the
-        # reference's plain draw class (deferred.py:1292-1310).
+        # Of the reference's draw classes (deferred.py:1292-1310) the plain
+        # opaque and the translucent one are ported. Translucent objects skip
+        # the opaque passes (shadow + G-buffer) and draw in the glass node
+        # after lighting.
         self._check_objects(scene.objects)
-        plain_ix = list(range(len(scene.objects)))
+        objects = scene.objects
+        plain_ix = [i for i, o in enumerate(objects) if not o.translucent]
+        trans_ix = [i for i, o in enumerate(objects) if o.translucent]
+        if trans_ix and not getattr(self, "has_translucents", False):
+            raise ValueError("the scene gained translucent objects after the renderer "
+                             "was built: rebuild the DeferredRenderer")
+        for i in trans_ix:
+            if objects[i].instance_offsets is not None:
+                builder.set_dynamic(f"def.inst.{objects[i].name}",
+                                    np.asarray(objects[i].instance_offsets, np.float32))
+        if trans_ix:
+            if self.glass_peel:
+                builder.set_dynamic("def.uvx.glass", self._glass_atlas.transforms)
+            if self.glass_instanced:
+                builder.set_dynamic("def.inst.zero", np.zeros((1, 3), np.float32))
+            if sun is None:
+                builder.set_dynamic("def.glass_sun_dir", np.array([0.0, 0.0, 1.0], np.float32))
 
         # Static batching: all plain opaque draws share ONE concatenated
-        # vertex/index buffer pair, imported once per frame.
+        # vertex/index buffer pair, imported once per frame. Translucent
+        # objects keep per-object buffers.
         static_geo = self._static_cache.get(scene.objects, plain_ix)
-        per_obj_ix = [] if static_geo is not None else plain_ix
+        per_obj_ix = trans_ix if static_geo is not None else plain_ix + trans_ix
         handles = {
             i: (
                 builder.import_resource(scene.objects[i].vertex_buffer),
@@ -486,6 +757,78 @@ class DeferredRenderer:
             ctx.set(out_w, torch.cat([rgb, torch.ones_like(rgb[..., :1])], dim=-1))
 
         node.execute(record_lighting)
+
+        # -- node: glass (translucent forward pass over the lit HDR) -----------
+        if trans_ix:
+            gnode = builder.add_graphic_node("glass")
+            g_acc = {i: (gnode.read(handles[i][0]), gnode.read(handles[i][1]))
+                     for i in trans_ix}
+            glass_tex_acc = {}
+            glass_atlas_acc = None
+            if self.glass_peel:
+                glass_atlas_acc = gnode.read(builder.import_resource(self._glass_atlas.texture))
+            elif self.glass_textured:
+                for i in trans_ix:
+                    t = objects[i].base_color_texture or self._white_glass_tex
+                    glass_tex_acc[i] = gnode.read(builder.import_resource(t))
+            gnode.read(output)
+            gnode.read(g_depth)
+            out_rt = gnode.write(output)
+            out_ds = gnode.write(g_depth)
+            with gnode.pipeline(self._glass_si, self._glass_state) as binder:
+                binder.push_color(out_rt, self._glass_over)
+                binder.set_depth(out_ds, self._glass_depth)
+            glass_textured = self.glass_textured
+            glass_instanced = self.glass_instanced
+            glass_peel = self.glass_peel
+            peel_layers = self.glass_peel_layers
+
+            def record_glass(ctx):
+                ctx.bind("ViewProj", ctx.dynamic("def.view_proj"))
+                sun_dir = ctx.dynamic("def.sun_dir" if has_sun else "def.glass_sun_dir")
+                models = ctx.dynamic("def.models")
+                bcs = ctx.dynamic("def.base_colors")
+                atlas_val = ctx.get(glass_atlas_acc) if glass_peel else None
+                glass_uvx = ctx.dynamic("def.uvx.glass") if glass_peel else None
+                draws = []
+                for k, i in enumerate(trans_ix):
+                    obj = objects[i]
+                    vba, iba = g_acc[i]
+                    res = {
+                        "Model": models[i],
+                        "ViewProj": ctx.dynamic("def.view_proj"),
+                        "BaseColor": bcs[i],
+                        "SunDir": sun_dir,
+                    }
+                    if glass_peel:
+                        # Atlas cell transform of this translucent (k-th in
+                        # scene order: the atlas was built over the same
+                        # filtered order).
+                        res["GlassAtlas"] = atlas_val
+                        res["UvxGlass"] = glass_uvx[k]
+                    elif glass_textured:
+                        res["GlassTex"] = ctx.get(glass_tex_acc[i])
+                    if glass_instanced:
+                        # One pipeline for the whole batch: non-instanced
+                        # translucents draw as a single zero-offset instance.
+                        instanced = obj.instance_offsets is not None
+                        inst = {
+                            "instance_count": obj.instance_count if instanced else 1,
+                            "instance_data": {"inst_offset": ctx.dynamic(
+                                f"def.inst.{obj.name}" if instanced else "def.inst.zero")},
+                        }
+                        draws.append((vba, iba, res, inst))
+                    else:
+                        draws.append((vba, iba, res))
+                if glass_peel:
+                    ctx.draw_indexed_batch(
+                        draws, per_draw_uniforms=("BaseColor", "UvxGlass"),
+                        peel_layers=peel_layers,
+                    )
+                else:
+                    ctx.draw_indexed_batch(draws)
+
+            gnode.execute(record_glass)
 
         # Screen-space consumers declared after this renderer read this
         # frame's G-buffer planes through these handles.

@@ -18,9 +18,13 @@ Mirrors zenith-rendergraph/src/graph.rs:
   enqueues the frame's kernels on the current stream and returns.
 - ``present`` + ``RetiredRenderGraph`` (graph.rs:227-274, 656-674).
 
+Stencil attachments (single sample) ride the node context as an int32 plane:
+cleared or loaded at the node's start, threaded through its stencil-tested
+draws, stored at its end.
+
 Not ported yet: the SPMD ``mesh``/``parallel`` modes (ROADMAP item 24),
-MSAA attachments (item 18), stencil attachments (item 17) and sub-resource
-(mip/layer/range) views (item 21). Each raises when asked for.
+MSAA attachments (item 18) and sub-resource (mip/layer/range) views
+(item 21). Each raises when asked for.
 """
 
 from __future__ import annotations
@@ -55,6 +59,14 @@ from zenith_tpu_torch.rhi.shader import Shader as _Shader
 from zenith_tpu_torch.rhi.state import LoadOp
 
 logger = log.get(__name__)
+
+
+def _import_value(res: "Buffer | Texture"):
+    """What the frame function receives for an imported resource: a mipped
+    texture arrives as the tuple of its levels (graph.py:189-193)."""
+    if isinstance(res, Texture) and res.mips is not None:
+        return tuple(res.mips)
+    return res.array
 
 
 def _validate_enabled() -> bool:
@@ -349,13 +361,15 @@ class GraphicNodeExecutionContext(_NodeContextBase):
     def __init__(self, graph, node, state, dynamics, device,
                  pipeline: GraphicPipeline, grid: TileGrid,
                  colors: List[Any], depth: Optional[Any],
-                 bin_capacity: int, budget_scale: int = 1):
+                 bin_capacity: int, stencil: Optional[Any] = None,
+                 budget_scale: int = 1):
         super().__init__(graph, node, state, dynamics, device)
         self._budget_scale = budget_scale
         self.pipeline = pipeline
         self.grid = grid
         self._colors = colors
         self._depth = depth
+        self._stencil = stencil
         self._bindings: Dict[str, Any] = {}
         self._bin_capacity = bin_capacity
         self.stats: List[Any] = []
@@ -440,11 +454,14 @@ class GraphicNodeExecutionContext(_NodeContextBase):
             self.grid,
             bin_capacity=bin_capacity or self._bin_capacity,
             entry_budget=entry_budget,
+            stencil=self._stencil,
             instance_count=instance_count,
             instance_data=instance_data,
             budget_scale=self._budget_scale,
         )
         self.stats.append(stats.bin_overflow)
+        if stats.stencil is not None:
+            self._stencil = stats.stencil
 
     def draw_indexed_batch(
         self,
@@ -456,7 +473,8 @@ class GraphicNodeExecutionContext(_NodeContextBase):
         """Record N draws as ONE binning + raster + shade pass
         (graph.py:747-808). Per-draw fragment uniforms named in
         ``per_draw_uniforms`` reach the fragment shader as dense (H, W, C)
-        planes; see ops.draw.draw_indexed_batch."""
+        planes; ``peel_layers=K`` selects depth-peeled translucency for a
+        blending pipeline; see ops.draw.draw_indexed_batch."""
         resolved = []
         for draw in draws:
             vb, ib, res = draw[0], draw[1], draw[2]
@@ -477,10 +495,13 @@ class GraphicNodeExecutionContext(_NodeContextBase):
             self.grid,
             per_draw_uniforms=tuple(per_draw_uniforms),
             entry_budget=entry_budget,
+            stencil=self._stencil,
             budget_scale=self._budget_scale,
             peel_layers=peel_layers,
         )
         self.stats.append(stats.bin_overflow)
+        if stats.stencil is not None:
+            self._stencil = stats.stencil
 
 
 @dataclass
@@ -617,7 +638,7 @@ class RenderGraph:
                 )
 
         imports = {
-            str(rid): st.imported.array
+            str(rid): _import_value(st.imported)
             for rid, st in enumerate(self.resources)
             if st.is_imported
         }
@@ -664,10 +685,6 @@ class RenderGraph:
             raise NotImplementedError(
                 "MSAA attachments are not ported yet (ROADMAP item 18: MSAA)"
             )
-        if node.stencil_attachment is not None:
-            raise NotImplementedError(
-                "stencil attachments are not ported yet (ROADMAP item 17: stencil)"
-            )
         atts = list(node.color_attachments)
         if node.depth_attachment is not None:
             atts.append(node.depth_attachment)
@@ -676,7 +693,8 @@ class RenderGraph:
                 "render-to-mip/-layer attachments are not ported yet "
                 "(ROADMAP item 21)"
             )
-        tdesc = resources[atts[0][0]].texture_desc()
+        first_rid = atts[0][0] if atts else node.stencil_attachment
+        tdesc = resources[first_rid].texture_desc()
         grid = TileGrid(
             width=tdesc.width,
             height=tdesc.height,
@@ -704,9 +722,21 @@ class RenderGraph:
             else:
                 depth = cur[..., 0] if cur.ndim == 3 else cur
 
+        stencil = None
+        if node.stencil_attachment is not None:
+            sdesc = pipeline.desc.state.depth_stencil
+            cur = state.get(node.stencil_attachment)
+            if sdesc.stencil_load_op == LoadOp.CLEAR or cur is None:
+                stencil = torch.full(
+                    (grid.height, grid.width), sdesc.stencil_clear_value & 0xFF,
+                    dtype=torch.int32, device=device,
+                )
+            else:
+                stencil = cur
+
         ctx = GraphicNodeExecutionContext(
             self, node, state, dynamics, device, pipeline, grid,
-            colors, depth, options.bin_capacity,
+            colors, depth, options.bin_capacity, stencil,
             budget_scale=options.budget_scale,
         )
         node.job(ctx)
@@ -716,6 +746,8 @@ class RenderGraph:
             state[rid] = arr
         if node.depth_attachment is not None and ctx._depth is not None:
             state[node.depth_attachment[0]] = ctx._depth
+        if node.stencil_attachment is not None and ctx._stencil is not None:
+            state[node.stencil_attachment] = ctx._stencil
         for ov in ctx.stats:
             overflow = overflow + ov
         if validate:

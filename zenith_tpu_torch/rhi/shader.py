@@ -193,16 +193,33 @@ class Shader:
         bindings: "tuple[ShaderBinding, ...] | list[ShaderBinding]" = (),
         inputs: "tuple[VertexInput, ...] | list[VertexInput] | None" = None,
         kernel_safe: bool = False,
+        device_source: Optional[str] = None,
     ):
         self.name = name
         self.stage = stage
         self.fn = fn
         # kernel_safe (fragment stage): the function body is pure elementwise
         # torch over its varyings/uniforms — no texture sampling, gathers, or
-        # global reductions — so it can be inlined into the per-fragment
-        # blend kernel (ops.raster._segmented_blend_kernel) for
-        # order-correct transparency.
+        # global reductions — so it can run per fragment inside the in-order
+        # blend kernel (ops.raster.raster_segmented_blend) for order-correct
+        # transparency.
         self.kernel_safe = kernel_safe
+        # device_source (kernel-safe fragment shaders): the same function as
+        # CUDA C++ text, which the blend kernel is compiled around when the
+        # pipeline first draws on a CUDA device (ops.runtime
+        # .load_blend_kernel). It defines
+        #   __device__ __forceinline__ void zn_fragment(
+        #       const float* a, float frag_x, float frag_y, float depth,
+        #       bool front_facing, float draw_id, float* rgba);
+        # where ``a`` holds the finalized varyings and uniforms; a varying
+        # ``n`` starts at column ZN_V_n, a uniform ``U`` at ZN_U_U. ``fn``
+        # stays the plain version and what CPU tensors run. A kernel-safe
+        # shader without device source cannot draw on CUDA tensors.
+        if device_source is not None and not kernel_safe:
+            raise ValueError(
+                f"shader {name!r}: device_source is for kernel_safe fragment shaders"
+            )
+        self.device_source = device_source
         # Declared vertex inputs (vertex stage only). None = undeclared:
         # pipeline-time layout validation is skipped and a missing attribute
         # surfaces as a draw-time error instead (legacy/loose mode).
@@ -225,9 +242,10 @@ class Shader:
 
     @staticmethod
     def fragment(name: str, fn: Callable[..., Any], bindings=(),
-                 kernel_safe: bool = False) -> "Shader":
+                 kernel_safe: bool = False,
+                 device_source: Optional[str] = None) -> "Shader":
         return Shader(name, ShaderStage.FRAGMENT, fn, bindings,
-                      kernel_safe=kernel_safe)
+                      kernel_safe=kernel_safe, device_source=device_source)
 
     def __repr__(self) -> str:
         return f"Shader({self.name!r}, {self.stage})"

@@ -177,13 +177,25 @@ def standin_mesh() -> Mesh:
     return Mesh("procedural/cerberus-standin", v, np.concatenate(idx).astype(np.int32))
 
 
-def build_standin_scene(render_device, num_lights: int, rng: np.random.Generator):
+def glass_checker_texture(device: "torch.device | str" = "cpu") -> Texture:
+    """build_scene's 64² two-tone checker for the textured glass panes."""
+    yy, xx = np.mgrid[0:64, 0:64]
+    c = ((xx // 4 + yy // 4) % 2).astype(np.float32)
+    px = np.stack([0.4 + 0.6 * c, 1.0 - 0.5 * c, np.full_like(c, 0.8), np.ones_like(c)],
+                  axis=-1).astype(np.float32)
+    return Texture.from_numpy("pane.checker", px, Format.RGBA32F, device=torch.device(device))
+
+
+def build_standin_scene(render_device, num_lights: int, rng: np.random.Generator,
+                        glass: bool = False, glass_textured: bool = False):
     """zenith_tpu/sandbox/scene.py::build_scene's deferred scene (untextured,
     skybox on) with the cerberus mesh replaced by ``standin_mesh``: the same
     material and model centring, the 400-unit ground quad, ``num_lights``
     point lights placed as build_scene places them, the sun with a 1024²
-    shadow map over a 90-unit extent, and a 64² sky cube.
-    Returns (scene, mesh)."""
+    shadow map over a 90-unit extent, and a 64² sky cube. ``glass`` adds
+    build_scene's two standing translucent panes in front of the mesh (drawn
+    by the deferred renderer's glass node), ``glass_textured`` gives them the
+    64² checker texture. Returns (scene, mesh)."""
     from zenith_tpu_torch.core import mathtypes as m
     from zenith_tpu_torch.renderer import DirectionalLight, PointLight, Scene, SceneObject
 
@@ -214,8 +226,22 @@ def build_standin_scene(render_device, num_lights: int, rng: np.random.Generator
             position=(r * math.cos(ang), r * math.sin(ang), z_min + 4.0 + 20.0 * rng.uniform()),
             color=tuple(col), intensity=400.0 + 600.0 * rng.uniform(), radius=60.0,
         ))
+    objects = [gun, ground]
+    if glass:
+        glass_tex = glass_checker_texture(render_device.device) if glass_textured else None
+        span = float(np.linalg.norm(bmax - bmin))
+        for gi, (dx, tint) in enumerate([(-0.4 * span, (0.4, 0.7, 1.0, 0.35)),
+                                         (0.4 * span, (1.0, 0.5, 0.4, 0.45))]):
+            pane = SceneObject.quad(render_device, f"pane{gi}", size=span * 0.6, z=0.0,
+                                    base_color=tint, translucent=True,
+                                    base_color_texture=glass_tex)
+            # Stand the quad up (rotate about X) and place it.
+            trans = m.mat4_translation(
+                np.array([dx, -0.4 * span, z_min + 0.4 * span], np.float32))
+            pane.model_matrix = (trans @ YUP_TO_ZUP).astype(np.float32)
+            objects.append(pane)
     return Scene(
-        objects=[gun, ground],
+        objects=objects,
         sun=DirectionalLight(direction=(0.35, -0.3, 0.88), intensity=2.5,
                              shadow_map_size=1024, shadow_extent=90.0),
         point_lights=lights,
