@@ -92,7 +92,19 @@ other than 0, no result line) on the first phase that fails:
     two of phase 10's draws through it (K6); stencil plane equal to, colour
     within atol 1e-5 + rtol 1e-5 of, the plain path; nothing drawn outside
     the mask. Both K3 calls and the K6 call are then held against their
-    plain versions, and timed, at the frame's own inputs.
+    plain versions, and timed, at the frame's own inputs;
+13. the capped-bin path (setup_triangles + corner_attributes →
+    bin_triangles → visibility_pass (K7) / raster_interp_pass (K8) →
+    resolve_varyings / finalize_attrs) through the public API, on the 1080p
+    stress draw and on phase 7's geometry with world position and normal as
+    varyings, seen by the camera of phase 7's first timed frame (1920x1080,
+    510 tiles) and by the sun (the 1024² shadow map, 256 tiles), each at a
+    capacity that drops nothing, then on the stress draw at capacity 64.
+    K7 and K8 bit-equal to their plain versions; K8 bit-equal to K1 on the
+    segmented bins of the same records; K7's z equal to K8's, its slots set
+    exactly where K8's 1/w plane is; resolve_varyings over K7's slots within
+    atol 2e-3 + rtol 1e-4 of finalize_attrs over K8's planes; at capacity 64
+    the card's binning (overflow included) equal to the CPU's.
 
 Every kernel and its plain version are timed with CUDA events (median; a
 plain version that runs for seconds twice, not warmed up) and set beside
@@ -100,8 +112,8 @@ their bound on the H100: the larger of the bytes that must move (the live
 rows of the bins, not their padding; each plane read or written once) over
 3.35 TB/s and the fp32 operations these inputs need over 67 TFLOP/s.
 
-The line before the last is a JSON object listing each kernel (K1-K6) with
-its launches on the main paths (phases 4, 7, 11 and 12), its largest
+The line before the last is a JSON object listing each kernel (K1-K8) with
+its launches on the main paths (phases 4, 7, 11, 12 and 13), its largest
 difference from the plain version, its time, the plain version's, its bound
 and what bounds it, and the inputs these were taken at; the last line is the
 device record.
@@ -109,6 +121,7 @@ device record.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import re
@@ -732,8 +745,6 @@ def translucency_phases(dev, card: str, stress, plain_k1) -> "tuple[list, dict]"
     frame through the render graph. ``stress`` is phase 2b's (bins, grid,
     init z). Returns (the records of K3-K6, the launches of K1 and K2 on
     these paths)."""
-    import contextlib
-
     import torch
 
     from zenith_tpu_torch.core.camera import Camera
@@ -1493,6 +1504,259 @@ def translucency_phases(dev, card: str, stress, plain_k1) -> "tuple[list, dict]"
     return records, {"K1": path_launches["K1"], "K2": path_launches["K2"]}
 
 
+# Phase 13. K7 and K8 do K1's per-fragment work (29 operations); per covered
+# pixel K8 writes the winner's a_n planes (5 operations each, as K1), K7 one
+# slot (no arithmetic). Counted from csrc/raster_capped.cu.
+K7_OPS_PER_FRAGMENT = K1_OPS_PER_FRAGMENT
+CAPPED_OVERFLOW_K = 64  # phase 13e: the stress draw at a capacity that drops records
+
+
+def capped_blocks(bins, grid):
+    """Capped bins in the block layout count_fragments reads: one block of K
+    rows per tile, live as far as the tile's count."""
+    import types
+
+    import torch
+
+    t, k = bins.binned_rast.shape[:2]
+    tiles = torch.arange(t, dtype=torch.int32, device=bins.counts.device)
+    return types.SimpleNamespace(rast_pad=bins.binned_rast.reshape(t * k, 16),
+                                 blk_count=bins.counts, blk_tile_y=tiles // grid.tiles_x,
+                                 blk_tile_x=tiles % grid.tiles_x)
+
+
+def deferred_geometry(dev):
+    """Phase 7's geometry: the stand-in mesh and the ground in world space
+    (what the G-buffer vertex stage computes), with the camera's
+    view-projection at phase 7's first timed frame and the sun's. Returns
+    (pos (Nv, 3), normal (Nv, 3), indices (T, 3), camera VP, sun VP, shadow
+    map size)."""
+    import torch
+
+    from zenith_tpu_torch.core.camera import Camera
+    from zenith_tpu_torch.core.mathtypes import Degree
+    from zenith_tpu_torch.ops.geometry import transform_vertices
+    from zenith_tpu_torch.renderer.forward import sun_view_projection
+    from zenith_tpu_torch.rhi import RhiCore
+    from zenith_tpu_torch.sandbox.scene import build_standin_scene, orbit_camera
+
+    scene, _ = build_standin_scene(RhiCore(dev).create_render_device(), 100,
+                                   np.random.default_rng(42))
+    camera = Camera(fov_y=Degree(35.0), aspect_ratio=W / H)
+    orbit_camera(camera, 0.3)
+    pos, nrm, idx, base = [], [], [], 0
+    for obj in scene.objects:
+        vb = obj.vertex_buffer.array.reshape(-1, 8)
+        model = torch.from_numpy(np.asarray(obj.model_matrix, np.float32)).to(dev)
+        pos.append(transform_vertices(vb[:, :3], model)[:, :3])
+        nrm.append(vb[:, 3:6] @ model[:3, :3].T)
+        idx.append(obj.index_buffer.array.reshape(-1, 3).to(torch.int64) + base)
+        base += vb.shape[0]
+    return (torch.cat(pos), torch.cat(nrm), torch.cat(idx).to(torch.int32),
+            camera.render_view_projection, sun_view_projection(scene.sun),
+            scene.sun.shadow_map_size)
+
+
+def capped_phase(dev, card: str, stress) -> "list[dict]":
+    """Phase 13: the capped-bin path (setup_triangles → bin_triangles →
+    visibility_pass / raster_interp_pass → resolve_varyings /
+    finalize_attrs) at full width, on the 1080p stress draw and on phase 7's
+    geometry seen by the camera (1920x1080) and by the sun (the 1024² shadow
+    map), each with a capacity that drops nothing, and on the stress draw at
+    capacity 64. Returns the records of K7 and K8."""
+    import torch
+
+    from zenith_tpu_torch.ops import raster as raster_mod
+    from zenith_tpu_torch.ops.binning import (
+        TileGrid,
+        bin_segmented,
+        bin_triangles,
+        tile_overlap,
+    )
+    from zenith_tpu_torch.ops.geometry import (
+        corner_attributes,
+        setup_triangles,
+        transform_vertices,
+    )
+    from zenith_tpu_torch.ops.raster import (
+        K_BLOCK,
+        raster_interp_pass,
+        raster_segmented,
+        visibility_pass,
+    )
+    from zenith_tpu_torch.ops.runtime import round_up
+    from zenith_tpu_torch.ops.shade import finalize_attrs, resolve_varyings
+    from zenith_tpu_torch.rhi.state import CompareOp, CullMode, FrontFace
+
+    t0 = time.perf_counter()
+    clip, idx, colors = (torch.from_numpy(a).to(dev) for a in stress)
+    torch.cuda.reset_peak_memory_stats(dev)
+    pos, nrm, gidx, cam_vp, sun_vp, smsz = deferred_geometry(dev)
+    world = {"pos": pos, "normal": nrm}
+    views = {  # name: (clip, indices, varyings, grid, setup state, compare, clear)
+        "stress draw": (clip, idx, {"color": colors}, TileGrid(W, H), {}, CompareOp.GREATER,
+                        0.0),
+        "G-buffer view": (transform_vertices(pos, torch.from_numpy(cam_vp).to(dev)), gidx,
+                          world, TileGrid(W, H),
+                          dict(cull_mode=CullMode.BACK, front_face=FrontFace.COUNTER_CLOCKWISE),
+                          CompareOp.GREATER, 0.0),
+        "shadow view": (transform_vertices(pos, torch.from_numpy(sun_vp).to(dev)), gidx, world,
+                        TileGrid(smsz, smsz), dict(front_face=FrontFace.CLOCKWISE),
+                        CompareOp.LESS, 1.0),
+    }
+
+    def path(name, k=None):
+        """The capped-bin API path on one view, as a user calls it."""
+        vclip, vidx, vary, g, state, cmp, clear = views[name]
+        rec = setup_triangles(vclip, vidx, g.width, g.height,
+                              **{"cull_mode": CullMode.NONE, **state})
+        corner = corner_attributes(rec, vidx, torch.cat(list(vary.values()), dim=1))
+        if k is None:  # a capacity that drops nothing
+            k = round_up(int(tile_overlap(rec, g).sum(1).max()), K_BLOCK)
+        bins = bin_triangles(rec, g, k)
+        attr = bins.gather_corner_data(corner)
+        z0 = torch.full((g.height, g.width), clear, device=dev)
+        s0 = torch.full((g.height, g.width), -1, dtype=torch.int32, device=dev)
+        z7, slot = visibility_pass(bins, g, z0, s0, compare_op=cmp)
+        z8, acc = raster_interp_pass(bins, attr, g, z0, compare_op=cmp)
+        layout = [(n, v.shape[1]) for n, v in vary.items()] + [("__front", 1)]
+        fin, fmask, _ = finalize_attrs(z8, acc, layout)
+        res, rmask, _ = resolve_varyings(slot, rec.rast16, rec.shade16, rec.tri_id, vidx, vary)
+        return dict(rec=rec, corner=corner, bins=bins, attr=attr, z0=z0, s0=s0, z7=z7,
+                    slot=slot, z8=z8, acc=acc, fin=fin, fmask=fmask, res=res, rmask=rmask,
+                    k=k, grid=g, cmp=cmp)
+
+    # The main path: every view through the API, the counts read around it.
+    torch.cuda.synchronize()
+    visibility_pass.launches = 0
+    raster_interp_pass.launches = 0
+    runs = {name: path(name) for name in views}
+    runs["stress draw, K 64"] = path("stress draw", k=CAPPED_OVERFLOW_K)
+    torch.cuda.synchronize()
+    launches = {"K7": visibility_pass.launches, "K8": raster_interp_pass.launches}
+    check(launches == {"K7": len(runs), "K8": len(runs)},
+          f"the capped-bin path launched K7 and K8 {launches} times, not {len(runs)} each")
+    peak = torch.cuda.max_memory_allocated(dev)
+
+    def plain():
+        """K7 and K8 replaced by their plain versions (the counts stay put)."""
+        stack = contextlib.ExitStack()
+        stack.enter_context(mock.patch.object(raster_mod, "_visibility_cuda",
+                                              raster_mod._visibility_torch))
+        stack.enter_context(mock.patch.object(raster_mod, "_interp_cuda",
+                                              raster_mod._interp_torch))
+        return stack
+
+    err = {"K7": 0.0, "K8": 0.0}
+    records = {}
+    for name, r in runs.items():
+        bins, g, cmp, a_n = r["bins"], r["grid"], r["cmp"], r["acc"].shape[0]
+        hp, wp = g.tiles_y * g.tile_h, g.tiles_x * g.tile_w
+        live = int(bins.counts.sum())
+        bin_bytes = sum(t.numel() * t.element_size()
+                        for t in (bins.binned_rast, bins.binned_slot, r["attr"]))
+        overflow = int(bins.overflow)
+
+        def k8_call(r=r):
+            return raster_interp_pass(r["bins"], r["attr"], r["grid"], r["z0"], compare_op=r["cmp"])
+
+        def k7_call(r=r):
+            return visibility_pass(r["bins"], r["grid"], r["z0"], r["s0"], compare_op=r["cmp"])
+
+        # a. K8 against its plain version; c. K7 against its plain version,
+        # and against K8.
+        with plain():
+            pz7, pslot = k7_call()
+            pz8, pacc = k8_call()
+        torch.cuda.synchronize()
+        err["K8"] = max(err["K8"], (r["z8"] - pz8).abs().max().item(),
+                        (r["acc"] - pacc).abs().max().item())
+        err["K7"] = max(err["K7"], (r["z7"] - pz7).abs().max().item(),
+                        float((r["slot"] - pslot).abs().max()))
+        check(torch.equal(r["z8"], pz8) and torch.equal(r["acc"], pacc),
+              f"{name}: K8 differs from its plain version")
+        check(torch.equal(r["z7"], pz7) and torch.equal(r["slot"], pslot),
+              f"{name}: K7 differs from its plain version")
+        covered = r["acc"][-1] > 0
+        check(torch.equal(r["z7"], r["z8"]) and torch.equal(r["slot"] >= 0, covered),
+              f"{name}: K7's z or coverage differs from K8's")
+        n_cov = int(covered.sum())
+        check(n_cov > 1000, f"{name}: only {n_cov} px covered")
+        # d. resolve_varyings over K7's slots against finalize_attrs over K8's
+        # planes.
+        check(torch.equal(r["fmask"], r["rmask"]), f"{name}: the two resolves' coverage differs")
+        worst = []
+        for v, fin in r["fin"].items():
+            res = r["res"][v]
+            m = r["fmask"]
+            d = (fin[m] - res[m]).abs()
+            worst.append(f"{v} {d.max().item():.3e} (values up to {res[m].abs().max().item():.1f})")
+            check(bool(torch.isclose(fin[m], res[m], atol=2e-3, rtol=1e-4).all()),
+                  f"{name}: resolve_varyings and finalize_attrs differ in {v} beyond atol 2e-3 "
+                  f"+ rtol 1e-4 (max {d.max().item():.3e})")
+        line = (f"phase 13: {name} {g.width}x{g.height}: {int(r['rec'].valid.sum())} valid "
+                f"records, K {r['k']}, {live} live entries, overflow {overflow}, bins "
+                f"{bin_bytes / 2**20:.1f} MiB (rows, slots, corner data), a_n {a_n}, {n_cov} px "
+                f"covered; K7 and K8 bit-equal to their plain versions, K7's z and coverage "
+                f"K8's; resolve_varyings vs finalize_attrs max |diff| " + ", ".join(worst))
+        if name == "stress draw, K 64":
+            # e. overflow: the card's binning equals the CPU's.
+            vclip, vidx, _, _, state, _, _ = views["stress draw"]
+            crec = setup_triangles(vclip.cpu(), vidx.cpu(), g.width, g.height,
+                                   cull_mode=CullMode.NONE, **state)
+            cb = bin_triangles(crec, g, CAPPED_OVERFLOW_K)
+            for f in ("binned_rast", "binned_slot", "counts", "overflow"):
+                check(torch.equal(getattr(bins, f).cpu(), getattr(cb, f)),
+                      f"{name}: the card's and the CPU's binning differ in {f}")
+            check(overflow > 0, f"{name}: no record was dropped")
+            print(line + f"; binning equal to the CPU's, overflow included [{card}]")
+            continue
+        # b. K8 against K1 on the segmented bins of the same records.
+        check(overflow == 0, f"{name}: the capped bins dropped {overflow} records")
+        entries = int(tile_overlap(r["rec"], g).sum())
+        sbins = bin_segmented(r["rec"], r["corner"], g, mid_cap=8192, huge_cap=4096,
+                              entry_budget=entries)
+        check(int(sbins.overflow) == 0 and int(sbins.blk_count.sum()) == live,
+              f"{name}: the segmented bins dropped entries")
+        z1, acc1 = raster_segmented(sbins, g, r["z0"], compare_op=cmp)
+        torch.cuda.synchronize()
+        check(torch.equal(z1, r["z8"]) and torch.equal(acc1, r["acc"]),
+              f"{name}: K8 differs from K1 on the same records")
+
+        t8 = cuda_ms(k8_call, reps=10, warmup=2)
+        t7 = cuda_ms(k7_call, reps=10, warmup=2)
+        t1 = cuda_ms(lambda: raster_segmented(sbins, g, r["z0"], compare_op=cmp), reps=10,
+                     warmup=2)
+        with plain():
+            p8 = cuda_ms(k8_call, reps=2, warmup=0)
+            p7 = cuda_ms(k7_call, reps=2, warmup=0)
+        frags = count_fragments(capped_blocks(bins, g), g)[0]
+        b8 = bound(4 * (live * (16 + 3 * a_n) + bins.counts.numel() + (2 + a_n) * hp * wp),
+                   frags * K1_OPS_PER_FRAGMENT + n_cov * a_n * K1_OPS_PER_PIXEL_PLANE)
+        b7 = bound(4 * (live * 17 + bins.counts.numel() + 4 * hp * wp),
+                   frags * K7_OPS_PER_FRAGMENT)
+        print(line + f"; K8 bit-equal to K1 on the segmented bins of the same records. "
+              f"{frags} fragments: K8 {t8:.4f} ms (plain {p8:.4f} ms, bound {b8[0]:.4f} ms, "
+              f"{b8[1]}), K7 {t7:.4f} ms (plain {p7:.4f} ms, bound {b7[0]:.4f} ms, {b7[1]}), "
+              f"K1 on the same records {t1:.4f} ms; no one-call PyTorch equivalent [{card}]")
+        records[name] = {"K7": (t7, p7, *b7), "K8": (t8, p8, *b8)}
+
+    print(f"phase 13: capped-bin path: K7 and K8 launched {launches['K7']} times each on the "
+          f"path; peak device memory {peak / 2**30:.2f} GiB; {time.perf_counter() - t0:.1f} s "
+          f"[{card}]")
+    out = []
+    for key, name, line in (("K7", "capped-bin visibility (_visibility_kernel)", 61),
+                            ("K8", "capped-bin interpolation (_interp_kernel)", 153)):
+        ms, plain_ms, b_ms, b_by = records["G-buffer view"][key]
+        out.append({"name": f"{key} {name}", "route": "cuda",
+                    "source": "zenith_tpu_torch/csrc/raster_capped.cu",
+                    "replaces": f"zenith_tpu/ops/raster.py:{line}", "launches": launches[key],
+                    "max_abs_err": err[key], "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                    "bound_by": b_by, "library_ms": None,
+                    "shape": "deferred scene geometry, G-buffer view 1080p"})
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1766,6 +2030,7 @@ def main() -> int:
 
     deferred = deferred_phases(dev, card, plain)
     translucent, glass_launches = translucency_phases(dev, card, (bins, grid, init), plain)
+    capped = capped_phase(dev, card, (clip, idx, colors))
     k1_def = deferred["k1"]
     deferred["k2"]["launches"] += glass_launches["K2"]
     kernels = [{
@@ -1781,12 +2046,13 @@ def main() -> int:
         "bound_by": k1_def["bound_by"],
         "library_ms": None,
         "shape": "deferred G-buffer pass 1080p",
-    }, dict(deferred["k2"], shape="1080p G-buffer, 100 point lights"), *translucent]
+    }, dict(deferred["k2"], shape="1080p G-buffer, 100 point lights"), *translucent, *capped]
     print(f"  launches on the main paths: K1 {main_launches} (triangle, phase 4) + "
           f"{deferred['k1_launches']} (deferred, phase 7) + {glass_launches['K1']} (glass and "
           f"stencil frames, phases 11-12); K2 {deferred['k2']['launches']} (phases 7 and 11); "
           + "; ".join(f"{r['name'][:2]} {r['launches']}" for r in translucent)
-          + " (phases 11-12)")
+          + " (phases 11-12); "
+          + "; ".join(f"{r['name'][:2]} {r['launches']}" for r in capped) + " (phase 13)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -48,7 +48,9 @@ def _textures(seed, sizes):
 def test_build_atlas_matches_the_reference(sizes, kw):
     jt, tt = _textures(3, sizes)
     ja = jatlas.build_atlas("atlas", jt, **kw)
-    ta = tatlas.build_atlas("atlas", tt, **kw)
+    # With no texture to take the device from, the port must be told it.
+    tkw = kw if any(t is not None for t in tt) else dict(kw, device="cpu")
+    ta = tatlas.build_atlas("atlas", tt, **tkw)
     np.testing.assert_array_equal(ta.transforms, ja.transforms)
     assert ta.texture.desc.mip_levels == ja.texture.desc.mip_levels
     assert (ta.texture.desc.width, ta.texture.desc.height) == \
@@ -58,6 +60,14 @@ def test_build_atlas_matches_the_reference(sizes, kw):
     assert len(jm) == len(tm)
     for a, b in zip(tm, jm):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+def test_build_atlas_takes_the_device_of_its_first_texture():
+    _, tt = _textures(4, [None, (8, 8)])
+    assert tatlas.build_atlas("a", tt).texture.array.device == tt[1].array.device
+    assert tatlas.build_atlas("a", tt, device="meta").texture.array.device.type == "meta"
+    with pytest.raises(ValueError, match="no device"):
+        tatlas.build_atlas("a", [None, None])
 
 
 def _sampler(mod, name, address="REPEAT"):

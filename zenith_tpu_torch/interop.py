@@ -1,10 +1,11 @@
 """Host arrays → the port's tensors.
 
 The reference package's results reach the port as numpy arrays (buffer
-contents, ``TriangleRecords``, ``SegmentedBins``, stencil planes and face
-states, scene objects, light tables, 2D and cube textures); these helpers turn them into the port's tensors and
-objects on a given device, field for field, so the same inputs can be fed to
-both implementations. They read the reference's objects by attribute name
+contents, ``TriangleRecords``, ``SegmentedBins``, ``TileBins``, stencil
+planes and face states, scene objects, light tables, 2D and cube textures);
+these helpers turn them into the port's tensors and objects on a given
+device, field for field, so the same inputs can be fed to both
+implementations. They read the reference's objects by attribute name
 and ``np.asarray`` only, so the port still imports nothing of it.
 """
 
@@ -15,7 +16,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from zenith_tpu_torch.ops.binning import SegmentedBins
+from zenith_tpu_torch.ops.binning import SegmentedBins, TileBins
 from zenith_tpu_torch.ops.geometry import TriangleRecords
 from zenith_tpu_torch.rhi.formats import Format
 from zenith_tpu_torch.rhi.resource import Buffer, BufferUsage, Texture
@@ -35,6 +36,11 @@ def records_from_numpy(records: Any, device: "torch.device | str") -> TriangleRe
 def bins_from_numpy(bins: Any, device: "torch.device | str") -> SegmentedBins:
     """The seven fields of a SegmentedBins, as arrays → SegmentedBins."""
     return SegmentedBins(*[to_tensor(f, device) for f in bins])
+
+
+def tile_bins_from_numpy(bins: Any, device: "torch.device | str") -> TileBins:
+    """The four fields of a TileBins (capped bins), as arrays → TileBins."""
+    return TileBins(*[to_tensor(f, device) for f in bins])
 
 
 def buffer_from(buffer: Any, device: "torch.device | str") -> Buffer:

@@ -1,11 +1,14 @@
-"""Tile binning: triangle records → per-tile candidate segments (torch port
-of zenith_tpu/ops/binning.py, ``bin_segmented`` only).
+"""Tile binning: triangle records → per-tile candidate lists (torch port
+of zenith_tpu/ops/binning.py).
 
-The layout matches the reference entry for entry, so bins compare across
-the two packages layout for layout: the three span tiers, one global
-(tile, record) lexicographic order, CHUNK-aligned blocks with per-block
-routing (``blk_tile_y``/``blk_tile_x``/``blk_count``/``blk_init``) and the
-same overflow count.
+``bin_segmented`` (every draw) matches the reference entry for entry, so
+bins compare across the two packages layout for layout: the three span
+tiers, one global (tile, record) lexicographic order, CHUNK-aligned blocks
+with per-block routing (``blk_tile_y``/``blk_tile_x``/``blk_count``/
+``blk_init``) and the same overflow count. ``bin_triangles`` is the capped
+binning of the second raster path (``raster.visibility_pass``,
+``raster.raster_interp_pass``): per tile the first ``k`` overlapping records
+in record order, the rest counted as overflow.
 
 Deliberate divergences (ROADMAP §3): the reference clamps the entry budget
 to what v5e SMEM can route and grows the chunk for huge budgets
@@ -51,6 +54,24 @@ class TileGrid:
         return self.tiles_x * self.tiles_y
 
 
+class TileBins(NamedTuple):
+    """Per-tile candidate lists of a fixed capacity K (``bin_triangles``)."""
+
+    binned_rast: torch.Tensor  # (T, K, 16) f32 — gathered raster records (pad 0)
+    binned_slot: torch.Tensor  # (T, K) i32 — global record indices (pad -1)
+    counts: torch.Tensor  # (T,) i32 — live entries, at most K
+    overflow: torch.Tensor  # () i32 — records dropped by the K cap
+
+    def gather_corner_data(self, corner_data: torch.Tensor) -> torch.Tensor:
+        """Per-record corner data, flat (R, 3·D) or (R, 3, D), in per-tile
+        order (T, K, 3·D) for the interp pass (binning.py:60-71); pad slots
+        are 0, so their iw is 0 and they never win a pixel."""
+        r = corner_data.shape[0]
+        flat = corner_data.reshape(r, -1)
+        g = flat[torch.clamp(self.binned_slot, 0, r - 1).to(torch.int64)]
+        return g.masked_fill_(self.binned_slot[..., None] < 0, 0.0)
+
+
 class SegmentedBins(NamedTuple):
     """Per-tile variable-length candidate segments, block-aligned for the
     segmented raster kernel (no per-tile capacity cap)."""
@@ -68,6 +89,58 @@ def _top_k_indices(values: torch.Tensor, k: int) -> torch.Tensor:
     """Indices of the k largest values, ties by lowest index — the order
     ``jax.lax.top_k`` guarantees (``torch.topk`` promises none)."""
     return torch.sort(values, descending=True, stable=True).indices[:k]
+
+
+def _tile_ranges(records: TriangleRecords, grid: TileGrid):
+    """Each record's conservative tile rectangle from its AABB, clipped to
+    the grid: (tx0, tx1, ty0, ty1), each (R,) i32."""
+    xmin, ymin, xmax, ymax = (records.aabb[:, i] for i in range(4))
+
+    def tiles(v, size, n):
+        return torch.clamp(torch.floor(v / size), 0, n - 1).to(torch.int32)
+
+    return (tiles(xmin, grid.tile_w, grid.tiles_x), tiles(xmax, grid.tile_w, grid.tiles_x),
+            tiles(ymin, grid.tile_h, grid.tiles_y), tiles(ymax, grid.tile_h, grid.tiles_y))
+
+
+def tile_overlap(records: TriangleRecords, grid: TileGrid) -> torch.Tensor:
+    """The (T, R) mask of valid records whose tile rectangle holds each
+    tile; its row sums are the per-tile counts before any cap."""
+    t = grid.num_tiles
+    tx0, tx1, ty0, ty1 = _tile_ranges(records, grid)
+    tile = torch.arange(t, dtype=torch.int32, device=records.aabb.device)
+    tile_tx = (tile % grid.tiles_x)[:, None]
+    tile_ty = (tile // grid.tiles_x)[:, None]
+    return (records.valid[None, :] & (tile_tx >= tx0[None, :]) & (tile_tx <= tx1[None, :])
+            & (tile_ty >= ty0[None, :]) & (tile_ty <= ty1[None, :]))
+
+
+def bin_triangles(records: TriangleRecords, grid: TileGrid, k: int) -> TileBins:
+    """Bin valid records into per-tile lists of capacity ``k``
+    (binning.py:398-438): the first ``k`` overlapping records of each tile
+    in record order (an ascending sort of the masked record indices), pad
+    slots -1 with zero rows; ``overflow`` counts the records past ``k``.
+    Builds the dense (T, R) mask and sorts it row by row."""
+    r = records.rast16.shape[0]
+    t = grid.num_tiles
+    dev = records.rast16.device
+    mask = tile_overlap(records, grid)
+    counts = mask.sum(dim=1).to(torch.int32)
+    overflow = torch.clamp(counts - k, min=0).sum().to(torch.int32)
+
+    order = torch.arange(r, dtype=torch.int32, device=dev)[None, :]
+    keys = torch.where(mask, order, torch.full_like(order, r))
+    del mask
+    packed = torch.sort(keys, dim=1).values[:, :k]  # (T, min(k, R))
+    del keys
+    if packed.shape[1] < k:  # fewer records than the capacity: sentinel pads
+        packed = torch.cat([packed, torch.full((t, k - packed.shape[1]), r, dtype=torch.int32,
+                                               device=dev)], dim=1)
+    pad = packed >= r
+    slot = torch.where(pad, torch.full_like(packed, -1), packed)
+    binned_rast = records.rast16[torch.clamp(packed, 0, r - 1).to(torch.int64)]
+    binned_rast.masked_fill_(pad[..., None], 0.0)
+    return TileBins(binned_rast, slot, torch.clamp(counts, max=k), overflow)
 
 
 def bin_segmented(
@@ -107,11 +180,7 @@ def bin_segmented(
     def i32(x):
         return x.to(torch.int32)
 
-    xmin, ymin, xmax, ymax = (records.aabb[:, i] for i in range(4))
-    tx0 = i32(torch.clamp(torch.floor(xmin / grid.tile_w), 0, grid.tiles_x - 1))
-    tx1 = i32(torch.clamp(torch.floor(xmax / grid.tile_w), 0, grid.tiles_x - 1))
-    ty0 = i32(torch.clamp(torch.floor(ymin / grid.tile_h), 0, grid.tiles_y - 1))
-    ty1 = i32(torch.clamp(torch.floor(ymax / grid.tile_h), 0, grid.tiles_y - 1))
+    tx0, tx1, ty0, ty1 = _tile_ranges(records, grid)
     sx = tx1 - tx0 + 1
     sy = ty1 - ty0 + 1
     span = sx * sy

@@ -8,7 +8,10 @@ Dense tensor ops over all triangles at once. Outputs are static-shape
   three oriented edge equations (inside > 0), top-left flags, 1/|det|, and
   per-corner NDC depth. Kernel K1 reads these columns.
 - ``shade16`` (R, 16) f32 — per-corner 1/w and original-triangle
-  barycentrics (identity here) plus the front-facing flag.
+  barycentrics plus the front-facing flag. ``setup_triangles`` records the
+  near clip's barycentrics (``corner_attributes`` and
+  ``shade.resolve_varyings`` read them); ``setup_with_attrs`` clips the
+  attributes themselves and leaves them the identity.
 - ``tri_id``  (R,) i32, ``valid`` (R,) bool, ``aabb`` (R, 4) f32.
 
 R = 2 × number of input triangles (static near-clip expansion).
@@ -19,7 +22,7 @@ Conventions match the reference for per-pixel parity: pixel centres at
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -105,6 +108,73 @@ def setup_with_attrs(
         blocks.append(iw_c)
     corner_flat = torch.cat(blocks, dim=1)
     return records, corner_flat.to(torch.float32)
+
+
+def corner_attributes(
+    records: TriangleRecords,
+    indices: torch.Tensor,  # (T, 3) original index buffer
+    varyings: torch.Tensor,  # (Nv, A) flattened vertex-stage outputs
+) -> torch.Tensor:
+    """Per-record corner data (R, 3·(A+2)) for the capped-bin interp pass
+    (geometry.py:558-598): per corner [varying·iw…, front·iw, iw], where a
+    clipped corner blends the original corners' varyings by the barycentrics
+    ``setup_triangles`` recorded in shade16."""
+    r = records.rast16.shape[0]
+    tri = indices.to(torch.int64)[records.tri_id.to(torch.int64)]  # (R, 3)
+    v = varyings.to(torch.float32)[tri.reshape(-1)].reshape(r, 3, -1)
+    sh = records.shade16
+    front = sh[:, SHADE_FRONT][:, None]
+    blocks = []
+    for bxcol, bycol, iwcol in ((SHADE_B0X, SHADE_B0Y, SHADE_IW0),
+                                (SHADE_B1X, SHADE_B1Y, SHADE_IW1),
+                                (SHADE_B2X, SHADE_B2Y, SHADE_IW2)):
+        bx = sh[:, bxcol][:, None]
+        by = sh[:, bycol][:, None]
+        bz = 1.0 - bx - by
+        attr = bx * v[:, 0, :] + by * v[:, 1, :] + bz * v[:, 2, :]  # (R, A)
+        iw_c = sh[:, iwcol][:, None]
+        blocks += [attr * iw_c, front * iw_c, iw_c]
+    return torch.cat(blocks, dim=1).to(torch.float32)
+
+
+def clip_near_w(corners: torch.Tensor, obary: torch.Tensor, w_eps: float = NEAR_W_EPS):
+    """Clip triangles against the near plane z ≤ w with static 2× expansion
+    (geometry.py:615-688). corners (T, 3, 4) clip space, obary (T, 3, 3)
+    barycentrics w.r.t. the original triangle → (corners2 (2T, 3, 4),
+    obary2 (2T, 3, 3), valid (2T,)). Both are lerped as one payload, which
+    rounds each column as the reference does."""
+    out, valid = _clip_payload(torch.cat([corners, obary.to(corners.dtype)], dim=-1),
+                               w_eps=w_eps)
+    return out[..., :4], out[..., 4:], valid
+
+
+def setup_triangles(
+    clip_positions: torch.Tensor,  # (Nv, 4)
+    indices: torch.Tensor,  # (T, 3)
+    width: int,
+    height: int,
+    cull_mode: CullMode = CullMode.BACK,
+    front_face: FrontFace = FrontFace.COUNTER_CLOCKWISE,
+    near_clip: bool = True,
+    viewport: "tuple | None" = None,
+) -> TriangleRecords:
+    """Gather → near clip → viewport → edge equations (geometry.py:691-806):
+    the records of the capped-bin path, R = 2T (``near_clip``) or T, with
+    the clip's original-triangle barycentrics in shade16."""
+    indices = indices.to(torch.int64)
+    t = indices.shape[0]
+    dev = clip_positions.device
+    corners = clip_positions.to(torch.float32)[indices.reshape(-1)].reshape(t, 3, 4)
+    obary = torch.eye(3, dtype=torch.float32, device=dev).expand(t, 3, 3)
+    ar = torch.arange(t, dtype=torch.int32, device=dev)
+    if near_clip:
+        corners, obary, valid = clip_near_w(corners, obary)
+        tri_id = torch.cat([ar, ar])
+    else:
+        valid = torch.all(corners[..., 3] > NEAR_W_EPS, dim=1)
+        tri_id = ar
+    return _records_from_corners(corners, valid, tri_id, width, height, cull_mode,
+                                 front_face, viewport, obary=obary)
 
 
 def setup_lines_with_attrs(*args, **kwargs):
@@ -195,6 +265,7 @@ def _records_from_corners(
     viewport: "tuple | None",
     depth_bias: "tuple[float, float] | None" = None,
     depth_clamp: bool = False,
+    obary: Optional[torch.Tensor] = None,
 ) -> TriangleRecords:
     """Viewport transform + edge setup (geometry.py:422-456)."""
     w = torch.clamp(corners[..., 3], min=NEAR_W_EPS)
@@ -209,7 +280,7 @@ def _records_from_corners(
     sz = ndc[..., 2]
     return _edge_setup(
         sx, sy, sz, iw, valid, tri_id, width, height,
-        cull_mode, front_face, depth_bias=depth_bias, depth_clamp=depth_clamp,
+        cull_mode, front_face, depth_bias=depth_bias, depth_clamp=depth_clamp, obary=obary,
     )
 
 
@@ -227,8 +298,11 @@ def _edge_setup(
     depth_bias: "tuple[float, float] | None" = None,
     depth_clamp: bool = False,
     force_front: bool = False,
+    obary: Optional[torch.Tensor] = None,  # (R, 3, 3); None: the identity
 ) -> TriangleRecords:
-    """Edge-equation setup from screen-space corners (geometry.py:459-555)."""
+    """Edge-equation setup from screen-space corners (geometry.py:459-555;
+    setup_triangles' inline copy, 742-806, is the same arithmetic with the
+    clip's ``obary`` in shade16)."""
     x0, x1, x2 = sx[:, 0], sx[:, 1], sx[:, 2]
     y0, y1, y2 = sy[:, 0], sy[:, 1], sy[:, 2]
 
@@ -283,9 +357,14 @@ def _edge_setup(
     ).to(torch.float32)
 
     zeros = torch.zeros_like(det)
+    if obary is None:
+        bary = [one, zeros, zeros, one, zeros, zeros]
+    else:
+        bary = [obary[:, 0, 0], obary[:, 0, 1], obary[:, 1, 0], obary[:, 1, 1],
+                obary[:, 2, 0], obary[:, 2, 1]]
     shade16 = torch.stack(
         [iw[:, 0], iw[:, 1], iw[:, 2],
-         one, zeros, zeros, one, zeros, zeros,
+         *bary,
          front.to(torch.float32),
          zeros, zeros, zeros, zeros, zeros, zeros],
         dim=1,

@@ -1,25 +1,27 @@
-"""Segmented raster passes over the hand-written kernels K1 and K3-K6 (torch
-port of zenith_tpu/ops/raster.py::raster_segmented and
-raster_segmented_blend).
+"""Raster passes over the hand-written kernels K1 and K3-K8 (torch port of
+zenith_tpu/ops/raster.py).
 
 ``raster_segmented`` resolves one winning fragment per pixel: plain (K1), with
 a stencil plane (K3) or with a depth-peel bound plane (K4).
 ``raster_segmented_blend`` shades and blends every passing fragment in
 submission order against carried colour planes (K5), optionally with the
-stencil plane (K6). For CUDA tensors each launches its kernel
-(``zenith_tpu_torch/csrc/raster.cu`` and ``raster_blend.cu``; their source
-notes say what they replace and how they are laid out). For CPU tensors each
-runs the plain PyTorch version beside it (``_raster_segmented_torch``,
-``_raster_blend_torch``), which is also the kernel's oracle on the card.
-There is no fallback between the two: a CUDA tensor launches the kernel or
-raises.
+stencil plane (K6). ``visibility_pass`` (K7) and ``raster_interp_pass`` (K8)
+are the reference's second, independently structured path over the capped
+bins of ``binning.bin_triangles``: per pixel the winning record's slot, or
+its interpolated planes. For CUDA tensors each launches its kernel
+(``zenith_tpu_torch/csrc/raster.cu``, ``raster_blend.cu`` and
+``raster_capped.cu``; their source notes say what they replace and how they
+are laid out). For CPU tensors each runs the plain PyTorch version beside it
+(``_raster_segmented_torch``, ``_raster_blend_torch``, ``_visibility_torch``,
+``_interp_torch``), which is also the kernel's oracle on the card. There is
+no fallback between the two: a CUDA tensor launches the kernel or raises.
 
-Agreement of kernel and plain version on the card: z, coverage, stencil and
-the attribute planes of K1, K3 and K4 are bit-equal; the colour of K5 and K6
-holds to atol 1e-5 + rtol 1e-5 (the shader and the blend equation are
-compiled with FMA contraction off, so in practice they agree to the last
-bit; the tolerance is the reference's own between its batched and its
-sequential blending).
+Agreement of kernel and plain version on the card: z, coverage, stencil,
+slot and the attribute planes of K1, K3, K4, K7 and K8 are bit-equal; the
+colour of K5 and K6 holds to atol 1e-5 + rtol 1e-5 (the shader and the
+blend equation are compiled with FMA contraction off, so in practice they
+agree to the last bit; the tolerance is the reference's own between its
+batched and its sequential blending).
 
 Triangles are processed strictly in submission order within a tile, so
 depth-EQUAL ties, depth-write-off overdraw and order-dependent blending
@@ -34,7 +36,7 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 
-from zenith_tpu_torch.ops.binning import SegmentedBins, TileGrid
+from zenith_tpu_torch.ops.binning import SegmentedBins, TileBins, TileGrid
 from zenith_tpu_torch.ops.runtime import load_blend_kernel, load_kernels, on_cuda
 from zenith_tpu_torch.rhi.state import (
     BlendFactor,
@@ -311,6 +313,82 @@ raster_segmented_blend.launches = 0
 raster_segmented_blend.stencil_launches = 0
 
 
+# Records per k-block of the reference's capped-bin kernels: a bin capacity
+# is a multiple of it (raster.py:1445).
+K_BLOCK = 8
+
+
+def _capped_planes(bins: TileBins, grid: TileGrid, init_z: torch.Tensor):
+    """The checks of both capped-bin passes, then z padded to whole tiles."""
+    t, k = bins.binned_rast.shape[:2]
+    if k % K_BLOCK:
+        raise ValueError(f"bin capacity {k} must be a multiple of {K_BLOCK}")
+    if t != grid.num_tiles:
+        raise ValueError(f"the bins hold {t} tiles, the grid has {grid.num_tiles}")
+    hp, wp = grid.tiles_y * grid.tile_h, grid.tiles_x * grid.tile_w
+    return _pad_plane(init_z, grid.height, grid.width, hp, wp, torch.float32)
+
+
+def visibility_pass(
+    bins: TileBins,
+    grid: TileGrid,
+    init_z: torch.Tensor,  # (H, W)
+    init_slot: torch.Tensor,  # (H, W) i32
+    depth_test: bool = True,
+    depth_write: bool = True,
+    compare_op: CompareOp = CompareOp.GREATER,
+) -> "tuple[torch.Tensor, torch.Tensor]":
+    """Capped-bin visibility (K7; raster.py:1425-1501) → (z (H, W), slot
+    (H, W) i32): each tile's first ``counts[t]`` records in order, and per
+    pixel the global record index of the last one that passed (``init_slot``
+    where none did). Vulkan semantics: with the depth test off the compare
+    is ALWAYS and depth is never written (spec 27.18)."""
+    h, w = grid.height, grid.width
+    z = _capped_planes(bins, grid, init_z)
+    slot = _pad_plane(init_slot, h, w, z.shape[0], z.shape[1], torch.int32)
+    compare = compare_op if depth_test else CompareOp.ALWAYS
+    write = depth_write and depth_test
+    if on_cuda(z):
+        _visibility_cuda(bins, grid, z, slot, compare, write)
+    else:
+        _visibility_torch(bins, grid, z, slot, compare, write)
+    return z[:h, :w], slot[:h, :w]
+
+
+def raster_interp_pass(
+    bins: TileBins,
+    binned_attr: torch.Tensor,  # (T, K, 3·a_n) from bins.gather_corner_data
+    grid: TileGrid,
+    init_z: torch.Tensor,  # (H, W)
+    depth_test: bool = True,
+    depth_write: bool = True,
+    compare_op: CompareOp = CompareOp.GREATER,
+) -> "tuple[torch.Tensor, torch.Tensor]":
+    """Capped-bin rasterization with in-pass interpolation (K8;
+    raster.py:233-308) → (z (H, W), acc (a_n, H, W)): K7's walk, keeping
+    the last passing record's a_n perspective planes ``w0·c0 + w1·c1 +
+    w2·c2`` instead of its slot. ``acc[-1]`` is the interpolated 1/w, zero
+    (with every plane) where nothing passed."""
+    h, w = grid.height, grid.width
+    z = _capped_planes(bins, grid, init_z)
+    if binned_attr.shape[-1] % 3:
+        raise ValueError(f"corner data has {binned_attr.shape[-1]} columns, not 3 corners' worth")
+    acc = torch.zeros((binned_attr.shape[-1] // 3, *z.shape), dtype=torch.float32,
+                      device=z.device)
+    compare = compare_op if depth_test else CompareOp.ALWAYS
+    write = depth_write and depth_test
+    if on_cuda(z):
+        _interp_cuda(bins, binned_attr, grid, z, acc, compare, write)
+    else:
+        _interp_torch(bins, binned_attr, grid, z, acc, compare, write)
+    return z[:h, :w], acc[:, :h, :w]
+
+
+# Launches of K7 and K8.
+visibility_pass.launches = 0
+raster_interp_pass.launches = 0
+
+
 def _check_inputs(bins, z, what: str):
     """(routing tables, rows, num_blocks, chunk) after the checks every
     raster kernel makes of its inputs."""
@@ -448,47 +526,108 @@ def _raster_segmented_cuda(bins, grid, z, acc, compare, write, clamp, sample_off
     raster_segmented.launches += 1
 
 
+def _capped_inputs(bins: TileBins, z: torch.Tensor, what: str, *extra):
+    """(T, K) of capped bins after the checks K7 and K8 make of their
+    inputs: the counts and ``extra`` tensors contiguous on the z device,
+    counts int32, rows float32."""
+    for t, dtype in ((bins.counts, torch.int32), (bins.binned_rast, torch.float32), *extra):
+        if t.dtype != dtype or not t.is_contiguous() or t.device != z.device:
+            raise ValueError(f"{what} takes contiguous {dtype} bins on the z device")
+    return bins.binned_rast.shape[:2]
+
+
+def _visibility_cuda(bins, grid, z, slot, compare, write) -> None:
+    """Launch K7 on the current stream; updates ``z`` and ``slot`` in place."""
+    _check_tile(grid, "K7")
+    t, k = _capped_inputs(bins, z, "K7", (bins.binned_slot, torch.int32))
+    err = load_kernels().zn_visibility(
+        bins.counts.data_ptr(), bins.binned_rast.data_ptr(), bins.binned_slot.data_ptr(),
+        z.data_ptr(), slot.data_ptr(), t, k, grid.tiles_x, z.shape[1], grid.tile_h, grid.tile_w,
+        _COMPARE_CODE[compare], int(write),
+        ctypes.c_void_p(torch.cuda.current_stream(z.device).cuda_stream),
+    )
+    if err != 0:
+        raise RuntimeError(f"K7 launch failed: CUDA error {err}")
+    visibility_pass.launches += 1
+
+
+def _interp_cuda(bins, binned_attr, grid, z, acc, compare, write) -> None:
+    """Launch K8 on the current stream; updates ``z`` in place and writes
+    every value of ``acc``."""
+    _check_tile(grid, "K8")
+    t, k = _capped_inputs(bins, z, "K8", (binned_attr, torch.float32))
+    if binned_attr.shape[:2] != (t, k):
+        raise ValueError(f"K8: corner data {tuple(binned_attr.shape)} is not laid out as the "
+                         f"bins' {t} x {k} slots")
+    err = load_kernels().zn_raster_interp(
+        bins.counts.data_ptr(), bins.binned_rast.data_ptr(), binned_attr.data_ptr(),
+        z.data_ptr(), acc.data_ptr(), t, k, acc.shape[0], grid.tiles_x, z.shape[1], z.shape[0],
+        grid.tile_h, grid.tile_w, _COMPARE_CODE[compare], int(write),
+        ctypes.c_void_p(torch.cuda.current_stream(z.device).cuda_stream),
+    )
+    if err != 0:
+        raise RuntimeError(f"K8 launch failed: CUDA error {err}")
+    raster_interp_pass.launches += 1
+
+
 class _TileWalk:
     """The rank-by-rank walk the plain versions share: entry rank j = 0, 1, …
     within each tile, vectorised across the tiles that still have an entry
     at rank j (tiles sorted by entry count, so they are a prefix)."""
 
-    def __init__(self, bins, grid, device, sample_offset):
+    def __init__(self, rows, n_t, table, grid, device, sample_offset):
+        """``rows`` (N, D) the entries' rows, ``n_t`` (T,) entries per tile,
+        ``table`` (T, >= max n_t) the row index of each (tile, rank)."""
         dev = device
         self.th, self.tw = th, tw = grid.tile_h, grid.tile_w
         self.ty_n, self.tx_n = ty_n, tx_n = grid.tiles_y, grid.tiles_x
         self.t = t = ty_n * tx_n
-        self.rows = rows = bins.rast_pad
+        self.rows = rows
+        self.max_n = max_n = int(n_t.max()) if t else 0
+        if max_n == 0:
+            return
+        # Tiles by entry count, descending: the tiles active at rank j are a
+        # prefix of this order.
+        self.order = order = torch.sort(n_t, descending=True, stable=True).indices
+        self.active = (n_t[order][None, :]
+                       > torch.arange(max_n, device=dev)[:, None]).sum(1).tolist()
+        self.table = table[order, :max_n]
+        col = torch.arange(tw, device=dev)[None, None, :]
+        row = torch.arange(th, device=dev)[None, :, None]
+        self.x = ((order % tx_n)[:, None, None] * tw + col).to(torch.float32) + sample_offset[0]
+        self.y = ((order // tx_n)[:, None, None] * th + row).to(torch.float32) + sample_offset[1]
+
+    @classmethod
+    def segmented(cls, bins: SegmentedBins, grid, device, sample_offset) -> "_TileWalk":
+        """The walk over segmented bins' blocks."""
+        dev = device
+        t = grid.num_tiles
+        rows = bins.rast_pad
         nb = bins.blk_count.shape[0]
         chunk = rows.shape[0] // max(nb, 1)
-
         # Entry table: per tile, its row indices in submission order.
         b = torch.arange(nb, device=dev)
         init = bins.blk_init.to(torch.int64) == 1
         first = torch.cummax(torch.where(init, b, torch.zeros_like(b)), 0).values
-        tile_b = bins.blk_tile_y.to(torch.int64) * tx_n + bins.blk_tile_x.to(torch.int64)
+        tile_b = bins.blk_tile_y.to(torch.int64) * grid.tiles_x + bins.blk_tile_x.to(torch.int64)
         lane = torch.arange(chunk, device=dev)[None, :]
         live = lane < bins.blk_count.to(torch.int64)[:, None]
         ent_tile = tile_b[:, None].expand(nb, chunk)[live]
         ent_rank = ((b - first)[:, None] * chunk + lane)[live]
         ent_row = (b[:, None] * chunk + lane)[live]
         n_t = torch.bincount(ent_tile, minlength=t)
-        self.max_n = max_n = int(n_t.max()) if t else 0
-        if max_n == 0:
-            return
-        table = torch.full((t, max_n), -1, dtype=torch.int64, device=dev)
+        table = torch.full((t, int(n_t.max()) if t else 0), -1, dtype=torch.int64, device=dev)
         table[ent_tile, ent_rank] = ent_row
+        return cls(rows, n_t, table, grid, dev, sample_offset)
 
-        # Tiles by entry count, descending: the tiles active at rank j are a
-        # prefix of this order.
-        self.order = order = torch.sort(n_t, descending=True, stable=True).indices
-        self.active = (n_t[order][None, :]
-                       > torch.arange(max_n, device=dev)[:, None]).sum(1).tolist()
-        self.table = table[order]
-        col = torch.arange(tw, device=dev)[None, None, :]
-        row = torch.arange(th, device=dev)[None, :, None]
-        self.x = ((order % tx_n)[:, None, None] * tw + col).to(torch.float32) + sample_offset[0]
-        self.y = ((order // tx_n)[:, None, None] * th + row).to(torch.float32) + sample_offset[1]
+    @classmethod
+    def capped(cls, rows: torch.Tensor, counts: torch.Tensor, grid, device) -> "_TileWalk":
+        """The walk over capped bins: ``rows`` (T·K, D) tile-major, the first
+        ``counts[t]`` of each tile's K live, at pixel centres."""
+        k = rows.shape[0] // max(grid.num_tiles, 1)
+        table = (torch.arange(grid.num_tiles, device=device)[:, None] * k
+                 + torch.arange(k, device=device)[None, :])
+        return cls(rows, counts.to(torch.int64), table, grid, device, (0.5, 0.5))
 
     def tiles(self, plane: torch.Tensor) -> torch.Tensor:
         """(hp, wp) → (T, th, tw) in walk order; (C, hp, wp) → (T, C, th, tw)."""
@@ -554,8 +693,15 @@ def _raster_segmented_torch(bins, grid, z, acc, compare, write, clamp, sample_of
     with ``z_bound``/``bound_op`` of K4: the same rounded operations in the
     same order as the kernels, so the result is theirs bit for bit. Updates
     ``z``, ``acc`` (and ``stencil``) in place."""
+    _walk_raster(_TileWalk.segmented(bins, grid, z.device, sample_offset), z, acc, compare,
+                 write, clamp, stencil, faces, z_bound, bound_op)
+
+
+def _walk_raster(walk, z, acc, compare, write, clamp, stencil=None, faces=None, z_bound=None,
+                 bound_op=None) -> None:
+    """The walk of ``_raster_segmented_torch`` over any ``_TileWalk`` (the
+    plain K8 walks capped bins with it)."""
     a_n = acc.shape[0]
-    walk = _TileWalk(bins, grid, z.device, sample_offset)
     if walk.max_n == 0:
         return
     zt, at = walk.tiles(z), walk.tiles(acc)
@@ -591,7 +737,7 @@ def _raster_blend_torch(bins, grid, z, color, stencil, faces, compare, write, cl
     the same). Updates ``z``, ``color`` (hp, wp, 4) (and ``stencil``) in
     place."""
     a_n = (bins.rast_pad.shape[-1] - 16) // 3
-    walk = _TileWalk(bins, grid, z.device, sample_offset)
+    walk = _TileWalk.segmented(bins, grid, z.device, sample_offset)
     if walk.max_n == 0:
         return
     zt = walk.tiles(z)
@@ -617,3 +763,33 @@ def _raster_blend_torch(bins, grid, z, color, stencil, faces, compare, write, cl
     color.copy_(planes.permute(1, 2, 0))
     if st is not None:
         walk.store(st, stencil)
+
+
+def _visibility_torch(bins, grid, z, slot, compare, write) -> None:
+    """Plain PyTorch version of K7: the rounded operations of K1's walk over
+    the capped bins, carrying the winning record's slot. Updates ``z`` and
+    ``slot`` in place."""
+    t, k = bins.binned_rast.shape[:2]
+    walk = _TileWalk.capped(bins.binned_rast.reshape(t * k, -1), bins.counts, grid, z.device)
+    if walk.max_n == 0:
+        return
+    ids = bins.binned_slot.reshape(-1)
+    zt, st = walk.tiles(z), walk.tiles(slot)
+    for j, (m, c) in enumerate(walk.ranks()):
+        cov, _, _, _, zpx = _fragments(c, walk.x[:m], walk.y[:m], False)
+        zcur = zt[:m]
+        passed = cov & _compare(compare, zpx, zcur)
+        if write:
+            zt[:m] = torch.where(passed, zpx, zcur)
+        st[:m] = torch.where(passed, ids[walk.table[:m, j]][:, None, None], st[:m])
+    walk.store(zt, z)
+    walk.store(st, slot)
+
+
+def _interp_torch(bins, binned_attr, grid, z, acc, compare, write) -> None:
+    """Plain PyTorch version of K8: K1's plain walk over the capped bins'
+    rows (rast16 | corner data). Updates ``z`` and ``acc`` in place."""
+    t, k = bins.binned_rast.shape[:2]
+    rows = torch.cat([bins.binned_rast, binned_attr.to(torch.float32)], dim=-1).reshape(t * k, -1)
+    _walk_raster(_TileWalk.capped(rows, bins.counts, grid, z.device), z, acc, compare, write,
+                 False)

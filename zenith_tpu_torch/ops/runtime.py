@@ -166,6 +166,22 @@ def load_kernels() -> ctypes.CDLL:
         i,  # bound_compare
         p,  # stream
     ]
+    lib.zn_visibility.restype = ctypes.c_int
+    lib.zn_visibility.argtypes = [
+        p, p, p,  # counts (T,), rast (T, K, 16), slots (T, K)
+        p, p,  # z, slot (updated in place)
+        i, i, i, i, i, i,  # num_tiles, k, tiles_x, wp, tile_h, tile_w
+        i, i,  # compare, depth_write
+        p,  # stream
+    ]
+    lib.zn_raster_interp.restype = ctypes.c_int
+    lib.zn_raster_interp.argtypes = [
+        p, p, p,  # counts (T,), rast (T, K, 16), attr (T, K, 3 a_n)
+        p, p,  # z (updated in place), acc (written)
+        i, i, i, i, i, i, i, i,  # num_tiles, k, a_n, tiles_x, wp, hp, tile_h, tile_w
+        i, i,  # compare, depth_write
+        p,  # stream
+    ]
     lib.zn_tiled_lights.restype = ctypes.c_int
     lib.zn_tiled_lights.argtypes = [
         p, p, p, p,  # albedo_metal, normal_rough, pos_emissive (H, W, 4), depth (H, W)

@@ -1,8 +1,10 @@
-"""Varying finalize (torch port of zenith_tpu/ops/shade.py::finalize_attrs).
+"""Varying resolution (torch port of zenith_tpu/ops/shade.py).
 
-The raster pass leaves attr·(1/w) planes plus the interpolated 1/w plane;
-dividing by the latter gives perspective-correct varyings per pixel, with
-no gathers.
+``finalize_attrs``: the raster pass leaves attr·(1/w) planes plus the
+interpolated 1/w plane; dividing by the latter gives perspective-correct
+varyings per pixel, with no gathers. ``resolve_varyings`` is the capped-bin
+path's other route: from a visibility buffer of record slots it gathers each
+pixel's record and vertices and interpolates them there.
 """
 
 from __future__ import annotations
@@ -11,6 +13,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from zenith_tpu_torch.ops import geometry as g
 from zenith_tpu_torch.rhi.shader import FragmentBuiltins
 
 
@@ -40,6 +43,67 @@ def finalize_attrs(
         frag_coord=torch.stack([x, y], dim=-1),
         depth=z,
         front_facing=(front[..., 0] > 0.5) if front is not None else mask,
+        resolution=(w, h),
+    )
+    return out, mask, builtins
+
+
+def resolve_varyings(
+    slot_img: torch.Tensor,  # (H, W) i32 — record index, -1 = background
+    rast16: torch.Tensor,  # (R, 16)
+    shade16: torch.Tensor,  # (R, 16)
+    tri_id: torch.Tensor,  # (R,) i32
+    indices: torch.Tensor,  # (T, 3)
+    varyings: "Dict[str, torch.Tensor]",  # name → (Nv, C) vertex-stage outputs
+) -> "Tuple[Dict[str, torch.Tensor], torch.Tensor, FragmentBuiltins]":
+    """Interpolate vertex-stage outputs at every covered pixel of a slot
+    image (shade.py:59-141): the record's screen barycentrics at the pixel
+    centre, weighted by its corners' 1/w and renormalised, then composed
+    with the corners' original-triangle barycentrics, so near clipping is
+    invisible. Returns ({name: (H, W, C)}, coverage (H, W) bool, builtins).
+    Per-pixel gathers of records and vertices."""
+    h, w = slot_img.shape
+    dev = slot_img.device
+    mask = slot_img >= 0
+    s = torch.clamp(slot_img, min=0).reshape(-1).to(torch.int64)
+    rec = rast16[s].reshape(h, w, 16)
+    sh = shade16[s].reshape(h, w, 16)
+
+    x = (torch.arange(w, dtype=torch.float32, device=dev)[None, :] + 0.5).expand(h, w)
+    y = (torch.arange(h, dtype=torch.float32, device=dev)[:, None] + 0.5).expand(h, w)
+    e01 = rec[..., g.RAST_A01] * x + rec[..., g.RAST_B01] * y + rec[..., g.RAST_C01]
+    e12 = rec[..., g.RAST_A12] * x + rec[..., g.RAST_B12] * y + rec[..., g.RAST_C12]
+    e20 = rec[..., g.RAST_A20] * x + rec[..., g.RAST_B20] * y + rec[..., g.RAST_C20]
+    inv_det = rec[..., g.RAST_INV_DET]
+    # Screen-space sub-triangle barycentrics (w_k = weight of corner k).
+    w0 = e12 * inv_det
+    w1 = e20 * inv_det
+    w2 = e01 * inv_det
+    z = w0 * rec[..., g.RAST_Z0] + w1 * rec[..., g.RAST_Z1] + w2 * rec[..., g.RAST_Z2]
+
+    # Perspective correction: weight the corners by 1/w and renormalise.
+    pw0 = w0 * sh[..., g.SHADE_IW0]
+    pw1 = w1 * sh[..., g.SHADE_IW1]
+    pw2 = w2 * sh[..., g.SHADE_IW2]
+    denom = pw0 + pw1 + pw2
+    denom = torch.where(torch.abs(denom) > 1e-20, denom, torch.ones_like(denom))
+    pw0, pw1, pw2 = pw0 / denom, pw1 / denom, pw2 / denom
+    # Compose with the corners' original-triangle barycentrics.
+    a = pw0 * sh[..., g.SHADE_B0X] + pw1 * sh[..., g.SHADE_B1X] + pw2 * sh[..., g.SHADE_B2X]
+    b = pw0 * sh[..., g.SHADE_B0Y] + pw1 * sh[..., g.SHADE_B1Y] + pw2 * sh[..., g.SHADE_B2Y]
+    c = 1.0 - a - b
+
+    tri = indices.to(torch.int64)[tri_id.to(torch.int64)[s]]  # (H·W, 3)
+    out: Dict[str, torch.Tensor] = {}
+    for name, v in varyings.items():
+        v = v.to(torch.float32)
+        v0, v1, v2 = (v[tri[:, i]].reshape(h, w, -1) for i in range(3))
+        out[name] = a[..., None] * v0 + b[..., None] * v1 + c[..., None] * v2
+
+    builtins = FragmentBuiltins(
+        frag_coord=torch.stack([x, y], dim=-1),
+        depth=z,
+        front_facing=sh[..., g.SHADE_FRONT] > 0.5,
         resolution=(w, h),
     )
     return out, mask, builtins

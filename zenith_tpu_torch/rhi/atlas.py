@@ -57,7 +57,7 @@ def build_atlas(
     fallback: "Tuple[float, ...]" = (1.0, 1.0, 1.0, 1.0),
     mip_levels: "Optional[int]" = None,
     gutter: "Optional[int]" = None,
-    device: torch.device = torch.device("cpu"),
+    device: "Optional[torch.device | str]" = None,
 ) -> TextureAtlas:
     """Pack ``textures`` into a uniform pow2 grid atlas.
 
@@ -77,10 +77,16 @@ def build_atlas(
     - ``mip_levels=None`` auto-picks: full chain down to 4×4 cells.
 
     Returns linear float data resident on ``device`` (inputs are already
-    linear float — Texture.from_numpy decoded them at upload).
+    linear float — Texture.from_numpy decoded them at upload); without
+    ``device``, on the device of the first texture given.
     """
     n = len(textures)
     assert n >= 1, "atlas needs at least one slot"
+    if device is None:
+        first = next((t for t in textures if t is not None), None)
+        if first is None:
+            raise ValueError("build_atlas: every entry is None and no device was given")
+        device = first.array.device
     max_w = max((t.desc.width if t else 1) for t in textures)
     max_h = max((t.desc.height if t else 1) for t in textures)
     if gutter is None:

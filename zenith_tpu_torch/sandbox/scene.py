@@ -62,7 +62,7 @@ def sky_cube_pixels(size: int = 64) -> np.ndarray:
     return np.stack(faces)
 
 
-def sky_cube_texture(size: int = 64, device: "torch.device | str" = "cpu") -> Texture:
+def sky_cube_texture(size: int = 64, *, device: "torch.device | str") -> Texture:
     """The procedural sky as a cube-map Texture on ``device`` (reference
     texture.rs:94-105)."""
     return Texture.from_numpy_layers(
@@ -177,7 +177,7 @@ def standin_mesh() -> Mesh:
     return Mesh("procedural/cerberus-standin", v, np.concatenate(idx).astype(np.int32))
 
 
-def glass_checker_texture(device: "torch.device | str" = "cpu") -> Texture:
+def glass_checker_texture(device: "torch.device | str") -> Texture:
     """build_scene's 64² two-tone checker for the textured glass panes."""
     yy, xx = np.mgrid[0:64, 0:64]
     c = ((xx // 4 + yy // 4) % 2).astype(np.float32)
