@@ -11,16 +11,24 @@ other than 0, no result line) on the first phase that fails:
 1. device and build: checks the card, prints its name and power limit, and
    builds every kernel from zenith_tpu_torch/csrc/ and the blend kernel of
    each fragment shader the script draws with, every nvcc at once (timed),
-   with the compiler's registers and spills for each kernel. A later phase
+   with the compiler's registers, spills and shared memory for each kernel
+   (K1 is raster_segmented_kernel<0>, K3 <1>, K4 <2>). A later phase
    whose draw compiles a blend kernel anew fails: the kernel reported here
    would not be the one it ran;
 2. K1 against its plain PyTorch version, on the card: at the triangle demo's
    own 1920x1080 inputs and on a numpy-seeded 1080p stress draw (tens of
    thousands of triangles, tiles with more than one block of entries,
    mid- and huge-span records, near-clipped triangles, exact equal-z ties)
-   for all eight depth compares. z, coverage and the attribute planes must
-   be bit-equal; the card's binning must equal the CPU binning, overflow
-   count included. Both versions are timed with CUDA events (median);
+   for all eight depth compares; then on a cull-stress draw at sample
+   offset (0.9375, 0.0625) for all eight compares: near-clipped triangles
+   whose AABBs reach surfaces off-screen, needles and slivers, and corners on
+   sample points, whose edges run through samples at the border of K1's
+   per-entry pixel rectangle. z, coverage and the attribute planes must be
+   bit-equal (the plain version does not cull, so this holds the rectangles
+   too); the card's binning must equal the CPU binning, overflow count
+   included. Both versions are timed with CUDA events (median), beside K1's
+   time at the same input before its redesign (PERF.md §6) and the largest
+   number of entries a tile holds;
 3. the golden frame: the triangle graph of tests/test_golden.py rendered on
    the card must match tests/golden/triangle_128x32_t1_25.npy (<= 1 LSB,
    < 1% of pixels differing);
@@ -37,7 +45,8 @@ other than 0, no result line) on the first phase that fails:
    shadow and G-buffer passes. Both kernels (each K1 pass) and their plain
    versions are timed (CUDA events, median) and set beside their bound on
    the H100, which counts the work these inputs need (K1's fragments, K2's
-   lit pairs);
+   lit pairs), K1's beside its time before the redesign and each pass's
+   largest tile;
 6. the deferred golden: tests/test_golden.py's scene (8 point lights, a 16²
    sky cube, 128x64, 8x128 tiles) rendered through the port on the card
    must match tests/golden/deferred_scene_128x64.npy (<= 1 LSB, < 1% of
@@ -53,7 +62,10 @@ other than 0, no result line) on the first phase that fails:
    both plain versions (<= 1 LSB, < 1% of values); a retained frame must
    make no host sync. It prints FPS, frame time p50/p99, and from
    torch.profiler the kernel launches, device time (per render-graph node)
-   and device-busy share per frame;
+   and device-busy share per frame, and whether the frame is host-bound
+   (the device idle more than 20% of the unprofiled p50 frame), and what
+   the per-row rectangles cost the frame's host: frames that compute them
+   against frames that replay them (A B B A, bit-equal);
 8. K3 (raster + stencil) against its plain version on the 1080p stress
    draw: a stencil-write draw (faces that differ, REPLACE,
    INCREMENT_AND_WRAP, INVERT as the depth-fail op, write masks 0xF3 / 0xBF)
@@ -101,7 +113,9 @@ other than 0, no result line) on the first phase that fails:
     510 tiles) and by the sun (the 1024² shadow map, 256 tiles), each at a
     capacity that drops nothing, then on the stress draw at capacity 64.
     K7 and K8 bit-equal to their plain versions; K8 bit-equal to K1 on the
-    segmented bins of the same records; K7's z equal to K8's, its slots set
+    segmented bins of the same records, and timed beside it: K8 is K1's
+    walk before the redesign over another layout, so K8's time over K1's
+    is the redesign's gain in the same run; K7's z equal to K8's, its slots set
     exactly where K8's 1/w plane is; resolve_varyings over K7's slots within
     atol 2e-3 + rtol 1e-4 of finalize_attrs over K8's planes; at capacity 64
     the card's binning (overflow included) equal to the CPU's.
@@ -139,6 +153,8 @@ FRAMES = 60
 DEFERRED_FRAMES = 60
 GLASS_FRAMES = 40
 PROFILED_FRAMES = 10
+# Frames per run of phase 7's A/B of the per-row rectangles' host cost.
+RECT_FRAMES = 30
 
 
 def fail(msg: str) -> None:
@@ -198,6 +214,72 @@ def stress_scene(seed: int = 7):
     idx = np.concatenate([idx, dup]).astype(np.int32)
     colors = rng.uniform(0.0, 1.0, (nv, 3)).astype(np.float32)
     return clip, idx, colors
+
+
+# Phase 2c's sample offset, and the lattice of sample points that clip
+# coordinates reach exactly at 1920x1080 with it: x = 15 m + 0.9375 (NDC
+# (16 m + 1) / 1024 - 1), y = 135 t + 59.0625 (NDC (16 t + 7) / 64 - 1).
+CULL_OFFSET = (0.9375, 0.0625)
+
+
+def cull_stress_scene(seed: int = 19):
+    """Phase 2c's draw, which K1's per-entry rectangle cull must survive:
+    near-clipped triangles whose clipped AABBs reach thousands of pixels
+    off-screen, needles and slivers 20-600 px long and 0.02-0.6 px thick,
+    and triangles with corners on CULL_OFFSET's sample points (axis-aligned
+    right triangles and others), whose edges run through sample points at
+    the AABB's border. (clip (Nv, 4), indices (T, 3), colors (Nv, 3))."""
+    rng = np.random.default_rng(seed)
+
+    def clip_of(px, z, w):
+        ndc = px / [W / 2, H / 2] - 1.0
+        return np.concatenate([ndc * w[:, None], (z * w)[:, None], w[:, None]], 1)
+
+    n = 300  # near-clipped: two corners beyond the near plane, the third far off-screen
+    px = rng.uniform(-0.1, 1.1, (n, 3, 2)) * [W, H]
+    z = rng.uniform(0.02, 0.3, (n, 3))
+    w = rng.uniform(0.5, 2.0, (n, 3))
+    z[:, :2] = rng.uniform(1.02, 1.3, (n, 2))
+    px[:, 2] = rng.uniform(2.0, 30.0, (n, 2)) * rng.choice([-1.0, 1.0], (n, 2)) * [W, H]
+    near = clip_of(px.reshape(-1, 2), z.reshape(-1), w.reshape(-1))
+    n = 2000  # needles and slivers, a quarter along the axes and diagonals
+    p0 = rng.uniform(0, 1, (n, 2)) * [W, H]
+    ang = rng.uniform(0, 2 * np.pi, n)
+    ang[::4] = rng.choice([0.0, np.pi / 4, np.pi / 2, 3 * np.pi / 4], n // 4)
+    d = np.stack([np.cos(ang), np.sin(ang)], 1)
+    p1 = p0 + d * rng.uniform(20, 600, (n, 1))
+    p2 = (p0 + p1) / 2 + d[:, ::-1] * [1, -1] * rng.uniform(0.02, 0.6, (n, 1))
+    sliver = clip_of(np.stack([p0, p1, p2], 1).reshape(-1, 2), rng.uniform(0.05, 0.95, 3 * n),
+                     np.ones(3 * n))
+    n = 1000  # corners on sample points
+    m = rng.integers(-1, W // 15 + 1, (n, 3))
+    t = rng.integers(-1, H // 135 + 1, (n, 3))
+    t[::2, 1], m[::2, 2] = t[::2, 0], m[::2, 0]  # right triangles with axis-aligned legs
+    lattice = np.stack([15 * m + CULL_OFFSET[0], 135 * t + 59.0625], -1).reshape(-1, 2)
+    on_samples = clip_of(lattice, rng.uniform(0.05, 0.95, 3 * n), np.ones(3 * n))
+    clip = np.concatenate([near, sliver, on_samples]).astype(np.float32)
+    idx = np.arange(clip.shape[0], dtype=np.int32).reshape(-1, 3)
+    colors = rng.uniform(0.0, 1.0, (clip.shape[0], 3)).astype(np.float32)
+    return clip, idx, colors
+
+
+# K1's times before the redesign, at the same inputs (PERF.md §6: the ranges
+# of the CUDA-event medians this script printed then, NVIDIA H100 80GB HBM3,
+# 700.00 W).
+K1_BEFORE_MS = {"demo triangle": "0.1383-0.2149", "stress draw": "7.2051-7.7017",
+                "shadow": "8.4931-8.6090", "gbuffer": "2.9762-3.1871",
+                "phase 13 stress draw": "7.4799-7.8775",
+                "phase 13 G-buffer view": "3.1655-3.1865",
+                "phase 13 shadow view": "8.5905-9.0006"}
+
+
+def tile_entries(bins, grid) -> int:
+    """The largest number of entries any one tile holds."""
+    import torch
+
+    tile = bins.blk_tile_y.long() * grid.tiles_x + bins.blk_tile_x.long()
+    per_tile = torch.zeros(grid.num_tiles, dtype=torch.int64, device=tile.device)
+    return int(per_tile.index_add_(0, tile, bins.blk_count.long()).max())
 
 
 def lsb_diff(a: np.ndarray, b: np.ndarray) -> "tuple[int, float]":
@@ -427,9 +509,10 @@ def deferred_phases(dev, card: str, plain_k1) -> dict:
         k1_pass[label] = (t_k, t_p, b_ms, b_by)
         print(f"phase 5: K1 {label} pass {grid.width}x{grid.height}: "
               f"{int(bins.blk_count.sum())} entries in {bins.blk_count.shape[0]} blocks, "
-              f"{frags} fragments, {pass_cov} px covered, a_n {k[1].shape[0]}: bit-equal to "
-              f"the plain version; kernel {t_k:.4f} ms, plain {t_p:.4f} ms, bound "
-              f"{b_ms:.4f} ms ({b_by}); no one-call PyTorch equivalent [{card}]")
+              f"largest tile {tile_entries(bins, grid)} entries, {frags} fragments, {pass_cov} "
+              f"px covered, a_n {k[1].shape[0]}: bit-equal to the plain version; kernel "
+              f"{t_k:.4f} ms, plain {t_p:.4f} ms, bound {b_ms:.4f} ms ({b_by}); before the "
+              f"redesign {K1_BEFORE_MS[label]} ms; no one-call PyTorch equivalent [{card}]")
     k1_ms, k1_plain_ms, k1_bound_ms, k1_bound_by = k1_pass["gbuffer"]
 
     # -- 5. K2 against its plain version on the 1080p G-buffer ----------------
@@ -570,6 +653,7 @@ def deferred_phases(dev, card: str, plain_k1) -> dict:
     torch.cuda.synchronize()
     print("phase 7: a retained deferred frame at 1080p made no host sync")
 
+    rect_host_cost(frame, card)
     profile_frames(frame, ("shadow", "gbuffer", "lighting", "post", "present.encode"),
                    "phase 7", card, frame_ms)
     return {"k1": {"ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound_ms,
@@ -690,6 +774,55 @@ def ptxas_lines(log_path) -> "list[str]":
     return out
 
 
+def rect_host_cost(frame, card: str) -> None:
+    """What the per-row rectangles (binning._row_rects) cost the deferred
+    frame's host. At one camera, frames that compute them, as every frame
+    does, run interleaved (A B B A) with frames that replay the rectangles a
+    recorded frame computed: the same values, none of their launches. The
+    replayed frame must equal the computed one bit for bit."""
+    import itertools
+
+    import torch
+
+    from zenith_tpu_torch.ops import binning as binning_mod
+
+    recorded = []
+    real_row_rects = binning_mod._row_rects
+
+    def recording(*args):
+        recorded.append(real_row_rects(*args))
+        return recorded[-1]
+
+    with mock.patch.object(binning_mod, "_row_rects", recording):
+        compiled, enc, _, _ = frame(0.3)
+        computed_img = compiled.value(enc).cpu().numpy()
+    replay = itertools.cycle(recorded)
+
+    def run(replayed: bool) -> "tuple[float, np.ndarray]":
+        patch = (mock.patch.object(binning_mod, "_row_rects", lambda *a: next(replay))
+                 if replayed else contextlib.nullcontext())
+        with patch:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(RECT_FRAMES):
+                compiled, enc, _, _ = frame(0.3)
+            img = compiled.value(enc).cpu().numpy()
+        return (time.perf_counter() - t0) * 1e3 / RECT_FRAMES, img
+
+    ms = {False: [], True: []}
+    for replayed in (False, True, True, False):
+        t, img = run(replayed)
+        check(np.array_equal(img, computed_img),
+              f"a frame with {'replayed' if replayed else 'computed'} rectangles differs")
+        ms[replayed].append(t)
+    a, b = np.mean(ms[False]), np.mean(ms[True])
+    print(f"phase 7: per-row rectangles ({len(recorded)} binning._row_rects calls a frame, "
+          f"12 launches each): computed {ms[False][0]:.3f} / {ms[False][1]:.3f} ms a frame, "
+          f"replayed {ms[True][0]:.3f} / {ms[True][1]:.3f} ms (A B B A, {RECT_FRAMES} frames "
+          f"each, one camera, wall clock): host cost {a - b:.3f} ms a frame "
+          f"({(a - b) / a * 100:.2f}%); replayed frames bit-equal [{card}]")
+
+
 def profile_frames(frame, nodes, tag: str, card: str, frame_ms) -> None:
     """Where the time goes. Kernels only (little host slow-down): device
     time, launches, the busy share and the heaviest kernels per frame. Then
@@ -716,11 +849,18 @@ def profile_frames(frame, nodes, tag: str, card: str, frame_ms) -> None:
         spans = {(e.time_range.start, e.time_range.end, e.name) for e in kernels}
         kernel_ms = sum(b - a for a, b, _ in spans) / 1e3 / PROFILED_FRAMES
         busy_ms = union_us([(a, b) for a, b, _ in spans]) / 1e3 / PROFILED_FRAMES
+        p50 = np.percentile(frame_ms, 50)
         line = (f"{tag}: profile ({'host operators + kernels' if cpu else 'kernels only'}) "
                 f"of {PROFILED_FRAMES} frames: {len(spans) / PROFILED_FRAMES:.0f} kernel "
                 f"launches, {kernel_ms:.3f} ms kernel time, device busy {busy_ms:.3f} ms = "
                 f"{busy_ms / wall_ms * 100:.1f}% of {wall_ms:.2f} ms wall per frame; "
-                f"unprofiled frame time p50 {np.percentile(frame_ms, 50):.3f} ms")
+                f"unprofiled frame time p50 {p50:.3f} ms")
+        if not cpu:
+            # The kernels-only profile barely slows the kernels: their time
+            # against the unprofiled frame says which side sets the pace.
+            idle = max(0.0, 1.0 - busy_ms / p50)
+            line += (f", device idle {idle * 100:.1f}% of it: "
+                     f"{'host-bound' if idle > 0.2 else 'device-bound'}")
         if cpu:
             node_ms = {n: sum(e.device_time_total for e in events if e.name == n) / 1e3
                        / PROFILED_FRAMES for n in nodes}
@@ -1735,10 +1875,13 @@ def capped_phase(dev, card: str, stress) -> "list[dict]":
                    frags * K1_OPS_PER_FRAGMENT + n_cov * a_n * K1_OPS_PER_PIXEL_PLANE)
         b7 = bound(4 * (live * 17 + bins.counts.numel() + 4 * hp * wp),
                    frags * K7_OPS_PER_FRAGMENT)
+        before = K1_BEFORE_MS[f"phase 13 {name}"]
         print(line + f"; K8 bit-equal to K1 on the segmented bins of the same records. "
               f"{frags} fragments: K8 {t8:.4f} ms (plain {p8:.4f} ms, bound {b8[0]:.4f} ms, "
               f"{b8[1]}), K7 {t7:.4f} ms (plain {p7:.4f} ms, bound {b7[0]:.4f} ms, {b7[1]}), "
-              f"K1 on the same records {t1:.4f} ms; no one-call PyTorch equivalent [{card}]")
+              f"K1 on the same records {t1:.4f} ms (largest tile {tile_entries(sbins, g)} "
+              f"entries; before the redesign {before} ms): K8, the old "
+              f"walk, takes {t8 / t1:.2f}x K1's time; no one-call PyTorch equivalent [{card}]")
         records[name] = {"K7": (t7, p7, *b7), "K8": (t8, p8, *b8)}
 
     print(f"phase 13: capped-bin path: K7 and K8 launched {launches['K7']} times each on the "
@@ -1859,7 +2002,8 @@ def main() -> int:
     with mock.patch.object(raster_mod, "_raster_segmented_cuda", plain):
         p_ms = cuda_ms(lambda: raster_segmented(tri_bins, grid, z0, **demo), reps=10)
     print(f"phase 2a: K1 demo triangle 1080p ({tri_bins.blk_count.shape[0]} blocks, "
-          f"{covered} px): kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms [{card}]")
+          f"{covered} px): kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms; before the redesign "
+          f"{K1_BEFORE_MS['demo triangle']} ms [{card}]")
 
     # -- 2b. K1 on the 1080p stress draw, all eight compares -----------------
     clip, idx, colors = stress_scene()
@@ -1897,7 +2041,31 @@ def main() -> int:
     s_ms = cuda_ms(lambda: raster_segmented(bins, grid, init), reps=20, warmup=2)
     with mock.patch.object(raster_mod, "_raster_segmented_cuda", plain):
         s_plain_ms = cuda_ms(lambda: raster_segmented(bins, grid, init), reps=3)
-    print(f"phase 2b: K1 stress 1080p GREATER: kernel {s_ms:.4f} ms, plain {s_plain_ms:.4f} ms "
+    print(f"phase 2b: K1 stress 1080p GREATER: kernel {s_ms:.4f} ms, plain {s_plain_ms:.4f} ms; "
+          f"largest tile {tile_entries(bins, grid)} entries; before the redesign "
+          f"{K1_BEFORE_MS['stress draw']} ms [{card}]")
+
+    # -- 2c. K1's cull on its hard cases, all eight compares --------------------
+    from zenith_tpu_torch.ops.binning import tile_overlap
+
+    c_clip, c_idx, c_col = (torch.from_numpy(a).to(dev) for a in cull_stress_scene())
+    c_rec, c_corner = setup_with_attrs(c_clip, c_idx, c_col, W, H, cull_mode=CullMode.NONE)
+    c_entries = int(tile_overlap(c_rec, grid).sum())
+    c_bins = bin_segmented(c_rec, c_corner, grid, mid_cap=8192, huge_cap=4096,
+                           entry_budget=c_entries)
+    check(int(c_bins.overflow) == 0, "cull stress: the binning dropped entries")
+    aabb = c_rec.aabb[c_rec.valid]
+    far_out = int(((aabb[:, 0] < -W) | (aabb[:, 2] > 2 * W) | (aabb[:, 1] < -H)
+                   | (aabb[:, 3] > 2 * H)).sum())
+    check(far_out > 0, "cull stress: no record reaches far outside the surface")
+    for cfg in configs[:8]:
+        cov = compare_exact(*both(c_bins, grid, init, sample_offset=CULL_OFFSET, **cfg),
+                            f"cull stress {cfg}")
+        print(f"  bit-equal: {cfg['compare_op'].name:<17} write={cfg['depth_write']!s:<5} "
+              f"covered {cov}")
+    print(f"phase 2c: cull stress 1080p, sample offset {CULL_OFFSET}: {int(c_rec.valid.sum())} "
+          f"valid records ({far_out} with an AABB more than a surface off-screen), "
+          f"{c_entries} entries; K1 bit-equal to its plain version for all eight compares "
           f"[{card}]")
 
     # -- 3. the golden frame ---------------------------------------------------

@@ -34,7 +34,7 @@ def _textures(seed, sizes):
     pix = [None if s is None else rng.uniform(0, 1, (*s, 4)).astype(np.float32) for s in sizes]
     j = [None if p is None else JTexture.from_numpy(f"t{k}", p, JFormat.RGBA32F)
          for k, p in enumerate(pix)]
-    t = [None if p is None else TTexture.from_numpy(f"t{k}", p, TFormat.RGBA32F)
+    t = [None if p is None else TTexture.from_numpy(f"t{k}", p, TFormat.RGBA32F, device="cpu")
          for k, p in enumerate(pix)]
     return j, t
 

@@ -184,7 +184,7 @@ def test_unported_branches_name_their_roadmap_item():
 
     device = TCore(CPU).create_render_device()
     scene, _ = golden_scene(device)
-    tex = Texture.from_numpy("t", np.ones((2, 2, 4), np.float32), TFormat.RGBA32F)
+    tex = Texture.from_numpy("t", np.ones((2, 2, 4), np.float32), TFormat.RGBA32F, device=CPU)
     quad = SceneObject.quad(device, "q", base_color_texture=tex)
     cases = [
         (dict(objects=[quad]), {}, 13),

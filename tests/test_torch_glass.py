@@ -190,7 +190,8 @@ def test_glass_renderer_rejects_what_is_not_ported():
     ground = SceneObject.quad(device, "ground")
     with pytest.raises(ValueError, match="glass_mode"):
         TDeferred(Scene(objects=[ground, pane]), glass_mode="sorted")
-    tex = Texture.from_numpy("t", np.ones((2, 2, 4), np.float32), TFormat.RGBA32F)
+    tex = Texture.from_numpy("t", np.ones((2, 2, 4), np.float32), TFormat.RGBA32F,
+                             device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
         TDeferred(Scene(objects=[dataclasses.replace(ground, base_color_texture=tex), pane]))
     r = TDeferred(Scene(objects=[ground, pane]))

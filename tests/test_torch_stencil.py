@@ -219,7 +219,7 @@ def _masked_graph(pkg):
     else:
         from zenith_tpu_torch import rendergraph as rg, rhi
         xp_full = lambda b: torch.tensor([1.0, 0.0, 0.0, 1.0]).expand(b.depth.shape + (4,))
-        mk = lambda name, arr: rhi.Buffer.from_numpy(name, arr)
+        mk = lambda name, arr: rhi.Buffer.from_numpy(name, arr, device=CPU)
         st = tstate
     device = rhi.RhiCore().create_render_device() if pkg == "jax" else \
         rhi.RhiCore(CPU).create_render_device()

@@ -22,7 +22,7 @@ records.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -74,7 +74,15 @@ class TileBins(NamedTuple):
 
 class SegmentedBins(NamedTuple):
     """Per-tile variable-length candidate segments, block-aligned for the
-    segmented raster kernel (no per-tile capacity cap)."""
+    segmented raster kernel (no per-tile capacity cap).
+
+    A tile's blocks are consecutive and each holds at least one entry;
+    blocks with ``blk_count`` 0 are dead and lie past every live block.
+    ``rect`` is the kernels' cull aid, not part of the reference's layout:
+    per row an inclusive pixel rectangle (x0, y0, x1, y1) that holds every
+    pixel the row's triangle can cover, empty (0, 0, -1, -1) for padding
+    rows. K1, K3 and K4 need it on CUDA tensors; the plain versions ignore
+    it."""
 
     blk_tile_y: torch.Tensor  # (B,) i32
     blk_tile_x: torch.Tensor  # (B,) i32
@@ -83,6 +91,7 @@ class SegmentedBins(NamedTuple):
     rast_pad: torch.Tensor  # (B*CHUNK, 16 + D) f32 — merged rast16 | corner rows
     attr_pad: torch.Tensor  # (0,) f32 — folded into rast_pad, as in the reference
     overflow: torch.Tensor  # () i32 — entries dropped (budget/span caps)
+    rect: Optional[torch.Tensor] = None  # (B*CHUNK, 4) i32 — per-row pixel rectangle
 
 
 def _top_k_indices(values: torch.Tensor, k: int) -> torch.Tensor:
@@ -101,6 +110,44 @@ def _tile_ranges(records: TriangleRecords, grid: TileGrid):
 
     return (tiles(xmin, grid.tile_w, grid.tiles_x), tiles(xmax, grid.tile_w, grid.tiles_x),
             tiles(ymin, grid.tile_h, grid.tiles_y), tiles(ymax, grid.tile_h, grid.tiles_y))
+
+
+def pixel_rects(records: TriangleRecords, grid: TileGrid) -> torch.Tensor:
+    """Each record's inclusive pixel rectangle (R, 4) i32: x0, y0, x1, y1.
+
+    It holds every pixel whose sample point, for any offset in [0, 1)²,
+    lies within one pixel of the record's vertex AABB: floor/ceil of the
+    AABB widened by one pixel, clamped to the padded surface before the
+    int cast (a near-clipped record's AABB reaches far outside it). A
+    sample point inside the triangle lies inside its AABB; coverage beyond
+    it could come only from the rounding of the edge coefficients, orders
+    of magnitude below a pixel at the coordinates a valid record has.
+    Invalid records get the empty rectangle (0, 0, -1, -1)."""
+    return _or_empty(_pixel_boxes(records, grid), records.valid)
+
+
+def _pixel_boxes(records: TriangleRecords, grid: TileGrid) -> torch.Tensor:
+    """``pixel_rects`` without the validity mask."""
+    hp, wp = grid.tiles_y * grid.tile_h, grid.tiles_x * grid.tile_w
+    box = torch.cat([torch.floor(records.aabb[:, :2]) - 1.0,
+                     torch.ceil(records.aabb[:, 2:]) + 1.0], dim=1)
+    box[:, 0::2].clamp_(0, wp - 1)
+    box[:, 1::2].clamp_(0, hp - 1)
+    return box.to(torch.int32)
+
+
+def _or_empty(rect: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
+    """``rect`` where ``keep``, else the empty rectangle (0, 0, -1, -1)."""
+    empty = torch.zeros_like(rect)
+    empty[:, 2:] = -1
+    return torch.where(keep[:, None], rect, empty)
+
+
+def _row_rects(records: TriangleRecords, grid: TileGrid, rec_l: torch.Tensor,
+               src_ok: torch.Tensor) -> torch.Tensor:
+    """The rectangle of each binned row's record (12 launches); padding rows
+    get the empty one. Binned rows only hold valid records."""
+    return _or_empty(_pixel_boxes(records, grid)[rec_l], src_ok)
 
 
 def tile_overlap(records: TriangleRecords, grid: TileGrid) -> torch.Tensor:
@@ -161,7 +208,8 @@ def bin_segmented(
     dense per-tile mask. All tiers merge in one (tile, record) sort, which
     keeps submission order within every tile. ``entry_budget`` bounds the
     (tile, record) pairs per draw (default 2×R, min 8192); overflow is
-    counted."""
+    counted. Beyond the reference's fields, each row carries its record's
+    ``pixel_rects`` rectangle (``rect``), gathered like the rows."""
     r = records.rast16.shape[0]
     t = grid.num_tiles
     tiles_x = grid.tiles_x
@@ -292,8 +340,10 @@ def bin_segmented(
 
     # One merged (rast16 | corner-data) row per entry.
     merged = torch.cat([rast16, corner_flat.to(torch.float32)], dim=1)
-    rows = merged[rec_idx.to(torch.int64)]
+    rec_l = rec_idx.to(torch.int64)
+    rows = merged[rec_l]
     rows = torch.where(src_ok[:, None], rows, torch.zeros_like(rows))
+    rect = _row_rects(records, grid, rec_l, src_ok)
 
     overflow = huge_dropped + mid_dropped + block_overflow * chunk
     return SegmentedBins(
@@ -304,4 +354,5 @@ def bin_segmented(
         rows,
         torch.zeros((0,), dtype=torch.float32, device=dev),
         i32(overflow),
+        rect,
     )

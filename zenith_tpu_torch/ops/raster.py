@@ -36,7 +36,7 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 
-from zenith_tpu_torch.ops.binning import SegmentedBins, TileBins, TileGrid
+from zenith_tpu_torch.ops.binning import ENTRY_CHUNK, SegmentedBins, TileBins, TileGrid
 from zenith_tpu_torch.ops.runtime import load_blend_kernel, load_kernels, on_cuda
 from zenith_tpu_torch.rhi.state import (
     BlendFactor,
@@ -64,7 +64,7 @@ _STENCIL_OP_CODE = {op: i for i, op in enumerate(StencilOp)}
 _BLEND_FACTOR_CODE = {f: i for i, f in enumerate(BlendFactor)}
 _BLEND_OP_CODE = {op: i for i, op in enumerate(BlendOp)}
 
-_MAX_TILE_PIXELS = 4096  # raster.cu: 256 threads x 16; raster_blend.cu: 512 x 8
+_MAX_TILE_PIXELS = 4096  # raster_blend.cu: 512 threads x 8 (raster.cu splits a tile over CTAs)
 
 
 def _compare(op: CompareOp, new: torch.Tensor, cur: torch.Tensor) -> torch.Tensor:
@@ -403,6 +403,29 @@ def _check_inputs(bins, z, what: str):
     return routing, rows, num_blocks, rows.shape[0] // max(num_blocks, 1)
 
 
+def _check_rects(bins, rows, chunk, z, sample_offset, what: str) -> torch.Tensor:
+    """The bins' per-row pixel rectangles after the checks K1, K3 and K4
+    make: bins that ``bin_segmented`` did not build carry none, and the
+    kernels do not run without their cull. The rectangles hold every pixel
+    a record covers only for a sample offset in [0, 1)² (as the kernel
+    rounds it, to float32). Blocks hold at most ``ENTRY_CHUNK`` entries
+    (the kernels' staging buffers)."""
+    if not all(0.0 <= ctypes.c_float(o).value < 1.0 for o in sample_offset):
+        raise ValueError(f"{what} culls by pixel rectangles that hold a record's coverage only "
+                         f"for a sample offset in [0, 1)^2, got {tuple(sample_offset)}")
+    if chunk > ENTRY_CHUNK:
+        raise ValueError(f"{what} takes blocks of at most {ENTRY_CHUNK} entries, got {chunk}")
+    rect = bins.rect
+    if rect is None:
+        raise ValueError(f"{what} needs the bins' per-row pixel rectangles (SegmentedBins.rect, "
+                         f"built by binning.bin_segmented); these bins have none")
+    if (rect.dtype != torch.int32 or not rect.is_contiguous() or rect.device != z.device
+            or rect.shape != (rows.shape[0], 4) or rect.data_ptr() % 16):
+        raise ValueError(f"{what} takes a contiguous 16-byte-aligned ({rows.shape[0]}, 4) int32 "
+                         f"rectangle table on the z device")
+    return rect
+
+
 def _check_tile(grid, what: str) -> None:
     if grid.tile_h * grid.tile_w > _MAX_TILE_PIXELS:
         raise ValueError(f"{what} takes tiles of at most {_MAX_TILE_PIXELS} pixels, "
@@ -415,12 +438,13 @@ def _raster_stencil_cuda(bins, grid, z, acc, sten, front, back, compare, write, 
     in place."""
     _check_tile(grid, "K3")
     routing, rows, num_blocks, chunk = _check_inputs(bins, z, "K3")
+    rect = _check_rects(bins, rows, chunk, z, sample_offset, "K3")
     if sten.dtype != torch.int32 or not sten.is_contiguous() or sten.shape != z.shape:
         raise ValueError("K3 takes a contiguous int32 stencil plane of z's shape")
     lib = load_kernels()
     err = lib.zn_raster_segmented_stencil(
         *[t.data_ptr() for t in routing],
-        rows.data_ptr(), z.data_ptr(), acc.data_ptr(), sten.data_ptr(),
+        rows.data_ptr(), rect.data_ptr(), z.data_ptr(), acc.data_ptr(), sten.data_ptr(),
         num_blocks, chunk, rows.shape[1], acc.shape[0], z.shape[1], z.shape[0],
         grid.tile_h, grid.tile_w, _COMPARE_CODE[compare], int(write), int(clamp),
         ctypes.c_float(sample_offset[0]), ctypes.c_float(sample_offset[1]),
@@ -437,12 +461,13 @@ def _raster_peel_cuda(bins, grid, z, acc, bound, bound_op, compare, write, clamp
     """Launch K4 on the current stream; updates ``z`` and ``acc`` in place."""
     _check_tile(grid, "K4")
     routing, rows, num_blocks, chunk = _check_inputs(bins, z, "K4")
+    rect = _check_rects(bins, rows, chunk, z, sample_offset, "K4")
     if bound.dtype != torch.float32 or not bound.is_contiguous() or bound.shape != z.shape:
         raise ValueError("K4 takes a contiguous float32 bound plane of z's shape")
     lib = load_kernels()
     err = lib.zn_raster_segmented_peel(
         *[t.data_ptr() for t in routing],
-        rows.data_ptr(), z.data_ptr(), acc.data_ptr(), bound.data_ptr(),
+        rows.data_ptr(), rect.data_ptr(), z.data_ptr(), acc.data_ptr(), bound.data_ptr(),
         num_blocks, chunk, rows.shape[1], acc.shape[0], z.shape[1], z.shape[0],
         grid.tile_h, grid.tile_w, _COMPARE_CODE[compare], int(write), int(clamp),
         ctypes.c_float(sample_offset[0]), ctypes.c_float(sample_offset[1]),
@@ -510,12 +535,13 @@ def _raster_segmented_cuda(bins, grid, z, acc, compare, write, clamp, sample_off
     th, tw = grid.tile_h, grid.tile_w
     _check_tile(grid, "K1")
     routing, rows, num_blocks, chunk = _check_inputs(bins, z, "K1")
+    rect = _check_rects(bins, rows, chunk, z, sample_offset, "K1")
     a_n = acc.shape[0]
     lib = load_kernels()
     stream = torch.cuda.current_stream(z.device).cuda_stream
     err = lib.zn_raster_segmented(
         *[t.data_ptr() for t in routing],
-        rows.data_ptr(), z.data_ptr(), acc.data_ptr(),
+        rows.data_ptr(), rect.data_ptr(), z.data_ptr(), acc.data_ptr(),
         num_blocks, chunk, rows.shape[1], a_n, z.shape[1], z.shape[0],
         th, tw, _COMPARE_CODE[compare], int(write), int(clamp),
         ctypes.c_float(sample_offset[0]), ctypes.c_float(sample_offset[1]),

@@ -137,7 +137,7 @@ def load_kernels() -> ctypes.CDLL:
     lib.zn_raster_segmented.restype = ctypes.c_int
     lib.zn_raster_segmented.argtypes = [
         p, p, p, p,  # blk_tile_y, blk_tile_x, blk_count, blk_init
-        p,  # rows
+        p, p,  # rows, rects
         p, p,  # z, acc (updated in place)
         i, i, i, i, i,  # num_blocks, chunk, row_stride, a_n, wp
         i, i, i,  # hp, tile_h, tile_w
@@ -147,7 +147,7 @@ def load_kernels() -> ctypes.CDLL:
     ]
     lib.zn_raster_segmented_stencil.restype = ctypes.c_int
     lib.zn_raster_segmented_stencil.argtypes = [
-        p, p, p, p, p,  # routing tables, rows
+        p, p, p, p, p, p,  # routing tables, rows, rects
         p, p, p,  # z, acc, stencil (updated in place)
         i, i, i, i, i, i, i, i,  # num_blocks, chunk, row_stride, a_n, wp, hp, tile_h, tile_w
         i, i, i,  # compare, depth_write, depth_clamp
@@ -157,7 +157,7 @@ def load_kernels() -> ctypes.CDLL:
     ]
     lib.zn_raster_segmented_peel.restype = ctypes.c_int
     lib.zn_raster_segmented_peel.argtypes = [
-        p, p, p, p, p,  # routing tables, rows
+        p, p, p, p, p, p,  # routing tables, rows, rects
         p, p,  # z, acc (updated in place)
         p,  # z_bound
         i, i, i, i, i, i, i, i,  # num_blocks, chunk, row_stride, a_n, wp, hp, tile_h, tile_w

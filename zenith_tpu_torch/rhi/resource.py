@@ -8,8 +8,10 @@ design — is everything Vulkan needs and PyTorch doesn't: memory-type
 selection, bind/allocate, image layouts, resource states and barriers (the
 stream orders the work).
 
-Every resource lives on an explicit ``torch.device``: host tensors unless a
-device is given (``RenderDevice.upload_buffer`` passes its own). Resources
+Every resource lives on an explicit ``torch.device``: a resource made from
+a tensor keeps that tensor's device; one made without a tensor, and every
+upload from numpy, takes ``device=`` as a required keyword (there is no
+default device; ``RenderDevice.upload_buffer`` passes its own). Resources
 are functional: a "write" produces a new wrapper around a new tensor. The
 render graph threads tensor values through node stages.
 """
@@ -28,7 +30,13 @@ import torch
 
 from zenith_tpu_torch.rhi.formats import Format, decode_stored
 
-_CPU = torch.device("cpu")
+
+def _required_device(device, what: str):
+    """``device``, which a resource made without a tensor must be given."""
+    if device is None:
+        raise TypeError(f"{what} made without an array needs device= (there is no default "
+                        f"device)")
+    return device
 
 
 class ShapeDtype(NamedTuple):
@@ -105,10 +113,11 @@ class BufferDesc:
 class Buffer:
     """A typed device array with a desc (reference buffer.rs:160-274)."""
 
-    def __init__(self, desc: BufferDesc, array: Optional[torch.Tensor] = None,
-                 device: torch.device = _CPU):
+    def __init__(self, desc: BufferDesc, array: Optional[torch.Tensor] = None, *,
+                 device: "torch.device | str | None" = None):
         if array is None:
-            array = torch.zeros(desc.shape, dtype=_torch_dtype(desc.dtype), device=device)
+            array = torch.zeros(desc.shape, dtype=_torch_dtype(desc.dtype),
+                                device=_required_device(device, f"buffer '{desc.name}'"))
         assert tuple(array.shape) == tuple(desc.shape), (
             f"buffer '{desc.name}': array shape {array.shape} != desc {desc.shape}"
         )
@@ -116,8 +125,8 @@ class Buffer:
         self.array = array
 
     @staticmethod
-    def from_numpy(name: str, data: np.ndarray, usage: BufferUsage = BufferUsage.STORAGE,
-                   device: torch.device = _CPU) -> "Buffer":
+    def from_numpy(name: str, data: np.ndarray, usage: BufferUsage = BufferUsage.STORAGE, *,
+                   device: "torch.device | str") -> "Buffer":
         """Host→device upload (the UploadPool analog, reference upload.rs —
         ``tensor.to(device)`` replaces the staging buffer + copy + barrier
         dance)."""
@@ -260,11 +269,11 @@ class Texture:
 
     def __init__(self, desc: TextureDesc, array: Optional[torch.Tensor] = None,
                  mips: "Optional[list[torch.Tensor]]" = None,
-                 host_pixels: "Optional[np.ndarray]" = None,
-                 device: torch.device = _CPU):
+                 host_pixels: "Optional[np.ndarray]" = None, *,
+                 device: "torch.device | str | None" = None):
         if array is None:
-            array = torch.zeros(desc.device_shape(),
-                                dtype=desc.format.compute_dtype, device=device)
+            array = torch.zeros(desc.device_shape(), dtype=desc.format.compute_dtype,
+                                device=_required_device(device, f"texture '{desc.name}'"))
         self.desc = desc
         self.array = array
         self.mips = mips  # mips[0] is `array` when present
@@ -291,8 +300,8 @@ class Texture:
     @staticmethod
     def from_numpy(name: str, pixels: np.ndarray, format: Format,
                    usage: TextureUsage = TextureUsage.SAMPLED,
-                   generate_mips: bool = False,
-                   device: torch.device = _CPU) -> "Texture":
+                   generate_mips: bool = False, *,
+                   device: "torch.device | str") -> "Texture":
         """Upload host pixels (at-rest dtype, e.g. sRGB u8) → linear float
         device image; optionally builds a full mip chain (box filter)."""
         linear = decode_stored(pixels, format)
@@ -319,8 +328,8 @@ class Texture:
     @staticmethod
     def from_numpy_layers(name: str, pixels: np.ndarray, format: Format,
                           usage: TextureUsage = TextureUsage.SAMPLED,
-                          cube: bool = False,
-                          device: torch.device = _CPU) -> "Texture":
+                          cube: bool = False, *,
+                          device: "torch.device | str") -> "Texture":
         """Upload a layered image stack (L, H, W, C) → 2D-array texture
         (or a cube map when L == 6 and ``cube``; Vulkan face order
         +X -X +Y -Y +Z -Z)."""
@@ -337,8 +346,8 @@ class Texture:
 
     @staticmethod
     def from_numpy_3d(name: str, pixels: np.ndarray, format: Format,
-                      usage: TextureUsage = TextureUsage.SAMPLED,
-                      device: torch.device = _CPU) -> "Texture":
+                      usage: TextureUsage = TextureUsage.SAMPLED, *,
+                      device: "torch.device | str") -> "Texture":
         """Upload a volume (D, H, W, C) → 3D texture."""
         linear = decode_stored(pixels, format)
         assert linear.ndim == 4, f"expected (D, H, W, C), got {linear.shape}"
@@ -380,7 +389,7 @@ class ResourceCache:
     (swapchain ring, readback staging); graph-managed intermediates are
     temporaries of PyTorch's caching allocator."""
 
-    def __init__(self, device: torch.device = _CPU) -> None:
+    def __init__(self, device: "torch.device | str") -> None:
         self._pool: dict[object, list] = {}
         self.stats = ResourceCacheStats()
         self.device = device
