@@ -39,14 +39,17 @@ other than 0, no result line) on the first phase that fails:
    a retained run of the frame function must make no host sync;
 5. K2 against its plain PyTorch version on the card, on the 1080p G-buffer
    of phase 7's scene with its 100 point lights, with a mixed point/spot
-   table and with a table of spots with hard and narrow cone edges (atol
-   2e-4 / rtol 2e-3), with the counts of hit (tile, light) pairs and of lit
-   (light, pixel) pairs; K1 bit-equal to its plain version on that frame's
-   shadow and G-buffer passes. Both kernels (each K1 pass) and their plain
-   versions are timed (CUDA events, median) and set beside their bound on
-   the H100, which counts the work these inputs need (K1's fragments, K2's
-   lit pairs), K1's beside its time before the redesign and each pass's
-   largest tile;
+   table, with a table of spots with hard and narrow cone edges, with all
+   100 lights crowded within 4 units of one surface point (the densest
+   cull regions K2 can meet) and on the G-buffer cut to a ragged 1918x1078
+   (atol 2e-4 / rtol 2e-3), with the hits per 16x128 tile (the plain
+   version's cull) and per 16x16 region (the kernel's), mean and max, and
+   the lit (light, pixel) pairs; K1 bit-equal to its plain version on that
+   frame's shadow and G-buffer passes. Both kernels (each K1 pass) and
+   their plain versions are timed (CUDA events, median) and set beside
+   their bound on the H100, which counts the work these inputs need (K1's
+   fragments, K2's lit pairs), and beside their times before their
+   redesigns, K1's with each pass's largest tile;
 6. the deferred golden: tests/test_golden.py's scene (8 point lights, a 16²
    sky cube, 128x64, 8x128 tiles) rendered through the port on the card
    must match tests/golden/deferred_scene_128x64.npy (<= 1 LSB, < 1% of
@@ -61,8 +64,9 @@ other than 0, no result line) on the first phase that fails:
    with no bin overflow; the last frame must match the same frame through
    both plain versions (<= 1 LSB, < 1% of values); a retained frame must
    make no host sync. It prints FPS, frame time p50/p99, and from
-   torch.profiler the kernel launches, device time (per render-graph node)
-   and device-busy share per frame, and whether the frame is host-bound
+   torch.profiler the kernel launches, device time (per render-graph node,
+   and K1's and K2's own) and device-busy share per frame, and whether the
+   frame is host-bound
    (the device idle more than 20% of the unprofiled p50 frame), and what
    the per-row rectangles cost the frame's host: frames that compute them
    against frames that replay them (A B B A, bit-equal);
@@ -81,7 +85,11 @@ other than 0, no result line) on the first phase that fails:
     equation under a write mask with depth writes on; K6 with a read-only
     stencil mask whose faces differ, and as an overdraw limiter that writes
     the stencil. z and stencil bit-equal, colour within atol 1e-5 + rtol
-    1e-5 of the plain version;
+    1e-5 of the plain version; each timed beside its time before the
+    redesign. Then (10b) the four cases again on phase 2c's cull
+    stress drawn translucent at sample offset (0.9375, 0.0625), where K5
+    and K6's per-entry rectangle cull must drop nothing: z and stencil
+    bit-equal, colour within atol 1e-5 + rtol 1e-5;
 11. the deferred main path with build_scene's two glass panes at 1920x1080,
     100 lights, 40 frames per mode: glass_mode="kernel" (K5, the glass
     shader's device source) and glass_mode="peel" with the 64² checker and 4
@@ -183,6 +191,25 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return float(np.median(times))
 
 
+def device_ms(fn, part: str, reps: int = 10) -> float:
+    """Device time in ms per call of ``fn`` spent in the kernels whose name
+    holds ``part`` (torch.profiler, kernels only, after one untimed call):
+    the kernel alone, where ``cuda_ms`` times the whole wrapper call."""
+    import torch
+
+    from zenith_tpu_torch.core import profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile.session(cpu=False) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    spans = {(e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA and part in e.name}
+    return sum(b - a for a, b in spans) / 1e3 / reps
+
+
 def stress_scene(seed: int = 7):
     """A 1080p stress draw: (clip (Nv, 4), indices (T, 3), colors (Nv, 3))."""
     rng = np.random.default_rng(seed)
@@ -263,14 +290,17 @@ def cull_stress_scene(seed: int = 19):
     return clip, idx, colors
 
 
-# K1's times before the redesign, at the same inputs (PERF.md §6: the ranges
-# of the CUDA-event medians this script printed then, NVIDIA H100 80GB HBM3,
-# 700.00 W).
-K1_BEFORE_MS = {"demo triangle": "0.1383-0.2149", "stress draw": "7.2051-7.7017",
-                "shadow": "8.4931-8.6090", "gbuffer": "2.9762-3.1871",
-                "phase 13 stress draw": "7.4799-7.8775",
-                "phase 13 G-buffer view": "3.1655-3.1865",
-                "phase 13 shadow view": "8.5905-9.0006"}
+# Times before the redesigns, at the same inputs (PERF.md §6: the ranges of
+# the CUDA-event medians this script printed then, NVIDIA H100 80GB HBM3,
+# 700.00 W), before each kernel's redesign.
+BEFORE_MS = {"demo triangle": "0.1383-0.2149", "stress draw": "7.2051-7.7017",
+             "shadow": "8.4931-8.6090", "gbuffer": "2.9762-3.1871",
+             "phase 13 stress draw": "7.4799-7.8775",
+             "phase 13 G-buffer view": "3.1655-3.1865",
+             "phase 13 shadow view": "8.5905-9.0006",
+             "K2 points": "0.6655-0.7781 (device time 0.590-0.610 a frame)",
+             "K5 glass panes": "0.7039-1.6772", "K5 stress": "5.8463-7.4725",
+             "K6 stencil frame": "1.6896-2.0003", "K6 stress": "9.9293-10.2265"}
 
 
 def tile_entries(bins, grid) -> int:
@@ -512,7 +542,7 @@ def deferred_phases(dev, card: str, plain_k1) -> dict:
               f"largest tile {tile_entries(bins, grid)} entries, {frags} fragments, {pass_cov} "
               f"px covered, a_n {k[1].shape[0]}: bit-equal to the plain version; kernel "
               f"{t_k:.4f} ms, plain {t_p:.4f} ms, bound {b_ms:.4f} ms ({b_by}); before the "
-              f"redesign {K1_BEFORE_MS[label]} ms; no one-call PyTorch equivalent [{card}]")
+              f"redesign {BEFORE_MS[label]} ms; no one-call PyTorch equivalent [{card}]")
     k1_ms, k1_plain_ms, k1_bound_ms, k1_bound_by = k1_pass["gbuffer"]
 
     # -- 5. K2 against its plain version on the 1080p G-buffer ----------------
@@ -534,12 +564,32 @@ def deferred_phases(dev, card: str, plain_k1) -> dict:
     cones = np.radians([(15.0, 28.0), (20.0, 20.0), (30.0, 20.0), (12.0, 12.5)])
     hard = np.concatenate([d / np.linalg.norm(d, axis=1, keepdims=True),
                            np.cos(cones[np.arange(n_l) % 4])], axis=1).astype(np.float32)
-    tables = (("points", None), ("mixed point/spot", mixed), ("hard-edged spots", hard))
+    # The densest case for the kernel's cull: all the lights within 4 units
+    # of the surface point seen at the centre of the frame, so the regions
+    # there each hit (nearly) every light.
+    covered = g["depth"] > 0
+    ys, xs = torch.nonzero(covered, as_tuple=True)
+    near = torch.argmin((ys - H // 2) ** 2 + (xs - W // 2) ** 2)
+    centre = g["pos"][ys[near], xs[near], :3]
+    lp_dense = centre + torch.from_numpy(
+        np.random.default_rng(13).uniform(-4.0, 4.0, (n_l, 3)).astype(np.float32)).to(dev)
+    full = (g["albedo"], g["normal"], g["pos"], g["depth"])
+    ragged = tuple(t[:H - 2, :W - 2].contiguous() for t in full)  # 1918x1078
+    # More lights than the kernel tests in one pass (256): the scene's, the
+    # crowded ones and the scene's again, in that order.
+    many = (torch.cat([lp, lp_dense, lp]), torch.cat([lc, lc, lc]), torch.cat([lr, lr, lr]))
+    tables = (("points", full, (lp, lc, lr), None), ("mixed point/spot", full, (lp, lc, lr), mixed),
+              ("hard-edged spots", full, (lp, lc, lr), hard),
+              ("light-dense", full, (lp_dense, lc, lr), None),
+              ("points, ragged surface", ragged, (lp, lc, lr), None),
+              ("300 lights", full, many, None))
+    sub_h, sub_w = lighting_mod.KERNEL_CULL
     k2_err, k2 = 0.0, None
-    tiles = -(-H // 16) * -(-W // 128)
-    for label, sp in tables:
+    for label, planes, (pos, col, rad), sp in tables:
         sp = None if sp is None else torch.from_numpy(sp).to(dev)
-        args = (g["albedo"], g["normal"], g["pos"], g["depth"], cam_pos, lp, lc, lr)
+        hh, ww = planes[3].shape
+        n_l = pos.shape[0]
+        args = (*planes, cam_pos, pos, col, rad)
         out_k = accumulate_point_lights(*args, spot_params=sp)
         with mock.patch.object(lighting_mod, "_accumulate_point_lights_cuda", plain_k2):
             out_p = accumulate_point_lights(*args, spot_params=sp)
@@ -547,31 +597,41 @@ def deferred_phases(dev, card: str, plain_k1) -> dict:
         check(bool(torch.isfinite(out_k).all()), f"K2 {label}: non-finite output")
         err = (out_k - out_p).abs()
         k2_err = max(k2_err, err.max().item())
-        table = light_table(lp, lc, lr, sp)
-        hits = int(lighting_mod.tile_light_hits(g["depth"], g["pos"], table).sum())
-        lit = k2_lit_pairs(g["depth"], g["pos"], table)
+        table = light_table(pos, col, rad, sp)
+        tile_hits = lighting_mod.tile_light_hits(planes[3], planes[2], table).sum(1)
+        sub_hits = lighting_mod.tile_light_hits(planes[3], planes[2], table, sub_h, sub_w).sum(1)
+        lit = k2_lit_pairs(planes[3], planes[2], table)
         bad = ~torch.isclose(out_k, out_p, atol=2e-4, rtol=2e-3).all(-1)
         n_bad = int(bad.sum())
-        print(f"phase 5: K2 {label} 1080p: {hits} hit (tile, light) pairs of {tiles} x "
-              f"{n_l} = {tiles * n_l}, {lit} lit (light, pixel) pairs; max |kernel - plain| "
-              f"{err.max().item():.3e} (max value {out_p.abs().max().item():.3f}); "
-              f"{n_bad} pixels beyond atol 2e-4 / rtol 2e-3")
+        print(f"phase 5: K2 {label} {ww}x{hh}: hits per 16x128 tile mean "
+              f"{tile_hits.float().mean().item():.2f} max {int(tile_hits.max())} "
+              f"({int(tile_hits.sum())} of {tile_hits.numel()} x {n_l}); hits per "
+              f"{sub_h}x{sub_w} cull region (the kernel's) mean "
+              f"{sub_hits.float().mean().item():.2f} max {int(sub_hits.max())} "
+              f"({int(sub_hits.sum())} of {sub_hits.numel()} x {n_l}); {lit} lit (light, pixel) "
+              f"pairs; max |kernel - plain| {err.max().item():.3e} (max value "
+              f"{out_p.abs().max().item():.3f}); {n_bad} pixels beyond atol 2e-4 / rtol 2e-3")
         if n_bad:
-            edge = cone_edge_pixels(bad, g["pos"], table)
+            edge = cone_edge_pixels(bad, planes[2], table)
             fail(f"K2 {label}: {n_bad} pixels differ from the plain version beyond atol 2e-4 / "
                  f"rtol 2e-3, {edge} of them inside a spot's cone edge (0 < t < 1)")
-        if sp is None:
+        if label in ("points", "light-dense"):
             k_ms = cuda_ms(lambda: accumulate_point_lights(*args), reps=50, warmup=3)
             with mock.patch.object(lighting_mod, "_accumulate_point_lights_cuda", plain_k2):
                 p_ms = cuda_ms(lambda: accumulate_point_lights(*args), reps=5)
-            b_ms, b_by = k2_bound(H, W, n_l, lit)
-            print(f"phase 5: K2 points 1080p: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-                  f"bound {b_ms:.4f} ms ({b_by}); no one-call PyTorch equivalent [{card}]")
-            k2 = {"name": "K2 tiled point lights (_tiled_lights_kernel)", "route": "cuda",
-                  "source": "zenith_tpu_torch/csrc/lighting.cu",
-                  "replaces": "zenith_tpu/ops/lighting.py:71", "launches": 0,
-                  "max_abs_err": 0.0, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-                  "bound_by": b_by, "library_ms": None}
+            b_ms, b_by = k2_bound(hh, ww, n_l, lit)
+            dev_ms = device_ms(lambda: accumulate_point_lights(*args), "tiled_lights_kernel")
+            before = (f"; before the redesign {BEFORE_MS['K2 points']} ms" if label == "points"
+                      else "")
+            print(f"phase 5: K2 {label} {ww}x{hh}: kernel {k_ms:.4f} ms (wrapper call; the "
+                  f"kernel alone {dev_ms:.4f} ms of device time), plain {p_ms:.4f} ms, bound "
+                  f"{b_ms:.4f} ms ({b_by}){before}; no one-call PyTorch equivalent [{card}]")
+            if label == "points":
+                k2 = {"name": "K2 tiled point lights (_tiled_lights_kernel)", "route": "cuda",
+                      "source": "zenith_tpu_torch/csrc/lighting.cu",
+                      "replaces": "zenith_tpu/ops/lighting.py:71", "launches": 0,
+                      "max_abs_err": 0.0, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                      "bound_by": b_by, "library_ms": None}
     k2["max_abs_err"] = k2_err
 
     # -- 6. the deferred golden on the card ------------------------------------
@@ -655,7 +715,8 @@ def deferred_phases(dev, card: str, plain_k1) -> dict:
 
     rect_host_cost(frame, card)
     profile_frames(frame, ("shadow", "gbuffer", "lighting", "post", "present.encode"),
-                   "phase 7", card, frame_ms)
+                   "phase 7", card, frame_ms,
+                   watch=("tiled_lights_kernel", "raster_segmented_kernel"))
     return {"k1": {"ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound_ms,
                    "bound_by": k1_bound_by, "max_abs_err": k1_err},
             "k1_launches": k1_launches, "k2": k2}
@@ -823,9 +884,10 @@ def rect_host_cost(frame, card: str) -> None:
           f"({(a - b) / a * 100:.2f}%); replayed frames bit-equal [{card}]")
 
 
-def profile_frames(frame, nodes, tag: str, card: str, frame_ms) -> None:
+def profile_frames(frame, nodes, tag: str, card: str, frame_ms, watch=()) -> None:
     """Where the time goes. Kernels only (little host slow-down): device
-    time, launches, the busy share and the heaviest kernels per frame. Then
+    time, launches, the busy share, the heaviest kernels per frame and the
+    device time of each kernel named in ``watch`` (a part of its name). Then
     host operators too, for each render-graph node's share of the kernel
     time. A one-frame session first keeps the profiler's start-up out of
     both."""
@@ -876,6 +938,10 @@ def profile_frames(frame, nodes, tag: str, card: str, frame_ms) -> None:
             line += "; heaviest kernels per frame: " + "; ".join(
                 f"{name[:60]} {t / 1e3 / PROFILED_FRAMES:.3f} ms x{c / PROFILED_FRAMES:.0f}"
                 for name, (t, c) in top)
+            for part in watch:
+                t = sum(b - a for a, b, name in spans if part in name) / 1e3 / PROFILED_FRAMES
+                c = sum(part in name for _, _, name in spans) / PROFILED_FRAMES
+                line += f"; {part} {t:.4f} ms x{c:.0f} per frame"
         print(line + f" [{card}]")
 
 
@@ -893,6 +959,8 @@ def translucency_phases(dev, card: str, stress, plain_k1) -> "tuple[list, dict]"
     from zenith_tpu_torch.ops import lighting as lighting_mod
     from zenith_tpu_torch.ops import raster as raster_mod
     from zenith_tpu_torch.ops import runtime
+    from zenith_tpu_torch.ops.binning import TileGrid, bin_segmented, tile_overlap
+    from zenith_tpu_torch.ops.geometry import setup_with_attrs
     from zenith_tpu_torch.ops.lighting import accumulate_point_lights
     from zenith_tpu_torch.ops.raster import raster_segmented, raster_segmented_blend
     from zenith_tpu_torch.rendergraph import CompileOptions, RenderGraphBuilder
@@ -1251,12 +1319,14 @@ def translucency_phases(dev, card: str, stress, plain_k1) -> "tuple[list, dict]"
 
         n_frag, n_shaded = count_fragments(b, g, passes)
         k_ms, p_ms = timed(run, reps=5)
+        dev_ms = device_ms(run, "raster_blend_kernel", reps=5)
         b_ms, b_by = blend_bound(b, g, n_shaded, n_frag, STRESS_SHADER_OPS, num == 6)
         print(f"phase 10: K{num} stress 1080p ({len(draws)} draws, {n_tri} triangles, "
               f"{int(b.blk_count.sum())} entries, {n_frag} fragments, {n_shaded} shaded, up to "
               f"{int(b.blk_count.sum()) // (g.tiles_x * g.tiles_y)} entries a tile on average): "
-              f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); no "
-              f"one-call PyTorch equivalent [{card}]")
+              f"kernel {k_ms:.4f} ms (wrapper call; the kernel alone {dev_ms:.4f} ms of device "
+              f"time), plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); before the redesign "
+              f"{BEFORE_MS[f'K{num} stress']} ms; no one-call PyTorch equivalent [{card}]")
         blend_records[num] = (k_ms, p_ms, b_ms, b_by)
 
     def print_ptxas(tag, call):
@@ -1268,6 +1338,69 @@ def translucency_phases(dev, card: str, stress, plain_k1) -> "tuple[list, dict]"
             print(f"  ptxas ({tag}): {ln}")
 
     print_ptxas("stress shader", stress_blend[5][0])
+
+    # -- 10b. K5 and K6's cull on phase 2c's hard cases --------------------------
+    # Phase 2c's records (near-clipped triangles reaching far off-screen,
+    # needles and slivers, corners on sample points) drawn translucent with
+    # the stress shader's columns, at sample offset CULL_OFFSET.
+    c_clip, c_idx, c_col = cull_stress_scene()
+    nv = c_clip.shape[0]
+    c_rng = np.random.default_rng(31)
+    per_tri = np.concatenate([np.arange(nv // 3)[:, None] % 8,  # __draw_id
+                              c_rng.uniform(0.5, 1.0, (nv // 3, 4))], 1)  # __u_Gain
+    vary = np.concatenate([c_col, c_rng.uniform(0.1, 0.6, (nv, 1)), np.repeat(per_tri, 3, 0)],
+                          1).astype(np.float32)
+    c_rec, c_corner = setup_with_attrs(
+        *(torch.from_numpy(a).to(dev) for a in (c_clip, c_idx, vary)), W, H,
+        cull_mode=CullMode.NONE)
+
+    def cull_bins(g):
+        entries = int(tile_overlap(c_rec, g).sum())
+        b = bin_segmented(c_rec, c_corner, g, mid_cap=8192, huge_cap=4096, entry_budget=entries)
+        check(int(b.overflow) == 0, "blend cull stress: the binning dropped entries")
+        check(b.rast_pad.shape[1] == 16 + 3 * (sum(ch for _, ch in STRESS_LAYOUT) + 1),
+              "blend cull stress: the records do not carry the stress shader's columns")
+        return b, entries
+
+    # 8x32 tiles too: a tile is half a 16x16 sub-region, so half of each
+    # CTA's warps own no pixel of it.
+    small = TileGrid(W, H, 8, 32)
+    c_bins = {grid: cull_bins(grid), small: cull_bins(small)}
+    cull_cases = [
+        (5, "src-alpha over, depth write off", over, CompareOp.GREATER, False, None, grid),
+        (5, "reverse-subtract / max, write mask RGA, depth write on", odd,
+         CompareOp.GREATER_OR_EQUAL, True, None, grid),
+        (6, "over, read-only stencil mask (faces differ)", over, CompareOp.GREATER, False,
+         (mask_ro_front, mask_ro_back), grid),
+        (6, "over, overdraw limiter", over, CompareOp.GREATER_OR_EQUAL, True,
+         (limit_front, limit_back), grid),
+        (6, "over, overdraw limiter, 8x32 tiles", over, CompareOp.GREATER_OR_EQUAL, True,
+         (limit_front, limit_back), small),
+    ]
+    for num, what, cdesc, cmp, write, faces, cgrid in cull_cases:
+        cb, c_entries = c_bins[cgrid]
+        kw = dict(compare_op=cmp, depth_write=write, sample_offset=CULL_OFFSET,
+                  fragment_shader=fs, attr_layout=STRESS_LAYOUT, color_desc=cdesc)
+        if faces is not None:
+            kw.update(init_stencil=sten0, stencil_front=faces[0], stencil_back=faces[1])
+
+        def run(kw=kw, cb=cb, cgrid=cgrid):
+            return raster_segmented_blend(cb, cgrid, init, bg, None, **kw)
+
+        k, p = both(run)
+        no_new_build(f"K{num} cull stress")
+        check(bool(torch.isfinite(k[1]).all()), f"K{num} cull stress {what}: non-finite colour")
+        exact((k[0], *k[2:]), (p[0], *p[2:]), f"K{num} cull stress {what}", ("z", "stencil"))
+        err = (k[1] - p[1]).abs()
+        blend_err[num] = max(blend_err[num], err.max().item())
+        bad = int((err > 1e-5 + 1e-5 * p[1].abs()).sum())
+        check(bad == 0, f"K{num} cull stress {what}: {bad} colour values beyond atol 1e-5 + "
+              f"rtol 1e-5 of the plain version (max {err.max().item():.3e})")
+        drawn = int((k[1] != bg).any(-1).sum())
+        check(drawn > 10000, f"K{num} cull stress {what}: only {drawn} px drawn")
+        print(f"phase 10b: K{num} cull stress 1080p, offset {CULL_OFFSET}, {what}: "
+              f"{c_entries} entries, {drawn} px drawn; z{' and stencil' if faces else ''} "
+              f"bit-equal, colour max |kernel - plain| {err.max().item():.3e} [{card}]")
 
     # -- 11. the deferred main path with glass, in both modes ------------------
     device = RhiCore(dev).create_render_device()
@@ -1418,7 +1551,9 @@ def translucency_phases(dev, card: str, stress, plain_k1) -> "tuple[list, dict]"
         torch.cuda.synchronize()
         print(f"phase 11: glass {mode}: a retained frame at 1080p made no host sync")
         profile_frames(frame, ("shadow", "gbuffer", "lighting", "glass", "post",
-                               "present.encode"), f"phase 11: glass {mode}", card, frame_ms)
+                               "present.encode"), f"phase 11: glass {mode}", card, frame_ms,
+                       watch=("tiled_lights_kernel", "raster_segmented_kernel",
+                              "raster_blend_kernel"))
 
     # K5 at the glass node's own inputs: the panes over the lit HDR frame.
     check(len(glass_inputs["kernel"]) == 1, "the kernel-mode glass node made "
@@ -1428,13 +1563,16 @@ def translucency_phases(dev, card: str, stress, plain_k1) -> "tuple[list, dict]"
     k, p, err = hold_blend(5, "glass panes", glass_inputs["kernel"][0])
     n_frag, n_shaded = count_fragments(b, g, lambda rows, zpx, py, px: zpx > z[py, px])
     k5_ms, k5_plain = timed(glass_k5)
+    k5_dev = device_ms(glass_k5, "raster_blend_kernel")
     k5_b, k5_by = blend_bound(b, g, n_shaded, n_frag, GLASS_SHADER_OPS, False)
     a_glass = (b.rast_pad.shape[1] - 16) // 3
     print(f"phase 11: K5 glass panes 1080p over the lit HDR frame ({int(b.blk_count.sum())} "
           f"entries, {n_frag} fragments, {n_shaded} shaded, a_n {a_glass}): z bit-equal, colour "
           f"max |kernel - plain| {err:.3e} (values up to "
-          f"{p[1].abs().max().item():.3f}); kernel {k5_ms:.4f} ms, plain {k5_plain:.4f} ms, "
-          f"bound {k5_b:.4f} ms ({k5_by}); no one-call PyTorch equivalent [{card}]")
+          f"{p[1].abs().max().item():.3f}); kernel {k5_ms:.4f} ms (wrapper call; the kernel "
+          f"alone {k5_dev:.4f} ms of device time), plain {k5_plain:.4f} ms, bound {k5_b:.4f} ms "
+          f"({k5_by}); before the redesign {BEFORE_MS['K5 glass panes']} ms; no one-call PyTorch "
+          f"equivalent [{card}]")
     print_ptxas("glass shader", glass_inputs["kernel"][0])
 
     # K4 at the peel-mode glass node's own inputs (layers 2-4 and the probe).
@@ -1619,12 +1757,15 @@ def translucency_phases(dev, card: str, stress, plain_k1) -> "tuple[list, dict]"
     mask6 = kw6["init_stencil"]
     frag6, shaded6 = count_fragments(b6, g6, lambda rows, zpx, py, px: mask6[py, px] == 1)
     k6p_ms, k6p_plain = timed(replay(call6))
+    k6p_dev = device_ms(replay(call6), "raster_blend_kernel")
     k6p_b, k6p_by = blend_bound(b6, g6, shaded6, frag6, STRESS_SHADER_OPS, True)
     print(f"phase 12: K6 at the tinted node's inputs ({int(b6.blk_count.sum())} entries, "
           f"{frag6} fragments, {shaded6} shaded through the mask): z and stencil bit-equal, "
           f"colour max |kernel - plain| {err6:.3e} (values up to "
-          f"{p6[1].abs().max().item():.3f}); kernel {k6p_ms:.4f} ms, plain {k6p_plain:.4f} ms, "
-          f"bound {k6p_b:.4f} ms ({k6p_by}); no one-call PyTorch equivalent [{card}]")
+          f"{p6[1].abs().max().item():.3f}); kernel {k6p_ms:.4f} ms (wrapper call; the kernel "
+          f"alone {k6p_dev:.4f} ms of device time), plain {k6p_plain:.4f} ms, bound "
+          f"{k6p_b:.4f} ms ({k6p_by}); before the redesign {BEFORE_MS['K6 stencil frame']} ms; no "
+          f"one-call PyTorch equivalent [{card}]")
 
     k4 = record("segmented raster + peel bound (_segmented_peel_kernel)", 4, "raster.cu", 410,
                 "glass panes 1080p, peel layer 2", 0.0, *k4_glass)
@@ -1875,7 +2016,7 @@ def capped_phase(dev, card: str, stress) -> "list[dict]":
                    frags * K1_OPS_PER_FRAGMENT + n_cov * a_n * K1_OPS_PER_PIXEL_PLANE)
         b7 = bound(4 * (live * 17 + bins.counts.numel() + 4 * hp * wp),
                    frags * K7_OPS_PER_FRAGMENT)
-        before = K1_BEFORE_MS[f"phase 13 {name}"]
+        before = BEFORE_MS[f"phase 13 {name}"]
         print(line + f"; K8 bit-equal to K1 on the segmented bins of the same records. "
               f"{frags} fragments: K8 {t8:.4f} ms (plain {p8:.4f} ms, bound {b8[0]:.4f} ms, "
               f"{b8[1]}), K7 {t7:.4f} ms (plain {p7:.4f} ms, bound {b7[0]:.4f} ms, {b7[1]}), "
@@ -2003,7 +2144,7 @@ def main() -> int:
         p_ms = cuda_ms(lambda: raster_segmented(tri_bins, grid, z0, **demo), reps=10)
     print(f"phase 2a: K1 demo triangle 1080p ({tri_bins.blk_count.shape[0]} blocks, "
           f"{covered} px): kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms; before the redesign "
-          f"{K1_BEFORE_MS['demo triangle']} ms [{card}]")
+          f"{BEFORE_MS['demo triangle']} ms [{card}]")
 
     # -- 2b. K1 on the 1080p stress draw, all eight compares -----------------
     clip, idx, colors = stress_scene()
@@ -2043,7 +2184,7 @@ def main() -> int:
         s_plain_ms = cuda_ms(lambda: raster_segmented(bins, grid, init), reps=3)
     print(f"phase 2b: K1 stress 1080p GREATER: kernel {s_ms:.4f} ms, plain {s_plain_ms:.4f} ms; "
           f"largest tile {tile_entries(bins, grid)} entries; before the redesign "
-          f"{K1_BEFORE_MS['stress draw']} ms [{card}]")
+          f"{BEFORE_MS['stress draw']} ms [{card}]")
 
     # -- 2c. K1's cull on its hard cases, all eight compares --------------------
     from zenith_tpu_torch.ops.binning import tile_overlap

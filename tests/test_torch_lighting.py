@@ -119,7 +119,8 @@ def test_light_table_layout_matches_the_reference_rows():
 
 def test_a_cuda_tensor_takes_the_kernel_route_or_raises(monkeypatch):
     """No fallback: where the tensors are on the card the wrapper launches
-    K2 or raises (here: no nvcc, so the build raises)."""
+    K2 or raises (here: no nvcc, so the build raises), whatever the tiles:
+    the kernel culls its own KERNEL_CULL regions."""
     am, nr, pe, depth = make_gbuffer(np.random.default_rng(6))
     lp, lc, lr = _lights(np.random.default_rng(7), 3)
     monkeypatch.setattr(tl, "on_cuda", lambda t: True)
@@ -130,6 +131,91 @@ def test_a_cuda_tensor_takes_the_kernel_route_or_raises(monkeypatch):
     monkeypatch.setattr(tl, "load_kernels", no_nvcc)
     with pytest.raises(RuntimeError, match="nvcc"):
         tl.accumulate_point_lights(*map(torch.from_numpy, (am, nr, pe, depth, CAM, lp, lc, lr)))
-    with pytest.raises(ValueError, match="tiles of at most"):
+    with pytest.raises(RuntimeError, match="nvcc"):
         tl.accumulate_point_lights(*map(torch.from_numpy, (am, nr, pe, depth, CAM, lp, lc, lr)),
                                    tile_h=32, tile_w=128)
+
+
+def _surface_gbuffer(rng, h, w):
+    """A G-buffer of a gently curved surface seen from above: world
+    positions that vary smoothly with the pixel (so a small region's AABB is
+    small and the region cull differs from the tile cull), random normals,
+    albedo and roughness, and uncovered pixels: a 16x32 hole (whole cull
+    regions with no covered pixel) and scattered ones."""
+    y, x = np.mgrid[0:h, 0:w].astype(np.float64)
+    world = np.stack([x * 0.25 - 15.0, y * 0.25 - 8.0, 2.0 * np.sin(x / 17.0) * np.cos(y / 11.0)],
+                     -1)
+    nrm = rng.normal(size=(h, w, 3)) * 0.3 + [0.0, 0.0, 1.0]
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    am = np.concatenate([rng.uniform(0.1, 1.0, (h, w, 3)), rng.uniform(0, 1, (h, w, 1))], -1)
+    nr = np.concatenate([nrm, rng.uniform(0.05, 1.0, (h, w, 1))], -1)
+    pe = np.concatenate([world, rng.uniform(0, 1, (h, w, 1))], -1)
+    depth = (rng.uniform(0, 1, (h, w)) > 0.1).astype(np.float64) * 0.5
+    depth[16:32, 16:48] = 0.0
+    return tuple(a.astype(np.float32) for a in (am, nr, pe, depth))
+
+
+def _hard_spots(rng, n):
+    """Spots aimed at the surface, cycling through four cones (inner, outer
+    degrees): soft (15, 28); hard-edged (20, 20); inverted (30, 20), which
+    the table clamps to the same hard edge; narrow (12, 12.5)."""
+    d = rng.normal(size=(n, 3)) * 0.4
+    d[:, 2] = -1.0
+    cones = np.radians([(15.0, 28.0), (20.0, 20.0), (30.0, 20.0), (12.0, 12.5)])
+    return np.concatenate([d / np.linalg.norm(d, axis=1, keepdims=True),
+                           np.cos(cones[np.arange(n) % 4])], axis=1).astype(np.float32)
+
+
+CULL_CASES = {
+    # name: (G-buffer size, spot table)
+    "points": ((64, 128), None),
+    "hard-edged-spots": ((64, 128), "hard"),
+    "mixed-point-spot-ragged-size": ((50, 120), "mixed"),
+}
+
+
+@pytest.mark.parametrize("case", list(CULL_CASES))
+def test_kernel_cull_regions_match_the_reference_tiles(case):
+    """The kernel culls KERNEL_CULL regions, not the reference's 16x128
+    tiles: the plain version with the kernel's regions as its tiles matches
+    the reference kernel at 16x128 (Pallas, interpret mode), and every
+    region's hits are among its tile's."""
+    (h, w), spot = CULL_CASES[case]
+    rng = np.random.default_rng(sum(map(ord, case)))
+    am, nr, pe, depth = _surface_gbuffer(rng, h, w)
+    n = 12
+    lp = np.stack([rng.uniform(-15, 17, n), rng.uniform(-8, 8, n), rng.uniform(1.0, 5.0, n)],
+                  -1).astype(np.float32)
+    lc = rng.uniform(0.5, 8.0, (n, 3)).astype(np.float32)
+    lr = rng.uniform(2.0, 7.0, (n,)).astype(np.float32)
+    if spot == "mixed":
+        params = np.zeros((n, 5), np.float32)
+        params[::2, :3] = (0.0, 0.0, -1.0)
+        params[::2, 3], params[::2, 4] = np.cos(np.radians(18.0)), np.cos(np.radians(26.0))
+    else:
+        params = _hard_spots(rng, n) if spot == "hard" else None
+    ref = np.asarray(jax_lights(*map(jnp.asarray, (am, nr, pe, depth, CAM, lp, lc, lr)),
+                                tile_h=16, tile_w=128,
+                                spot_params=None if params is None else jnp.asarray(params)))
+    t = {k: torch.from_numpy(v) for k, v in dict(am=am, nr=nr, pe=pe, depth=depth, cam=CAM,
+                                                   lp=lp, lc=lc, lr=lr).items()}
+    table = tl.light_table(t["lp"], t["lc"], t["lr"],
+                           None if params is None else torch.from_numpy(params))
+    sub_h, sub_w = tl.KERNEL_CULL
+    got = tl._accumulate_point_lights_torch(t["am"], t["nr"], t["pe"], t["depth"], t["cam"],
+                                            table, sub_h, sub_w).numpy()
+    assert got.shape == ref.shape == (h, w, 3)
+    np.testing.assert_allclose(got, ref, atol=2e-4, rtol=2e-3)
+    assert got.max() > 0.01
+    np.testing.assert_array_equal(got[depth == 0], 0.0)
+
+    tile = tl.tile_light_hits(t["depth"], t["pe"], table, 16, 128)  # (tiles, L)
+    sub = tl.tile_light_hits(t["depth"], t["pe"], table, sub_h, sub_w)  # (regions, L)
+    sy, sx = np.divmod(np.arange(sub.shape[0]), -(-w // sub_w))
+    owner = (sy * sub_h // 16) * -(-w // 128) + (sx * sub_w // 128)
+    assert not bool((sub & ~tile[torch.from_numpy(owner)]).any())
+    assert int(sub.sum()) < int(tile[torch.from_numpy(owner)].sum())  # the finer cull culls more
+    empty = ~(t["depth"] > 0)
+    regions_empty = [bool(empty[y:y + sub_h, x:x + sub_w].all())
+                     for y in range(0, h, sub_h) for x in range(0, w, sub_w)]
+    assert any(regions_empty) and not bool(sub[torch.tensor(regions_empty)].any())

@@ -36,7 +36,9 @@
 // also the front flag, column kRast + a_n - 2) are copied into shared memory
 // with cp.async (4-byte copies for the rows, whose stride 16 + 3 a_n need not
 // keep 16-byte alignment; 16-byte copies for the rectangles), two buffers
-// deep, so the next block loads while this one is walked.
+// deep, so the next block loads while this one is walked. The walk, the
+// staging, the ballot and the shape constants are in raster_common.cuh,
+// shared with K5 and K6 (raster_blend.cu).
 //
 // Exactness. Coverage tests e == 0 (top-left rule), so the edge, depth and
 // attribute arithmetic must round exactly like the reference: every product
@@ -90,62 +92,6 @@ namespace {
 
 enum Variant { kPlain = 0, kStencil = 1, kPeel = 2 };
 
-// The CTA's sub-region and the warp's pixel block: 16x16 pixels, four warps
-// of 8x8 (2 pixels a lane), 16 CTAs to a 32x128 tile; the fastest of the
-// nine shapes timed on the deferred frame's passes (PERF.md §6).
-constexpr int kSubH = 16;
-constexpr int kSubW = 16;
-constexpr int kWarpH = 8;
-constexpr int kWarpW = 8;
-constexpr int kWarpsX = kSubW / kWarpW;
-constexpr int kWarps = (kSubH / kWarpH) * kWarpsX;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kLaneRows = 32 / kWarpW;     // pixel rows the lanes span at once
-constexpr int kPix = kWarpH / kLaneRows;   // pixels per lane
-constexpr int kMaxChunk = 128;             // entries per block (binning.ENTRY_CHUNK)
-constexpr int kMaskWords = kMaxChunk / 32;
-static_assert(32 % kWarpW == 0 && kWarpH % kLaneRows == 0, "a warp block is whole lane-rows");
-static_assert(kSubW % kWarpW == 0 && kSubH % kWarpH == 0, "a sub-region is whole warp blocks");
-static_assert(kThreads <= 1024 && kPix <= 32, "CTA or lane too large");
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Block b's raster columns and rectangles (K3: and front flags) into one
-// staging buffer, as one cp.async group of every thread.
-template <int V>
-__device__ __forceinline__ void stage_block(float* s_rast, int4* s_rect, float* s_front,
-                                            const float* __restrict__ rows,
-                                            const int4* __restrict__ rects, int b, int count,
-                                            int chunk, int row_stride, int a_n) {
-  const float* src = rows + (size_t)b * chunk * row_stride;
-  for (int e = threadIdx.x; e < count * kRast; e += kThreads) {
-    const int i = e / kRast;
-    cp_async4(s_rast + e, src + (size_t)i * row_stride + (e - i * kRast));
-  }
-  for (int i = threadIdx.x; i < count; i += kThreads)
-    cp_async16(s_rect + i, rects + (size_t)b * chunk + i);
-  if constexpr (V == kStencil) {
-    for (int i = threadIdx.x; i < count; i += kThreads)
-      cp_async4(s_front + i, src + (size_t)i * row_stride + kRast + a_n - 2);
-  }
-  cp_async_commit();
-}
-
 template <int V>
 __global__ void __launch_bounds__(kThreads)
 raster_segmented_kernel(const int* __restrict__ blk_tile_y, const int* __restrict__ blk_tile_x,
@@ -166,166 +112,88 @@ raster_segmented_kernel(const int* __restrict__ blk_tile_y, const int* __restric
   const int count0 = blk_count[b0];
   if (count0 <= 0) return;  // an empty draw changes nothing
 
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int sub = blockIdx.y;
-  // The warp's pixel block in tile coordinates, then in surface pixels
-  // clipped to the tile.
-  const int wy = (sub / subs_x) * kSubH + (warp / kWarpsX) * kWarpH;
-  const int wx = (sub % subs_x) * kSubW + (warp % kWarpsX) * kWarpW;
-  const int y_base = blk_tile_y[b0] * tile_h;
-  const int x_base = blk_tile_x[b0] * tile_w;
-  const bool warp_live = wy < tile_h && wx < tile_w;  // uniform across the warp
-  const int bx0 = x_base + wx;
-  const int by0 = y_base + wy;
-  const int bx1 = x_base + min(wx + kWarpW, tile_w) - 1;
-  const int by1 = y_base + min(wy + kWarpH, tile_h) - 1;
-
-  // Lane l owns column l % kWarpW of the block and rows l / kWarpW + k *
-  // kLaneRows, k < kPix.
-  const int lx = wx + lane % kWarpW;
-  const int gx = x_base + lx;
-  const float px = __fadd_rn((float)gx, off_x);
+  const WarpPixels pix = warp_pixels(blk_tile_y[b0], blk_tile_x[b0], tile_h, tile_w, subs_x);
+  const float px = __fadd_rn((float)pix.gx, off_x);
   float zr[kPix];
   float py[kPix];
   int win[kPix];
   int sten[V == kStencil ? kPix : 1];
   float bnd[V == kPeel ? kPix : 1];
-  unsigned live = 0;  // bit k: pixel k lies inside the tile
 #pragma unroll
   for (int k = 0; k < kPix; ++k) {
-    const int ly = wy + lane / kWarpW + k * kLaneRows;
-    const int gy = y_base + ly;
+    const int gy = pixel_row(pix, k);
     win[k] = -1;
     zr[k] = 0.0f;
     py[k] = __fadd_rn((float)gy, off_y);
     if constexpr (V == kStencil) sten[k] = 0;
     if constexpr (V == kPeel) bnd[k] = 0.0f;
-    if (lx < tile_w && ly < tile_h) {
-      live |= 1u << k;
-      const size_t o = (size_t)gy * wp + gx;
+    if ((pix.live >> k) & 1u) {
+      const size_t o = (size_t)gy * wp + pix.gx;
       zr[k] = z[o];
       if constexpr (V == kStencil) sten[k] = stencil[o];
       if constexpr (V == kPeel) bnd[k] = z_bound[o];
     }
   }
 
-  int b = b0;
-  int buf = 0;
-  int count = count0;
-  stage_block<V>(s_rast[0], s_rect[0], s_front[0], rows, rects, b, count, chunk, row_stride, a_n);
-  while (true) {
-    const int nb = b + 1;
-    const int ncount = (nb < num_blocks && blk_init[nb] == 0) ? blk_count[nb] : 0;
-    if (ncount > 0) {
-      const int nbuf = buf ^ 1;
-      stage_block<V>(s_rast[nbuf], s_rect[nbuf], s_front[V == kStencil ? nbuf : 0], rows, rects,
-                     nb, ncount, chunk, row_stride, a_n);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  // Per block: its raster columns and rectangles (K3: and front flags,
+  // column kRast + a_n - 2).
+  auto stage = [&](int buf, int b, int count) {
+    stage_columns(s_rast[buf], rows, b, count, chunk, row_stride, 0, kRast);
+    stage_rects(s_rect[buf], rects, b, count, chunk);
+    if constexpr (V == kStencil) {
+      stage_columns(s_front[buf], rows, b, count, chunk, row_stride, kRast + a_n - 2, 1);
     }
-    __syncthreads();  // block b is in buffer buf for every thread
-
-    if (warp_live) {
-      const float* sr = s_rast[buf];
-      const int4* sq = s_rect[buf];
-#pragma unroll 1
-      for (int w = 0; w < kMaskWords && w * 32 < count; ++w) {
-        const int i = w * 32 + lane;
-        bool hit = false;
-        if (i < count) {
-          const int4 q = sq[i];
-          hit = q.x <= bx1 && q.z >= bx0 && q.y <= by1 && q.w >= by0;
+  };
+  auto visit = [&](int buf, int b, int count) {
+    if (!pix.warp_live) return;
+    for_each_overlap(pix, s_rect[buf], count, [&](int e) {
+      const int4 q = s_rect[buf][e];
+      float r[kRast];
+      load_rast(s_rast[buf], e, r);
+      const int row_id = b * chunk + e;
+      StencilFace face = sstate.front;
+      if constexpr (V == kStencil) {
+        if (sstate.faces_differ && !(s_front[buf][e] > 0.0f)) face = sstate.back;
+      }
+#pragma unroll
+      for (int k = 0; k < kPix; ++k) {
+        // Skip lane-row k, warp-uniformly, where the rectangle misses it.
+        if (!rows_reach(pix, q, k)) continue;
+        if (!((pix.live >> k) & 1u)) continue;
+        Fragment f = fragment(r, px, py[k], depth_clamp);
+        if constexpr (V == kPeel) f.cov = f.cov && depth_compare(bound_compare, f.z, bnd[k]);
+        bool passed;
+        if constexpr (V == kStencil) {
+          // An uncovered pixel fails both tests and keeps its stencil.
+          passed = f.cov && stencil_depth_test(face, depth_compare(compare, f.z, zr[k]), sten[k]);
+        } else {
+          passed = f.cov && depth_compare(compare, f.z, zr[k]);
         }
-        unsigned m = __ballot_sync(0xffffffffu, hit);
-        while (m) {  // the warp's overlapping entries, in order
-          const int e = w * 32 + __ffs(m) - 1;
-          m &= m - 1;
-          const int4 q = sq[e];
-          const float4* r4 = reinterpret_cast<const float4*>(sr + e * kRast);
-          float r[kRast];
-#pragma unroll
-          for (int c = 0; c < kRast / 4; ++c) {
-            const float4 t = r4[c];
-            r[4 * c] = t.x;
-            r[4 * c + 1] = t.y;
-            r[4 * c + 2] = t.z;
-            r[4 * c + 3] = t.w;
-          }
-          const int row_id = b * chunk + e;
-          StencilFace face = sstate.front;
-          if constexpr (V == kStencil) {
-            if (sstate.faces_differ && !(s_front[buf][e] > 0.0f)) face = sstate.back;
-          }
-#pragma unroll
-          for (int k = 0; k < kPix; ++k) {
-            // Lane-row k spans rows by0 + k * kLaneRows ... + kLaneRows - 1:
-            // skip it, warp-uniformly, where the rectangle misses them.
-            const int row_lo = by0 + k * kLaneRows;
-            if (q.y > row_lo + kLaneRows - 1 || q.w < row_lo) continue;
-            if (!((live >> k) & 1u)) continue;
-            const float e01 = edge_eval(r, 0, px, py[k]);
-            const float e12 = edge_eval(r, 1, px, py[k]);
-            const float e20 = edge_eval(r, 2, px, py[k]);
-            bool cov = ((e01 > 0.0f) || (e01 == 0.0f && r[9] > 0.0f)) &&
-                       ((e12 > 0.0f) || (e12 == 0.0f && r[10] > 0.0f)) &&
-                       ((e20 > 0.0f) || (e20 == 0.0f && r[11] > 0.0f));
-            const float w0 = __fmul_rn(e12, r[12]);
-            const float w1 = __fmul_rn(e20, r[12]);
-            const float w2 = __fmul_rn(e01, r[12]);
-            float zpx = __fadd_rn(__fadd_rn(__fmul_rn(w0, r[13]), __fmul_rn(w1, r[14])),
-                                  __fmul_rn(w2, r[15]));
-            if (depth_clamp) {
-              if (!isnan(zpx)) zpx = fminf(fmaxf(zpx, 0.0f), 1.0f);
-            } else {
-              cov = cov && (zpx >= 0.0f) && (zpx <= 1.0f);
-            }
-            if constexpr (V == kPeel) cov = cov && depth_compare(bound_compare, zpx, bnd[k]);
-            bool passed;
-            if constexpr (V == kStencil) {
-              // An uncovered pixel fails both tests and keeps its stencil.
-              passed = cov && stencil_depth_test(face, depth_compare(compare, zpx, zr[k]), sten[k]);
-            } else {
-              passed = cov && depth_compare(compare, zpx, zr[k]);
-            }
-            if (passed) {
-              if (depth_write) zr[k] = zpx;
-              win[k] = row_id;
-            }
-          }
+        if (passed) {
+          if (depth_write) zr[k] = f.z;
+          win[k] = row_id;
         }
       }
-    }
-    if (ncount <= 0) break;
-    __syncthreads();  // every warp is done with buffer buf before it is refilled
-    b = nb;
-    buf ^= 1;
-    count = ncount;
-  }
+    });
+  };
+  walk_tile_blocks(blk_count, blk_init, num_blocks, b0, count0, stage, visit);
 
   const size_t plane = (size_t)hp * wp;
 #pragma unroll
   for (int k = 0; k < kPix; ++k) {
-    if (!((live >> k) & 1u)) continue;
-    const int gy = by0 + lane / kWarpW + k * kLaneRows;
-    const size_t o = (size_t)gy * wp + gx;
+    if (!((pix.live >> k) & 1u)) continue;
+    const size_t o = (size_t)pixel_row(pix, k) * wp + pix.gx;
     z[o] = zr[k];
     if constexpr (V == kStencil) stencil[o] = sten[k];
     if (win[k] >= 0) {
       const float* r = rows + (size_t)win[k] * row_stride;
-      const float e01 = edge_eval(r, 0, px, py[k]);
-      const float e12 = edge_eval(r, 1, px, py[k]);
-      const float e20 = edge_eval(r, 2, px, py[k]);
-      const float w0 = __fmul_rn(e12, r[12]);
-      const float w1 = __fmul_rn(e20, r[12]);
-      const float w2 = __fmul_rn(e01, r[12]);
+      const Fragment f = fragment(r, px, py[k], depth_clamp);
       const float* c0 = r + kRast;
       const float* c1 = c0 + a_n;
       const float* c2 = c1 + a_n;
       for (int a = 0; a < a_n; ++a) {
-        acc[a * plane + o] = __fadd_rn(__fadd_rn(__fmul_rn(w0, c0[a]), __fmul_rn(w1, c1[a])),
-                                       __fmul_rn(w2, c2[a]));
+        acc[a * plane + o] = __fadd_rn(__fadd_rn(__fmul_rn(f.w0, c0[a]), __fmul_rn(f.w1, c1[a])),
+                                       __fmul_rn(f.w2, c2[a]));
       }
     }
   }

@@ -1,12 +1,13 @@
 """The rasterizer (torch port of zenith_tpu/ops): triangle setup (geometry),
 the coarse rasterizer (binning), the fine rasterizer over the hand-written
-CUDA kernels K1 and K3-K8 (raster), attribute resolution (shade) and the
-output merger (blend), composed per draw call by ``draw``. The capped-bin
-path (``setup_triangles`` → ``bin_triangles`` → ``visibility_pass`` /
-``raster_interp_pass`` → ``resolve_varyings`` / ``finalize_attrs``) is the
-reference's second implementation of the raster, over K7 and K8."""
+CUDA kernels K1 and K3-K8 (raster), attribute resolution (shade), the
+texture sampler (sampling) and the output merger (blend), composed per draw
+call by ``draw``. The capped-bin path (``setup_triangles`` →
+``bin_triangles`` → ``visibility_pass`` / ``raster_interp_pass`` →
+``resolve_varyings`` / ``finalize_attrs``) is the reference's second
+implementation of the raster, over K7 and K8."""
 
-from zenith_tpu_torch.ops import binning, blend, draw, geometry, raster, runtime, shade
+from zenith_tpu_torch.ops import binning, blend, draw, geometry, raster, runtime, sampling, shade
 from zenith_tpu_torch.ops.binning import (
     ENTRY_CHUNK,
     SegmentedBins,
@@ -30,6 +31,14 @@ from zenith_tpu_torch.ops.raster import (
     raster_interp_pass,
     raster_segmented,
     visibility_pass,
+)
+from zenith_tpu_torch.ops.sampling import (
+    PackedMips,
+    pack_mips,
+    sample_2d,
+    sample_2d_lod,
+    sample_shadow_pcf,
+    screen_space_lod,
 )
 from zenith_tpu_torch.ops.shade import finalize_attrs, resolve_varyings
 

@@ -8,10 +8,14 @@ what it replaces and what bounds it). For CPU tensors it runs
 computation, which is also the kernel's oracle on the card. There is no
 fallback between the two: a CUDA tensor launches the kernel or raises.
 
-Both walk the framebuffer in (tile_h, tile_w) tiles: each tile takes the
-world-space AABB of its covered pixels (depth > 0), culls every light by a
-sphere-vs-AABB test, and sums the Cook-Torrance GGX BRDF × inverse square ×
-distance window × spot cone of the lights that hit, in light order.
+Both cull per framebuffer region: each region takes the world-space AABB
+of its covered pixels (depth > 0), culls every light by a sphere-vs-AABB
+test, and sums the Cook-Torrance GGX BRDF × inverse square × distance window
+× spot cone of the lights that hit, in light order. The plain version's
+regions are the reference's (tile_h, tile_w) tiles; the kernel's are its
+own ``KERNEL_CULL`` regions, whatever the tiles: a light beyond its radius
+from a region adds 0 to every pixel of it, so any conservative cull gives
+the same sum up to rounding (csrc/lighting.cu says why).
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ import torch
 
 from zenith_tpu_torch.ops.runtime import cdiv, load_kernels, on_cuda
 
-_MAX_TILE_PIXELS = 2048  # csrc/lighting.cu: 256 threads x 8 pixels
+KERNEL_CULL = (16, 16)  # the kernel's cull region, (rows, columns): csrc/lighting.cu kSubH x kSubW
 _BIG = 3.0e38
 _INV_PI = 1.0 / math.pi
 
@@ -123,10 +127,9 @@ accumulate_point_lights.launches = 0  # K2 launches (counted in _accumulate_poin
 
 
 def _accumulate_point_lights_cuda(am, nr, pe, depth, cam, lights, tile_h, tile_w):
-    """Launch K2 on the current stream → (H, W, 3)."""
-    if tile_h * tile_w > _MAX_TILE_PIXELS:
-        raise ValueError(f"K2 takes tiles of at most {_MAX_TILE_PIXELS} pixels, "
-                         f"got {tile_h}x{tile_w}")
+    """Launch K2 on the current stream → (H, W, 3). The kernel culls its own
+    ``KERNEL_CULL`` regions: ``tile_h`` and ``tile_w`` only shape the plain
+    version's cull."""
     h, w = depth.shape
     dev = depth.device
     planes = []
@@ -138,13 +141,15 @@ def _accumulate_point_lights_cuda(am, nr, pe, depth, cam, lights, tile_h, tile_w
     z = depth.to(torch.float32).contiguous()
     if cam.device != dev or lights.device != dev:
         raise ValueError("K2: camera and lights must be on the G-buffer's device")
+    if not lights.is_contiguous() or lights.data_ptr() % 16:
+        raise ValueError("K2 takes a contiguous 16-byte-aligned (L, 16) light table")
     out = torch.empty((h, w, 3), dtype=torch.float32, device=dev)
     lib = load_kernels()
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.zn_tiled_lights(
         planes[0].data_ptr(), planes[1].data_ptr(), planes[2].data_ptr(), z.data_ptr(),
         lights.data_ptr(), cam.data_ptr(), out.data_ptr(),
-        lights.shape[0], h, w, tile_h, tile_w, stream,
+        lights.shape[0], h, w, stream,
     )
     if err != 0:
         raise RuntimeError(f"K2 launch failed: CUDA error {err}")

@@ -64,7 +64,7 @@ _STENCIL_OP_CODE = {op: i for i, op in enumerate(StencilOp)}
 _BLEND_FACTOR_CODE = {f: i for i, f in enumerate(BlendFactor)}
 _BLEND_OP_CODE = {op: i for i, op in enumerate(BlendOp)}
 
-_MAX_TILE_PIXELS = 4096  # raster_blend.cu: 512 threads x 8 (raster.cu splits a tile over CTAs)
+_MAX_TILE_PIXELS = 4096  # K7/K8, raster_capped.cu: 256 threads x 16 pixels a tile
 
 
 def _compare(op: CompareOp, new: torch.Tensor, cur: torch.Tensor) -> torch.Tensor:
@@ -279,7 +279,8 @@ def raster_segmented_blend(
     ``fragment_shader`` with its device source, the ``attr_layout`` of the
     record columns (1/w not included) and the ``color_desc`` whose blend
     equation applies, and launch K5 (K6 with stencil) compiled for that
-    shader."""
+    shader. Like K1 they cull by the bins' per-row pixel rectangles, so they
+    need ``SegmentedBins.rect`` and a sample offset in [0, 1)²."""
     h, w = grid.height, grid.width
     th, tw = grid.tile_h, grid.tile_w
     hp, wp = grid.tiles_y * th, grid.tiles_x * tw
@@ -404,7 +405,7 @@ def _check_inputs(bins, z, what: str):
 
 
 def _check_rects(bins, rows, chunk, z, sample_offset, what: str) -> torch.Tensor:
-    """The bins' per-row pixel rectangles after the checks K1, K3 and K4
+    """The bins' per-row pixel rectangles after the checks K1 and K3-K6
     make: bins that ``bin_segmented`` did not build carry none, and the
     kernels do not run without their cull. The rectangles hold every pixel
     a record covers only for a sample offset in [0, 1)² (as the kernel
@@ -427,6 +428,7 @@ def _check_rects(bins, rows, chunk, z, sample_offset, what: str) -> torch.Tensor
 
 
 def _check_tile(grid, what: str) -> None:
+    """K7 and K8 give a whole tile to one CTA of 256 threads x 16 pixels."""
     if grid.tile_h * grid.tile_w > _MAX_TILE_PIXELS:
         raise ValueError(f"{what} takes tiles of at most {_MAX_TILE_PIXELS} pixels, "
                          f"got {grid.tile_h}x{grid.tile_w}")
@@ -436,7 +438,6 @@ def _raster_stencil_cuda(bins, grid, z, acc, sten, front, back, compare, write, 
                          sample_offset) -> None:
     """Launch K3 on the current stream; updates ``z``, ``acc`` and ``sten``
     in place."""
-    _check_tile(grid, "K3")
     routing, rows, num_blocks, chunk = _check_inputs(bins, z, "K3")
     rect = _check_rects(bins, rows, chunk, z, sample_offset, "K3")
     if sten.dtype != torch.int32 or not sten.is_contiguous() or sten.shape != z.shape:
@@ -459,7 +460,6 @@ def _raster_stencil_cuda(bins, grid, z, acc, sten, front, back, compare, write, 
 def _raster_peel_cuda(bins, grid, z, acc, bound, bound_op, compare, write, clamp,
                       sample_offset) -> None:
     """Launch K4 on the current stream; updates ``z`` and ``acc`` in place."""
-    _check_tile(grid, "K4")
     routing, rows, num_blocks, chunk = _check_inputs(bins, z, "K4")
     rect = _check_rects(bins, rows, chunk, z, sample_offset, "K4")
     if bound.dtype != torch.float32 or not bound.is_contiguous() or bound.shape != z.shape:
@@ -484,8 +484,8 @@ def _raster_blend_cuda(bins, grid, z, color, sten, faces, compare, write, clamp,
     """Launch K5 (K6 with a stencil plane) compiled for ``fragment_shader``
     on the current stream; updates ``z``, ``color`` (and ``sten``) in place."""
     name = "K6" if sten is not None else "K5"
-    _check_tile(grid, name)
     routing, rows, num_blocks, chunk = _check_inputs(bins, z, name)
+    rect = _check_rects(bins, rows, chunk, z, sample_offset, name)
     if fragment_shader is None or attr_layout is None or color_desc is None:
         raise ValueError(f"{name} needs the fragment shader, the attribute layout and the "
                          f"colour attachment's blend state")
@@ -510,7 +510,8 @@ def _raster_blend_cuda(bins, grid, z, color, sten, faces, compare, write, clamp,
         _BLEND_FACTOR_CODE[color_desc.src_alpha_blend], _BLEND_FACTOR_CODE[color_desc.dst_alpha_blend],
         _BLEND_OP_CODE[color_desc.alpha_blend_op], mask,
     )
-    head = [*[t.data_ptr() for t in routing], rows.data_ptr(), z.data_ptr(), color.data_ptr()]
+    head = [*[t.data_ptr() for t in routing], rows.data_ptr(), rect.data_ptr(), z.data_ptr(),
+            color.data_ptr()]
     tail = [num_blocks, chunk, rows.shape[1], z.shape[1], grid.tile_h, grid.tile_w,
             _COMPARE_CODE[compare], int(write), int(clamp),
             ctypes.c_float(sample_offset[0]), ctypes.c_float(sample_offset[1]), blend]
@@ -533,7 +534,6 @@ def _raster_blend_cuda(bins, grid, z, color, sten, faces, compare, write, clamp,
 def _raster_segmented_cuda(bins, grid, z, acc, compare, write, clamp, sample_offset) -> None:
     """Launch K1 on the current stream; updates ``z`` and ``acc`` in place."""
     th, tw = grid.tile_h, grid.tile_w
-    _check_tile(grid, "K1")
     routing, rows, num_blocks, chunk = _check_inputs(bins, z, "K1")
     rect = _check_rects(bins, rows, chunk, z, sample_offset, "K1")
     a_n = acc.shape[0]

@@ -46,7 +46,7 @@ NVCC_FLAGS = (
 BLEND_SOURCE = CSRC / "raster_blend.cu"
 
 _lib: "Optional[ctypes.CDLL]" = None
-_blend_libs: "dict[str, ctypes.CDLL]" = {}
+_blend_libs: "dict[tuple, ctypes.CDLL]" = {}  # by (device source, layout)
 shader_builds = 0  # nvcc runs made by load_blend_kernel in this process
 
 
@@ -187,7 +187,7 @@ def load_kernels() -> ctypes.CDLL:
         p, p, p, p,  # albedo_metal, normal_rough, pos_emissive (H, W, 4), depth (H, W)
         p, p,  # lights (L, 16), camera (3,)
         p,  # out (H, W, 3)
-        i, i, i, i, i,  # num_lights, h, w, tile_h, tile_w
+        i, i, i,  # num_lights, h, w
         p,  # stream
     ]
     _lib = lib
@@ -233,18 +233,19 @@ def blend_unit_source(device_source: str, attr_layout: "Sequence[tuple[str, int]
 def load_blend_kernel(device_source: str,
                       attr_layout: "Sequence[tuple[str, int]]") -> ctypes.CDLL:
     """K5/K6 compiled for one (shader device source, attribute layout),
-    built on first use and cached by a hash of the generated unit and the
-    kernel sources."""
+    built on first use and cached on disk by a hash of the generated unit and
+    the kernel sources, and in this process by (source, layout)."""
     global shader_builds
+    shader_key = (device_source, tuple(attr_layout))
+    lib = _blend_libs.get(shader_key)
+    if lib is not None:  # loaded before in this process
+        return lib
     unit = blend_unit_source(device_source, attr_layout)
     h = hashlib.sha256(unit.encode())
     for src in (BLEND_SOURCE, CSRC / "raster_common.cuh"):
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     key = h.hexdigest()[:16]
-    lib = _blend_libs.get(key)
-    if lib is not None:
-        return lib
     so = BUILD_DIR / f"libzenith_blend_{key}.so"
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -264,12 +265,12 @@ def load_blend_kernel(device_source: str,
         shader_builds += 1
     lib = ctypes.CDLL(str(so))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    common = [p, p, p, p, p]  # routing tables, rows
+    common = [p, p, p, p, p, p]  # routing tables, rows, rects
     tail = [i, i, i, i, i, i, i, i, i, f, f]  # num_blocks .. depth_clamp, sample offset
     lib.zn_raster_blend.restype = ctypes.c_int
     lib.zn_raster_blend.argtypes = [*common, p, p, *tail, p, p]  # z, color; blend, stream
     lib.zn_raster_blend_stencil.restype = ctypes.c_int
     lib.zn_raster_blend_stencil.argtypes = [*common, p, p, p, *tail, p, p, p]
     lib.log_path = so.with_suffix(".log")
-    _blend_libs[key] = lib
+    _blend_libs[shader_key] = lib
     return lib
