@@ -121,12 +121,18 @@ other than 0, no result line) on the first phase that fails:
     510 tiles) and by the sun (the 1024² shadow map, 256 tiles), each at a
     capacity that drops nothing, then on the stress draw at capacity 64.
     K7 and K8 bit-equal to their plain versions; K8 bit-equal to K1 on the
-    segmented bins of the same records, and timed beside it: K8 is K1's
-    walk before the redesign over another layout, so K8's time over K1's
-    is the redesign's gain in the same run; K7's z equal to K8's, its slots set
-    exactly where K8's 1/w plane is; resolve_varyings over K7's slots within
-    atol 2e-3 + rtol 1e-4 of finalize_attrs over K8's planes; at capacity 64
-    the card's binning (overflow included) equal to the CPU's.
+    segmented bins of the same records, and timed beside it (wrapper call
+    and device time; K7 and K8 walk K1's culled sub-regions over the capped
+    layout, so their device time over K1's shows what the layout costs);
+    K7's z equal to K8's, its slots set exactly where K8's 1/w plane is;
+    resolve_varyings over K7's slots within atol 2e-3 + rtol 1e-4 of
+    finalize_attrs over K8's planes; at capacity 64 the card's binning
+    (overflow included) equal to the CPU's. Then (13f) phase 2c's
+    near-clipped and sliver triangles with the other corners on pixel
+    centres through the capped-bin path, where the per-slot rectangle cull
+    must drop nothing: K7's z and slots and K8's z and planes bit-equal to
+    their plain versions for all eight compares, and once at 64x128 tiles
+    (8,192 pixels a tile).
 
 Every kernel and its plain version are timed with CUDA events (median; a
 plain version that runs for seconds twice, not warmed up) and set beside
@@ -210,6 +216,30 @@ def device_ms(fn, part: str, reps: int = 10) -> float:
     return sum(b - a for a, b in spans) / 1e3 / reps
 
 
+def kernel_ms(launch, reset, reps: int = 10) -> float:
+    """Device time in ms of one bare kernel launch (median, after one
+    untimed launch): CUDA events recorded just before and after ``launch``,
+    queued behind a spin kernel, so that the card runs event, kernel and
+    event back to back whatever the host's enqueue time. ``reset`` restores
+    the kernel's in-place inputs before each launch. Phase 13 uses it where
+    torch.profiler, late in this long process, recorded none or only some of
+    a session's launches."""
+    import torch
+
+    times = []
+    for i in range(reps + 1):
+        reset()
+        torch.cuda._sleep(1 << 20)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        launch()
+        end.record()
+        end.synchronize()
+        if i:
+            times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
 def stress_scene(seed: int = 7):
     """A 1080p stress draw: (clip (Nv, 4), indices (T, 3), colors (Nv, 3))."""
     rng = np.random.default_rng(seed)
@@ -246,16 +276,21 @@ def stress_scene(seed: int = 7):
 # Phase 2c's sample offset, and the lattice of sample points that clip
 # coordinates reach exactly at 1920x1080 with it: x = 15 m + 0.9375 (NDC
 # (16 m + 1) / 1024 - 1), y = 135 t + 59.0625 (NDC (16 t + 7) / 64 - 1).
+# Phase 13f's lattice of pixel centres: x = 15 m + 7.5 (NDC (8 m + 1) / 512
+# - 1), y = 135 t + 67.5 (NDC (2 t + 1) / 8 - 1).
 CULL_OFFSET = (0.9375, 0.0625)
+CULL_LATTICE = (0.9375, 59.0625)
+CENTRE_LATTICE = (7.5, 67.5)
 
 
-def cull_stress_scene(seed: int = 19):
+def cull_stress_scene(seed: int = 19, lattice=CULL_LATTICE):
     """Phase 2c's draw, which K1's per-entry rectangle cull must survive:
     near-clipped triangles whose clipped AABBs reach thousands of pixels
     off-screen, needles and slivers 20-600 px long and 0.02-0.6 px thick,
-    and triangles with corners on CULL_OFFSET's sample points (axis-aligned
-    right triangles and others), whose edges run through sample points at
-    the AABB's border. (clip (Nv, 4), indices (T, 3), colors (Nv, 3))."""
+    and triangles with corners on the sample points of ``lattice`` (x = 15 m
+    + lattice[0], y = 135 t + lattice[1]; axis-aligned right triangles and
+    others), whose edges run through sample points at the AABB's border.
+    (clip (Nv, 4), indices (T, 3), colors (Nv, 3))."""
     rng = np.random.default_rng(seed)
 
     def clip_of(px, z, w):
@@ -282,8 +317,8 @@ def cull_stress_scene(seed: int = 19):
     m = rng.integers(-1, W // 15 + 1, (n, 3))
     t = rng.integers(-1, H // 135 + 1, (n, 3))
     t[::2, 1], m[::2, 2] = t[::2, 0], m[::2, 0]  # right triangles with axis-aligned legs
-    lattice = np.stack([15 * m + CULL_OFFSET[0], 135 * t + 59.0625], -1).reshape(-1, 2)
-    on_samples = clip_of(lattice, rng.uniform(0.05, 0.95, 3 * n), np.ones(3 * n))
+    corners = np.stack([15 * m + lattice[0], 135 * t + lattice[1]], -1).reshape(-1, 2)
+    on_samples = clip_of(corners, rng.uniform(0.05, 0.95, 3 * n), np.ones(3 * n))
     clip = np.concatenate([near, sliver, on_samples]).astype(np.float32)
     idx = np.arange(clip.shape[0], dtype=np.int32).reshape(-1, 3)
     colors = rng.uniform(0.0, 1.0, (clip.shape[0], 3)).astype(np.float32)
@@ -298,6 +333,12 @@ BEFORE_MS = {"demo triangle": "0.1383-0.2149", "stress draw": "7.2051-7.7017",
              "phase 13 stress draw": "7.4799-7.8775",
              "phase 13 G-buffer view": "3.1655-3.1865",
              "phase 13 shadow view": "8.5905-9.0006",
+             "K7 phase 13 stress draw": "7.4309-8.0370",
+             "K7 phase 13 G-buffer view": "3.0261-3.3645",
+             "K7 phase 13 shadow view": "8.7382-9.2380",
+             "K8 phase 13 stress draw": "7.4610-8.0626",
+             "K8 phase 13 G-buffer view": "3.0404-3.2448",
+             "K8 phase 13 shadow view": "8.8297-9.3389",
              "K2 points": "0.6655-0.7781 (device time 0.590-0.610 a frame)",
              "K5 glass panes": "0.7039-1.6772", "K5 stress": "5.8463-7.4725",
              "K6 stencil frame": "1.6896-2.0003", "K6 stress": "9.9293-10.2265"}
@@ -2004,10 +2045,30 @@ def capped_phase(dev, card: str, stress) -> "list[dict]":
         check(torch.equal(z1, r["z8"]) and torch.equal(acc1, r["acc"]),
               f"{name}: K8 differs from K1 on the same records")
 
+        def k1_call(sbins=sbins, r=r):
+            return raster_segmented(sbins, r["grid"], r["z0"], compare_op=r["cmp"])
+
         t8 = cuda_ms(k8_call, reps=10, warmup=2)
         t7 = cuda_ms(k7_call, reps=10, warmup=2)
-        t1 = cuda_ms(lambda: raster_segmented(sbins, g, r["z0"], compare_op=cmp), reps=10,
-                     warmup=2)
+        t1 = cuda_ms(k1_call, reps=10, warmup=2)
+        # The kernels alone: bare launches on the padded planes, z reset
+        # before each (depth writes on, as in the calls above); then K7 over
+        # these tiles with no record in any, so that every CTA returns at
+        # once: what the CTAs of empty tiles cost.
+        zp0 = raster_mod._pad_plane(r["z0"], g.height, g.width, hp, wp, torch.float32)
+        zp, sp = zp0.clone(), torch.full_like(zp0, -1, dtype=torch.int32)
+        accp = torch.zeros((a_n, hp, wp), device=dev)
+        dead = bins._replace(counts=torch.zeros_like(bins.counts))
+
+        def reset():
+            zp.copy_(zp0)
+
+        d8 = kernel_ms(lambda: raster_mod._interp_cuda(bins, r["attr"], g, zp, accp, cmp, True),
+                       reset)
+        d7 = kernel_ms(lambda: raster_mod._visibility_cuda(bins, g, zp, sp, cmp, True), reset)
+        d1 = kernel_ms(lambda: raster_mod._raster_segmented_cuda(sbins, g, zp, accp, cmp, True,
+                                                                 False, (0.5, 0.5)), reset)
+        d0 = kernel_ms(lambda: raster_mod._visibility_cuda(dead, g, zp, sp, cmp, True), reset)
         with plain():
             p8 = cuda_ms(k8_call, reps=2, warmup=0)
             p7 = cuda_ms(k7_call, reps=2, warmup=0)
@@ -2016,29 +2077,106 @@ def capped_phase(dev, card: str, stress) -> "list[dict]":
                    frags * K1_OPS_PER_FRAGMENT + n_cov * a_n * K1_OPS_PER_PIXEL_PLANE)
         b7 = bound(4 * (live * 17 + bins.counts.numel() + 4 * hp * wp),
                    frags * K7_OPS_PER_FRAGMENT)
-        before = BEFORE_MS[f"phase 13 {name}"]
         print(line + f"; K8 bit-equal to K1 on the segmented bins of the same records. "
-              f"{frags} fragments: K8 {t8:.4f} ms (plain {p8:.4f} ms, bound {b8[0]:.4f} ms, "
-              f"{b8[1]}), K7 {t7:.4f} ms (plain {p7:.4f} ms, bound {b7[0]:.4f} ms, {b7[1]}), "
-              f"K1 on the same records {t1:.4f} ms (largest tile {tile_entries(sbins, g)} "
-              f"entries; before the redesign {before} ms): K8, the old "
-              f"walk, takes {t8 / t1:.2f}x K1's time; no one-call PyTorch equivalent [{card}]")
-        records[name] = {"K7": (t7, p7, *b7), "K8": (t8, p8, *b8)}
+              f"{frags} fragments, largest tile {tile_entries(sbins, g)} entries: "
+              f"K8 {t8:.4f} ms (device {d8:.4f} ms; plain {p8:.4f} ms, bound {b8[0]:.4f} ms, "
+              f"{b8[1]}; before the redesign {BEFORE_MS[f'K8 phase 13 {name}']} ms), "
+              f"K7 {t7:.4f} ms (device {d7:.4f} ms; plain {p7:.4f} ms, bound {b7[0]:.4f} ms, "
+              f"{b7[1]}; before the redesign {BEFORE_MS[f'K7 phase 13 {name}']} ms), K1 on the "
+              f"same records {t1:.4f} ms (device {d1:.4f} ms; before its redesign "
+              f"{BEFORE_MS[f'phase 13 {name}']} ms): device time K7/K1 {d7 / d1:.2f}, K8/K1 "
+              f"{d8 / d1:.2f}; K7 with every tile empty ({bins.counts.numel()} x 16 CTAs "
+              f"that return at once) {d0:.4f} ms device; no one-call PyTorch equivalent "
+              f"[{card}]")
+        records[name] = {"K7": (t7, d7, p7, *b7), "K8": (t8, d8, p8, *b8)}
 
+    # f. the cull's hard cases through the capped path, all eight compares,
+    # then at 64x128 tiles (8,192 px a tile).
+    f_err = cull_stress_capped(dev, card)
+    err = {key: max(err[key], f_err[key]) for key in err}
     print(f"phase 13: capped-bin path: K7 and K8 launched {launches['K7']} times each on the "
           f"path; peak device memory {peak / 2**30:.2f} GiB; {time.perf_counter() - t0:.1f} s "
           f"[{card}]")
     out = []
     for key, name, line in (("K7", "capped-bin visibility (_visibility_kernel)", 61),
                             ("K8", "capped-bin interpolation (_interp_kernel)", 153)):
-        ms, plain_ms, b_ms, b_by = records["G-buffer view"][key]
+        ms, dev_ms, plain_ms, b_ms, b_by = records["G-buffer view"][key]
         out.append({"name": f"{key} {name}", "route": "cuda",
                     "source": "zenith_tpu_torch/csrc/raster_capped.cu",
                     "replaces": f"zenith_tpu/ops/raster.py:{line}", "launches": launches[key],
-                    "max_abs_err": err[key], "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                    "bound_by": b_by, "library_ms": None,
-                    "shape": "deferred scene geometry, G-buffer view 1080p"})
+                    "max_abs_err": err[key], "ms": ms, "device_ms": dev_ms,
+                    "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                    "library_ms": None, "shape": "deferred scene geometry, G-buffer view 1080p"})
     return out
+
+
+def cull_stress_capped(dev, card: str) -> dict:
+    """Phase 13f: phase 2c's near-clipped and sliver triangles, with the
+    corners of the rest on pixel centres, through the capped-bin path: K7's
+    z and slots and K8's z and planes bit-equal to their plain versions for
+    all eight compares (depth writes on and off in turn) at 32x128 tiles,
+    then with GREATER at 64x128 tiles, above the 4,096-pixel tile the
+    kernels took before their redesign. Returns the largest differences."""
+    import torch
+
+    from zenith_tpu_torch.ops import raster as raster_mod
+    from zenith_tpu_torch.ops.binning import TileGrid, bin_triangles, tile_overlap
+    from zenith_tpu_torch.ops.geometry import corner_attributes, setup_triangles
+    from zenith_tpu_torch.ops.raster import K_BLOCK, raster_interp_pass, visibility_pass
+    from zenith_tpu_torch.ops.runtime import round_up
+    from zenith_tpu_torch.rhi.state import CompareOp, CullMode
+
+    clip, idx, colors = (torch.from_numpy(a).to(dev)
+                         for a in cull_stress_scene(lattice=CENTRE_LATTICE))
+    rec = setup_triangles(clip, idx, W, H, cull_mode=CullMode.NONE)
+    corner = corner_attributes(rec, idx, colors)
+    aabb = rec.aabb[rec.valid]
+    far_out = int(((aabb[:, 0] < -W) | (aabb[:, 2] > 2 * W) | (aabb[:, 1] < -H)
+                   | (aabb[:, 3] > 2 * H)).sum())
+    check(far_out > 0, "phase 13f: no record reaches far outside the surface")
+    rng = np.random.default_rng(31)
+    init = torch.from_numpy(rng.uniform(0.0, 1.0, (H, W)).astype(np.float32)).to(dev)
+    init[:, : W // 2] = 0.5  # a plane some fragments tie with exactly
+    s0 = torch.full((H, W), -1, dtype=torch.int32, device=dev)
+    err = {"K7": 0.0, "K8": 0.0}
+    cases = {TileGrid(W, H): [(op, i % 2 == 0) for i, op in enumerate(CompareOp)],
+             TileGrid(W, H, 64, 128): [(CompareOp.GREATER, True)]}
+    for g, states in cases.items():
+        k = round_up(int(tile_overlap(rec, g).sum(1).max()), K_BLOCK)
+        bins = bin_triangles(rec, g, k)
+        attr = bins.gather_corner_data(corner)
+        for op, write in states:
+            kw = dict(compare_op=op, depth_write=write)
+
+            def both():
+                return (*visibility_pass(bins, g, init, s0, **kw),
+                        *raster_interp_pass(bins, attr, g, init, **kw))
+
+            kern = both()
+            with mock.patch.object(raster_mod, "_visibility_cuda", raster_mod._visibility_torch), \
+                    mock.patch.object(raster_mod, "_interp_cuda", raster_mod._interp_torch):
+                ref = both()
+            torch.cuda.synchronize()
+            (z7, slot, z8, acc), (pz7, pslot, pz8, pacc) = kern, ref
+            what = f"phase 13f: {op.name} write={write} at {g.tile_h}x{g.tile_w} tiles"
+            err["K7"] = max(err["K7"], (z7 - pz7).abs().max().item(),
+                            float((slot - pslot).abs().max()))
+            err["K8"] = max(err["K8"], (z8 - pz8).abs().max().item(),
+                            (acc - pacc).abs().max().item())
+            check(torch.equal(z7, pz7) and torch.equal(slot, pslot),
+                  f"{what}: K7 differs from its plain version")
+            check(torch.equal(z8, pz8) and torch.equal(acc, pacc),
+                  f"{what}: K8 differs from its plain version")
+            n_cov = int((slot >= 0).sum())
+            check(op in (CompareOp.NEVER, CompareOp.EQUAL) or n_cov > 1000,
+                  f"{what}: only {n_cov} px covered")
+            print(f"  bit-equal: {op.name:<17} write={write!s:<5} {g.tile_h}x{g.tile_w} tiles, "
+                  f"K {k}, covered {n_cov}")
+    print(f"phase 13f: cull stress through the capped-bin path at {W}x{H}, corners on pixel "
+          f"centres: {int(rec.valid.sum())} valid records ({far_out} with an AABB more than a "
+          f"surface off-screen); K7 and K8 bit-equal to their plain versions for all eight "
+          f"compares at 32x128 tiles and at 64x128 [{card}]")
+    return err
 
 
 def main() -> int:

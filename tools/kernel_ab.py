@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Times K2, K5 and K6 of one checkout of the PyTorch/CUDA port, so that two
-commits can be compared on one card in one session.
+"""Times K2, K5, K6, K7 and K8 of one checkout of the PyTorch/CUDA port, so
+that two commits can be compared on one card in one session.
 
     python3 tools/kernel_ab.py <checkout>
 
@@ -11,7 +11,13 @@ times at chip_smoke.py's own 1080p inputs:
 - K2 on the deferred scene's G-buffer with its 100 point lights (phase 5);
 - K5 on the two glass panes of the kernel-mode glass frame (phase 11);
 - K5 and K6 on the 256 translucent screen-sized triangles, K6 through a
-  read-only stencil mask whose faces differ (phase 10).
+  read-only stencil mask whose faces differ (phase 10);
+- K7 and K8 on the deferred scene's geometry seen by the camera (1080p) and
+  by the sun (the 1024² shadow map), binned by the checkout's own
+  ``bin_triangles`` at a capacity that drops nothing, and K1 on the same
+  records through ``bin_segmented`` (phase 13);
+- K1 and K3 on the 1080p stress draw, K3 with phase 8's stencil-write
+  state (faces that differ, write masks).
 
 Each is timed as a wrapper call (CUDA events, median, ``chip_smoke.cuda_ms``)
 and as the kernel's own device time (torch.profiler). The last line is one
@@ -33,9 +39,11 @@ import numpy as np
 
 
 def device_ms(fn, part: str, reps: int = 10) -> float:
-    """Device time in ms per call of ``fn`` spent in kernels whose name holds
-    ``part`` (torch.profiler, kernels only, after one untimed call). The
-    tree under test may predate chip_smoke's own ``device_ms``."""
+    """The mean device time in ms of the launches of the kernel whose name
+    holds ``part`` (one a call of ``fn``) that a torch.profiler session
+    recorded, after one call before the session and one awaited inside it
+    (the tree under test may predate chip_smoke's ``device_ms``, and a
+    session can miss the launches made just after it starts)."""
     import torch
 
     from zenith_tpu_torch.core import profile
@@ -43,12 +51,16 @@ def device_ms(fn, part: str, reps: int = 10) -> float:
     fn()
     torch.cuda.synchronize()
     with profile.session(cpu=False) as prof:
+        fn()
+        torch.cuda.synchronize()
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
     spans = {(e.time_range.start, e.time_range.end) for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA and part in e.name}
-    return sum(b - a for a, b in spans) / 1e3 / reps
+    if not spans:
+        raise SystemExit(f"kernel_ab: the profiler recorded no launch of {part}")
+    return sum(b - a for a, b in spans) / 1e3 / len(spans)
 
 
 def main(root: Path) -> dict:
@@ -64,7 +76,18 @@ def main(root: Path) -> dict:
     from zenith_tpu_torch.core.mathtypes import Degree
     from zenith_tpu_torch.ops import draw as draw_mod
     from zenith_tpu_torch.ops import lighting, raster, runtime
-    from zenith_tpu_torch.ops.binning import TileGrid
+    from zenith_tpu_torch.ops.binning import (
+        TileGrid,
+        bin_segmented,
+        bin_triangles,
+        tile_overlap,
+    )
+    from zenith_tpu_torch.ops.geometry import (
+        corner_attributes,
+        setup_triangles,
+        setup_with_attrs,
+        transform_vertices,
+    )
     from zenith_tpu_torch.rendergraph import CompileOptions
     from zenith_tpu_torch.renderer import DeferredRenderer
     from zenith_tpu_torch.renderer.deferred import glass_device_source
@@ -83,8 +106,10 @@ def main(root: Path) -> dict:
         CompareOp,
         CullMode,
         DepthStencilDesc,
+        FrontFace,
         GraphicPipelineAttachments,
         GraphicPipelineState,
+        StencilOp,
         StencilOpState,
         VertexLayout,
     )
@@ -177,6 +202,53 @@ def main(root: Path) -> dict:
         call = replay(blend_calls[0])
         out[f"{name}_ms"] = smoke.cuda_ms(call, reps=10, warmup=2)
         out[f"{name}_device_ms"] = device_ms(call, "raster_blend_kernel", reps=5)
+
+    # The capped-bin path's views of the deferred geometry (phase 13).
+    pos, nrm, gidx, cam_vp, sun_vp, smsz = smoke.deferred_geometry(dev)
+    vary = torch.cat([pos, nrm], dim=1)
+    views = (("gbuffer", cam_vp, TileGrid(w, h), CullMode.BACK, FrontFace.COUNTER_CLOCKWISE,
+              CompareOp.GREATER, 0.0),
+             ("shadow", sun_vp, TileGrid(smsz, smsz), CullMode.NONE, FrontFace.CLOCKWISE,
+              CompareOp.LESS, 1.0))
+    for name, vp, grid, cull, front, cmp, clear in views:
+        clip = transform_vertices(pos, torch.from_numpy(vp).to(dev))
+        rec = setup_triangles(clip, gidx, grid.width, grid.height, cull_mode=cull,
+                              front_face=front)
+        k = runtime.round_up(int(tile_overlap(rec, grid).sum(1).max()), raster.K_BLOCK)
+        bins = bin_triangles(rec, grid, k)
+        z0 = torch.full((grid.height, grid.width), clear, device=dev)
+        s0 = torch.full((grid.height, grid.width), -1, dtype=torch.int32, device=dev)
+        corner = corner_attributes(rec, gidx, vary)
+        attr = bins.gather_corner_data(corner)
+        sbins = bin_segmented(rec, corner, grid, mid_cap=8192, huge_cap=4096,
+                              entry_budget=int(tile_overlap(rec, grid).sum()))
+        calls = {
+            "k7": (lambda: raster.visibility_pass(bins, grid, z0, s0, compare_op=cmp),
+                   "raster_capped_kernel"),
+            "k8": (lambda: raster.raster_interp_pass(bins, attr, grid, z0, compare_op=cmp),
+                   "raster_capped_kernel"),
+            "k1": (lambda: raster.raster_segmented(sbins, grid, z0, compare_op=cmp),
+                   "raster_segmented_kernel"),
+        }
+        for kernel, (call, part) in calls.items():
+            out[f"{kernel}_{name}_ms"] = smoke.cuda_ms(call, reps=10, warmup=2)
+            out[f"{kernel}_{name}_device_ms"] = device_ms(call, part)
+
+    # K1 and K3 on the stress draw (phases 2b and 8).
+    clip, idx, colors = (torch.from_numpy(a).to(dev) for a in smoke.stress_scene())
+    rec, corner = setup_with_attrs(clip, idx, colors, w, h, cull_mode=CullMode.NONE)
+    sbins = bin_segmented(rec, corner, TileGrid(w, h))
+    s0 = torch.from_numpy(rng.integers(0, 256, (h, w)).astype(np.int32)).to(dev)
+    front = StencilOpState(pass_op=StencilOp.REPLACE, depth_fail_op=StencilOp.INCREMENT_AND_WRAP,
+                           compare_op=CompareOp.ALWAYS, write_mask=0xF3, reference=0x5A)
+    back = StencilOpState(pass_op=StencilOp.INCREMENT_AND_WRAP, depth_fail_op=StencilOp.INVERT,
+                          compare_op=CompareOp.ALWAYS, write_mask=0xBF)
+    calls = {"k1": lambda: raster.raster_segmented(sbins, TileGrid(w, h), init),
+             "k3": lambda: raster.raster_segmented(sbins, TileGrid(w, h), init, init_stencil=s0,
+                                                   stencil_front=front, stencil_back=back)}
+    for kernel, call in calls.items():
+        out[f"{kernel}_stress_ms"] = smoke.cuda_ms(call, reps=10, warmup=2)
+        out[f"{kernel}_stress_device_ms"] = device_ms(call, "raster_segmented_kernel")
     return out
 
 

@@ -1,14 +1,16 @@
-// Device helpers shared by the segmented rasterizers: K1, K3 and K4
-// (raster.cu) and K5 and K6 (raster_blend.cu). Everything that decides
-// coverage or depth rounds each product and sum on its own
+// Device helpers shared by the rasterizers: K1, K3 and K4 (raster.cu), K5
+// and K6 (raster_blend.cu), K7 and K8 (raster_capped.cu). Everything that
+// decides coverage or depth rounds each product and sum on its own
 // (__fmul_rn/__fadd_rn, never an FMA), in the reference's order.
 //
-// Both kernels walk a tile the same way (raster.cu's source note says why):
-// the grid is (entry blocks) x (kSubH x kSubW sub-regions of a tile); a CTA
-// whose block starts a tile walks that tile's blocks in order, staging each
-// block two buffers deep with cp.async (walk_tile_blocks); each of its warps
-// owns a kWarpH x kWarpW block of pixels, kPix a lane, and visits only the
-// entries whose pixel rectangle (SegmentedBins.rect) reaches that block
+// All of them walk a tile the same way (raster.cu's source note says why):
+// the grid spreads each tile over kSubH x kSubW sub-regions; the CTAs of a
+// tile each walk all of its entries in order, staging them a chunk at a
+// time two buffers deep with cp.async (walk_chunks: over the segmented
+// bins' blocks, walk_tile_blocks; over a capped bin's rows,
+// walk_row_chunks); each of a CTA's warps owns a kWarpH x kWarpW block of
+// pixels, kPix a lane, and visits only the entries whose pixel rectangle
+// (SegmentedBins.rect, TileBins.rect) reaches that block
 // (for_each_overlap).
 
 #pragma once
@@ -192,49 +194,74 @@ __device__ __forceinline__ void stage_columns(float* dst, const float* __restric
   }
 }
 
-// Block b's rectangles into `dst` with 16-byte cp.async copies (the table is
-// 16-byte aligned). The caller commits.
-__device__ __forceinline__ void stage_rects(int4* dst, const int4* __restrict__ rects, int b,
-                                            int count, int chunk) {
-  for (int i = threadIdx.x; i < count; i += kThreads) {
-    cp_async16(dst + i, rects + (size_t)b * chunk + i);
+// n 16-byte pieces from `src` into `dst` (both 16-byte aligned) with
+// 16-byte cp.async copies by every thread of the CTA. The caller commits.
+__device__ __forceinline__ void stage16(void* dst, const void* __restrict__ src, int n) {
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    cp_async16(static_cast<int4*>(dst) + i, static_cast<const int4*>(src) + i);
   }
 }
 
-// The walk of one tile's blocks from b0 (blk_init[b0] == 1, count0 entries),
-// in order, while blk_init stays 0 and the next block holds entries (a
-// tile's blocks are never empty; dead blocks, count 0, lie past every live
-// one). stage(buf, b, count) starts block b's copies into staging buffer
-// buf; visit(buf, b, count) walks it once every thread's copies landed. The
-// next block loads while this one is walked.
-template <typename Stage, typename Visit>
-__device__ __forceinline__ void walk_tile_blocks(const int* __restrict__ blk_count,
-                                                 const int* __restrict__ blk_init,
-                                                 int num_blocks, int b0, int count0,
-                                                 Stage&& stage, Visit&& visit) {
-  int b = b0;
+// Block b's rectangles into `dst` (the table is 16-byte aligned). The
+// caller commits.
+__device__ __forceinline__ void stage_rects(int4* dst, const int4* __restrict__ rects, int b,
+                                            int count, int chunk) {
+  stage16(dst, rects + (size_t)b * chunk, count);
+}
+
+// The CTA's walk over chunks of entries, in order: chunk c0 (count0
+// entries), then c0 + 1, ... while next(c) gives chunk c a count above 0.
+// stage(buf, c, count) starts chunk c's copies into staging buffer buf;
+// visit(buf, c, count) walks it once every thread's copies landed. The next
+// chunk loads while this one is walked (two buffers).
+template <typename Next, typename Stage, typename Visit>
+__device__ __forceinline__ void walk_chunks(int c0, int count0, Next&& next, Stage&& stage,
+                                            Visit&& visit) {
+  int c = c0;
   int buf = 0;
   int count = count0;
-  stage(0, b, count);
+  stage(0, c, count);
   cp_async_commit();
   while (true) {
-    const int nb = b + 1;
-    const int ncount = (nb < num_blocks && blk_init[nb] == 0) ? blk_count[nb] : 0;
+    const int ncount = next(c + 1);
     if (ncount > 0) {
-      stage(buf ^ 1, nb, ncount);
+      stage(buf ^ 1, c + 1, ncount);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
-    __syncthreads();  // block b is in buffer buf for every thread
-    visit(buf, b, count);
+    __syncthreads();  // chunk c is in buffer buf for every thread
+    visit(buf, c, count);
     if (ncount <= 0) break;
     __syncthreads();  // every warp is done with buffer buf before it is refilled
-    b = nb;
+    ++c;
     buf ^= 1;
     count = ncount;
   }
+}
+
+// K1-K6: one tile's blocks from b0 (blk_init[b0] == 1, count0 entries), in
+// order, while blk_init stays 0 and the next block holds entries (a tile's
+// blocks are never empty; dead blocks, count 0, lie past every live one).
+template <typename Stage, typename Visit>
+__device__ __forceinline__ void walk_tile_blocks(const int* __restrict__ blk_count,
+                                                 const int* __restrict__ blk_init,
+                                                 int num_blocks, int b0, int count0,
+                                                 Stage&& stage, Visit&& visit) {
+  walk_chunks(
+      b0, count0,
+      [&](int nb) { return (nb < num_blocks && blk_init[nb] == 0) ? blk_count[nb] : 0; },
+      stage, visit);
+}
+
+// K7/K8: a capped bin's first `count` rows (count > 0), which lie one after
+// another, kMaxChunk at a time: chunk c holds rows c * kMaxChunk onward.
+template <typename Stage, typename Visit>
+__device__ __forceinline__ void walk_row_chunks(int count, Stage&& stage, Visit&& visit) {
+  walk_chunks(
+      0, min(count, kMaxChunk),
+      [&](int c) { return min(kMaxChunk, count - c * kMaxChunk); }, stage, visit);
 }
 
 // The warp's pixel block against a staged block's rectangles: visit(e) for

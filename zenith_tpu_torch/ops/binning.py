@@ -16,7 +16,8 @@ to what v5e SMEM can route and grows the chunk for huge budgets
 keeps ``ENTRY_CHUNK`` fixed and takes the budget as given. The reference's
 ``jax.lax.top_k`` picks tied spans by lowest index; the port gets the same
 pick from a stable descending sort, so mid/huge-tier overflow drops the same
-records.
+records. Both binnings add a trailing field beside the reference's, the
+kernels' cull aid: each row's or slot's pixel rectangle (``rect``).
 """
 
 from __future__ import annotations
@@ -55,12 +56,18 @@ class TileGrid:
 
 
 class TileBins(NamedTuple):
-    """Per-tile candidate lists of a fixed capacity K (``bin_triangles``)."""
+    """Per-tile candidate lists of a fixed capacity K (``bin_triangles``).
+
+    ``rect`` is the kernels' cull aid, not part of the reference's layout:
+    per slot its record's ``pixel_rects`` rectangle (x0, y0, x1, y1), empty
+    (0, 0, -1, -1) for pad slots. K7 and K8 need it on CUDA tensors; the
+    plain versions ignore it."""
 
     binned_rast: torch.Tensor  # (T, K, 16) f32 — gathered raster records (pad 0)
     binned_slot: torch.Tensor  # (T, K) i32 — global record indices (pad -1)
     counts: torch.Tensor  # (T,) i32 — live entries, at most K
     overflow: torch.Tensor  # () i32 — records dropped by the K cap
+    rect: Optional[torch.Tensor] = None  # (T, K, 4) i32 — per-slot pixel rectangle
 
     def gather_corner_data(self, corner_data: torch.Tensor) -> torch.Tensor:
         """Per-record corner data, flat (R, 3·D) or (R, 3, D), in per-tile
@@ -137,10 +144,11 @@ def _pixel_boxes(records: TriangleRecords, grid: TileGrid) -> torch.Tensor:
 
 
 def _or_empty(rect: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
-    """``rect`` where ``keep``, else the empty rectangle (0, 0, -1, -1)."""
+    """``rect`` (..., 4) where ``keep`` (...), else the empty rectangle
+    (0, 0, -1, -1)."""
     empty = torch.zeros_like(rect)
-    empty[:, 2:] = -1
-    return torch.where(keep[:, None], rect, empty)
+    empty[..., 2:] = -1
+    return torch.where(keep[..., None], rect, empty)
 
 
 def _row_rects(records: TriangleRecords, grid: TileGrid, rec_l: torch.Tensor,
@@ -167,7 +175,10 @@ def bin_triangles(records: TriangleRecords, grid: TileGrid, k: int) -> TileBins:
     (binning.py:398-438): the first ``k`` overlapping records of each tile
     in record order (an ascending sort of the masked record indices), pad
     slots -1 with zero rows; ``overflow`` counts the records past ``k``.
-    Builds the dense (T, R) mask and sorts it row by row."""
+    Builds the dense (T, R) mask and sorts it row by row. Beyond the
+    reference's fields, each slot carries its record's ``pixel_rects``
+    rectangle (``rect``), gathered like the rows; pad slots get the empty
+    one."""
     r = records.rast16.shape[0]
     t = grid.num_tiles
     dev = records.rast16.device
@@ -185,9 +196,11 @@ def bin_triangles(records: TriangleRecords, grid: TileGrid, k: int) -> TileBins:
                                                device=dev)], dim=1)
     pad = packed >= r
     slot = torch.where(pad, torch.full_like(packed, -1), packed)
-    binned_rast = records.rast16[torch.clamp(packed, 0, r - 1).to(torch.int64)]
+    rec = torch.clamp(packed, 0, r - 1).to(torch.int64)
+    binned_rast = records.rast16[rec]
     binned_rast.masked_fill_(pad[..., None], 0.0)
-    return TileBins(binned_rast, slot, torch.clamp(counts, max=k), overflow)
+    rect = _or_empty(_pixel_boxes(records, grid)[rec], ~pad)
+    return TileBins(binned_rast, slot, torch.clamp(counts, max=k), overflow, rect)
 
 
 def bin_segmented(

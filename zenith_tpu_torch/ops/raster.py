@@ -64,8 +64,6 @@ _STENCIL_OP_CODE = {op: i for i, op in enumerate(StencilOp)}
 _BLEND_FACTOR_CODE = {f: i for i, f in enumerate(BlendFactor)}
 _BLEND_OP_CODE = {op: i for i, op in enumerate(BlendOp)}
 
-_MAX_TILE_PIXELS = 4096  # K7/K8, raster_capped.cu: 256 threads x 16 pixels a tile
-
 
 def _compare(op: CompareOp, new: torch.Tensor, cur: torch.Tensor) -> torch.Tensor:
     if op == CompareOp.NEVER:
@@ -369,7 +367,10 @@ def raster_interp_pass(
     raster.py:233-308) → (z (H, W), acc (a_n, H, W)): K7's walk, keeping
     the last passing record's a_n perspective planes ``w0·c0 + w1·c1 +
     w2·c2`` instead of its slot. ``acc[-1]`` is the interpolated 1/w, zero
-    (with every plane) where nothing passed."""
+    (with every plane) where nothing passed.
+
+    Like K1, both passes cull by pixel rectangles on CUDA tensors, so they
+    need ``TileBins.rect`` (``binning.bin_triangles`` builds it)."""
     h, w = grid.height, grid.width
     z = _capped_planes(bins, grid, init_z)
     if binned_attr.shape[-1] % 3:
@@ -425,13 +426,6 @@ def _check_rects(bins, rows, chunk, z, sample_offset, what: str) -> torch.Tensor
         raise ValueError(f"{what} takes a contiguous 16-byte-aligned ({rows.shape[0]}, 4) int32 "
                          f"rectangle table on the z device")
     return rect
-
-
-def _check_tile(grid, what: str) -> None:
-    """K7 and K8 give a whole tile to one CTA of 256 threads x 16 pixels."""
-    if grid.tile_h * grid.tile_w > _MAX_TILE_PIXELS:
-        raise ValueError(f"{what} takes tiles of at most {_MAX_TILE_PIXELS} pixels, "
-                         f"got {grid.tile_h}x{grid.tile_w}")
 
 
 def _raster_stencil_cuda(bins, grid, z, acc, sten, front, back, compare, write, clamp,
@@ -555,21 +549,41 @@ def _raster_segmented_cuda(bins, grid, z, acc, compare, write, clamp, sample_off
 def _capped_inputs(bins: TileBins, z: torch.Tensor, what: str, *extra):
     """(T, K) of capped bins after the checks K7 and K8 make of their
     inputs: the counts and ``extra`` tensors contiguous on the z device,
-    counts int32, rows float32."""
+    counts int32, rows float32, and the slots' pixel rectangles
+    (``_check_capped_rects``)."""
     for t, dtype in ((bins.counts, torch.int32), (bins.binned_rast, torch.float32), *extra):
         if t.dtype != dtype or not t.is_contiguous() or t.device != z.device:
             raise ValueError(f"{what} takes contiguous {dtype} bins on the z device")
+    _check_capped_rects(bins, z, what)
     return bins.binned_rast.shape[:2]
+
+
+def _check_capped_rects(bins: TileBins, z: torch.Tensor, what: str) -> torch.Tensor:
+    """The capped bins' per-slot pixel rectangles after the checks K7 and
+    K8 make: bins that ``bin_triangles`` did not build carry none, and the
+    kernels do not run without their cull. They stage rows and rectangles
+    with 16-byte copies, so both tables must be 16-byte aligned."""
+    rect = bins.rect
+    if rect is None:
+        raise ValueError(f"{what} needs the bins' per-slot pixel rectangles (TileBins.rect, "
+                         f"built by binning.bin_triangles); these bins have none")
+    shape = (*bins.binned_rast.shape[:2], 4)
+    if (rect.dtype != torch.int32 or not rect.is_contiguous() or rect.device != z.device
+            or rect.shape != shape or rect.data_ptr() % 16):
+        raise ValueError(f"{what} takes a contiguous 16-byte-aligned {shape} int32 rectangle "
+                         f"table on the z device")
+    if bins.binned_rast.data_ptr() % 16:
+        raise ValueError(f"{what} takes 16-byte-aligned raster rows")
+    return rect
 
 
 def _visibility_cuda(bins, grid, z, slot, compare, write) -> None:
     """Launch K7 on the current stream; updates ``z`` and ``slot`` in place."""
-    _check_tile(grid, "K7")
     t, k = _capped_inputs(bins, z, "K7", (bins.binned_slot, torch.int32))
     err = load_kernels().zn_visibility(
-        bins.counts.data_ptr(), bins.binned_rast.data_ptr(), bins.binned_slot.data_ptr(),
-        z.data_ptr(), slot.data_ptr(), t, k, grid.tiles_x, z.shape[1], grid.tile_h, grid.tile_w,
-        _COMPARE_CODE[compare], int(write),
+        bins.counts.data_ptr(), bins.binned_rast.data_ptr(), bins.rect.data_ptr(),
+        bins.binned_slot.data_ptr(), z.data_ptr(), slot.data_ptr(), t, k, grid.tiles_x,
+        z.shape[1], grid.tile_h, grid.tile_w, _COMPARE_CODE[compare], int(write),
         ctypes.c_void_p(torch.cuda.current_stream(z.device).cuda_stream),
     )
     if err != 0:
@@ -579,16 +593,15 @@ def _visibility_cuda(bins, grid, z, slot, compare, write) -> None:
 
 def _interp_cuda(bins, binned_attr, grid, z, acc, compare, write) -> None:
     """Launch K8 on the current stream; updates ``z`` in place and writes
-    every value of ``acc``."""
-    _check_tile(grid, "K8")
+    ``acc`` (zero-filled by the caller) where a record won."""
     t, k = _capped_inputs(bins, z, "K8", (binned_attr, torch.float32))
     if binned_attr.shape[:2] != (t, k):
         raise ValueError(f"K8: corner data {tuple(binned_attr.shape)} is not laid out as the "
                          f"bins' {t} x {k} slots")
     err = load_kernels().zn_raster_interp(
-        bins.counts.data_ptr(), bins.binned_rast.data_ptr(), binned_attr.data_ptr(),
-        z.data_ptr(), acc.data_ptr(), t, k, acc.shape[0], grid.tiles_x, z.shape[1], z.shape[0],
-        grid.tile_h, grid.tile_w, _COMPARE_CODE[compare], int(write),
+        bins.counts.data_ptr(), bins.binned_rast.data_ptr(), bins.rect.data_ptr(),
+        binned_attr.data_ptr(), z.data_ptr(), acc.data_ptr(), t, k, acc.shape[0], grid.tiles_x,
+        z.shape[1], z.shape[0], grid.tile_h, grid.tile_w, _COMPARE_CODE[compare], int(write),
         ctypes.c_void_p(torch.cuda.current_stream(z.device).cuda_stream),
     )
     if err != 0:

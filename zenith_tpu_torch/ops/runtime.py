@@ -168,7 +168,7 @@ def load_kernels() -> ctypes.CDLL:
     ]
     lib.zn_visibility.restype = ctypes.c_int
     lib.zn_visibility.argtypes = [
-        p, p, p,  # counts (T,), rast (T, K, 16), slots (T, K)
+        p, p, p, p,  # counts (T,), rast (T, K, 16), rects (T, K, 4), slots (T, K)
         p, p,  # z, slot (updated in place)
         i, i, i, i, i, i,  # num_tiles, k, tiles_x, wp, tile_h, tile_w
         i, i,  # compare, depth_write
@@ -176,8 +176,8 @@ def load_kernels() -> ctypes.CDLL:
     ]
     lib.zn_raster_interp.restype = ctypes.c_int
     lib.zn_raster_interp.argtypes = [
-        p, p, p,  # counts (T,), rast (T, K, 16), attr (T, K, 3 a_n)
-        p, p,  # z (updated in place), acc (written)
+        p, p, p, p,  # counts (T,), rast (T, K, 16), rects (T, K, 4), attr (T, K, 3 a_n)
+        p, p,  # z (updated in place), acc (written where a record won)
         i, i, i, i, i, i, i, i,  # num_tiles, k, a_n, tiles_x, wp, hp, tile_h, tile_w
         i, i,  # compare, depth_write
         p,  # stream
