@@ -132,7 +132,26 @@ other than 0, no result line) on the first phase that fails:
     centres through the capped-bin path, where the per-slot rectangle cull
     must drop nothing: K7's z and slots and K8's z and planes bit-equal to
     their plain versions for all eight compares, and once at 64x128 tiles
-    (8,192 pixels a tile).
+    (8,192 pixels a tile);
+14. textured materials end to end: (14a) build_scene's textured deferred
+    scene (the stand-in mesh with the brushed texture, the ground with the
+    checker, bump normal and MRA maps through the G-buffer's material
+    atlases) at 1920x1080 with 100 lights and phase 7's camera orbit, 40
+    frames: each frame must run K1 twice and K2 once with no bin overflow,
+    the last frame must match the plain-path frame (<= 1 LSB, < 1% of
+    values); K2 and K1's passes timed as bare launches (CUDA events), and a
+    torch.profiler breakdown (launches, kernel and gather time, idle share)
+    printed only where the profiler recorded the expected K1 and K2
+    launches; (14b) tests/test_golden.py's textured frame on the card must
+    match tests/golden/textured_scene_128x64.npy and its plain-path frame,
+    and the same scene with the full material set (bump normal and MRA on
+    the ground, emissive rings on the panel) its plain-path frame (<= 1
+    LSB); (14c) a glTF written to a temporary content root (data-URI
+    buffer, no images) is baked through the AssetManager and loaded again
+    from its cache without a rebake, a Material of four numpy-made maps
+    goes through SceneObject.from_mesh_with_material onto the card, and a
+    deferred frame and a MeshRenderer frame of it at 1920x1080 must each
+    match their plain-path frames (<= 1 LSB).
 
 Every kernel and its plain version are timed with CUDA events (median; a
 plain version that runs for seconds twice, not warmed up) and set beside
@@ -141,7 +160,7 @@ rows of the bins, not their padding; each plane read or written once) over
 3.35 TB/s and the fp32 operations these inputs need over 67 TFLOP/s.
 
 The line before the last is a JSON object listing each kernel (K1-K8) with
-its launches on the main paths (phases 4, 7, 11, 12 and 13), its largest
+its launches on the main paths (phases 4, 7, 11, 12, 13 and 14a), its largest
 difference from the plain version, its time, the plain version's, its bound
 and what bounds it, and the inputs these were taken at; the last line is the
 device record.
@@ -505,6 +524,14 @@ def k2_bound(h: int, w: int, num_lights: int, lit_pairs: int) -> "tuple[float, s
     return bound(nbytes, lit_pairs * K2_OPS_PER_LIT_PAIR)
 
 
+def plain_k2(am, nr, pe, depth, cam, lights, tile_h, tile_w):
+    """K2's plain version, in the launcher's place (the counter stays put)."""
+    from zenith_tpu_torch.ops import lighting as lighting_mod
+
+    return lighting_mod._accumulate_point_lights_torch(am, nr, pe, depth, cam, lights,
+                                                       tile_h, tile_w)
+
+
 def deferred_phases(dev, card: str, plain_k1) -> dict:
     """Phases 5-7: K2 against its plain version, the deferred golden, and
     the deferred main path at 1920x1080. Returns the kernel records."""
@@ -530,10 +557,6 @@ def deferred_phases(dev, card: str, plain_k1) -> dict:
     )
 
     device = RhiCore(dev).create_render_device()
-
-    def plain_k2(am, nr, pe, depth, cam, lights, tile_h, tile_w):
-        return lighting_mod._accumulate_point_lights_torch(am, nr, pe, depth, cam, lights,
-                                                           tile_h, tile_w)
 
     # -- the sandbox scene at 1080p (phases 5 and 7) -------------------------
     scene, mesh = build_standin_scene(device, 100, np.random.default_rng(42))
@@ -757,7 +780,8 @@ def deferred_phases(dev, card: str, plain_k1) -> dict:
     rect_host_cost(frame, card)
     profile_frames(frame, ("shadow", "gbuffer", "lighting", "post", "present.encode"),
                    "phase 7", card, frame_ms,
-                   watch=("tiled_lights_kernel", "raster_segmented_kernel"))
+                   watch=("tiled_lights_kernel", "raster_segmented_kernel"),
+                   expect={"raster_segmented_kernel": 2, "tiled_lights_kernel": 1})
     return {"k1": {"ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound_ms,
                    "bound_by": k1_bound_by, "max_abs_err": k1_err},
             "k1_launches": k1_launches, "k2": k2}
@@ -925,13 +949,15 @@ def rect_host_cost(frame, card: str) -> None:
           f"({(a - b) / a * 100:.2f}%); replayed frames bit-equal [{card}]")
 
 
-def profile_frames(frame, nodes, tag: str, card: str, frame_ms, watch=()) -> None:
+def profile_frames(frame, nodes, tag: str, card: str, frame_ms, watch, expect) -> None:
     """Where the time goes. Kernels only (little host slow-down): device
     time, launches, the busy share, the heaviest kernels per frame and the
     device time of each kernel named in ``watch`` (a part of its name). Then
     host operators too, for each render-graph node's share of the kernel
     time. A one-frame session first keeps the profiler's start-up out of
-    both."""
+    both. ``expect`` maps a part of a kernel's name to its launches a frame:
+    where the profiler recorded another count (late in this process it has
+    lost launches), the session's numbers are not printed."""
     import torch
 
     from zenith_tpu_torch.core import profile
@@ -950,6 +976,15 @@ def profile_frames(frame, nodes, tag: str, card: str, frame_ms, watch=()) -> Non
         events = prof.events()
         kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
         spans = {(e.time_range.start, e.time_range.end, e.name) for e in kernels}
+        seen = {part: sum(part in name for _, _, name in spans) for part in expect}
+        lost = {part: n for part, n in seen.items() if n != expect[part] * PROFILED_FRAMES}
+        if lost:
+            print(f"{tag}: the profiler recorded "
+                  + ", ".join(f"{n} {part} launches (not {expect[part] * PROFILED_FRAMES})"
+                              for part, n in lost.items())
+                  + f" in {PROFILED_FRAMES} frames: its device times are not measured "
+                  f"({'host operators + kernels' if cpu else 'kernels only'}) [{card}]")
+            continue
         kernel_ms = sum(b - a for a, b, _ in spans) / 1e3 / PROFILED_FRAMES
         busy_ms = union_us([(a, b) for a, b, _ in spans]) / 1e3 / PROFILED_FRAMES
         p50 = np.percentile(frame_ms, 50)
@@ -1039,10 +1074,6 @@ def translucency_phases(dev, card: str, stress, plain_k1) -> "tuple[list, dict]"
     rng = np.random.default_rng(29)
 
     # The plain versions, in the launchers' places (the counters stay put).
-    def plain_k2(am, nr, pe, depth, cam, lights, tile_h, tile_w):
-        return lighting_mod._accumulate_point_lights_torch(am, nr, pe, depth, cam, lights,
-                                                           tile_h, tile_w)
-
     def plain_k3(b, g, z, acc, sten, front, back, compare, write, clamp, off):
         raster_mod._raster_segmented_torch(b, g, z, acc, compare, write, clamp, off,
                                            stencil=sten, faces=(front, back))
@@ -1594,7 +1625,12 @@ def translucency_phases(dev, card: str, stress, plain_k1) -> "tuple[list, dict]"
         profile_frames(frame, ("shadow", "gbuffer", "lighting", "glass", "post",
                                "present.encode"), f"phase 11: glass {mode}", card, frame_ms,
                        watch=("tiled_lights_kernel", "raster_segmented_kernel",
-                              "raster_blend_kernel"))
+                              "raster_blend_kernel"),
+                       # K1, K4 (peel) and K3 are instances of one template.
+                       expect={"raster_segmented_kernel": sum(
+                           n for k, n in expect.items() if k in ("K1", "K3", "K4")),
+                               "tiled_lights_kernel": 1,
+                               "raster_blend_kernel": expect.get("K5", 0)})
 
     # K5 at the glass node's own inputs: the panes over the lit HDR frame.
     check(len(glass_inputs["kernel"]) == 1, "the kernel-mode glass node made "
@@ -2179,6 +2215,340 @@ def cull_stress_capped(dev, card: str) -> dict:
     return err
 
 
+TEXTURED_FRAMES = 40
+
+
+def plate_gltf(path: Path, n: int = 96) -> None:
+    """A glTF of a wavy square plate (n x n quads, 40 units wide, z up, with
+    normals and texture coordinates), its buffer a data URI and no images:
+    what phase 14c bakes through the asset manager."""
+    import base64
+
+    g = np.linspace(-20.0, 20.0, n + 1, dtype=np.float32)
+    xx, yy = np.meshgrid(g, g, indexing="xy")
+    zz = 1.5 * np.sin(xx / 4.0) * np.cos(yy / 5.0)
+    dzdx = 1.5 / 4.0 * np.cos(xx / 4.0) * np.cos(yy / 5.0)
+    dzdy = -1.5 / 5.0 * np.sin(xx / 4.0) * np.sin(yy / 5.0)
+    nrm = np.stack([-dzdx, -dzdy, np.ones_like(zz)], -1)
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    pos = np.stack([xx, yy, zz], -1).reshape(-1, 3).astype(np.float32)
+    uv = np.stack([(xx + 20) / 40, (yy + 20) / 40], -1).reshape(-1, 2).astype(np.float32)
+    r, c = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")
+    v00 = r * (n + 1) + c
+    idx = np.stack([v00, v00 + 1, v00 + n + 2, v00, v00 + n + 2, v00 + n + 1],
+                   -1).reshape(-1).astype(np.uint32)
+    parts = [pos, nrm.reshape(-1, 3).astype(np.float32), uv, idx]
+    blob, views, accessors = b"", [], []
+    for arr, (ctype, atype) in zip(parts, [(5126, "VEC3"), (5126, "VEC3"), (5126, "VEC2"),
+                                           (5125, "SCALAR")]):
+        views.append({"buffer": 0, "byteOffset": len(blob), "byteLength": arr.nbytes})
+        accessors.append({"bufferView": len(views) - 1, "componentType": ctype,
+                          "count": int(arr.shape[0]), "type": atype})
+        blob += arr.tobytes()
+    doc = {"asset": {"version": "2.0"}, "scene": 0, "scenes": [{"nodes": [0]}],
+           "nodes": [{"mesh": 0}],
+           "meshes": [{"primitives": [{"attributes": {"POSITION": 0, "NORMAL": 1,
+                                                      "TEXCOORD_0": 2},
+                                       "indices": 3, "material": 0}]}],
+           "materials": [{"pbrMetallicRoughness": {"baseColorFactor": [0.9, 0.85, 0.8, 1.0],
+                                                   "metallicFactor": 0.8,
+                                                   "roughnessFactor": 0.7},
+                          "emissiveFactor": [1.5, 1.5, 1.5]}],
+           "accessors": accessors, "bufferViews": views,
+           "buffers": [{"byteLength": len(blob), "uri": "data:application/octet-stream;base64,"
+                        + base64.b64encode(blob).decode()}]}
+    path.write_text(json.dumps(doc))
+
+
+def material_pixels(seed: int = 31) -> dict:
+    """Phase 14c's four maps as uint8 RGBA pixels made with numpy: a base
+    colour of random blocks, a tangent-space normal map of random tilts, MRA
+    stripes (G roughness, B metallic) and the emissive rings."""
+    from zenith_tpu_torch.sandbox.scene import emissive_pixels
+
+    rng = np.random.default_rng(seed)
+    base = np.repeat(np.repeat(rng.integers(60, 250, (16, 16, 4)), 16, 0), 16, 1)
+    base[..., 3] = 255
+    tilt = np.repeat(np.repeat(rng.uniform(-0.5, 0.5, (8, 8, 2)), 16, 0), 16, 1)
+    nrm = np.concatenate([tilt, np.ones_like(tilt[..., :1])], -1)
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    normal = np.concatenate([(nrm * 0.5 + 0.5) * 255, np.full_like(nrm[..., :1], 255)], -1)
+    rows = np.arange(128)[:, None] // 16 % 2 == 0
+    mra = np.zeros((128, 128, 4))
+    mra[..., 0], mra[..., 3] = 255, 255
+    mra[..., 1] = np.where(rows, 230, 60)
+    mra[..., 2] = np.where(rows, 0, 255)
+    return {"base_color_texture": base.astype(np.uint8), "normal_texture": normal.astype(np.uint8),
+            "metallic_roughness_texture": mra.astype(np.uint8),
+            "emissive_texture": emissive_pixels(64)}
+
+
+def textured_phases(dev, card: str, plain_k1) -> dict:
+    """Phase 14: textured materials end to end. (14a) The textured deferred
+    scene at 1920x1080; (14b) the textured golden and its full material set;
+    (14c) a glTF baked through the asset manager into a deferred frame and a
+    MeshRenderer frame. Returns K1's and K2's launches on 14a's main path."""
+    import tempfile
+
+    import torch
+
+    from zenith_tpu_torch import asset
+    from zenith_tpu_torch.core.camera import Camera
+    from zenith_tpu_torch.core.mathtypes import Degree, Radians
+    from zenith_tpu_torch.ops import draw as draw_mod
+    from zenith_tpu_torch.ops import lighting as lighting_mod
+    from zenith_tpu_torch.ops import raster as raster_mod
+    from zenith_tpu_torch.ops.lighting import accumulate_point_lights
+    from zenith_tpu_torch.ops.raster import raster_segmented
+    from zenith_tpu_torch.rendergraph import CompileOptions, RenderGraphBuilder
+    from zenith_tpu_torch.renderer import (
+        DeferredRenderer,
+        DirectionalLight,
+        MeshRenderer,
+        PointLight,
+        Scene,
+        SceneObject,
+    )
+    from zenith_tpu_torch.rhi import Format, PipelineCache, RhiCore, Texture, TextureDesc
+    from zenith_tpu_torch.rhi import encode_present
+    from zenith_tpu_torch.sandbox.scene import (
+        GOLDEN_H,
+        GOLDEN_W,
+        build_standin_scene,
+        deferred_frame,
+        orbit_camera,
+        textured_golden_scene,
+    )
+
+    device = RhiCore(dev).create_render_device()
+    bgra = Format.BGRA8_SRGB
+
+    @contextlib.contextmanager
+    def plain_path():
+        with mock.patch.object(raster_mod, "_raster_segmented_cuda", plain_k1), \
+                mock.patch.object(lighting_mod, "_accumulate_point_lights_cuda", plain_k2):
+            yield
+
+    def launches():
+        return raster_segmented.launches, accumulate_point_lights.launches
+
+    # -- 14a. the textured deferred scene at 1920x1080 -------------------------
+    scene, mesh = build_standin_scene(device, 100, np.random.default_rng(42), textured=True)
+    renderer = DeferredRenderer(scene)
+    check(renderer.textured and set(renderer._atlases) == {"BaseAtlas", "NormalAtlas",
+                                                           "MraAtlas"},
+          f"textured scene: atlases {sorted(renderer._atlases)}")
+    check(all(a.texture.array.device.type == "cuda" for a in renderer._atlases.values()),
+          "textured scene: an atlas is not on the card")
+    camera = Camera(fov_y=Degree(35.0), aspect_ratio=W / H)
+    options = CompileOptions()
+    cache = PipelineCache()
+
+    def frame(orbit):
+        orbit_camera(camera, orbit)
+        return deferred_frame(device, renderer, camera, W, H, options, present_format=bgra,
+                              pipeline_cache=cache)
+
+    # Warm-up (builds the frame function); K1's and K2's inputs are kept.
+    k1_calls = []
+    real_raster = draw_mod.raster_segmented
+
+    def recording_raster(bins, grid, init_z, **kw):
+        k1_calls.append((bins, grid, init_z.clone(), kw))
+        return real_raster(bins, grid, init_z, **kw)
+
+    orbit_camera(camera, 0.3)
+    with mock.patch.object(draw_mod, "raster_segmented", recording_raster):
+        compiled, _, _, _ = deferred_frame(device, renderer, camera, W, H, options,
+                                           exports=("albedo", "normal", "pos", "depth"),
+                                           pipeline_cache=cache)
+    gplanes = [compiled.value(renderer.gbuffer_handles[k])
+               for k in ("albedo", "normal", "pos", "depth")]
+    torch.cuda.synchronize()
+    check(len(k1_calls) == 2, f"textured frame: K1 ran {len(k1_calls)} times, not 2")
+    frame(0.3)
+    torch.cuda.synchronize()
+
+    raster_segmented.launches = 0
+    accumulate_point_lights.launches = 0
+    ends, overflows, per_frame = [], [], []
+    t0 = time.perf_counter()
+    for i in range(TEXTURED_FRAMES):
+        k1_start, k2_start = launches()
+        compiled, enc, _, retired = frame(0.3 + i * 0.004)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        ends.append(ev)
+        overflows.append(retired.bin_overflow)
+        k1_now, k2_now = launches()
+        per_frame.append((k1_now - k1_start, k2_now - k2_start))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1_path, k2_path = launches()
+    check(all(f == (2, 1) for f in per_frame),
+          f"textured frames ran (K1, K2) {sorted(set(per_frame))} times a frame, not (2, 1)")
+    total_overflow = int(torch.stack(overflows).sum())
+    check(total_overflow == 0, f"textured frames: bin overflow {total_overflow}")
+    frame_ms = np.array([ends[i - 1].elapsed_time(ends[i]) for i in range(1, len(ends))])
+    last = compiled.value(enc).cpu().numpy()
+    check(last.shape == (H, W, 4) and last.dtype == np.uint8, f"frame is {last.shape}")
+    check(last[..., :3].std() > 1.0, "flat textured frame")
+    print(f"phase 14a: textured deferred scene ({mesh.num_triangles}-triangle stand-in, "
+          f"brushed 256^2; ground checker 512^2, bump normal and MRA 256^2; 100 lights) "
+          f"{TEXTURED_FRAMES} frames at {W}x{H}: {TEXTURED_FRAMES / wall:.2f} FPS; frame time "
+          f"p50 {np.percentile(frame_ms, 50):.3f} ms, p99 {np.percentile(frame_ms, 99):.3f} ms "
+          f"(CUDA events between frame ends); K1 {k1_path} and K2 {k2_path} launches (2 and 1 "
+          f"a frame); bin overflow 0 [{card}]")
+
+    orbit_camera(camera, 0.3 + (TEXTURED_FRAMES - 1) * 0.004)
+    with plain_path():
+        pc, penc, _, _ = deferred_frame(device, renderer, camera, W, H, options,
+                                        present_format=bgra, pipeline_cache=cache)
+        ref = pc.value(penc).cpu().numpy()
+    mx, frac = lsb_diff(last, ref)
+    print(f"phase 14a: last frame vs the plain-path frame: max LSB diff {mx}, "
+          f"{frac * 100:.4f}% values differ")
+    check(mx <= 1 and frac < 0.01, "the textured frame differs from the plain-path frame")
+
+    # The lighting pass's kernel and K1's passes, bare launches by CUDA events.
+    pl_pos, pl_col, pl_rad, _ = scene.light_partition()
+    lights = [torch.from_numpy(a).to(dev) for a in (pl_pos, pl_col, pl_rad)]
+    cam_pos = torch.from_numpy(np.asarray(camera.location, np.float32)).to(dev)
+    k2_ms = kernel_ms(lambda: accumulate_point_lights(*gplanes, cam_pos, *lights),
+                      lambda: None)
+    k1_ms = [kernel_ms(lambda c=c: raster_segmented(c[0], c[1], c[2], **c[3]), lambda: None)
+             for c in k1_calls]
+    print(f"phase 14a: device time by CUDA events round the bare launch: K2 (the lighting "
+          f"pass) {k2_ms:.4f} ms, K1 shadow pass {k1_ms[0]:.4f} ms, G-buffer pass "
+          f"{k1_ms[1]:.4f} ms [{card}]")
+    profile_frames(frame, ("shadow", "gbuffer", "lighting", "post", "present.encode"),
+                   "phase 14a", card, frame_ms,
+                   watch=("tiled_lights_kernel", "raster_segmented_kernel", "gather"),
+                   expect={"raster_segmented_kernel": 2, "tiled_lights_kernel": 1})
+
+    # -- 14b. the textured golden on the card, then the full material set -----
+    gopts = CompileOptions(tile_h=8, tile_w=128)
+    for full in (False, True):
+        gscene, gcam = textured_golden_scene(device, full_material=full)
+        grenderer = DeferredRenderer(gscene)
+        before = launches()
+        compiled, out, _, _ = deferred_frame(device, grenderer, gcam, GOLDEN_W, GOLDEN_H, gopts)
+        img = encode_present(compiled.value(out), Format.RGBA8_SRGB).cpu().numpy()
+        check(launches()[0] - before[0] == 2, "textured golden: K1 did not run twice")
+        with plain_path():
+            pc, pout, _, _ = deferred_frame(device, grenderer, gcam, GOLDEN_W, GOLDEN_H, gopts)
+            pimg = encode_present(pc.value(pout), Format.RGBA8_SRGB).cpu().numpy()
+        pmx, pfrac = lsb_diff(img, pimg)
+        check(pmx <= 1 and pfrac < 0.01, f"textured golden (full={full}) differs from the "
+              f"plain-path frame")
+        if not full:
+            golden = np.load(REPO / "tests" / "golden" / "textured_scene_128x64.npy")
+            mx, frac = lsb_diff(img, golden)
+            print(f"phase 14b: textured golden 128x64 (brushed panel, checker ground): max LSB "
+                  f"diff {mx}, {frac * 100:.3f}% values differ; vs the plain-path frame {pmx} "
+                  f"LSB [{card}]")
+            check(mx <= 1 and frac < 0.01, "textured golden frame drifted")
+        else:
+            check(set(grenderer._atlases) == {"BaseAtlas", "NormalAtlas", "MraAtlas",
+                                              "EmissiveAtlas"}, "full material set: atlases")
+            print(f"phase 14b: full material set 128x64 (+ bump normal and MRA on the ground, "
+                  f"emissive rings on the panel): vs the plain-path frame max LSB diff {pmx}, "
+                  f"{pfrac * 100:.3f}% values differ [{card}]")
+
+    # -- 14c. the asset pipeline into a frame -----------------------------------
+    from zenith_tpu_torch.asset import AssetManager, AssetUrl, Material, Mesh, TextureAsset
+
+    asset.initialize()
+    with tempfile.TemporaryDirectory() as root:
+        root = Path(root)
+        (root / "content" / "plate").mkdir(parents=True)
+        plate_gltf(root / "content" / "plate" / "plate.gltf")
+        mgr = AssetManager(root=root)
+        t0 = time.perf_counter()
+        col = mgr.request_load("plate/plate.gltf").get()
+        bake_s = time.perf_counter() - t0
+        manifest = root / "cache" / "plate" / "plate.mscl"
+        stamp = manifest.stat().st_mtime_ns
+        asset.registry().clear()
+        t0 = time.perf_counter()
+        col = mgr.request_load("plate/plate.gltf").get()
+        load_s = time.perf_counter() - t0
+        check(manifest.stat().st_mtime_ns == stamp, "asset: the second load rebaked")
+        mesh = asset.registry().get(AssetUrl(col.mesh_urls[0]), Mesh)
+        baked = asset.registry().get(AssetUrl(col.material_urls[0]), Material)
+    check(mesh is not None and mesh.num_triangles == 2 * 96 * 96, "asset: the plate mesh")
+    px = material_pixels()
+    material = Material(baked.url, baked.base_color_factor, baked.metallic_factor,
+                        baked.roughness_factor, baked.emissive_factor,
+                        **{slot: TextureAsset(AssetUrl(f"plate/{slot}.tex"), p)
+                           for slot, p in px.items()})
+    plate = SceneObject.from_mesh_with_material(device, mesh, material, "plate")
+    for name in ("base_color_texture", "normal_texture", "mra_texture", "emissive_texture"):
+        check(getattr(plate, name).array.device.type == "cuda", f"asset: {name} not on the card")
+    ground = SceneObject.quad(device, "ground", size=120.0, z=-3.0,
+                              base_color=(0.3, 0.32, 0.35, 1.0), roughness=0.9)
+    rng = np.random.default_rng(3)
+    pscene = Scene(objects=[plate, ground],
+                   sun=DirectionalLight(direction=(0.3, -0.4, 0.85), intensity=2.5,
+                                        shadow_map_size=1024, shadow_extent=40.0),
+                   point_lights=[PointLight(position=tuple(rng.uniform([-20, -20, 2], [20, 20, 8])),
+                                            color=tuple(rng.uniform(0.3, 1.0, 3)),
+                                            intensity=300.0, radius=25.0) for _ in range(16)],
+                   ambient=(0.03, 0.03, 0.04))
+    pcam = Camera(fov_y=Degree(45.0), aspect_ratio=W / H)
+    pcam.set_position(np.array([0.0, -45.0, 28.0], np.float32))
+    pcam.set_yaw_pitch(Radians(0.0), Radians(-0.55))
+    prenderer = DeferredRenderer(pscene)
+    before = launches()
+    compiled, enc, _, retired = deferred_frame(device, prenderer, pcam, W, H, CompileOptions(),
+                                               present_format=bgra)
+    img = compiled.value(enc).cpu().numpy()
+    after = launches()
+    check((after[0] - before[0], after[1] - before[1]) == (2, 1),
+          "asset frame: K1 / K2 did not run 2 / 1 times")
+    check(int(retired.bin_overflow) == 0, "asset frame: bin overflow")
+    with plain_path():
+        pc, penc, _, _ = deferred_frame(device, prenderer, pcam, W, H, CompileOptions(),
+                                        present_format=bgra)
+        ref = pc.value(penc).cpu().numpy()
+    mx, frac = lsb_diff(img, ref)
+    check(mx <= 1 and frac < 0.01, "asset frame differs from the plain-path frame")
+    check(img[..., :3].std() > 1.0, "asset frame is flat")
+    print(f"phase 14c: glTF plate ({mesh.num_triangles} triangles, data-URI buffer) baked in "
+          f"{bake_s * 1e3:.1f} ms, loaded from the cache in {load_s * 1e3:.1f} ms (no rebake); "
+          f"material with four numpy-made maps through from_mesh_with_material; deferred frame "
+          f"at {W}x{H} (16 lights): vs the plain-path frame max LSB diff {mx}, "
+          f"{frac * 100:.4f}% values differ [{card}]")
+
+    mrenderer = MeshRenderer(device, mesh, base_color_factor=baked.base_color_factor,
+                             base_color_texture=Texture.from_numpy(
+                                 "plate.base", px["base_color_texture"], Format.RGBA8_SRGB,
+                                 device=dev))
+
+    def mesh_frame():
+        builder = RenderGraphBuilder()
+        color = builder.create(TextureDesc.color("mesh.color", W, H, Format.RGBA32F))
+        depth = builder.create(TextureDesc.depth("mesh.depth", W, H))
+        mrenderer.render_to(builder, color, depth, pcam)
+        builder.export(color)
+        c = builder.build().compile(device, PipelineCache(), CompileOptions())
+        c.execute(device)
+        return encode_present(c.value(color), Format.RGBA8_SRGB).cpu().numpy()
+
+    before = launches()[0]
+    img = mesh_frame()
+    check(launches()[0] - before == 1, "MeshRenderer frame: K1 did not run once")
+    with plain_path():
+        ref = mesh_frame()
+    mx, frac = lsb_diff(img, ref)
+    check(mx <= 1 and frac < 0.01, "MeshRenderer frame differs from the plain-path frame")
+    check(img[..., :3].std() > 1.0, "MeshRenderer frame is flat")
+    print(f"phase 14c: MeshRenderer frame of the baked plate at {W}x{H} (one draw_indexed, "
+          f"K1 once): vs the plain-path frame max LSB diff {mx}, {frac * 100:.4f}% values "
+          f"differ [{card}]")
+    return {"K1": k1_path, "K2": k2_path}
+
+
 def main() -> int:
     import torch
 
@@ -2478,14 +2848,16 @@ def main() -> int:
     deferred = deferred_phases(dev, card, plain)
     translucent, glass_launches = translucency_phases(dev, card, (bins, grid, init), plain)
     capped = capped_phase(dev, card, (clip, idx, colors))
+    textured = textured_phases(dev, card, plain)
     k1_def = deferred["k1"]
-    deferred["k2"]["launches"] += glass_launches["K2"]
+    deferred["k2"]["launches"] += glass_launches["K2"] + textured["K2"]
     kernels = [{
         "name": "K1 segmented raster (_segmented_kernel)",
         "route": "cuda",
         "source": "zenith_tpu_torch/csrc/raster.cu",
         "replaces": "zenith_tpu/ops/raster.py:311",
-        "launches": main_launches + deferred["k1_launches"] + glass_launches["K1"],
+        "launches": (main_launches + deferred["k1_launches"] + glass_launches["K1"]
+                     + textured["K1"]),
         "max_abs_err": max(max_err, k1_def["max_abs_err"]),
         "ms": k1_def["ms"],
         "plain_ms": k1_def["plain_ms"],
@@ -2496,7 +2868,8 @@ def main() -> int:
     }, dict(deferred["k2"], shape="1080p G-buffer, 100 point lights"), *translucent, *capped]
     print(f"  launches on the main paths: K1 {main_launches} (triangle, phase 4) + "
           f"{deferred['k1_launches']} (deferred, phase 7) + {glass_launches['K1']} (glass and "
-          f"stencil frames, phases 11-12); K2 {deferred['k2']['launches']} (phases 7 and 11); "
+          f"stencil frames, phases 11-12) + {textured['K1']} (textured, phase 14a); K2 "
+          f"{deferred['k2']['launches']} (phases 7, 11 and 14a); "
           + "; ".join(f"{r['name'][:2]} {r['launches']}" for r in translucent)
           + " (phases 11-12); "
           + "; ".join(f"{r['name'][:2]} {r['launches']}" for r in capped) + " (phase 13)")

@@ -12,7 +12,11 @@ the reference package: records, corner data and binned rows atol 1e-6 (as
 tests/test_torch_geometry.py); z and attribute planes of the passes atol
 1e-5 (XLA's CPU backend contracts the Pallas kernels' multiply-adds into
 FMAs, the port rounds every product, as tests/test_torch_raster_compare.py
-explains).
+explains). The setup parity tests run the reference's near clip under
+``jax.jit``, as inside its compiled frame, where XLA contracts its lerp
+into a fused multiply-add, which is how the port's clip rounds it; the rest
+of the reference's setup runs op by op, rounding every product as the port
+does (ROADMAP §3, "FMA").
 """
 
 import jax
@@ -25,6 +29,7 @@ from np_reference import render_reference
 from zenith_tpu.ops import TileGrid as JGrid
 from zenith_tpu.ops import bin_triangles as jbin, corner_attributes as jcorner
 from zenith_tpu.ops import clip_near_w as jclip, setup_triangles as jsetup
+from zenith_tpu.ops import geometry as jgeo
 from zenith_tpu.ops import raster_interp_pass as jinterp, visibility_pass as jvis
 from zenith_tpu.rhi.state import CompareOp as JCompare, CullMode as JCull
 from zenith_tpu_torch.interop import tile_bins_from_numpy
@@ -236,7 +241,7 @@ def test_clip_near_w_matches_the_reference(rng):
     z[8:16, :2] = w[8:16, :2] * 1.7
     corners = np.concatenate([rng.uniform(-1, 1, (t, 3, 2)) * w, z, w], -1).astype(np.float32)
     obary = np.broadcast_to(np.eye(3, dtype=np.float32), (t, 3, 3))
-    jc, jb, jv = (np.asarray(a) for a in jclip(jnp.asarray(corners), jnp.asarray(obary)))
+    jc, jb, jv = (np.asarray(a) for a in jax.jit(jclip)(jnp.asarray(corners), jnp.asarray(obary)))
     tc, tb, tv = clip_near_w(torch.from_numpy(corners), torch.from_numpy(obary.copy()))
     np.testing.assert_array_equal(tv.numpy(), jv)
     assert jv[t:].sum() == 8  # the two-corners-inside case makes a second triangle
@@ -312,7 +317,8 @@ def test_setup_with_attrs_equals_setup_triangles_with_corner_attributes():
 
 @pytest.mark.parametrize("cull, near_clip", [("NONE", True), ("BACK", True), ("NONE", False)],
                          ids=["clip", "cull-back", "no-near-clip"])
-def test_setup_and_binning_match_the_reference(cull, near_clip):
+def test_setup_and_binning_match_the_reference(cull, near_clip, monkeypatch):
+    monkeypatch.setattr(jgeo, "clip_near_w", jax.jit(jclip, static_argnames="w_eps"))
     clip, idx, vary = near_scene(7, nv=60, nt=48)
     jr = jsetup(jnp.asarray(clip), jnp.asarray(idx), W, H, cull_mode=JCull[cull],
                 near_clip=near_clip)

@@ -186,12 +186,17 @@ def test_unported_branches_name_their_roadmap_item():
     scene, _ = golden_scene(device)
     tex = Texture.from_numpy("t", np.ones((2, 2, 4), np.float32), TFormat.RGBA32F, device=CPU)
     quad = SceneObject.quad(device, "q", base_color_texture=tex)
+    # Textured opaque materials are ported (item 13): the renderer builds its
+    # base atlas on the scene's device.
+    textured = TDeferred(dataclasses.replace(scene, objects=[quad]))
+    assert textured.textured and textured._atlases["BaseAtlas"].texture.array.device == CPU
     cases = [
-        (dict(objects=[quad]), {}, 13),
         (dict(objects=[dataclasses.replace(quad, base_color_texture=None, translucent=True,
                                            morph_deltas=quad.vertex_buffer)]), {}, 21),
+        (dict(objects=[dataclasses.replace(quad, instance_offsets=np.zeros((2, 3)))]), {}, 21),
         ({}, dict(ssao=True), 21),
         ({}, dict(id_buffer=True), 21),
+        ({}, dict(wireframe=True), 19),
     ]
     for scene_kw, ctor_kw, item in cases:
         with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):

@@ -1,10 +1,18 @@
 """The port's triangle setup (zenith_tpu_torch.ops.geometry) against the
 reference package's, on the same numpy-seeded inputs.
 
+The reference's near clip (``_clip_payload``) runs under ``jax.jit``, as
+inside its compiled frame, where XLA contracts the lerp into a fused
+multiply-add, which is how the port's clip rounds it; the rest of the
+reference's setup runs op by op, rounding every product as the port does
+(ROADMAP §3, "FMA").
+
 Tolerances: masks, flags and ids exact; float columns of the records and
 the corner data atol 1e-6 (both sides round the same float32 operations;
 the slack covers XLA's CPU fusion of the 1/w and viewport arithmetic).
 """
+
+import jax
 
 import jax.numpy as jnp
 import numpy as np
@@ -19,6 +27,12 @@ from zenith_tpu_torch.rhi.state import CullMode as TCull, FrontFace as TFront
 torch.set_num_threads(1)
 CPU = torch.device("cpu")
 W, H = 128, 64
+
+
+@pytest.fixture(autouse=True)
+def _compiled_clip(monkeypatch):
+    monkeypatch.setattr(jgeo, "_clip_payload",
+                        jax.jit(jgeo._clip_payload, static_argnames=("w_eps", "clamp_z")))
 
 
 def _scene(seed, nv=48, nt=40, near=True):
@@ -47,9 +61,7 @@ def _both(clip, idx, vary, **kw):
     if "front_face" in kw:
         jkw["front_face"] = JFront[kw["front_face"]]
         tkw["front_face"] = TFront[kw["front_face"]]
-    jr, jc = jgeo.setup_with_attrs(
-        jnp.asarray(clip), jnp.asarray(idx), jnp.asarray(vary), W, H, **jkw
-    )
+    jr, jc = jgeo.setup_with_attrs(jnp.asarray(clip), jnp.asarray(idx), jnp.asarray(vary), W, H, **jkw)
     tr, tc = tgeo.setup_with_attrs(
         torch.from_numpy(clip), torch.from_numpy(idx), torch.from_numpy(vary), W, H, **tkw
     )

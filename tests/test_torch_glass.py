@@ -180,8 +180,10 @@ def test_peel_drops_and_counts_layers_beyond_its_depth():
 
 
 def test_glass_renderer_rejects_what_is_not_ported():
-    """glass_mode is validated; opaque textured materials still name item 13;
-    a kernel-safe shader without device source names what it lacks."""
+    """glass_mode is validated; a textured opaque object beside glass turns
+    the G-buffer's textured mode on (item 13 is ported), textured glass alone
+    does not (ROADMAP §3, "Glass"); a kernel-safe shader without device
+    source names what it lacks."""
     from zenith_tpu_torch.renderer import Scene, SceneObject
     from zenith_tpu_torch.rhi import Shader, Texture
 
@@ -192,8 +194,12 @@ def test_glass_renderer_rejects_what_is_not_ported():
         TDeferred(Scene(objects=[ground, pane]), glass_mode="sorted")
     tex = Texture.from_numpy("t", np.ones((2, 2, 4), np.float32), TFormat.RGBA32F,
                              device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
-        TDeferred(Scene(objects=[dataclasses.replace(ground, base_color_texture=tex), pane]))
+    textured = TDeferred(Scene(objects=[dataclasses.replace(ground, base_color_texture=tex),
+                                        pane]))
+    assert textured.textured and not textured.glass_textured
+    glass_only = TDeferred(Scene(objects=[ground, dataclasses.replace(pane,
+                                                                      base_color_texture=tex)]))
+    assert glass_only.glass_textured and not glass_only.textured
     r = TDeferred(Scene(objects=[ground, pane]))
     assert r.glass_fs.kernel_safe and "zn_fragment" in r.glass_fs.device_source
     with pytest.raises(ValueError, match="kernel_safe"):

@@ -2,7 +2,8 @@
 
 The reference package's results reach the port as numpy arrays (buffer
 contents, ``TriangleRecords``, ``SegmentedBins``, ``TileBins``, stencil
-planes and face states, scene objects, light tables, 2D and cube textures);
+planes and face states, scene objects, light tables, 2D and cube textures,
+materials);
 these helpers turn them into the port's tensors and objects on a given
 device, field for field, so the same inputs can be fed to both
 implementations. They read the reference's objects by attribute name
@@ -19,7 +20,7 @@ import torch
 from zenith_tpu_torch.ops.binning import SegmentedBins, TileBins
 from zenith_tpu_torch.ops.geometry import TriangleRecords
 from zenith_tpu_torch.rhi.formats import Format
-from zenith_tpu_torch.rhi.resource import Buffer, BufferUsage, Texture
+from zenith_tpu_torch.rhi.resource import Buffer, BufferUsage, Texture, TextureDesc, TextureUsage
 
 
 def to_tensor(array: Any, device: "torch.device | str") -> torch.Tensor:
@@ -58,10 +59,37 @@ def cube_texture_from(texture: Any, device: "torch.device | str") -> Texture:
 
 
 def texture_from(texture: Any, device: "torch.device | str") -> Texture:
-    """A single-level 2D texture (H, W, C) linear float → the port's Texture
-    with the same name and linear pixels."""
-    return Texture.from_numpy(texture.desc.name, np.asarray(texture.host_linear(), np.float32),
-                              Format.RGBA32F, device=torch.device(device))
+    """A 2D texture (H, W, C) → the port's Texture with the same name and
+    linear float pixels, and its mip chain where it has one."""
+    device = torch.device(device)
+    mips = getattr(texture, "mips", None)
+    if not mips:
+        return Texture.from_numpy(texture.desc.name, np.asarray(texture.host_linear(), np.float32),
+                                  Format.RGBA32F, device=device)
+    levels = [to_tensor(np.asarray(m, np.float32), device) for m in mips]
+    desc = TextureDesc(texture.desc.name, texture.desc.width, texture.desc.height,
+                       Format.RGBA32F, TextureUsage.SAMPLED, mip_levels=len(levels))
+    return Texture(desc, levels[0], mips=levels,
+                   host_pixels=np.asarray(texture.host_linear(), np.float32))
+
+
+def material_from(material: Any):
+    """A baked material (factors and up to four TextureAssets) → the port's
+    ``asset.Material`` with the same URL, factors and pixels."""
+    from zenith_tpu_torch.asset import AssetUrl, Material, TextureAsset, TextureFormat
+
+    def tex(t):
+        return None if t is None else TextureAsset(
+            AssetUrl(str(t.url)), np.array(t.pixels, copy=True), TextureFormat(t.format.value))
+
+    return Material(
+        AssetUrl(str(material.url)),
+        base_color_factor=material.base_color_factor,
+        metallic_factor=material.metallic_factor,
+        roughness_factor=material.roughness_factor,
+        emissive_factor=material.emissive_factor,
+        **{slot: tex(getattr(material, slot)) for slot in Material._TEX_SLOTS},
+    )
 
 
 def stencil_state_from(face: Any):
@@ -81,24 +109,28 @@ _OBJECT_FIELDS = ("base_color", "metallic", "roughness", "emissive", "bin_capaci
                   "entry_budget", "visible", "tri_count")
 
 
+_TEXTURE_FIELDS = ("base_color_texture", "normal_texture", "mra_texture", "emissive_texture")
+
+
 def scene_object_from(obj: Any, device: "torch.device | str"):
     """A scene object (buffers, model matrix, material factors) → the port's
-    SceneObject with the same numbers, its base-colour texture included.
-    The other material textures, skins and morph targets are not carried
-    (the renderer raises for them)."""
+    SceneObject with the same numbers and its four material textures (mips
+    included). Skins and morph targets are not carried (the renderer raises
+    for them)."""
     from zenith_tpu_torch.renderer.scene import SceneObject
 
     kwargs = {k: getattr(obj, k) for k in _OBJECT_FIELDS}
     if getattr(obj, "bounds", None) is not None:
         kwargs["bounds"] = np.asarray(obj.bounds, np.float32)
+    for k in _TEXTURE_FIELDS:
+        t = getattr(obj, k)
+        kwargs[k] = None if t is None else texture_from(t, device)
     return SceneObject(
         name=obj.name,
         vertex_buffer=buffer_from(obj.vertex_buffer, device),
         index_buffer=buffer_from(obj.index_buffer, device),
         model_matrix=np.asarray(obj.model_matrix, np.float32),
         translucent=bool(obj.translucent),
-        base_color_texture=(None if obj.base_color_texture is None
-                            else texture_from(obj.base_color_texture, device)),
         instance_offsets=(None if obj.instance_offsets is None
                           else np.asarray(obj.instance_offsets, np.float32)),
         **kwargs,

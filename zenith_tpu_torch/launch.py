@@ -23,13 +23,12 @@ def launch(
     fps_cap: float = 60.0,
     device: "torch.device | str" = "cuda",
 ) -> EngineLoop:
-    """Parse args → init logging/profiling → construct app → run the loop on
-    ``device`` (lib.rs:31-44). Returns the loop for inspection (tests/benches).
-    CUDA is the default and raises where there is none; tests pass
-    ``device="cpu"``.
+    """Parse args → init logging/profiling/assets → construct app → run the
+    loop on ``device`` (lib.rs:31-44). Returns the loop for inspection
+    (tests/benches). CUDA is the default and raises where there is none;
+    tests pass ``device="cpu"``.
 
-    ``serve`` (the interactive viewer) and the asset registry are not
-    ported yet (ROADMAP items 23 and 11)."""
+    ``serve`` (the interactive viewer) is not ported yet (ROADMAP item 23)."""
     args = EngineArgs.parse_args(argv)
     profile.initialize()
     log.initialize(args.log_level.to_logging_level())
@@ -46,6 +45,10 @@ def launch(
         and "ZENITH_VALIDATE" not in os.environ
     ):
         validate.force(True)
+
+    from zenith_tpu_torch import asset
+
+    asset.initialize()
 
     if serve is not None:
         raise NotImplementedError(

@@ -216,7 +216,9 @@ def _clip_payload(corners: torch.Tensor, w_eps: float = NEAR_W_EPS,
                   clamp_z: bool = False):
     """Lerp the whole per-corner payload (xyzw | attrs…) across the z ≤ w
     plane (or, with ``clamp_z``, across w > 0 only), with static 2×
-    expansion (geometry.py:381-419)."""
+    expansion (geometry.py:381-419). Each lerp rounds as the fused
+    multiply-add that XLA contracts it into when the reference is compiled
+    (its frame function, or ``jax.jit`` of the setup)."""
     if clamp_z:
         d = corners[..., 3]
     else:
@@ -236,7 +238,15 @@ def _clip_payload(corners: torch.Tensor, w_eps: float = NEAR_W_EPS,
         denom = dv[:, i] - dv[:, j]
         denom = torch.where(torch.abs(denom) > 1e-20, denom, torch.ones_like(denom))
         tt = torch.clamp((dv[:, i] - w_eps) / denom, 0.0, 1.0)[:, None]
-        return v[:, i] + (v[:, j] - v[:, i]) * tt
+        d = (v[:, j] - v[:, i]).double()
+        # The float32 product is exact in float64; the float64 sum and the
+        # cast to float32 then give the fused multiply-add's result, except
+        # where the sum lands exactly on a float32 tie (the cast then rounds
+        # it to even, which may differ from the fused result). The
+        # near-clipped corners reach screen coordinates far off-screen, where
+        # rounding the product and the sum apart moves the surface's
+        # interpolated positions.
+        return (v[:, i].double() + d * tt.double()).to(torch.float32)
 
     p01 = isect(0, 1)
     p12 = isect(1, 2)

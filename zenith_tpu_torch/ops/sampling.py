@@ -1,15 +1,14 @@
 """Texture sampling — the sampler hardware of the Vulkan pipeline (torch port
 of zenith_tpu/ops/sampling.py: the single-level, trilinear, layered, cube and
-shadow-compare paths).
+shadow-compare paths, and anisotropic filtering).
 
 Dense gather-based sampling over per-pixel UV images, interpreting
 SamplerConfig (zenith_tpu_torch.rhi.sampler). Vulkan texel conventions:
 unnormalized coords x = u*W - 0.5; bilinear weights from the fractional
 part; wrap applied per tap on texel indices.
 
-Not ported yet: anisotropic filtering (``sample_2d_aniso``, ROADMAP item 13),
-``sample_cube_lod`` and ``sample_3d`` (item 21), and
-``sample_shadow_pcf_layered`` (item 21).
+Not ported yet: ``sample_cube_lod`` and ``sample_3d`` (ROADMAP item 21),
+and ``sample_shadow_pcf_layered`` (item 21).
 """
 
 from __future__ import annotations
@@ -204,6 +203,44 @@ def sample_2d_lod(
     return s0 * (1 - frac) + s1 * frac
 
 
+def sample_2d_aniso(
+    packed: PackedMips,
+    uv: torch.Tensor,  # (H, W, 2) dense UV image (derivatives required)
+    sampler: SamplerConfig,
+    tex_w: int,
+    tex_h: int,
+) -> torch.Tensor:
+    """Anisotropic filtering (sampling.py:188-222): N trilinear probes spread
+    along the major axis of the pixel's UV footprint, the hardware's
+    approximation of the EWA ellipse. LOD comes from the minor axis
+    (rho_major / ratio). ``torch.roll`` wraps round the image's edges as
+    ``jnp.roll`` does, so the first row and column see the last."""
+    ddx = uv - torch.roll(uv, 1, dims=1)  # UV change per screen-x step
+    ddy = uv - torch.roll(uv, 1, dims=0)
+    scale = torch.empty((2,), dtype=torch.float32, device=uv.device)
+    scale[0].fill_(float(tex_w))
+    scale[1].fill_(float(tex_h))
+    px = torch.linalg.vector_norm(ddx * scale, dim=-1)
+    py = torch.linalg.vector_norm(ddy * scale, dim=-1)
+    major_is_x = px >= py
+    vmaj = torch.where(major_is_x[..., None], ddx, ddy)  # UV-space major axis
+    rho_maj = torch.clamp(torch.maximum(px, py), min=1e-8)
+    rho_min = torch.clamp(torch.minimum(px, py), min=1e-8)
+    ratio = torch.clamp(rho_maj / rho_min, 1.0, float(sampler.max_anisotropy))
+    lod = torch.log2(torch.clamp(rho_maj / ratio, min=1e-8))
+
+    # Static probe count; the probes bunch together (toward plain trilinear)
+    # as the per-pixel ratio shrinks below the cap.
+    s = max(2, int(round(float(sampler.max_anisotropy))))
+    spread = (1.0 - 1.0 / ratio)[..., None]  # total extent the probes cover
+    acc = None
+    for i in range(s):
+        t = (i + 0.5) / s - 0.5
+        tap = sample_2d_lod(packed, uv + vmaj * (t * spread), lod, sampler)
+        acc = tap if acc is None else acc + tap
+    return acc / s
+
+
 def sample_texture(
     tex,  # (H, W, C) tensor | tuple of mip tensors (graph import of a mipped Texture)
     uv: torch.Tensor,  # (H, W, 2) dense UV image (fragment-stage varying)
@@ -213,13 +250,12 @@ def sample_texture(
     (sampling.py:225-249). Accepts what ``ctx.get`` yields for an imported
     texture: a plain tensor (single level) or a tuple of mip tensors, which
     take trilinear filtering with the screen-space-derivative LOD of the
-    dense UV image."""
+    dense UV image. Samplers with ``anisotropy_enable`` take the multi-probe
+    anisotropic path (which needs the dense UV image)."""
     levels = list(tex) if isinstance(tex, (tuple, list)) else [tex]
     h0, w0 = levels[0].shape[0], levels[0].shape[1]
     if sampler.anisotropy_enable and uv.ndim == 3:
-        raise NotImplementedError(
-            "anisotropic filtering is not ported yet (ROADMAP item 13: textured materials)"
-        )
+        return sample_2d_aniso(pack_mips(levels), uv, sampler, w0, h0)
     if len(levels) == 1 or sampler.mipmap_mode is None:
         return sample_2d(levels[0], uv, sampler)
     lod = screen_space_lod(uv, w0, h0)

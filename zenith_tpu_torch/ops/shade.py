@@ -4,7 +4,10 @@
 interpolated 1/w plane; dividing by the latter gives perspective-correct
 varyings per pixel, with no gathers. ``resolve_varyings`` is the capped-bin
 path's other route: from a visibility buffer of record slots it gathers each
-pixel's record and vertices and interpolates them there.
+pixel's record and vertices and interpolates them there. ``dfdx`` / ``dfdy``
+are the screen-space derivatives of dense fragment planes and
+``perturb_normal`` applies a tangent-space normal map without vertex
+tangents (the textured G-buffer's normal map).
 """
 
 from __future__ import annotations
@@ -107,3 +110,64 @@ def resolve_varyings(
         resolution=(w, h),
     )
     return out, mask, builtins
+
+
+# ---------------------------------------------------------------------------
+# Screen-space derivatives + derivative-based tangent frames (shade.py:144-199)
+# ---------------------------------------------------------------------------
+
+
+def dfdx(img: torch.Tensor) -> torch.Tensor:
+    """Screen-space x derivative of a dense (H, W, ...) fragment plane — the
+    dFdx/ddx analog (forward difference, last column repeated)."""
+    d = img[:, 1:] - img[:, :-1]
+    return torch.cat([d, d[:, -1:]], dim=1)
+
+
+def dfdy(img: torch.Tensor) -> torch.Tensor:
+    """Screen-space y derivative (dFdy analog)."""
+    d = img[1:] - img[:-1]
+    return torch.cat([d, d[-1:]], dim=0)
+
+
+def _norm(v: torch.Tensor) -> torch.Tensor:
+    return torch.sqrt(torch.sum(v * v, dim=-1, keepdim=True))
+
+
+def perturb_normal(
+    n: torch.Tensor,  # (H, W, 3) geometric world normal (normalized)
+    world_pos: torch.Tensor,  # (H, W, 3)
+    uv: torch.Tensor,  # (H, W, 2)
+    normal_sample: torch.Tensor,  # (H, W, 3) tangent-space map in [0, 1]
+) -> torch.Tensor:
+    """Apply a tangent-space normal map WITHOUT vertex tangents
+    (shade.py:163-199): the cotangent frame is rebuilt per pixel from
+    screen-space derivatives of world position and UV (Schüler, "Normal
+    Mapping Without Precomputed Tangents"), Gram-Schmidt against the
+    interpolated normal. Where the frame degenerates (the uv determinant or
+    a frame vector vanishes, as at silhouettes) the geometric normal is
+    kept."""
+    dp1 = dfdx(world_pos)
+    dp2 = dfdy(world_pos)
+    du1 = dfdx(uv)
+    du2 = dfdy(uv)
+    det = du1[..., 0:1] * du2[..., 1:2] - du2[..., 0:1] * du1[..., 1:2]
+    ok = torch.abs(det) > 1e-12
+    r = torch.where(ok, 1.0 / torch.where(ok, det, torch.ones_like(det)),
+                    torch.zeros_like(det))
+    t = (dp1 * du2[..., 1:2] - dp2 * du1[..., 1:2]) * r
+    b = (dp2 * du1[..., 0:1] - dp1 * du2[..., 0:1]) * r
+    # Gram-Schmidt against the interpolated normal.
+    t = t - n * torch.sum(n * t, dim=-1, keepdim=True)
+    t_len = _norm(t)
+    t = t / torch.clamp(t_len, min=1e-8)
+    b = b - n * torch.sum(n * b, dim=-1, keepdim=True)
+    b = b - t * torch.sum(t * b, dim=-1, keepdim=True)
+    b_len = _norm(b)
+    b = b / torch.clamp(b_len, min=1e-8)
+    nm = normal_sample * 2.0 - 1.0
+    out = t * nm[..., 0:1] + b * nm[..., 1:2] + n * nm[..., 2:3]
+    out = out / torch.clamp(_norm(out), min=1e-8)
+    # Degenerate frames (t or b vanished) fall back to the geometric normal.
+    good = (t_len > 1e-6) & (b_len > 1e-6)
+    return torch.where(good, out, n)

@@ -1,9 +1,10 @@
 """Feature renderers (reference zenith-renderer/src/lib.rs:1-3; torch port of
-zenith_tpu/renderer). Ported so far: the triangle, the deferred PBR renderer
-at its defaults, and the post chain's bloom + ACES and present encode;
-ROADMAP lists the rest."""
+zenith_tpu/renderer). Ported so far: the triangle, the textured forward mesh
+renderer, the deferred PBR renderer (textured materials included), and the
+post chain's bloom + ACES and present encode; ROADMAP lists the rest."""
 
 from zenith_tpu_torch.renderer.deferred import DeferredRenderer
+from zenith_tpu_torch.renderer.mesh import MeshRenderer
 from zenith_tpu_torch.renderer.post import PostProcess, PresentEncode
 from zenith_tpu_torch.renderer.scene import (
     DirectionalLight,
@@ -17,6 +18,7 @@ from zenith_tpu_torch.renderer.triangle import TriangleRenderer
 __all__ = [
     "DeferredRenderer",
     "DirectionalLight",
+    "MeshRenderer",
     "PointLight",
     "PostProcess",
     "PresentEncode",

@@ -9,7 +9,10 @@ Node ``gbuffer`` (graphic, MRT, one batched draw over K1):
   - albedo+metallic   (RGBA32F: rgb albedo, a metallic)
   - normal+roughness  (RGBA32F: xyz world normal, w roughness)
   - world-pos+emissive-luma (RGBA32F)
-  plus reverse-Z depth.
+  plus reverse-Z depth. Textured materials are sampled from one atlas per map
+  type (base colour, normal, metallic-roughness, emissive; rhi.atlas) with a
+  per-draw UV transform; the normal map bends the normal through the
+  derivative-built tangent frame (ops.shade.perturb_normal).
 
 Node ``lighting`` (lambda): full-screen PBR resolve — flat ambient, the sun
 with 2×2 PCF shadows, the point/spot-light sum over the tiled kernel K2
@@ -25,10 +28,10 @@ over K4 with the glass atlas sampled per pixel; ``"auto"`` picks peel for
 textured glass.
 
 Not ported yet; each raises NotImplementedError naming its ROADMAP item:
-textured opaque materials (the material atlases, item 13); instanced, skinned
-and morphed opaque objects, decals, SSAO, shadow-casting point lights,
-cascades, VSM, contact shadows, image-based light, the atmosphere, the
-velocity plane and the id buffer (item 21); the wireframe view (item 19).
+instanced, skinned and morphed opaque objects, decals, SSAO, shadow-casting
+point lights, cascades, VSM, contact shadows, image-based light, the
+atmosphere, the velocity plane and the id buffer (item 21); the wireframe
+view (item 19).
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ from zenith_tpu_torch.asset.render_types import Vertex as VERTEX_LAYOUT
 from zenith_tpu_torch.core import mathtypes as m
 from zenith_tpu_torch.core.camera import Camera
 from zenith_tpu_torch.ops.lighting import accumulate_point_lights
+from zenith_tpu_torch.ops.shade import perturb_normal
 from zenith_tpu_torch.core import log
 from zenith_tpu_torch.core import validate as _validate
 from zenith_tpu_torch.ops.sampling import (
@@ -117,25 +121,67 @@ def _normalize(v: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
     return v / torch.clamp(torch.linalg.vector_norm(v, dim=-1, keepdim=True), min=eps)
 
 
-def _gbuffer_fs(varyings, res, builtins):
-    """G-buffer fragment stage: deferred.py:276-374's
-    ``_make_gbuffer_fs(textured=False)``, with no velocity or id plane."""
-    n = _normalize(varyings["normal"])
-    n = torch.where(builtins.front_facing[..., None], n, -n)
-    # Shape-generic uniform access: (4,) per-draw vectors when drawn
-    # individually, dense (H, W, 4) planes under draw_indexed_batch.
-    base = res["BaseColor"]
-    mat = res["MatParams"]  # (metallic, roughness, emissive_luma, _)
-    albedo = base[..., :3].expand(n.shape)
-    metallic = mat[..., 0:1].expand(n[..., :1].shape)
-    roughness = mat[..., 1:2].expand(n[..., :1].shape)
-    emissive = mat[..., 2:3].expand(n[..., :1].shape)
-    # MRT outputs in attachment order (draw maps dict keys sorted).
-    return {
-        "0_albedo": torch.cat([albedo, metallic], dim=-1),
-        "1_normal": torch.cat([n, roughness], dim=-1),
-        "2_pos": torch.cat([varyings["world_pos"], emissive], dim=-1),
-    }
+# Atlas binding name -> its per-draw UV-transform uniform name (each map
+# type has its own atlas cell layout, hence its own transform).
+_UVX_NAME = {
+    "BaseAtlas": "UvxBase",
+    "NormalAtlas": "UvxNormal",
+    "MraAtlas": "UvxMra",
+    "EmissiveAtlas": "UvxEmissive",
+}
+
+
+def _make_gbuffer_fs(textured: bool, use_normal: bool = False,
+                     use_mra: bool = False, use_emissive: bool = False):
+    """G-buffer fragment stage (deferred.py:276-374), without the velocity
+    and id planes (item 21). Textured mode samples one atlas per map type
+    with a per-draw UV transform: base colour; glTF metallic-roughness
+    (B=metallic, G=roughness); the tangent-space normal map through the
+    derivative-built frame (no vertex tangents); emissive as luma."""
+
+    def _gbuffer_fs(varyings, res, builtins):
+        n = _normalize(varyings["normal"])
+        n = torch.where(builtins.front_facing[..., None], n, -n)
+        # Shape-generic uniform access: (4,) per-draw vectors when drawn
+        # individually, dense (H, W, 4) planes under draw_indexed_batch.
+        base = res["BaseColor"]
+        mat = res["MatParams"]  # (metallic, roughness, emissive_luma, _)
+        albedo = base[..., :3].expand(n.shape)
+        metallic = mat[..., 0:1].expand(n[..., :1].shape)
+        roughness = mat[..., 1:2].expand(n[..., :1].shape)
+        emissive = mat[..., 2:3].expand(n[..., :1].shape)
+        if textured:
+            uv = varyings["uv"]
+            lin = SamplerConfig.linear()
+
+            def atlas_uv(x):
+                # x: (4,) or per-draw (H, W, 4) plane — su, sv, ou, ov.
+                return torch.stack([x[..., 2] + uv[..., 0] * x[..., 0],
+                                    x[..., 3] + uv[..., 1] * x[..., 1]], dim=-1)
+
+            albedo = albedo * sample_texture(res["BaseAtlas"], atlas_uv(res["UvxBase"]),
+                                             lin)[..., :3]
+            if use_mra:
+                mra = sample_texture(res["MraAtlas"], atlas_uv(res["UvxMra"]), lin)
+                metallic = metallic * mra[..., 2:3]
+                roughness = roughness * mra[..., 1:2]
+            if use_normal:
+                nm = sample_texture(res["NormalAtlas"], atlas_uv(res["UvxNormal"]),
+                                    lin)[..., :3]
+                n = perturb_normal(n, varyings["world_pos"], uv, nm)
+            if use_emissive:
+                em = sample_texture(res["EmissiveAtlas"], atlas_uv(res["UvxEmissive"]),
+                                    lin)[..., :3]
+                emissive = emissive * (em[..., 0:1] * 0.2126 + em[..., 1:2] * 0.7152
+                                       + em[..., 2:3] * 0.0722)
+        # MRT outputs in attachment order (draw maps dict keys sorted).
+        return {
+            "0_albedo": torch.cat([albedo, metallic], dim=-1),
+            "1_normal": torch.cat([n, roughness], dim=-1),
+            "2_pos": torch.cat([varyings["world_pos"], emissive], dim=-1),
+        }
+
+    return _gbuffer_fs
 
 
 def _make_glass_vs(textured: bool, instanced: bool):
@@ -306,14 +352,6 @@ class DeferredRenderer:
                  glass_peel_layers: int = 4):
         self.scene = scene
         objs = scene.objects
-        # A textured translucent object makes the reference's opaque passes
-        # sample the white fallback cell of the base atlas, which is the
-        # untextured result; the port keeps them untextured.
-        if any((o.base_color_texture is not None and not o.translucent)
-               or o.normal_texture is not None
-               or o.mra_texture is not None or o.emissive_texture is not None
-               for o in objs):
-            raise _unported("textured opaque materials", 13, "the material atlases")
         if wireframe:
             raise _unported("the wireframe view (LINE polygon mode)", 19,
                             "lines, points and polygon modes")
@@ -327,14 +365,18 @@ class DeferredRenderer:
         self.shadows = shadows and scene.sun is not None and scene.sun.cast_shadows
         self._static_cache = StaticGeometryCache()
 
+        self._init_atlases(objs)
         self.gbuffer_vs = Shader.vertex(
             "gbuffer.vs", _gbuffer_vs,
             bindings=[uniform("Model"), uniform("ViewProj")],
             inputs=[attr("position", 3), attr("normal", 3), attr("tex_coord", 2)],
         )
         self.gbuffer_fs = Shader.fragment(
-            "gbuffer.fs", _gbuffer_fs,
-            bindings=[uniform("BaseColor"), uniform("MatParams")],
+            "gbuffer.fs",
+            _make_gbuffer_fs(self.textured, self.use_normal, self.use_mra, self.use_emissive),
+            bindings=[uniform("BaseColor"), uniform("MatParams")]
+            + [texture2d(name) for name in self._atlases]
+            + [uniform(_UVX_NAME[name]) for name in self._atlases],
         )
         self.shadow_vs = Shader.vertex(
             "shadow.vs", _shadow_vs,
@@ -370,6 +412,47 @@ class DeferredRenderer:
         self._ca_clear0 = ColorAttachmentDesc(clear_value=(0, 0, 0, 0))
         self._ca_clear01 = ColorAttachmentDesc(clear_value=(0, 0, 0, 1))
         self._init_glass(objs, glass_mode, glass_peel_layers)
+
+    def _init_atlases(self, objs) -> None:
+        """Textured mode (deferred.py:623-667): the material textures are
+        packed into one atlas per map type at construction, on the scene's
+        device, so fragments sample each map once with a per-draw UV
+        transform. Objects without a map get a fallback cell (white,
+        flat normal, white MRA, black emissive), so mixed scenes share one
+        pipeline. The atlases snapshot the textures: after swapping one,
+        rebuild the renderer.
+
+        The reference turns textured mode on for a textured translucent
+        object too, and its opaque pass then samples the white fallback
+        cells, which is the untextured result; the port turns it on only
+        when an opaque object carries a map (ROADMAP §3, "Glass"). The
+        atlases are built over every object, as the reference's are."""
+        self.textured = any(
+            not o.translucent and any(t is not None for t in (
+                o.base_color_texture, o.normal_texture, o.mra_texture, o.emissive_texture))
+            for o in objs)
+        self.use_normal = self.textured and any(o.normal_texture is not None for o in objs)
+        self.use_mra = self.textured and any(o.mra_texture is not None for o in objs)
+        self.use_emissive = self.textured and any(o.emissive_texture is not None for o in objs)
+        self._atlases: dict = {}
+        if not self.textured:
+            return
+        device = objs[0].vertex_buffer.array.device
+        self._atlases["BaseAtlas"] = build_atlas(
+            "atlas.base", [o.base_color_texture for o in objs],
+            fallback=(1.0, 1.0, 1.0, 1.0), device=device)
+        if self.use_normal:
+            self._atlases["NormalAtlas"] = build_atlas(
+                "atlas.normal", [o.normal_texture for o in objs],
+                fallback=(0.5, 0.5, 1.0, 1.0), mip_levels=1, device=device)
+        if self.use_mra:
+            self._atlases["MraAtlas"] = build_atlas(
+                "atlas.mra", [o.mra_texture for o in objs],
+                fallback=(1.0, 1.0, 1.0, 1.0), device=device)
+        if self.use_emissive:
+            self._atlases["EmissiveAtlas"] = build_atlas(
+                "atlas.emissive", [o.emissive_texture for o in objs],
+                fallback=(0.0, 0.0, 0.0, 1.0), device=device)
 
     def _init_glass(self, objs, glass_mode: str, glass_peel_layers: int) -> None:
         """The translucent (glass) pass (deferred.py:864-977): drawn after
@@ -562,6 +645,8 @@ class DeferredRenderer:
         builder.set_dynamic("def.mats", np.stack(
             [o.mat_params_array() for o in scene.objects]
         ))
+        for aname, a in self._atlases.items():
+            builder.set_dynamic(f"def.uvx.{aname}", a.transforms)
         # Of the reference's draw classes (deferred.py:1292-1310) the plain
         # opaque and the translucent one are ported. Translucent objects skip
         # the opaque passes (shadow + G-buffer) and draw in the glass node
@@ -600,6 +685,9 @@ class DeferredRenderer:
         if static_geo is not None:
             s_vb_h = builder.import_resource(static_geo.vb)
             s_ib_h = builder.import_resource(static_geo.ib)
+        # Material atlases: imported once, shared by every draw (rhi.atlas).
+        atlas_handles = {name: builder.import_resource(a.texture)
+                         for name, a in self._atlases.items()}
 
         g_albedo = builder.create(TextureDesc.color("g.albedo", width, height))
         g_normal = builder.create(TextureDesc.color("g.normal", width, height))
@@ -647,6 +735,7 @@ class DeferredRenderer:
         # -- node: G-buffer (MRT) ---------------------------------------------
         node = builder.add_graphic_node("gbuffer")
         accesses, s_acc = geometry_reads(node)
+        atlas_accesses = {name: node.read(h) for name, h in atlas_handles.items()}
         a_rt = node.write(g_albedo)
         n_rt = node.write(g_normal)
         p_rt = node.write(g_pos)
@@ -657,14 +746,25 @@ class DeferredRenderer:
             binder.push_color(p_rt, self._ca_clear0)
             binder.set_depth(ds, self._gbuffer_depth)
 
+        per_draw = ("BaseColor", "MatParams") + tuple(_UVX_NAME[a] for a in atlas_accesses)
+
         def record_gbuffer(ctx, accesses=accesses, s_acc=s_acc):
             ctx.bind("ViewProj", ctx.dynamic("def.view_proj"))
+            for name, acc in atlas_accesses.items():
+                ctx.bind(name, ctx.get(acc))
             bcs = ctx.dynamic("def.base_colors")
             mats = ctx.dynamic("def.mats")
+            uvx = {name: ctx.dynamic(f"def.uvx.{name}") for name in atlas_accesses}
+
+            def material(i):
+                res = {"BaseColor": bcs[i], "MatParams": mats[i]}
+                for name, table in uvx.items():
+                    res[_UVX_NAME[name]] = table[i]
+                return res
+
             if plain_ix:
-                draws = plain_draws(ctx, accesses, s_acc,
-                                    lambda i: {"BaseColor": bcs[i], "MatParams": mats[i]})
-                ctx.draw_indexed_batch(draws, per_draw_uniforms=("BaseColor", "MatParams"))
+                ctx.draw_indexed_batch(plain_draws(ctx, accesses, s_acc, material),
+                                       per_draw_uniforms=per_draw)
 
         node.execute(record_gbuffer)
 

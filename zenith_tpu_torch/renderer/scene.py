@@ -7,9 +7,8 @@ lights; ambient light and an optional cube-map skybox. Buffers live on the
 render device's ``torch.device``; everything else is host NumPy that the
 renderers send as per-frame dynamics.
 
-Not ported yet: ``from_mesh_with_material`` (needs the asset manager's
-materials, ROADMAP item 11) and ``band_hint_for`` (the SPMD
-auto-decomposition hint, item 24).
+Not ported yet: ``band_hint_for`` (the SPMD auto-decomposition hint,
+ROADMAP item 24).
 """
 
 from __future__ import annotations
@@ -20,7 +19,7 @@ from typing import Optional
 import numpy as np
 
 from zenith_tpu_torch.asset.render_types import Mesh as MeshAsset
-from zenith_tpu_torch.rhi import BufferUsage, Texture
+from zenith_tpu_torch.rhi import BufferUsage, Format, Texture
 from zenith_tpu_torch.rhi.device import RenderDevice
 from zenith_tpu_torch.rhi.resource import Buffer
 
@@ -154,6 +153,41 @@ class SceneObject:
             index_buffer=device.upload_buffer(f"{name}.ib", mesh.indices, BufferUsage.INDEX),
             model_matrix=(np.asarray(model_matrix, np.float32)
                           if model_matrix is not None else np.eye(4, dtype=np.float32)),
+            **kwargs,
+        )
+
+    @staticmethod
+    def from_mesh_with_material(
+        device: RenderDevice, mesh: MeshAsset, material, name: str,
+        model_matrix: "Optional[np.ndarray]" = None, **kwargs,
+    ) -> "SceneObject":
+        """A SceneObject from a baked ``asset.Material`` (scene.py:195-236):
+        the factors and the full texture set (render.rs:135-176: base
+        colour, metallic-roughness, normal, emissive) uploaded onto
+        ``device``'s torch device. Colour and emissive maps decode as sRGB
+        with mips; normal and metallic-roughness data is linear (glTF 2.0
+        §3.9.3) whatever the 8-bit container, and the normal map gets no
+        mips."""
+
+        def upload(tex_asset, srgb: bool, generate_mips: bool = True):
+            if tex_asset is None:
+                return None
+            fmt = tex_asset.format.device_format
+            if not srgb and fmt == Format.RGBA8_SRGB:
+                fmt = Format.RGBA8_UNORM
+            return Texture.from_numpy(str(tex_asset.url), tex_asset.pixels, fmt,
+                                      generate_mips=generate_mips, device=device.device)
+
+        return SceneObject.from_mesh(
+            device, mesh, name, model_matrix=model_matrix,
+            base_color=material.base_color_factor,
+            metallic=material.metallic_factor,
+            roughness=material.roughness_factor,
+            emissive=material.emissive_factor,
+            base_color_texture=upload(material.base_color_texture, srgb=True),
+            normal_texture=upload(material.normal_texture, srgb=False, generate_mips=False),
+            mra_texture=upload(material.metallic_roughness_texture, srgb=False),
+            emissive_texture=upload(material.emissive_texture, srgb=True),
             **kwargs,
         )
 

@@ -1,25 +1,30 @@
 """The sandbox scene (torch port of zenith_tpu/sandbox/scene.py): the
-gradient sky cube map, and the deferred scene and frame function that the
-card and the tests drive.
+gradient sky cube map, the procedural material textures, and the deferred
+scene and frame function that the card and the tests drive.
 
-``build_scene`` and ``SceneApp`` load the cerberus glTF and wait until that
-content and the asset loaders are in the repository (ROADMAP item 11).
-Until then ``build_standin_scene`` builds ``build_scene``'s deferred scene
-with the cerberus mesh replaced by ``standin_mesh``, a procedural mesh of
-its size, and ``deferred_frame`` is bench.py::bench_scene's frame function.
-``golden_scene`` is the scene of tests/test_golden.py (the reference's
-tests/test_renderers.py::build_test_scene with a sky cube).
+``build_scene`` loads the cerberus glTF through the asset manager, as the
+reference does: the glTF and its textures are not in this repository, but
+its baked mesh and material are (``cache/mesh/cerberus``), and the manager
+loads them from there when run from the repository's root; it raises where
+neither is found. ``build_standin_scene`` builds the same scene with the
+cerberus mesh replaced by ``standin_mesh``, a procedural mesh of its size;
+both share ``_sandbox_scene``. ``deferred_frame`` is bench.py::bench_scene's frame
+function. ``golden_scene`` is the scene of tests/test_golden.py (the
+reference's tests/test_renderers.py::build_test_scene with a sky cube).
+``SceneApp`` and the other sandbox apps are ROADMAP item 22.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
+from pathlib import Path
 
 import numpy as np
 import torch
 
-from zenith_tpu_torch.asset.render_types import Mesh
+from zenith_tpu_torch.asset import AssetUrl, Mesh
 from zenith_tpu_torch.rhi import Format, Texture
 
 GOLDEN_W, GOLDEN_H = 128, 64
@@ -70,6 +75,72 @@ def sky_cube_texture(size: int = 64, *, device: "torch.device | str") -> Texture
     )
 
 
+def default_content_root() -> str:
+    """The root holding ``content/``: ZENITH_CONTENT, else the working
+    directory (sandbox/mesh.py:29-37 of the reference)."""
+    return os.environ.get("ZENITH_CONTENT") or str(Path.cwd())
+
+
+def checker_texture(size: int = 512, cells: int = 16, a=(200, 202, 208),
+                    b=(90, 94, 104), *, device: "torch.device | str") -> Texture:
+    """Procedural sRGB checker with a full mip chain (scene.py:46-56)."""
+    yy, xx = np.mgrid[0:size, 0:size]
+    cell = ((yy // (size // cells) + xx // (size // cells)) % 2).astype(np.uint8)
+    px = np.empty((size, size, 4), np.uint8)
+    for c in range(3):
+        px[..., c] = np.where(cell == 0, a[c], b[c])
+    px[..., 3] = 255
+    return Texture.from_numpy("checker", px, Format.RGBA8_SRGB, generate_mips=True,
+                              device=torch.device(device))
+
+
+def bump_normal_texture(size: int = 256, bumps: int = 10, *,
+                        device: "torch.device | str") -> Texture:
+    """Tangent-space normal map, a grid of spherical bumps, linear
+    RGBA8_UNORM without mips (scene.py:59-81)."""
+    ys, xs = np.mgrid[0:size, 0:size].astype(np.float32)
+    fx = (xs / size * bumps) % 1.0 - 0.5
+    fy = (ys / size * bumps) % 1.0 - 0.5
+    r2 = fx * fx + fy * fy
+    br = 0.4
+    inside = r2 < br * br
+    nz = np.sqrt(np.clip(br * br - r2, 0.0, None))
+    n = np.stack([np.where(inside, -fx, 0.0), np.where(inside, -fy, 0.0),
+                  np.where(inside, nz, 1.0)], axis=-1)
+    n /= np.linalg.norm(n, axis=-1, keepdims=True)
+    px = np.concatenate([((n * 0.5 + 0.5) * 255).astype(np.uint8),
+                         np.full((size, size, 1), 255, np.uint8)], axis=-1)
+    return Texture.from_numpy("bumps", px, Format.RGBA8_UNORM, device=torch.device(device))
+
+
+def mra_stripe_texture(size: int = 256, stripes: int = 8, *,
+                       device: "torch.device | str") -> Texture:
+    """glTF metallic-roughness map (B=metallic, G=roughness): alternating
+    rough-dielectric / polished-metal stripes, linear, no mips
+    (scene.py:84-95)."""
+    ys = np.mgrid[0:size, 0:size][0]
+    band = ((ys * stripes) // size) % 2 == 0
+    px = np.zeros((size, size, 4), np.uint8)
+    px[..., 0] = 255  # occlusion (unused) = 1
+    px[..., 1] = np.where(band, 230, 60)  # roughness
+    px[..., 2] = np.where(band, 0, 255)  # metallic
+    px[..., 3] = 255
+    return Texture.from_numpy("mra.stripes", px, Format.RGBA8_UNORM, device=torch.device(device))
+
+
+def brushed_texture(size: int = 256, rng=None, *, device: "torch.device | str") -> Texture:
+    """Procedural brushed-metal stripes, sRGB with mips (scene.py:98-107).
+    Draws ``size`` + ``size``² uniforms from ``rng``."""
+    rng = rng or np.random.default_rng(7)
+    rows = rng.uniform(0.75, 1.0, size=(size, 1)).astype(np.float32)
+    field = np.repeat(rows, size, axis=1)
+    field += rng.uniform(-0.03, 0.03, size=(size, size)).astype(np.float32)
+    val = np.clip(field * 255, 0, 255).astype(np.uint8)
+    px = np.stack([val, val, val, np.full_like(val, 255)], axis=-1)
+    return Texture.from_numpy("brushed", px, Format.RGBA8_SRGB, generate_mips=True,
+                              device=torch.device(device))
+
+
 def cube_mesh(size: float = 10.0, z0: float = 10.0) -> Mesh:
     """Axis-aligned cube as a Mesh (z-up world), the same vertices and
     winding as the reference's tests/test_renderers.py::make_cube."""
@@ -89,7 +160,7 @@ def cube_mesh(size: float = 10.0, z0: float = 10.0) -> Mesh:
         for px, py, pz in quad:
             faces.append([px, py, pz + cz, *n, 0.0, 0.0])
         idx += [base, base + 1, base + 2, base, base + 2, base + 3]
-    return Mesh("test/cube.mesh", np.asarray(faces, np.float32), np.asarray(idx, np.int32))
+    return Mesh(AssetUrl("test/cube.mesh"), np.asarray(faces, np.float32), np.asarray(idx, np.int32))
 
 
 def golden_scene(render_device, num_lights: int = 8, sky_size: int = 16):
@@ -121,6 +192,56 @@ def golden_scene(render_device, num_lights: int = 8, sky_size: int = 16):
     )
     scene = dataclasses.replace(
         scene, skybox=sky_cube_texture(sky_size, device=render_device.device))
+    cam = Camera(fov_y=Degree(45.0), aspect_ratio=GOLDEN_W / GOLDEN_H)
+    cam.set_position(np.array([0.0, -60.0, 25.0], np.float32))
+    cam.set_yaw_pitch(Radians(0.0), Radians(-0.25))
+    return scene, cam
+
+
+def emissive_pixels(size: int = 64) -> np.ndarray:
+    """A procedural emissive map (size, size, 4) sRGB uint8: warm glowing
+    rings on black (the full-material-set golden scene's panel)."""
+    ys, xs = np.mgrid[0:size, 0:size].astype(np.float32)
+    r = np.hypot(xs - size / 2 + 0.5, ys - size / 2 + 0.5) / size
+    glow = (np.cos(r * 6.0 * math.pi) * 0.5 + 0.5) * (r < 0.5)
+    px = np.zeros((size, size, 4), np.uint8)
+    px[..., 0] = (255 * glow).astype(np.uint8)
+    px[..., 1] = (160 * glow).astype(np.uint8)
+    px[..., 2] = (60 * glow).astype(np.uint8)
+    px[..., 3] = 255
+    return px
+
+
+def textured_golden_scene(render_device, full_material: bool = False):
+    """tests/test_golden.py::_render_textured_frame's scene: a
+    brushed-textured panel (``brushed_texture(64)`` from ``default_rng(7)``)
+    over a checker-textured ground (``checker_texture(64, 8)``) under a sun,
+    and its 128x64 camera. ``full_material`` adds the rest of the material
+    set: the 64² bump normal map and MRA stripes on the ground and a 64²
+    emissive map (emissive factor 2) on the panel. Returns (scene, camera)."""
+    from zenith_tpu_torch.core.camera import Camera
+    from zenith_tpu_torch.core.mathtypes import Degree, Radians
+    from zenith_tpu_torch.renderer import DirectionalLight, Scene, SceneObject
+
+    dev = render_device.device
+    full = dict(normal_texture=bump_normal_texture(64, 8, device=dev),
+                mra_texture=mra_stripe_texture(64, 8, device=dev)) if full_material else {}
+    ground = SceneObject.quad(render_device, "ground", size=200.0, z=0.0,
+                              base_color=(0.9, 0.9, 0.95, 1.0), roughness=0.9,
+                              base_color_texture=checker_texture(64, 8, device=dev), **full)
+    glow = dict(emissive=(2.0, 2.0, 2.0), emissive_texture=Texture.from_numpy(
+        "emissive.rings", emissive_pixels(64), Format.RGBA8_SRGB, generate_mips=True,
+        device=dev)) if full_material else {}
+    panel = SceneObject.quad(render_device, "panel", size=30.0, z=12.0,
+                             base_color=(0.9, 0.6, 0.4, 1.0), metallic=0.6, roughness=0.4,
+                             base_color_texture=brushed_texture(
+                                 64, rng=np.random.default_rng(7), device=dev), **glow)
+    scene = Scene(
+        objects=[panel, ground],
+        sun=DirectionalLight(direction=(0.05, -0.05, 1.0), intensity=2.5,
+                             shadow_map_size=128, shadow_extent=60.0),
+        ambient=(0.05, 0.05, 0.05),
+    )
     cam = Camera(fov_y=Degree(45.0), aspect_ratio=GOLDEN_W / GOLDEN_H)
     cam.set_position(np.array([0.0, -60.0, 25.0], np.float32))
     cam.set_yaw_pitch(Radians(0.0), Radians(-0.25))
@@ -174,7 +295,7 @@ def standin_mesh() -> Mesh:
                     idx.append(base + np.asarray(tri))
                     base += 4
     v = np.concatenate(verts).astype(np.float32)
-    return Mesh("procedural/cerberus-standin", v, np.concatenate(idx).astype(np.int32))
+    return Mesh(AssetUrl("procedural/cerberus-standin"), v, np.concatenate(idx).astype(np.int32))
 
 
 def glass_checker_texture(device: "torch.device | str") -> Texture:
@@ -186,20 +307,60 @@ def glass_checker_texture(device: "torch.device | str") -> Texture:
     return Texture.from_numpy("pane.checker", px, Format.RGBA32F, device=torch.device(device))
 
 
+def build_scene(render_device, num_lights: int, rng: np.random.Generator,
+                textured: bool = False, skybox: bool = True,
+                glass: bool = False, glass_textured: bool = False,
+                instances: int = 0, gun_instances: int = 0, ibl: bool = False,
+                skinned: bool = False, morph: bool = False):
+    """zenith_tpu/sandbox/scene.py::build_scene (scene.py:289-470): loads
+    ``mesh/cerberus/scene.gltf`` through the AssetManager (content root
+    ``default_content_root()``, cache ZENITH_CACHE or ``cache``: a baked
+    cache is loaded when the source is absent) and builds the sandbox scene
+    around its first mesh. Raises where neither the content nor its baked
+    cache is found, as the reference does. The instanced rocks and guns, the
+    image-based light and the skinned and morphed objects are ROADMAP
+    item 21. Returns the Scene."""
+    from zenith_tpu_torch.asset import AssetManager, registry
+
+    for what, on in (("instanced rocks", instances), ("instanced guns", gun_instances),
+                     ("the image-based light", ibl), ("a skinned object", skinned),
+                     ("a morphed object", morph)):
+        if on:
+            raise NotImplementedError(f"build_scene: {what} is not ported yet "
+                                      "(ROADMAP item 21: screen-space and lighting features)")
+    mgr = AssetManager(root=default_content_root(),
+                       cache_dir=os.environ.get("ZENITH_CACHE", "cache"))
+    collection = mgr.request_load("mesh/cerberus/scene.gltf").get()
+    mesh = registry().get(AssetUrl(collection.mesh_urls[0]), Mesh)
+    return _sandbox_scene(render_device, mesh, num_lights, rng, textured, skybox, glass,
+                          glass_textured)
+
+
 def build_standin_scene(render_device, num_lights: int, rng: np.random.Generator,
-                        glass: bool = False, glass_textured: bool = False):
-    """zenith_tpu/sandbox/scene.py::build_scene's deferred scene (untextured,
-    skybox on) with the cerberus mesh replaced by ``standin_mesh``: the same
-    material and model centring, the 400-unit ground quad, ``num_lights``
-    point lights placed as build_scene places them, the sun with a 1024²
-    shadow map over a 90-unit extent, and a 64² sky cube. ``glass`` adds
-    build_scene's two standing translucent panes in front of the mesh (drawn
-    by the deferred renderer's glass node), ``glass_textured`` gives them the
-    64² checker texture. Returns (scene, mesh)."""
+                        glass: bool = False, glass_textured: bool = False,
+                        textured: bool = False):
+    """``build_scene``'s deferred scene (skybox on) with the cerberus mesh
+    replaced by ``standin_mesh``. Returns (scene, mesh)."""
+    mesh = standin_mesh()
+    return _sandbox_scene(render_device, mesh, num_lights, rng, textured, True, glass,
+                          glass_textured), mesh
+
+
+def _sandbox_scene(render_device, mesh: Mesh, num_lights: int, rng: np.random.Generator,
+                   textured: bool, skybox: bool, glass: bool, glass_textured: bool):
+    """build_scene's scene around ``mesh``: the same material and model
+    centring, the 400-unit ground quad, ``num_lights`` point lights placed as
+    build_scene places them, the sun with a 1024² shadow map over a 90-unit
+    extent, and a 64² sky cube when ``skybox``. ``textured`` gives the mesh
+    the brushed texture and the ground the checker, bump normal and MRA maps
+    with build_scene's textured factors; the brushed texture draws from
+    ``rng`` before the lights, in build_scene's order. ``glass`` adds the two
+    standing translucent panes in front of the mesh (drawn by the deferred
+    renderer's glass node), ``glass_textured`` gives them the 64² checker."""
     from zenith_tpu_torch.core import mathtypes as m
     from zenith_tpu_torch.renderer import DirectionalLight, PointLight, Scene, SceneObject
 
-    mesh = standin_mesh()
+    dev = render_device.device
     bmin = mesh.vertices[:, :3].min(axis=0)
     bmax = mesh.vertices[:, :3].max(axis=0)
     model = YUP_TO_ZUP @ m.mat4_translation(-0.5 * (bmin + bmax))
@@ -209,9 +370,17 @@ def build_standin_scene(render_device, num_lights: int, rng: np.random.Generator
         render_device, mesh, "cerberus", model_matrix=model,
         base_color=(0.62, 0.57, 0.55, 1.0), metallic=0.85, roughness=0.45,
         entry_budget=16 * mesh.num_triangles,
+        base_color_texture=brushed_texture(rng=rng, device=dev) if textured else None,
     )
-    ground = SceneObject.quad(render_device, "ground", size=400.0, z=z_min - 2.0,
-                              base_color=(0.28, 0.3, 0.33, 1.0), metallic=0.0, roughness=0.9)
+    ground = SceneObject.quad(
+        render_device, "ground", size=400.0, z=z_min - 2.0,
+        base_color=(0.9, 0.9, 0.95, 1.0) if textured else (0.28, 0.3, 0.33, 1.0),
+        metallic=0.6 if textured else 0.0,  # modulated by the MRA map
+        roughness=0.9,
+        base_color_texture=checker_texture(device=dev) if textured else None,
+        normal_texture=bump_normal_texture(device=dev) if textured else None,
+        mra_texture=mra_stripe_texture(device=dev) if textured else None,
+    )
     lights = []
     radius_xy = float(np.linalg.norm(bmax - bmin)) * 0.7
     for i in range(num_lights):
@@ -228,7 +397,7 @@ def build_standin_scene(render_device, num_lights: int, rng: np.random.Generator
         ))
     objects = [gun, ground]
     if glass:
-        glass_tex = glass_checker_texture(render_device.device) if glass_textured else None
+        glass_tex = glass_checker_texture(dev) if glass_textured else None
         span = float(np.linalg.norm(bmax - bmin))
         for gi, (dx, tint) in enumerate([(-0.4 * span, (0.4, 0.7, 1.0, 0.35)),
                                          (0.4 * span, (1.0, 0.5, 0.4, 0.45))]):
@@ -246,8 +415,8 @@ def build_standin_scene(render_device, num_lights: int, rng: np.random.Generator
                              shadow_map_size=1024, shadow_extent=90.0),
         point_lights=lights,
         ambient=(0.02, 0.02, 0.03),
-        skybox=sky_cube_texture(64, device=render_device.device),
-    ), mesh
+        skybox=sky_cube_texture(64, device=dev) if skybox else None,
+    )
 
 
 def orbit_camera(camera, orbit: float) -> None:
