@@ -151,7 +151,24 @@ other than 0, no result line) on the first phase that fails:
     from its cache without a rebake, a Material of four numpy-made maps
     goes through SceneObject.from_mesh_with_material onto the card, and a
     deferred frame and a MeshRenderer frame of it at 1920x1080 must each
-    match their plain-path frames (<= 1 LSB).
+    match their plain-path frames (<= 1 LSB);
+15. the forward shadow renderer (config #3), MSAA, lines and points:
+    (15a) launch(SceneApp, argv=["--mode", "forward", ...]) at 1920x1080 over
+    build_scene's cerberus from the repository's cache, 30 frames each at
+    --msaa 1, 4 and 8, --wireframe, --msaa 4 --instances 64 and the same with
+    ForwardShadowRenderer(sample_shading=False): K1 must launch 2, 1+S, 2,
+    2+2S and 2+S+(S+1) times a frame with no bin overflow, and the last frame
+    must equal its plain-path frame (the plain K1 as it runs for bins with
+    rectangles: the per-pixel resolve); FPS, p50/p99 and a profile of 10
+    frames each, and a retained shade-once frame must make no host sync;
+    (15b) K1 at the eight 8x sample positions on phase 2c's cull stress
+    (GREATER with writes, LESS_OR_EQUAL without) bit-equal to its unculled
+    plain version, and K3, K4 (3 peel layers) and K5 under 4x MSAA through
+    draw_indexed_batch on two of phase 10's translucent stress draws: z and
+    stencil bit-equal, colour within atol 1e-5 + rtol 1e-5 of the plain
+    path; (15c) a 10,000-segment line list, a line strip with restart,
+    20,000 points sized by the vertex shader and the deferred wireframe view
+    of phase 7's scene at 1080p, each against its plain path.
 
 Every kernel and its plain version are timed with CUDA events (median; a
 plain version that runs for seconds twice, not warmed up) and set beside
@@ -160,7 +177,7 @@ rows of the bins, not their padding; each plane read or written once) over
 3.35 TB/s and the fp32 operations these inputs need over 67 TFLOP/s.
 
 The line before the last is a JSON object listing each kernel (K1-K8) with
-its launches on the main paths (phases 4, 7, 11, 12, 13 and 14a), its largest
+its launches on the main paths (phases 4, 7, 11, 12, 13, 14a and 15), its largest
 difference from the plain version, its time, the plain version's, its bound
 and what bounds it, and the inputs these were taken at; the last line is the
 device record.
@@ -1021,6 +1038,50 @@ def profile_frames(frame, nodes, tag: str, card: str, frame_ms, watch, expect) -
         print(line + f" [{card}]")
 
 
+# The plain versions of K3, K4 and K5/K6, in the launchers' places (the
+# counters stay put).
+def plain_k3(b, g, z, acc, sten, front, back, compare, write, clamp, off):
+    from zenith_tpu_torch.ops import raster as raster_mod
+
+    raster_mod._raster_segmented_torch(b, g, z, acc, compare, write, clamp, off,
+                                       stencil=sten, faces=(front, back))
+
+
+def plain_k4(b, g, z, acc, bnd, bound_op, compare, write, clamp, off):
+    from zenith_tpu_torch.ops import raster as raster_mod
+
+    # Bins without rectangles take the rank walk, which culls nothing.
+    raster_mod._raster_segmented_torch(b._replace(rect=None), g, z, acc, compare, write,
+                                       clamp, off, z_bound=bnd, bound_op=bound_op)
+
+
+def plain_k56(b, g, z, color, sten, faces, compare, write, clamp, off, fs, layout, cdesc):
+    from zenith_tpu_torch.ops import draw as draw_mod
+    from zenith_tpu_torch.ops import raster as raster_mod
+
+    shade_blend = draw_mod.make_shade_blend(fs, layout, cdesc, (0.0, 0.0, 0.0, 0.0),
+                                            (g.width, g.height))
+    raster_mod._raster_blend_torch(b, g, z, color, sten, faces, compare, write, clamp, off,
+                                   shade_blend)
+
+
+@contextlib.contextmanager
+def plain_versions(plain_k1):
+    """Every raster kernel's and K2's plain version in its launcher's place
+    (the launch counters stay put); ``plain_k1`` is K1's."""
+    from zenith_tpu_torch.ops import lighting as lighting_mod
+    from zenith_tpu_torch.ops import raster as raster_mod
+
+    with contextlib.ExitStack() as stack:
+        for mod, name, fn in ((raster_mod, "_raster_segmented_cuda", plain_k1),
+                              (raster_mod, "_raster_stencil_cuda", plain_k3),
+                              (raster_mod, "_raster_peel_cuda", plain_k4),
+                              (raster_mod, "_raster_blend_cuda", plain_k56),
+                              (lighting_mod, "_accumulate_point_lights_cuda", plain_k2)):
+            stack.enter_context(mock.patch.object(mod, name, fn))
+        yield
+
+
 def translucency_phases(dev, card: str, stress, plain_k1) -> "tuple[list, dict]":
     """Phases 8-12: K3-K6 against their plain versions at 1920x1080, the
     deferred main path with glass in both modes, and a stencil-attachment
@@ -1032,7 +1093,6 @@ def translucency_phases(dev, card: str, stress, plain_k1) -> "tuple[list, dict]"
     from zenith_tpu_torch.core.camera import Camera
     from zenith_tpu_torch.core.mathtypes import Degree
     from zenith_tpu_torch.ops import draw as draw_mod
-    from zenith_tpu_torch.ops import lighting as lighting_mod
     from zenith_tpu_torch.ops import raster as raster_mod
     from zenith_tpu_torch.ops import runtime
     from zenith_tpu_torch.ops.binning import TileGrid, bin_segmented, tile_overlap
@@ -1073,33 +1133,8 @@ def translucency_phases(dev, card: str, stress, plain_k1) -> "tuple[list, dict]"
     hp, wp = grid.tiles_y * grid.tile_h, grid.tiles_x * grid.tile_w
     rng = np.random.default_rng(29)
 
-    # The plain versions, in the launchers' places (the counters stay put).
-    def plain_k3(b, g, z, acc, sten, front, back, compare, write, clamp, off):
-        raster_mod._raster_segmented_torch(b, g, z, acc, compare, write, clamp, off,
-                                           stencil=sten, faces=(front, back))
-
-    def plain_k4(b, g, z, acc, bnd, bound_op, compare, write, clamp, off):
-        raster_mod._raster_segmented_torch(b, g, z, acc, compare, write, clamp, off,
-                                           z_bound=bnd, bound_op=bound_op)
-
-    def plain_k56(b, g, z, color, sten, faces, compare, write, clamp, off, fs, layout, cdesc):
-        shade_blend = draw_mod.make_shade_blend(fs, layout, cdesc, (0.0, 0.0, 0.0, 0.0),
-                                                (g.width, g.height))
-        raster_mod._raster_blend_torch(b, g, z, color, sten, faces, compare, write, clamp, off,
-                                       shade_blend)
-
-    @contextlib.contextmanager
     def plain_path():
-        with contextlib.ExitStack() as stack:
-            for mod, name, fn in (
-                (raster_mod, "_raster_segmented_cuda", plain_k1),
-                (raster_mod, "_raster_stencil_cuda", plain_k3),
-                (raster_mod, "_raster_peel_cuda", plain_k4),
-                (raster_mod, "_raster_blend_cuda", plain_k56),
-                (lighting_mod, "_accumulate_point_lights_cuda", plain_k2),
-            ):
-                stack.enter_context(mock.patch.object(mod, name, fn))
-            yield
+        return plain_versions(plain_k1)
 
     def both(fn):
         """(kernel result, plain result) of ``fn()``, synchronised."""
@@ -2549,6 +2584,378 @@ def textured_phases(dev, card: str, plain_k1) -> dict:
     return {"K1": k1_path, "K2": k2_path}
 
 
+FORWARD_FRAMES = 30
+
+
+def forward_phases(dev, card: str, plain_k1, cull) -> dict:
+    """Phase 15: (15a) config #3, the forward shadow renderer, through
+    SceneApp and launch at 1920x1080 over build_scene's cerberus from the
+    repository's cache: 1x, 4x, 8x, wireframe, 64 instanced rocks at 4x, and
+    the same with shade-once MSAA; (15b) K1 at the eight 8x sample positions
+    on phase 2c's cull stress, and K3, K4 and K5 under 4x MSAA through
+    draw_indexed_batch; (15c) lines, points and the deferred wireframe view
+    at 1080p. ``cull`` is phase 2c's (bins, init z, compare_exact, both).
+    Returns the kernels' launches on these paths."""
+    import torch
+
+    from zenith_tpu_torch.core.camera import Camera
+    from zenith_tpu_torch.core.mathtypes import Degree
+    from zenith_tpu_torch.engine import Engine
+    from zenith_tpu_torch.launch import launch
+    from zenith_tpu_torch.ops import draw as draw_mod
+    from zenith_tpu_torch.ops import raster as raster_mod
+    from zenith_tpu_torch.ops.binning import TileGrid
+    from zenith_tpu_torch.ops.raster import raster_segmented, raster_segmented_blend
+    from zenith_tpu_torch.rendergraph import CompileOptions
+    from zenith_tpu_torch.renderer import DeferredRenderer, ForwardShadowRenderer
+    from zenith_tpu_torch.rhi import (
+        BlendFactor,
+        ColorAttachmentDesc,
+        Format,
+        GraphicShaderInput,
+        PipelineCache,
+        RhiCore,
+        Shader,
+        uniform,
+    )
+    from zenith_tpu_torch.rhi import pipeline as pipe
+    from zenith_tpu_torch.rhi.state import (
+        CompareOp,
+        CullMode,
+        DepthStencilDesc,
+        GraphicPipelineAttachments,
+        GraphicPipelineState,
+        InputAssemblyState,
+        MultisampleState,
+        PrimitiveTopology,
+        RasterizationState,
+        StencilOp,
+        StencilOpState,
+        VertexLayout,
+    )
+    from zenith_tpu_torch.sandbox.scene import (
+        SceneApp,
+        build_standin_scene,
+        deferred_frame,
+        orbit_camera,
+    )
+    from zenith_tpu_torch.window import Window
+
+    launches = {"K1": 0, "K3": 0, "K4": 0, "K5": 0}
+
+    def resolve_k1(b, g, z, acc, compare, write, clamp, off):
+        # The plain version as it runs for bins with rectangles (the
+        # per-pixel resolve, bit-equal to the rank walk on the CPU): fast
+        # enough for whole frames; 15b holds K1 against the unculled walk.
+        raster_mod._raster_segmented_torch(b, g, z, acc, compare, write, clamp, off)
+
+    def counters():
+        return (raster_segmented.launches, raster_segmented.stencil_launches,
+                raster_segmented.peel_launches, raster_segmented_blend.launches)
+
+    def zero_counters():
+        raster_segmented.launches = raster_segmented.stencil_launches = 0
+        raster_segmented.peel_launches = raster_segmented_blend.launches = 0
+
+    def add_launches():
+        for name, n in zip(("K1", "K3", "K4", "K5"), counters()):
+            launches[name] += n
+
+    def plain_path():
+        return plain_versions(plain_k1)
+
+    # -- 15a. config #3 through SceneApp at 1920x1080 ------------------------
+    class ShadeOnceApp(SceneApp):
+        """SceneApp whose forward renderer shades once per pixel under MSAA."""
+
+        def prepare(self, render_device, window):
+            super().prepare(render_device, window)
+            self.renderer = ForwardShadowRenderer(self.renderer.scene, msaa=4,
+                                                  sample_shading=False)
+
+    # (label, app, flags, K1 launches a frame): the shadow pass, the lit
+    # pass once per sample; with instances the shadow.inst pass and the
+    # instanced lit pass once per sample (shade-once: one more at the
+    # pixel centre).
+    runs = [("1x", SceneApp, ["--msaa", "1"], 2),
+            ("4x", SceneApp, ["--msaa", "4"], 1 + 4),
+            ("8x", SceneApp, ["--msaa", "8"], 1 + 8),
+            ("wireframe", SceneApp, ["--wireframe"], 2),
+            ("4x, 64 instanced rocks", SceneApp, ["--msaa", "4", "--instances", "64"], 2 + 2 * 4),
+            ("4x, 64 instanced rocks, shade once", ShadeOnceApp,
+             ["--msaa", "4", "--instances", "64"], 2 + 4 + (4 + 1))]
+    log = []
+    real_render = Engine.render
+
+    def render(engine, app):
+        before = raster_segmented.launches
+        real_render(engine, app)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        log.append((raster_segmented.launches - before, engine.last_retired.bin_overflow, ev))
+
+    for label, app_cls, flags, per_frame in runs:
+        log.clear()
+        window = Window(width=W, height=H, title="scene")
+        zero_counters()
+        t0 = time.perf_counter()
+        with mock.patch.object(Engine, "render", render):
+            loop = launch(app_cls, argv=["--log-level", "warn", "--mode", "forward", *flags],
+                          window=window, max_frames=FORWARD_FRAMES, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        add_launches()
+        n = raster_segmented.launches
+        check(loop.frames_rendered == FORWARD_FRAMES,
+              f"15a {label}: rendered {loop.frames_rendered} frames")
+        seen = sorted({k for k, _, _ in log})
+        check(seen == [per_frame], f"15a {label}: K1 launched {seen} times a frame, not "
+              f"{per_frame}")
+        overflow = int(torch.stack([o for _, o, _ in log]).sum())
+        check(overflow == 0, f"15a {label}: bin overflow {overflow}")
+        app = loop.app
+        check(app.renderer.msaa == (8 if "8x" in label else 4 if "4x" in label else 1),
+              f"15a {label}: renderer at {app.renderer.msaa} samples")
+        last = window.last_frame
+        check(last is not None and last.shape == (H, W, 4) and last[..., :3].std() > 1.0,
+              f"15a {label}: no 1080p frame presented")
+        frame_ms = np.array([log[i - 1][2].elapsed_time(log[i][2]) for i in range(1, len(log))])
+        steady = frame_ms[4:]
+        print(f"phase 15a: SceneApp --mode forward {' '.join(flags)} ({label}) at {W}x{H}: "
+              f"{FORWARD_FRAMES} frames in {wall:.2f} s with the build; steady "
+              f"{1e3 / np.mean(steady):.2f} FPS, frame time p50 {np.percentile(steady, 50):.3f} "
+              f"ms, p99 {np.percentile(steady, 99):.3f} ms (CUDA events between frame ends, "
+              f"frames 5-{FORWARD_FRAMES}); K1 {n} launches ({per_frame} a frame); bin overflow "
+              f"0, entry budgets not grown (budget scale "
+              f"{CompileOptions().budget_scale}) [{card}]")
+        # The last frame again through the plain version of K1 (no tick: the
+        # same camera), on the rebuild path.
+        app.retained = False
+        pwindow = Window(width=W, height=H, title="plain")
+        with mock.patch.object(raster_mod, "_raster_segmented_cuda", resolve_k1):
+            engine = Engine(pwindow, device=dev)
+            engine.render(app)
+            engine.shutdown()
+        mx, frac = lsb_diff(last, pwindow.last_frame)
+        print(f"phase 15a: {label}: last frame vs the plain-path frame: max LSB diff {mx}, "
+              f"{frac * 100:.4f}% values differ")
+        check(mx <= 1 and frac < 0.01, f"15a {label}: the last frame differs from the "
+              "plain-path frame")
+        app.retained = True
+        engine = Engine(Window(width=W, height=H, title="profile"), device=dev)
+
+        def frame(_t, engine=engine, app=app):
+            app.tick(0.004)
+            engine.render(app)
+
+        frame(0.0)
+        if label.endswith("shade once"):
+            compiled = engine._retained[0]
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                compiled.execute(engine.render_device, dynamics=app.update_dynamics())
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            print(f"phase 15a: {label}: a retained frame at 1080p made no host sync")
+        nodes = ("shadow", "shadow.inst", "forward", "forward.inst", "post")
+        profile_frames(frame, nodes if "instanced" in label else nodes[::2],
+                       f"phase 15a: {label}", card, frame_ms[4:],
+                       watch=("raster_segmented_kernel", "gather"),
+                       expect={"raster_segmented_kernel": per_frame})
+        engine.shutdown()
+
+    # -- 15b. the kernels at the standard sample positions --------------------
+    c_bins, c_init, compare_exact, both = cull
+    grid = TileGrid(W, H)
+    zero_counters()
+    for off in draw_mod.SAMPLE_POSITIONS[8]:
+        for cfg in (dict(compare_op=CompareOp.GREATER, depth_write=True),
+                    dict(compare_op=CompareOp.LESS_OR_EQUAL, depth_write=False)):
+            compare_exact(*both(c_bins, grid, c_init, sample_offset=off, **cfg),
+                          f"15b cull stress at {off} {cfg['compare_op'].name}")
+    add_launches()
+    print(f"phase 15b: K1 on phase 2c's cull stress at the eight 8x positions "
+          f"{draw_mod.SAMPLE_POSITIONS[8]}, GREATER with depth writes and LESS_OR_EQUAL "
+          f"without: bit-equal to the plain version [{card}]")
+
+    layout = VertexLayout.from_fields(("position", 4), ("color", 4))
+    vs = Shader.vertex("stress.vs", lambda attrs, res: {"position": attrs["position"],
+                                                       "color": attrs["color"]})
+    safe_fs = Shader.fragment("stress.fs", stress_fs, bindings=[uniform("Gain")],
+                              kernel_safe=True, device_source=STRESS_FS_CUDA)
+    dense_fs = Shader.fragment("stress.dense.fs", stress_fs, bindings=[uniform("Gain")])
+    over = ColorAttachmentDesc(blend_enable=True, src_color_blend=BlendFactor.SRC_ALPHA,
+                               dst_color_blend=BlendFactor.ONE_MINUS_SRC_ALPHA,
+                               src_alpha_blend=BlendFactor.ONE,
+                               dst_alpha_blend=BlendFactor.ONE_MINUS_SRC_ALPHA)
+    front = StencilOpState(pass_op=StencilOp.INCREMENT_AND_WRAP, depth_fail_op=StencilOp.INVERT,
+                           compare_op=CompareOp.NOT_EQUAL, write_mask=0x7F, reference=5)
+    back = StencilOpState(fail_op=StencilOp.DECREMENT_AND_CLAMP, pass_op=StencilOp.REPLACE,
+                          compare_op=CompareOp.GREATER_OR_EQUAL, compare_mask=0x0F, reference=3)
+    cases = [
+        ("K3", dense_fs, ColorAttachmentDesc(), DepthStencilDesc(
+            depth_test_enable=True, depth_write_enable=True,
+            depth_compare_op=CompareOp.GREATER_OR_EQUAL, stencil_test_enable=True,
+            stencil_front=front, stencil_back=back), {}),
+        ("K4", dense_fs, over, DepthStencilDesc(
+            depth_test_enable=True, depth_write_enable=False,
+            depth_compare_op=CompareOp.GREATER), dict(peel_layers=3)),
+        ("K5", safe_fs, over, DepthStencilDesc(
+            depth_test_enable=True, depth_write_enable=False,
+            depth_compare_op=CompareOp.GREATER), {}),
+    ]
+    draws = translucent_stress(dev, n_draws=2)
+    rng = np.random.default_rng(37)
+    bg = torch.from_numpy(rng.uniform(0.0, 2.0, (4, H, W, 4)).astype(np.float32)).to(dev)
+    z0 = torch.from_numpy(rng.uniform(0.0, 0.3, (4, H, W)).astype(np.float32)).to(dev)
+    s0 = torch.from_numpy(rng.integers(0, 8, (4, H, W)).astype(np.int32)).to(dev)
+    for name, fs, cdesc, ds, kw in cases:
+        pipeline = pipe.GraphicPipeline(pipe.GraphicPipelineDesc(
+            shader_input=GraphicShaderInput(vs, fs, layout),
+            state=GraphicPipelineState(
+                rasterization=RasterizationState(cull_mode=CullMode.NONE), depth_stencil=ds,
+                multisample=MultisampleState(samples=4)),
+            attachments=GraphicPipelineAttachments(
+                color_formats=(Format.RGBA32F,), depth_format=Format.D32F,
+                stencil_format=Format.S8 if ds.stencil_test_enable else None),
+            color_attachment_descs=(cdesc,),
+        ))
+
+        def run(pipeline=pipeline, kw=kw, stencil=ds.stencil_test_enable):
+            return draw_mod.draw_indexed_batch(
+                [bg], z0, pipeline, draws, grid, per_draw_uniforms=("Gain",),
+                entry_budget=STRESS_ENTRY_BUDGET, stencil=s0 if stencil else None, **kw)
+
+        zero_counters()
+        (kc, kz, ks) = run()
+        torch.cuda.synchronize()
+        add_launches()
+        n = dict(zip(("K1", "K3", "K4", "K5"), counters()))
+        with plain_path():
+            (pc, pz, ps) = run()
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(kc[0]).all()), f"15b {name}: non-finite colour")
+        check(torch.equal(kz, pz), f"15b {name} 4x: z differs from the plain path")
+        if ks.stencil is not None:
+            check(torch.equal(ks.stencil, ps.stencil), f"15b {name} 4x: stencil differs")
+            check(not torch.equal(ks.stencil, s0), f"15b {name} 4x: stencil unchanged")
+        err = (kc[0] - pc[0]).abs()
+        bad = int((err > 1e-5 + 1e-5 * pc[0].abs()).sum())
+        check(bad == 0, f"15b {name} 4x: {bad} colour values beyond atol 1e-5 + rtol 1e-5 "
+              f"(max {err.max().item():.3e})")
+        check(int(ks.bin_overflow) == int(ps.bin_overflow), f"15b {name}: overflow differs")
+        check(n[name] >= 4, f"15b {name}: launched {n[name]} times for 4 samples")
+        print(f"phase 15b: {name} under 4x MSAA through draw_indexed_batch ({len(draws)} "
+              f"draws of 32 of phase 10's translucent stress triangles at {W}x{H}"
+              f"{', 3 peel layers' if name == 'K4' else ''}): launches "
+              f"{', '.join(f'{k} {v}' for k, v in n.items() if v)}; z"
+              f"{' and stencil' if ks.stencil is not None else ''} bit-equal to the plain path, "
+              f"colour max err {err.max().item():.3e} [{card}]")
+
+    # -- 15c. lines, points and the wireframe views at 1080p -------------------
+    rng = np.random.default_rng(41)
+
+    def line_pipeline(topology, restart=False, width=1.0):
+        def vs_sized(attrs, res):
+            return {"position": attrs["position"], "color": attrs["color"],
+                    "point_size": 1.0 + 5.0 * attrs["color"][:, 3:4]}
+
+        pvs = (Shader.vertex("points.vs", vs_sized) if topology == PrimitiveTopology.POINT_LIST
+               else vs)
+        return pipe.GraphicPipeline(pipe.GraphicPipelineDesc(
+            shader_input=GraphicShaderInput(
+                pvs, Shader.fragment("lines.fs", lambda v, r, b: v["color"]), layout),
+            state=GraphicPipelineState(
+                input_assembly=InputAssemblyState(topology=topology, primitive_restart=restart),
+                rasterization=RasterizationState(cull_mode=CullMode.NONE, line_width=width),
+                depth_stencil=DepthStencilDesc().reverse_z()),
+            attachments=GraphicPipelineAttachments(color_formats=(Format.RGBA32F,),
+                                                   depth_format=Format.D32F),
+            color_attachment_descs=(ColorAttachmentDesc(clear_value=(0, 0, 0, 0)),),
+        ))
+
+    def vertices(px):
+        """Clip-space rows over the pixel positions ``px`` (N, 2) with a
+        random w, depth and RGBA; every 200th vertex beyond the near plane
+        (a clipped segment reaches far off-screen: at most 256 such records
+        bin at once, binning's huge-span cap)."""
+        n = px.shape[0]
+        w = rng.uniform(0.6, 1.8, (n, 1))
+        z = rng.uniform(0.02, 0.98, (n, 1)) * w
+        z[::200] = 1.3 * w[::200]
+        ndc = px / [W / 2, H / 2] - 1.0
+        col = rng.uniform(0.05, 1.0, (n, 4))
+        rows = np.concatenate([ndc * w, z, w, col], 1).astype(np.float32)
+        return torch.from_numpy(rows).to(dev)
+
+    # Segments short enough to span at most 2x2 tiles (binning's tier that
+    # holds any number of records); the strip's walk reflects at the border.
+    seg0 = rng.uniform(0, 1, (10000, 2)) * [W, H]
+    seg = np.stack([seg0, seg0 + rng.uniform([-60, -24], [60, 24], (10000, 2))],
+                   1).reshape(-1, 2)
+    walk = np.cumsum(rng.uniform([-30, -12], [30, 12], (4000, 2)), 0) % [2 * W, 2 * H]
+    walk = np.array([W, H]) - np.abs(walk - [W, H])
+    strip = np.arange(4000, dtype=np.int32)
+    strip[rng.choice(4000, 40, replace=False)] = -1
+    prims = [
+        ("line list, 10,000 segments of up to 65 px, 1.5 px wide",
+         line_pipeline(PrimitiveTopology.LINE_LIST, width=1.5), vertices(seg),
+         torch.arange(20000, dtype=torch.int32, device=dev)),
+        ("line strip with 40 restarts, 4,000 indices",
+         line_pipeline(PrimitiveTopology.LINE_STRIP, restart=True), vertices(walk),
+         torch.from_numpy(strip).to(dev)),
+        ("point list, 20,000 points of 1-6 px", line_pipeline(PrimitiveTopology.POINT_LIST),
+         vertices(rng.uniform(0, 1, (20000, 2)) * [W, H]),
+         torch.arange(20000, dtype=torch.int32, device=dev)),
+    ]
+    for what, pipeline, vb, ib in prims:
+        def run(pipeline=pipeline, vb=vb, ib=ib):
+            return draw_mod.draw_indexed([torch.zeros((H, W, 4), device=dev)],
+                                         torch.zeros((H, W), device=dev), pipeline, vb, ib, {},
+                                         grid, entry_budget=1 << 20)
+
+        zero_counters()
+        kc, kz, ks = run()
+        torch.cuda.synchronize()
+        add_launches()
+        n = raster_segmented.launches
+        with mock.patch.object(raster_mod, "_raster_segmented_cuda", resolve_k1):
+            pc, pz, ps = run()
+        torch.cuda.synchronize()
+        check(torch.equal(kz, pz) and torch.equal(kc[0], pc[0]),
+              f"15c {what}: differs from the plain path")
+        check(int(ks.bin_overflow) == 0, f"15c {what}: bin overflow {int(ks.bin_overflow)}")
+        cov = int((kc[0][..., 3] > 0).sum())
+        check(cov > 1000, f"15c {what}: covers {cov} px")
+        print(f"phase 15c: {what} at {W}x{H}: K1 {n} launch, {cov} px covered; z and colour "
+              f"bit-equal to the plain path [{card}]")
+
+    device = RhiCore(dev).create_render_device()
+    scene, mesh = build_standin_scene(device, 100, np.random.default_rng(42))
+    camera = Camera(fov_y=Degree(35.0), aspect_ratio=W / H)
+    orbit_camera(camera, 0.3)
+    renderer = DeferredRenderer(scene, wireframe=True)
+    zero_counters()
+    compiled, out, _, retired = deferred_frame(device, renderer, camera, W, H, CompileOptions(),
+                                               present_format=Format.BGRA8_SRGB)
+    img = compiled.value(out).cpu().numpy()
+    add_launches()
+    n = raster_segmented.launches
+    check(int(retired.bin_overflow) == 0, "15c deferred wireframe: bin overflow")
+    with plain_path(), mock.patch.object(raster_mod, "_raster_segmented_cuda", resolve_k1):
+        pc, pout, _, _ = deferred_frame(device, renderer, camera, W, H, CompileOptions(),
+                                        present_format=Format.BGRA8_SRGB)
+        ref = pc.value(pout).cpu().numpy()
+    mx, frac = lsb_diff(img, ref)
+    check(mx <= 1 and frac < 0.01, "15c deferred wireframe: differs from the plain path")
+    print(f"phase 15c: deferred wireframe view of phase 7's scene ({mesh.num_triangles}-"
+          f"triangle stand-in, 100 lights) at {W}x{H}: K1 {n} launches, bin overflow 0; vs the "
+          f"plain-path frame max LSB diff {mx}, {frac * 100:.4f}% values differ [{card}]")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2607,7 +3014,10 @@ def main() -> int:
             print(f"  ptxas: {line}")
 
     def plain(bins, grid, z, acc, compare, write, clamp, off):
-        raster_mod._raster_segmented_torch(bins, grid, z, acc, compare, write, clamp, off)
+        # Bins without rectangles take the plain version's rank walk, which
+        # culls nothing: the oracle holds the kernels' rectangles too.
+        raster_mod._raster_segmented_torch(bins._replace(rect=None), grid, z, acc, compare,
+                                           write, clamp, off)
 
     def both(bins, grid, init_z, **kw):
         """(kernel result, plain result) on the same inputs; the plain run
@@ -2849,6 +3259,7 @@ def main() -> int:
     translucent, glass_launches = translucency_phases(dev, card, (bins, grid, init), plain)
     capped = capped_phase(dev, card, (clip, idx, colors))
     textured = textured_phases(dev, card, plain)
+    forward = forward_phases(dev, card, plain, (c_bins, init, compare_exact, both))
     k1_def = deferred["k1"]
     deferred["k2"]["launches"] += glass_launches["K2"] + textured["K2"]
     kernels = [{
@@ -2857,7 +3268,7 @@ def main() -> int:
         "source": "zenith_tpu_torch/csrc/raster.cu",
         "replaces": "zenith_tpu/ops/raster.py:311",
         "launches": (main_launches + deferred["k1_launches"] + glass_launches["K1"]
-                     + textured["K1"]),
+                     + textured["K1"] + forward["K1"]),
         "max_abs_err": max(max_err, k1_def["max_abs_err"]),
         "ms": k1_def["ms"],
         "plain_ms": k1_def["plain_ms"],
@@ -2866,12 +3277,16 @@ def main() -> int:
         "library_ms": None,
         "shape": "deferred G-buffer pass 1080p",
     }, dict(deferred["k2"], shape="1080p G-buffer, 100 point lights"), *translucent, *capped]
+    for row in translucent:
+        row["launches"] += forward.get(row["name"][:2], 0)
     print(f"  launches on the main paths: K1 {main_launches} (triangle, phase 4) + "
           f"{deferred['k1_launches']} (deferred, phase 7) + {glass_launches['K1']} (glass and "
-          f"stencil frames, phases 11-12) + {textured['K1']} (textured, phase 14a); K2 "
+          f"stencil frames, phases 11-12) + {textured['K1']} (textured, phase 14a) + "
+          f"{forward['K1']} (forward SceneApp, MSAA, lines and points, phase 15); K2 "
           f"{deferred['k2']['launches']} (phases 7, 11 and 14a); "
           + "; ".join(f"{r['name'][:2]} {r['launches']}" for r in translucent)
-          + " (phases 11-12); "
+          + f" (phases 11-12; K3 {forward['K3']}, K4 {forward['K4']} and K5 {forward['K5']} "
+          f"of them under 4x MSAA, phase 15b); "
           + "; ".join(f"{r['name'][:2]} {r['launches']}" for r in capped) + " (phase 13)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -188,14 +188,26 @@ def test_unported_batch_modes_name_their_roadmap_item():
     vb = torch.from_numpy(_draws(1, 5)[0][0])
     ib = torch.tensor([[0, 1, 2]], dtype=torch.int32)
     res = {"Model": torch.eye(4), "Tint": torch.ones(4), "Gain": torch.ones(1)}
-    # Peeling needs a blending pipeline; multisampling is the mode still unported.
+    # Peeling needs a blending pipeline. Multisampling (ROADMAP item 18) is
+    # ported: a batch draws per sample (test_torch_msaa.py holds it to the
+    # reference); a sample count without standard positions is refused.
     with pytest.raises(ValueError, match="requires a blending pipeline"):
         tdraw_mod.draw_indexed_batch([torch.zeros((H, W, 4))], None, tp, [(vb, ib, res)], TG,
                                      peel_layers=2)
-    msaa = tpipe.GraphicPipeline(dataclasses.replace(
-        tp.desc, state=dataclasses.replace(
-            tp.desc.state, multisample=tstate.MultisampleState(samples=4))))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 18"):
-        tdraw_mod.draw_indexed_batch([torch.zeros((H, W, 4))], None, msaa, [(vb, ib, res)], TG)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 18"):
-        tdraw_mod.draw_indexed([torch.zeros((H, W, 4))], None, msaa, vb, ib, res, TG)
+
+    def with_samples(n):
+        return tpipe.GraphicPipeline(dataclasses.replace(
+            tp.desc, state=dataclasses.replace(
+                tp.desc.state, multisample=tstate.MultisampleState(samples=n))))
+
+    bg = torch.zeros((4, H, W, 4))
+    draws = [(torch.from_numpy(v), torch.from_numpy(i), {k: torch.from_numpy(x)
+                                                         for k, x in r.items()})
+             for v, i, r, _ in _draws(2, 5)]
+    batch, _, _ = tdraw_mod.draw_indexed_batch([bg], None, with_samples(4), draws, TG,
+                                               per_draw_uniforms=("Tint",))
+    assert batch[0].shape == (4, H, W, 4)
+    coverage = (batch[0][..., 3] > 0).float().mean(0)
+    assert bool(((coverage > 0) & (coverage < 1)).any())  # edges covered by some samples
+    with pytest.raises(NotImplementedError, match="1/2/4/8 samples"):
+        with_samples(3)

@@ -26,10 +26,16 @@ W, H = 128, 64
 TILE = (8, 32)  # 8 x 4 tiles: span tiers are reachable at test size
 
 
+@jax.jit
+def _reference_records(clip, idx, vary):
+    # The reference's setup compiled as one function (both binners read the
+    # records it makes).
+    return jsetup(clip, idx, vary, W, H, cull_mode=CullMode.NONE)
+
+
 def _records(clip, idx, nv):
     vary = np.linspace(0.0, 1.0, nv * 2, dtype=np.float32).reshape(nv, 2)
-    return jsetup(jnp.asarray(clip), jnp.asarray(idx), jnp.asarray(vary), W, H,
-                  cull_mode=CullMode.NONE)
+    return _reference_records(jnp.asarray(clip), jnp.asarray(idx), jnp.asarray(vary))
 
 
 def _random_scene(seed, nt=400):

@@ -12,6 +12,9 @@ tests/test_blend_batch.py:131-133; XLA's CPU backend contracts multiply-adds
 into FMAs, the port rounds each product; ROADMAP §3).
 """
 
+import types
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -89,6 +92,14 @@ FRONT = dict(passed="INCREMENT_AND_WRAP", dfail="INVERT", cmp="GREATER_OR_EQUAL"
 BACK = dict(fail="DECREMENT_AND_CLAMP", passed="REPLACE", cmp="NOT_EQUAL", cmask=0x03, ref=0x42)
 
 
+@jax.jit
+def _reference_bins(clip, idx, rgba):
+    """The reference's setup and binning, compiled as one function (both
+    blend rasters read these bins)."""
+    rec, corner = jsetup(clip, idx, rgba, W, H, cull_mode=jstate.CullMode.NONE)
+    return jbin(rec, corner, JG)
+
+
 @pytest.mark.parametrize("spec, write, stencil", [
     (OVER, False, False), (ODD, True, False), (MINMAX, False, False),
     (OVER, False, True), (ODD, True, True),
@@ -97,9 +108,7 @@ def test_raster_segmented_blend_matches_the_reference(spec, write, stencil):
     """The same bins through both blend rasters, with the shader "the RGBA
     varying" written for each package's shade_blend contract."""
     clip, idx, rgba = _triangles(5, 14)
-    rec, corner = jsetup(jnp.asarray(clip), jnp.asarray(idx), jnp.asarray(rgba), W, H,
-                         cull_mode=jstate.CullMode.NONE)
-    jb = jbin(rec, corner, JG)
+    jb = _reference_bins(clip, idx, rgba)
     rng = np.random.default_rng(6)
     z0 = rng.uniform(0.0, 0.5, (H, W)).astype(np.float32)
     c0 = rng.uniform(0.0, 2.0, (H, W, 4)).astype(np.float32)
@@ -218,9 +227,16 @@ def _run_both(jp, tp, n_draws, seed, instanced_at=None, stencil=None, order=None
                 out.append((arr(vb), arr(ib), res, inst))
         return out
 
-    jc, jd, jst = jdraw.draw_indexed_batch(
-        [jnp.asarray(bg)], jnp.asarray(z0), jp, draws(jnp.asarray), JG,
-        stencil=None if stencil is None else jnp.asarray(stencil))
+    jdraws = draws(jnp.asarray)
+
+    def jfn(bg, z0, sten):
+        cols, depth, st = jdraw.draw_indexed_batch([bg], z0, jp, jdraws, JG, stencil=sten)
+        return cols, depth, st.bin_overflow, st.stencil
+
+    # The reference compiled as one function, as its frames are.
+    jc, jd, jover, jsten = jax.jit(jfn)(jnp.asarray(bg), jnp.asarray(z0),
+                                        None if stencil is None else jnp.asarray(stencil))
+    jst = types.SimpleNamespace(bin_overflow=jover, stencil=jsten)
     tc, td, tst = tdraw.draw_indexed_batch(
         [torch.from_numpy(bg)], torch.from_numpy(z0), tp, draws(torch.from_numpy), TG,
         stencil=None if stencil is None else torch.from_numpy(stencil))
@@ -275,9 +291,9 @@ def test_blend_batch_rejects_what_it_cannot_draw():
     with pytest.raises(ValueError, match="KERNEL-SAFE"):
         tdraw.draw_indexed_batch(bg, z0, tp, [draw, draw], TG)
     one, _, _ = tdraw.draw_indexed_batch(bg, z0, tp, [draw], TG)
-    jone, _, _ = jdraw.draw_indexed_batch(
-        [jnp.zeros((H, W, 4))], jnp.zeros((H, W)), jp,
-        [(jnp.asarray(vb.numpy()), jnp.asarray(idx), {"Tint": jnp.ones(4)})], JG)
+    jone = jax.jit(lambda vb, ib: jdraw.draw_indexed_batch(
+        [jnp.zeros((H, W, 4))], jnp.zeros((H, W)), jp, [(vb, ib, {"Tint": jnp.ones(4)})],
+        JG)[0])(jnp.asarray(vb.numpy()), jnp.asarray(idx))
     np.testing.assert_allclose(one[0].numpy(), np.asarray(jone[0]), atol=1e-5)
     _, safe = _pipelines()
     with pytest.raises(BindingError, match="Tint"):

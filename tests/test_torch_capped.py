@@ -364,11 +364,18 @@ def pass_scene():
     idx = np.arange(nv, dtype=np.int32).reshape(nt, 3)
     idx[1::7] = idx[0::7][: idx[1::7].shape[0]]
     vary = rng.uniform(0, 1, (nv, 1)).astype(np.float32)
-    rec = jsetup(jnp.asarray(clip), jnp.asarray(idx), W, H, cull_mode=JCull.NONE)
-    assert int(np.asarray(rec.valid)[nt:].sum()) == 1  # the one-corner case made a second record
-    bins = jbin(rec, JGRID, 32)
+
+    @jax.jit
+    def reference(clip, idx, vary):
+        # Setup, binning and corner data compiled as one function (both
+        # packages' passes read what it makes).
+        rec = jsetup(clip, idx, W, H, cull_mode=JCull.NONE)
+        bins = jbin(rec, JGRID, 32)
+        return rec.valid, bins, bins.gather_corner_data(jcorner(rec, idx, vary))
+
+    valid, bins, attr = reference(jnp.asarray(clip), jnp.asarray(idx), jnp.asarray(vary))
+    assert int(np.asarray(valid)[nt:].sum()) == 1  # the one-corner case made a second record
     assert int(bins.overflow) == 0 and int(np.asarray(bins.counts).max()) > 16
-    attr = bins.gather_corner_data(jcorner(rec, jnp.asarray(idx), jnp.asarray(vary)))
     init = rng.uniform(0.0, 1.0, (H, W)).astype(np.float32)
     init[:, : W // 2] = 0.5  # a plane some fragments tie with exactly
     return bins, np.array(attr), init

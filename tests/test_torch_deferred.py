@@ -196,11 +196,15 @@ def test_unported_branches_name_their_roadmap_item():
         (dict(objects=[dataclasses.replace(quad, instance_offsets=np.zeros((2, 3)))]), {}, 21),
         ({}, dict(ssao=True), 21),
         ({}, dict(id_buffer=True), 21),
-        ({}, dict(wireframe=True), 19),
     ]
     for scene_kw, ctor_kw, item in cases:
         with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
             TDeferred(dataclasses.replace(scene, **scene_kw), **ctor_kw)
+    # The wireframe view (item 19) is ported: the G-buffer pass draws LINEs.
+    wire = TDeferred(scene, wireframe=True)
+    from zenith_tpu_torch.rhi.state import PolygonMode
+
+    assert wire._gbuffer_state.rasterization.polygon_mode == PolygonMode.LINE
     omni = dataclasses.replace(scene, point_lights=[PointLight((0, 0, 5), cast_shadows=True)])
     from zenith_tpu_torch.rendergraph import RenderGraphBuilder
 

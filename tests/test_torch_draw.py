@@ -191,9 +191,15 @@ def test_split_into_primitive_parts_matches_unsplit(monkeypatch):
 
 
 def test_unported_draw_modes_name_their_roadmap_item():
+    """Line topologies (ROADMAP item 19) are ported: a line list draws its
+    three segments (test_torch_lines_points.py holds them to the
+    reference); an odd index count is refused."""
     vb = torch.from_numpy(_vertices(1, 6))
     _, tp = _pipelines("LINE_LIST")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 19"):
+    cols, _, _ = tdraw_mod.draw_indexed([torch.zeros((H, W, 4))], None, tp, vb,
+                                        torch.arange(6, dtype=torch.int32),
+                                        {"Tint": torch.ones(3)}, TG)
+    assert int((cols[0][..., 3] > 0).sum()) > 20
+    with pytest.raises(ValueError, match="even index count"):
         tdraw_mod.draw_indexed([torch.zeros((H, W, 4))], None, tp, vb,
-                               torch.arange(6, dtype=torch.int32),
-                               {"Tint": torch.ones(3)}, TG)
+                               torch.arange(5, dtype=torch.int32), {"Tint": torch.ones(3)}, TG)

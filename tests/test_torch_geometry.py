@@ -129,7 +129,13 @@ def test_transform_vertices_matches_reference():
 
 
 def test_lines_and_points_name_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 19"):
-        tgeo.setup_lines_with_attrs()
-    with pytest.raises(NotImplementedError, match="ROADMAP item 19"):
-        tgeo.setup_points_with_attrs()
+    """Line and point setup (ROADMAP item 19) are ported: two records per
+    segment or point (test_torch_lines_points.py holds them to the
+    reference)."""
+    clip = torch.tensor([[-0.5, -0.5, 0.5, 1.0], [0.5, 0.25, 0.5, 1.0]])
+    vary = torch.ones((2, 3))
+    rec, corner = tgeo.setup_lines_with_attrs(clip, torch.tensor([[0, 1]]), vary, 64, 32)
+    assert rec.rast16.shape == (2, 16) and bool(rec.valid.all())
+    assert corner.shape == (2, 3 * (3 + 2))
+    rec, corner = tgeo.setup_points_with_attrs(clip, torch.tensor([0, 1]), vary, 64, 32)
+    assert rec.rast16.shape == (4, 16) and bool(rec.valid.all())

@@ -10,6 +10,7 @@ multiply-adds into FMAs, the port rounds each product; ROADMAP §3); colours
 atol 1e-5.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -55,15 +56,20 @@ def _overlapping(seed, nt=16):
         rng.uniform(0, 1, (nv, 3)).astype(np.float32)
 
 
+@jax.jit
+def _reference_bins(clip, idx, vary):
+    """The reference's setup and binning, compiled as one function (both
+    peel rasters read these bins)."""
+    rec, corner = jsetup(clip, idx, vary, W, H, cull_mode=jstate.CullMode.NONE)
+    return jbin(rec, corner, JG)
+
+
 @pytest.mark.parametrize("compare, write", [("GREATER", True), ("GREATER_OR_EQUAL", False),
                                             ("LESS", True), ("LESS_OR_EQUAL", True)])
 def test_raster_segmented_peel_matches_the_reference(compare, write):
     """Three chained peels: each pass is bounded by the depth the pass before
     resolved (the first by no bound), in both packages on the same bins."""
-    clip, idx, vary = _overlapping(4)
-    rec, corner = jsetup(jnp.asarray(clip), jnp.asarray(idx), jnp.asarray(vary), W, H,
-                         cull_mode=jstate.CullMode.NONE)
-    jb = jbin(rec, corner, JG)
+    jb = _reference_bins(*_overlapping(4))
     tb = bins_from_numpy([np.asarray(f) for f in jb], CPU)
     far = 0.0 if compare.startswith("GREATER") else 1.0
     init = np.full((H, W), far, np.float32)
@@ -158,9 +164,10 @@ def _checker(n=16):
     return np.stack([c, 1.0 - c, np.full_like(c, 0.5), np.ones_like(c)], -1)
 
 
-def _peeled(layers, zs, alphas, depth=0.0, offsets=None):
+def _peeled(layers, zs, alphas, depth=0.0, offsets=None, reference=True):
     """The same peeled batch through both packages → (reference colour,
-    port colour, reference dropped count, port dropped count, port depth)."""
+    port colour, reference dropped count, port dropped count, port depth);
+    the reference's values are None without ``reference``."""
     jp, tp = _pipelines()
     tex = _checker()
     bg = np.random.default_rng(8).uniform(0, 1, (H, W, 4)).astype(np.float32)
@@ -168,19 +175,26 @@ def _peeled(layers, zs, alphas, depth=0.0, offsets=None):
     offsets = offsets or [0.0] * len(zs)
     host = [(*_quad(z, x0=-0.8 + dx, x1=0.8 + dx), np.array([1.0, 0.9, 0.8, a], np.float32))
             for z, a, dx in zip(zs, alphas, offsets)]
-    jtex = jnp.asarray(tex)  # one object: a binding shared by every draw
-    jc, _, jst = jdraw.draw_indexed_batch(
-        [jnp.asarray(bg)], jnp.asarray(z0), jp,
-        [(jnp.asarray(vb), jnp.asarray(ib), {"Tex": jtex, "BaseColor": jnp.asarray(c)})
-         for vb, ib, c in host], JG, per_draw_uniforms=("BaseColor",), peel_layers=layers)
+    def jfn(bg, z0, jtex, verts):
+        # One texture object: a binding shared by every draw.
+        cols, _, st = jdraw.draw_indexed_batch(
+            [bg], z0, jp, [(vb, jnp.asarray(ib), {"Tex": jtex, "BaseColor": c})
+                           for (vb, c), (_, ib, _) in zip(verts, host)],
+            JG, per_draw_uniforms=("BaseColor",), peel_layers=layers)
+        return cols, st.bin_overflow
+
+    jc, jover = [None], None
+    if reference:
+        jc, jover = jax.jit(jfn)(jnp.asarray(bg), jnp.asarray(z0), jnp.asarray(tex),
+                                 [(jnp.asarray(vb), jnp.asarray(c)) for vb, _, c in host])
     ttex = torch.from_numpy(tex)
     tc, td, tst = tdraw.draw_indexed_batch(
         [torch.from_numpy(bg)], torch.from_numpy(z0), tp,
         [(torch.from_numpy(vb), torch.from_numpy(ib),
           {"Tex": ttex, "BaseColor": torch.from_numpy(c)}) for vb, ib, c in host], TG,
         per_draw_uniforms=("BaseColor",), peel_layers=layers)
-    return np.asarray(jc[0]), tc[0].numpy(), int(jst.bin_overflow), int(tst.bin_overflow), \
-        td.numpy()
+    return (None if jover is None else np.asarray(jc[0]), tc[0].numpy(),
+            None if jover is None else int(jover), int(tst.bin_overflow), td.numpy())
 
 
 @pytest.mark.parametrize("layers, zs, dropped", [
@@ -203,8 +217,9 @@ def test_peel_respects_the_opaque_depth():
     """Fragments behind the depth buffer never contribute: of layers at 0.4
     and 0.8 over an opaque 0.6 only the nearer one blends."""
     jcol, tcol, jover, tover, _ = _peeled(2, [0.4, 0.8], [0.5, 0.5], depth=0.6)
-    one, _, _, _, _ = _peeled(2, [0.8], [0.5], depth=0.6)
     np.testing.assert_allclose(tcol, jcol, atol=1e-5)
+    # The nearer layer alone, through the port (held to the reference above).
+    one = _peeled(2, [0.8], [0.5], depth=0.6, reference=False)[1]
     np.testing.assert_allclose(tcol, one, atol=1e-5)
     assert tover == jover == 0
 

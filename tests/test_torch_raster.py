@@ -159,10 +159,16 @@ def test_depth_clamp_matches_reference_raster():
     ).astype(np.float32)
     idx = rng.integers(0, nv, (16, 3)).astype(np.int32)
     vary = rng.uniform(0, 1, (nv, 2)).astype(np.float32)
-    rec, corner = jsetup(jnp.asarray(clip), jnp.asarray(idx), jnp.asarray(vary), W, H,
-                         cull_mode=JCull.NONE, depth_clamp=True)
     jgrid = JGrid(W, H, 8, 128)
-    jb = jbin(rec, corner, jgrid, entry_budget=256)
+
+    @jax.jit
+    def reference_bins(clip, idx, vary):
+        # Setup and binning compiled as one function (both rasters read the
+        # bins it makes).
+        rec, corner = jsetup(clip, idx, vary, W, H, cull_mode=JCull.NONE, depth_clamp=True)
+        return jbin(rec, corner, jgrid, entry_budget=256)
+
+    jb = reference_bins(jnp.asarray(clip), jnp.asarray(idx), jnp.asarray(vary))
     init = rng.uniform(0, 1, (H, W)).astype(np.float32)
     fn = jax.jit(functools.partial(jraster, grid=jgrid, depth_clamp=True))
     jz, jacc = (np.asarray(a) for a in fn(jb, init_z=jnp.asarray(init)))

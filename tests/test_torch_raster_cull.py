@@ -11,9 +11,11 @@ rectangle's border, and coordinates around 1e5 px, with the depth clamp off
 and on and three sample offsets. Then: padding and invalid rows carry empty
 rectangles and every rectangle lies inside the padded surface; and the plain
 walk with coverage masked by the rectangles (a CPU model of the culled
-kernels) is bit-equal to the unculled plain version for the eight compares,
+kernels) is bit-equal to the unculled plain walk for the eight compares,
 with and without depth writes, and for the stencil (faces that differ) and
-peel variants. Last, K1, K3 and K4 refuse a sample offset outside [0, 1)²,
+peel variants; so is the plain version itself, which resolves the
+fragments over the rectangles at once where it can
+(ops/raster.py::_resolve_fragments). Last, K1, K3 and K4 refuse a sample offset outside [0, 1)²,
 which the rectangles do not cover. Tolerance: exact throughout.
 """
 
@@ -226,13 +228,18 @@ def _init_z(seed=13):
 
 
 def _assert_culled_equal(bins, offset, **kw):
+    """The plain version, the unculled rank walk (bins without rectangles
+    take it) and the culled walk model agree bit for bit."""
     full = raster_segmented(bins, GRID, _init_z(), sample_offset=offset, **kw)
+    walked = raster_segmented(bins._replace(rect=None), GRID, _init_z(), sample_offset=offset,
+                              **kw)
     stats = {}
     with culled(bins, stats):
-        cull = raster_segmented(bins, GRID, _init_z(), sample_offset=offset, **kw)
+        cull = raster_segmented(bins._replace(rect=None), GRID, _init_z(), sample_offset=offset,
+                                **kw)
     assert stats["dropped"] > stats["pairs"] // 4  # the model really culls
-    for a, b in zip(full, cull):
-        assert torch.equal(a, b)
+    for a, b, c in zip(full, walked, cull):
+        assert torch.equal(a, b) and torch.equal(b, c)
     return full
 
 
@@ -284,12 +291,15 @@ def test_culled_peel_walk_equals_plain(compare):
     z1, _ = raster_segmented(bins, GRID, clear, compare_op=compare, sample_offset=offset)
     full = raster_segmented(bins, GRID, clear, compare_op=compare, sample_offset=offset,
                             z_bound=z1)
+    walk_bins = bins._replace(rect=None)
+    walked = raster_segmented(walk_bins, GRID, clear, compare_op=compare, sample_offset=offset,
+                              z_bound=z1)
     stats = {}
     with culled(bins, stats):
-        cull = raster_segmented(bins, GRID, clear, compare_op=compare, sample_offset=offset,
-                                z_bound=z1)
+        cull = raster_segmented(walk_bins, GRID, clear, compare_op=compare,
+                                sample_offset=offset, z_bound=z1)
     assert stats["dropped"] > stats["pairs"] // 4
-    assert all(torch.equal(a, b) for a, b in zip(full, cull))
+    assert all(torch.equal(a, b) and torch.equal(b, c) for a, b, c in zip(full, walked, cull))
     assert int((full[1][-1] > 0).sum()) > 100  # a second layer exists
 
 

@@ -1,0 +1,150 @@
+"""The port's SceneApp against the reference's (mirrors tests/test_engine.py's
+two SceneApp tests, in forward and in deferred mode): build_scene's cerberus
+from the repository's baked cache at 128×64 with two point lights, auto-
+retained execution, the rebuild fallback of ``mark_structure_dirty`` and
+``--no-retained``. The last frame of the retained run equals the reference
+app's after the same ticks. Every flag whose machinery is not ported raises
+before anything is built and names its ROADMAP item.
+
+Tolerance: the presented frame (BGRA8 sRGB) ≤ 1 LSB with < 1% of values
+differing (the reference's own golden tolerance) on all but 0.5% of the
+pixels (40 at 128×64). Cerberus has 33k triangles, so in most frames some
+edge passes within rounding of a pixel centre, and the two packages' setups
+(XLA contracts the reference's compiled frame into FMAs, the port rounds
+each product: ROADMAP §3) cover that pixel differently; a PCF tap within
+rounding of the shadow map's depth flips the same way. Measured after four
+ticks: 7 such pixels in either mode.
+"""
+
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from zenith_tpu_torch.core.cli import EngineArgs
+from zenith_tpu_torch.engine import Engine
+from zenith_tpu_torch.sandbox.scene import _UNPORTED_FLAGS, SceneApp
+from zenith_tpu_torch.window import Window
+
+torch.set_num_threads(1)
+ROOT = Path(__file__).resolve().parent.parent
+W, H = 128, 64
+
+
+@pytest.fixture(autouse=True)
+def _baked_cerberus(monkeypatch):
+    """Both packages load cerberus from the repository's baked cache."""
+    import zenith_tpu.asset as jasset
+    from zenith_tpu_torch import asset
+
+    monkeypatch.chdir(ROOT)
+    monkeypatch.setenv("ZENITH_CACHE", str(ROOT / "cache"))
+    monkeypatch.delenv("ZENITH_CONTENT", raising=False)
+    monkeypatch.delenv("ZENITH_ORBIT_START", raising=False)
+    monkeypatch.delenv("ZENITH_ORBIT_SPEED", raising=False)
+    jasset.initialize()
+    asset.initialize()
+
+
+def _run(engine, app, frames, dirty_at=None):
+    window = engine.window
+    for f in range(frames):
+        if f == dirty_at:
+            app.mark_structure_dirty()
+        app.tick(0.016)
+        engine.render(app)
+    engine.shutdown()
+    return np.asarray(window.last_frame)
+
+
+def _jax_last_frame(mode):
+    """The reference SceneApp's frame after four ticks of 0.016 s."""
+    from zenith_tpu.core.cli import EngineArgs as JArgs
+    from zenith_tpu.engine import Engine as JEngine
+    from zenith_tpu.sandbox.scene import SceneApp as JSceneApp
+    from zenith_tpu.window import Window as JWindow
+
+    engine = JEngine(JWindow(width=W, height=H, title="t"))
+    app = JSceneApp(JArgs(app_args=["--mode", mode, "--lights", "2"]))
+    app.prepare(engine.render_device, engine.window)
+    return _run(engine, app, 4)
+
+
+class _Counted(SceneApp):
+    def __init__(self, args):
+        super().__init__(args)
+        self.calls = 0
+
+    def render(self, context):
+        self.calls += 1
+        super().render(context)
+
+
+def _port_app(*flags):
+    engine = Engine(Window(width=W, height=H, title="t"), device="cpu")
+    app = _Counted(EngineArgs(app_args=list(flags)))
+    app.prepare(engine.render_device, engine.window)
+    return engine, app
+
+
+@pytest.mark.parametrize("mode", ["forward", "deferred"])
+def test_scene_app_auto_retains_and_structure_fallback(mode):
+    """Auto-retained by default; mark_structure_dirty routes one frame
+    through the rebuild path, then retained execution resumes. The last
+    frame equals the reference app's."""
+    engine, app = _port_app("--mode", mode, "--lights", "2")
+    calls = []
+    for f in range(4):
+        if f == 2:
+            app.mark_structure_dirty()
+        app.tick(0.016)
+        engine.render(app)
+        calls.append(app.calls)
+    engine.shutdown()
+    assert calls == [1, 1, 2, 2]  # built, retained, rebuilt once, retained again
+    frame = np.asarray(engine.window.last_frame)
+    assert frame.shape == (H, W, 4) and frame[..., :3].std() > 1.0
+    d = np.abs(frame.astype(np.int16) - _jax_last_frame(mode).astype(np.int16)).max(-1)
+    assert float((d > 0).mean()) < 0.01 and int((d > 1).sum()) <= 40, \
+        (int(d.max()), int((d > 1).sum()))
+
+
+@pytest.mark.parametrize("mode", ["forward", "deferred"])
+def test_no_retained_flag_rebuilds_every_frame(mode):
+    engine, app = _port_app("--mode", mode, "--lights", "2", "--no-retained")
+    frame = _run(engine, app, 2)
+    assert app.calls == 2 and frame[..., :3].std() > 1.0
+
+
+def test_forward_options_reach_the_renderer():
+    engine, app = _port_app("--mode", "forward", "--msaa", "4", "--wireframe",
+                            "--instances", "5", "--no-post")
+    r = app.renderer
+    assert (r.msaa, r.wireframe, app.post) == (4, True, None)
+    rocks = [o for o in r.scene.objects if o.name == "rocks"]
+    assert len(rocks) == 1 and rocks[0].instance_count == 5
+    frame = _run(engine, app, 1)
+    assert frame[..., :3].std() > 1.0
+
+
+UNPORTED = [[f"--{name.replace('_', '-')}"] + (["2"] if name in ("decals", "particles",
+                                                                   "cascades") else [])
+            for name in _UNPORTED_FLAGS]
+
+
+@pytest.mark.parametrize("flags", UNPORTED + [
+    ["--mode", "deferred", "--instances", "3"], ["--gun-instances", "2"], ["--bloom-mips", "3"],
+], ids=lambda f: " ".join(f))
+def test_unported_flags_raise_before_anything_is_built(flags):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP item 21"):
+        SceneApp(EngineArgs(app_args=flags))
+
+
+def test_launch_passes_app_flags_and_defaults_to_the_card(monkeypatch):
+    from zenith_tpu_torch.launch import launch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError):
+        launch(SceneApp, argv=["--mode", "forward", "--msaa", "4"],
+               window=Window(width=W, height=H, title="t"), max_frames=1)

@@ -10,6 +10,7 @@ atol 1e-5 (XLA's CPU backend contracts the reference kernel's multiply-adds
 into FMAs, the port rounds each product; ROADMAP §3); colours atol 1e-5.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -92,14 +93,24 @@ RASTER_CASES = {
 }
 
 
+@jax.jit
+def _bins_of(clip, idx):
+    records = jsetup(clip, idx, W, H, cull_mode=jstate.CullMode.NONE)
+    corner = jcorner(records, idx, jnp.zeros((clip.shape[0], 0), jnp.float32))
+    return jbin(records, corner, JG)
+
+
+def _reference_bins(clip, idx):
+    """The reference's setup and binning of a case, compiled as one
+    function (both rasters read these bins)."""
+    return _bins_of(jnp.asarray(clip), jnp.asarray(idx, jnp.int32))
+
+
 @pytest.mark.parametrize("case", list(RASTER_CASES))
 def test_raster_segmented_stencil_matches_the_reference(case):
     clip, idx, front, back, init, compare, write, *rest = RASTER_CASES[case]
     z0 = np.full((H, W), rest[0] if rest else 0.0, np.float32)
-    idx = jnp.asarray(idx, jnp.int32)
-    records = jsetup(jnp.asarray(clip), idx, W, H, cull_mode=jstate.CullMode.NONE)
-    corner = jcorner(records, idx, jnp.zeros((clip.shape[0], 0), jnp.float32))
-    jb = jbin(records, corner, JG)
+    jb = _reference_bins(clip, idx)
     init = np.zeros((H, W), np.int32) if init is None else init
     jfront = face(jstate, **front)
     jback = None if back is None else face(jstate, **back)
@@ -170,14 +181,20 @@ def test_draw_indexed_stencil_matches_the_reference(given):
     bg = np.random.default_rng(1).uniform(0, 1, (H, W, 4)).astype(np.float32)
     z0 = np.full((H, W), 0.3, np.float32)
     sten = RANDOM_INIT if given else None
-    jc, jd, jst = jdraw.draw_indexed(
-        [jnp.asarray(bg)], jnp.asarray(z0), jp, jnp.asarray(vb), jnp.asarray(ib),
-        {"Gain": jnp.asarray(gain)}, JG, stencil=None if sten is None else jnp.asarray(sten))
+
+    def jfn(bg, z0, vb, ib, gain, sten):
+        cols, depth, st = jdraw.draw_indexed([bg], z0, jp, vb, ib, {"Gain": gain}, JG,
+                                             stencil=sten)
+        return cols, depth, st.stencil
+
+    jc, jd, jsten = jax.jit(jfn)(jnp.asarray(bg), jnp.asarray(z0), jnp.asarray(vb),
+                                 jnp.asarray(ib), jnp.asarray(gain),
+                                 None if sten is None else jnp.asarray(sten))
     tc, td, tst = tdraw.draw_indexed(
         [torch.from_numpy(bg)], torch.from_numpy(z0), tp, torch.from_numpy(vb),
         torch.from_numpy(ib), {"Gain": torch.from_numpy(gain)}, TG,
         stencil=None if sten is None else torch.from_numpy(sten))
-    np.testing.assert_array_equal(tst.stencil.numpy(), np.asarray(jst.stencil))
+    np.testing.assert_array_equal(tst.stencil.numpy(), np.asarray(jsten))
     np.testing.assert_allclose(tc[0].numpy(), np.asarray(jc[0]), atol=1e-5)
     np.testing.assert_allclose(td.numpy(), np.asarray(jd), atol=1e-5)
     if not given:  # untouched pixels keep the pipeline's stencil clear value
@@ -191,19 +208,26 @@ def test_draw_indexed_batch_stencil_matches_the_reference():
     draws = [_draw(s) for s in (21, 22, 23)]
     bg = np.zeros((H, W, 4), np.float32)
     z0 = np.full((H, W), 0.2, np.float32)
-    jc, jd, jst = jdraw.draw_indexed_batch(
-        [jnp.asarray(bg)], jnp.asarray(z0), jp,
-        [(jnp.asarray(vb), jnp.asarray(ib), {"Gain": jnp.asarray(g)}) for vb, ib, g in draws], JG,
-        per_draw_uniforms=("Gain",), stencil=jnp.asarray(RANDOM_INIT))
+
+    def jfn(bg, z0, jdraws, sten):
+        cols, depth, st = jdraw.draw_indexed_batch(
+            [bg], z0, jp, [(vb, ib, {"Gain": g}) for vb, ib, g in jdraws], JG,
+            per_draw_uniforms=("Gain",), stencil=sten)
+        return cols, depth, st.stencil, st.bin_overflow
+
+    jc, jd, jsten, jover = jax.jit(jfn)(
+        jnp.asarray(bg), jnp.asarray(z0),
+        [(jnp.asarray(vb), jnp.asarray(ib), jnp.asarray(g)) for vb, ib, g in draws],
+        jnp.asarray(RANDOM_INIT))
     tc, td, tst = tdraw.draw_indexed_batch(
         [torch.from_numpy(bg)], torch.from_numpy(z0), tp,
         [(torch.from_numpy(vb), torch.from_numpy(ib), {"Gain": torch.from_numpy(g)})
          for vb, ib, g in draws], TG,
         per_draw_uniforms=("Gain",), stencil=torch.from_numpy(RANDOM_INIT))
-    np.testing.assert_array_equal(tst.stencil.numpy(), np.asarray(jst.stencil))
+    np.testing.assert_array_equal(tst.stencil.numpy(), np.asarray(jsten))
     np.testing.assert_allclose(tc[0].numpy(), np.asarray(jc[0]), atol=1e-5)
     np.testing.assert_array_equal(td.numpy(), z0)  # depth write off
-    assert int(tst.bin_overflow) == int(jst.bin_overflow) == 0
+    assert int(tst.bin_overflow) == int(jover) == 0
 
 
 def _masked_graph(pkg):

@@ -64,10 +64,13 @@ class EngineArgs:
         parser.add_argument(
             "app_args", nargs=argparse.REMAINDER, help="arguments passed to the app"
         )
-        ns = parser.parse_args(argv)
+        # Arguments the engine does not know go to the app, as those after
+        # "--" do: launch(SceneApp, argv=["--mode", "forward"]) works.
+        ns, unknown = parser.parse_known_args(argv)
         app_args = list(ns.app_args)
         if app_args and app_args[0] == "--":
             app_args = app_args[1:]
+        app_args = unknown + app_args
         args = EngineArgs(
             log_level=LogLevel(ns.log_level), app_args=app_args,
             pace_stride=ns.pace_stride,

@@ -1,7 +1,7 @@
 """The draw call: programmable + fixed-function pipeline for one draw or a
 batch of draws (torch port of zenith_tpu/ops/draw.py: ``draw_indexed`` and
-``draw_indexed_batch`` with their stencil, depth-peel and in-order blend
-branches; single sample).
+``draw_indexed_batch`` with their stencil, depth-peel, in-order blend and
+multisample branches, over triangles, lines and points).
 
     vertex fetch (VertexLayout.unpack)
     → vertex shader (user fn, dense over vertices)
@@ -22,8 +22,11 @@ fragment shading runs once per pixel with no gathers. Ops run eagerly in
 stream order, which sequences split parts without the reference's
 optimization barriers.
 
-Not ported yet: multisampling (every ``samples > 1`` branch raises, ROADMAP
-item 18) and line/point primitives (item 19).
+Lines and points (and triangles under a LINE or POINT polygon mode) expand
+to screen rectangles of two triangles in setup and ride the same binning
+and kernels. Multisampling runs one raster per Vulkan standard sample
+position (``SAMPLE_POSITIONS``) over one shared binning: colours are
+(S, H, W, C) and depth and stencil (S, H, W) inside an MSAA draw chain.
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ from zenith_tpu_torch.rhi.shader import BindingError, BoundResources, FragmentBu
 from zenith_tpu_torch.rhi.state import (
     ColorAttachmentDesc,
     CompareOp,
+    CullMode,
     InputAssemblyState,
     PolygonMode,
     PrimitiveTopology,
@@ -62,20 +66,25 @@ MAX_PRIMS_PER_PART = 2 * 1024 * 1024
 
 
 def _geo_specs(prim_kind, clip, prims, flat_vary, grid, rast_state,
-               viewport, depth_bias):
+               viewport, depth_bias, point_sizes=None):
     """Deferred geometry-part builders for one draw: a list of
     ``(est_records, build)``; triangle draws above MAX_PRIMS_PER_PART split
-    into contiguous primitive ranges (draw.py:81-109)."""
+    into contiguous primitive ranges (draw.py:81-109). The estimate is the
+    reference's: 6 records a primitive for ``wire_line``, 2 for every other
+    kind, although ``wire_point`` emits 6 (ROADMAP §3: pass an explicit
+    ``entry_budget`` to POINT-mode draws)."""
 
     def make_build(pr):
         def build():
             return _setup_records(prim_kind, clip, pr, flat_vary, grid,
-                                  rast_state, viewport, depth_bias)
+                                  rast_state, viewport, depth_bias,
+                                  point_sizes=point_sizes)
         return build
 
     t = prims.shape[0]
-    if t <= MAX_PRIMS_PER_PART:
-        return [(2 * t, make_build(prims))]
+    est_factor = 6 if prim_kind == "wire_line" else 2
+    if prim_kind != "tri" or t <= MAX_PRIMS_PER_PART:
+        return [(est_factor * t, make_build(prims))]
     k = -(-t // MAX_PRIMS_PER_PART)
     step = -(-t // k)
     return [
@@ -187,10 +196,6 @@ def _raster_parts(bin_parts: _BinParts, grid, init_z, *, init_stencil=None,
     return z, acc
 
 
-def _msaa_unported() -> NotImplementedError:
-    return NotImplementedError("MSAA is not ported yet (ROADMAP item 18: MSAA)")
-
-
 def _default_stencil(ds, grid, device) -> torch.Tensor:
     """The stencil plane a draw starts from when none is attached."""
     return torch.full((grid.height, grid.width), ds.stencil_clear_value & 0xFF,
@@ -201,6 +206,26 @@ def _raster_state(ds, rast_state) -> dict:
     """The depth state of a pipeline as raster_segmented's keywords."""
     return dict(depth_test=ds.depth_test_enable, depth_write=ds.depth_write_enable,
                 compare_op=ds.depth_compare_op, depth_clamp=rast_state.depth_clamp)
+
+
+def _zero_depth(grid, device) -> torch.Tensor:
+    """The depth plane a draw without a depth attachment starts from."""
+    return torch.zeros((grid.height, grid.width), dtype=torch.float32, device=device)
+
+
+def _raster_one(bins, grid, ds, rast_state, init_z, stencil=None,
+                sample_offset=(0.5, 0.5)):
+    """One raster of a draw's bins at one sample position → (z, acc,
+    stencil or None): K3 from ``stencil`` (or the clear value) when the
+    pipeline enables the stencil test, else K1."""
+    kw = dict(_raster_state(ds, rast_state), sample_offset=sample_offset)
+    if ds.stencil_test_enable:
+        init_s = stencil if stencil is not None else _default_stencil(ds, grid, init_z.device)
+        return _raster_parts(bins, grid, init_z, init_stencil=init_s,
+                             stencil_front=ds.stencil_front,
+                             stencil_back=ds.stencil_back, **kw)
+    z_out, acc = _raster_parts(bins, grid, init_z, **kw)
+    return z_out, acc, None
 
 
 class _CheckedAttrs(dict):
@@ -294,27 +319,96 @@ def assemble_triangles(index_buffer: torch.Tensor, ia: InputAssemblyState) -> to
     return torch.where(bad[:, None], torch.zeros_like(tris), tris)
 
 
+def assemble_lines(index_buffer: torch.Tensor, ia: InputAssemblyState) -> torch.Tensor:
+    """Index buffer → (L, 2) segment list for the line topologies
+    (draw.py:389-407). LINE_STRIP segment i is (v_i, v_{i+1}); with
+    ``primitive_restart`` the segments touching the restart index collapse
+    to (0, 0), zero screen length, which line setup drops."""
+    flat = index_buffer.reshape(-1).to(torch.int32)
+    n = flat.shape[0]
+    if ia.topology == PrimitiveTopology.LINE_LIST:
+        if n % 2:
+            raise ValueError(f"line list needs an even index count, got {n}")
+        return flat.reshape(-1, 2)
+    if n < 2:
+        raise ValueError(f"line strip needs >= 2 indices, got {n}")
+    segs = torch.stack([flat[:-1], flat[1:]], dim=1)
+    if ia.primitive_restart:
+        bad = (flat[:-1] == -1) | (flat[1:] == -1)
+        segs = torch.where(bad[:, None], torch.zeros_like(segs), segs)
+    return segs
+
+
 def _assemble_primitives(index_buffer, ia: InputAssemblyState, polygon_mode: PolygonMode):
-    """Primitive assembly dispatch → (kind, (P, 3) primitive indices). Only
-    filled triangles are ported."""
+    """Primitive assembly dispatch → (kind, (P, K) primitive indices)
+    (draw.py:410-428). kind is 'tri', 'line', 'point', 'wire_line' or
+    'wire_point'; the wire kinds are triangles under a LINE/POINT polygon
+    mode, kept (T, 3) so that setup culls by the polygon's facing before
+    taking it apart (Vulkan 27.7.1)."""
     topo = ia.topology
-    if topo in (PrimitiveTopology.LINE_LIST, PrimitiveTopology.LINE_STRIP,
-                PrimitiveTopology.POINT_LIST) or polygon_mode != PolygonMode.FILL:
-        raise NotImplementedError(
-            "line/point topologies and LINE/POINT polygon modes are not "
-            "ported yet (ROADMAP item 19: lines, points and polygon modes)"
+    if topo in (PrimitiveTopology.LINE_LIST, PrimitiveTopology.LINE_STRIP):
+        return "line", assemble_lines(index_buffer, ia)
+    if topo == PrimitiveTopology.POINT_LIST:
+        return "point", index_buffer.reshape(-1, 1).to(torch.int32)
+    tris = assemble_triangles(index_buffer, ia)
+    if polygon_mode == PolygonMode.LINE:
+        return "wire_line", tris
+    if polygon_mode == PolygonMode.POINT:
+        return "wire_point", tris
+    return "tri", tris
+
+
+def _setup_records(kind, clip, prims, flat_vary, grid, rast_state, viewport, depth_bias,
+                   point_sizes=None):
+    """Primitive setup → (TriangleRecords, corner_data) (draw.py:431-478):
+    triangles through setup_with_attrs, lines and points as screen
+    rectangles on the same records."""
+    dc = rast_state.depth_clamp
+    if kind == "tri":
+        return geometry.setup_with_attrs(
+            clip, prims, flat_vary, grid.width, grid.height,
+            cull_mode=rast_state.cull_mode, front_face=rast_state.front_face,
+            viewport=viewport, depth_bias=depth_bias, depth_clamp=dc,
         )
-    return "tri", assemble_triangles(index_buffer, ia)
-
-
-def _setup_records(kind, clip, prims, flat_vary, grid, rast_state, viewport, depth_bias):
-    """Primitive setup → (TriangleRecords, corner_data)."""
-    assert kind == "tri", kind
-    return geometry.setup_with_attrs(
-        clip, prims, flat_vary, grid.width, grid.height,
-        cull_mode=rast_state.cull_mode, front_face=rast_state.front_face,
-        viewport=viewport, depth_bias=depth_bias, depth_clamp=rast_state.depth_clamp,
+    if kind in ("wire_line", "wire_point"):
+        front, degen = geometry.triangle_facing(clip, prims, rast_state.front_face)
+        keep = ~degen
+        if rast_state.cull_mode == CullMode.BACK:
+            keep = keep & front
+        elif rast_state.cull_mode == CullMode.FRONT:
+            keep = keep & ~front
+        if kind == "wire_line":
+            segs = torch.cat([prims[:, [0, 1]], prims[:, [1, 2]], prims[:, [2, 0]]])
+            return geometry.setup_lines_with_attrs(
+                clip, segs, flat_vary, grid.width, grid.height,
+                line_width=rast_state.line_width, viewport=viewport,
+                depth_clamp=dc, seg_valid=torch.cat([keep, keep, keep]),
+            )
+        return geometry.setup_points_with_attrs(
+            clip, prims.reshape(-1), flat_vary, grid.width, grid.height,
+            point_sizes=point_sizes, viewport=viewport, depth_clamp=dc,
+            pt_valid=keep.repeat_interleave(3),
+        )
+    if kind == "line":
+        return geometry.setup_lines_with_attrs(
+            clip, prims, flat_vary, grid.width, grid.height,
+            line_width=rast_state.line_width, viewport=viewport, depth_clamp=dc,
+        )
+    assert kind == "point", kind
+    return geometry.setup_points_with_attrs(
+        clip, prims.reshape(-1), flat_vary, grid.width, grid.height,
+        point_sizes=point_sizes, viewport=viewport, depth_clamp=dc,
     )
+
+
+def _pop_point_sizes(vs_out) -> Optional[torch.Tensor]:
+    """Take the PointSize builtin (``point_size``, Vulkan's gl_PointSize)
+    out of the vertex-stage outputs, so that it never becomes a varying
+    (draw.py:481-488)."""
+    ps = vs_out.pop("point_size", None)
+    if ps is None:
+        return None
+    return torch.as_tensor(ps, dtype=torch.float32).reshape(-1)
 
 
 def _normalize_frag_out(frag_out) -> list:
@@ -329,7 +423,8 @@ def _normalize_frag_out(frag_out) -> list:
 
 def _vertex_stage(pipeline, vertex_buffer, attrs, vs_res, indices,
                   instance_count=1, instance_data=None):
-    """Run the vertex shader → (clip (N, 4), varyings, primitive indices).
+    """Run the vertex shader → (clip (N, 4), varyings, primitive indices,
+    point sizes or None).
 
     ``instance_count`` > 1 (or instance data) runs it over a written-out
     instance dimension: instances see ``instance_data`` rows as extra attrs
@@ -357,11 +452,7 @@ def _vertex_stage(pipeline, vertex_buffer, attrs, vs_res, indices,
         vs_out = dict(pipeline.vertex_shader.fn(
             _CheckedAttrs(attrs, pipeline.vertex_shader.name), vs_res))
     clip = vs_out.pop("position")
-    if vs_out.pop("point_size", None) is not None:
-        raise NotImplementedError(
-            "point_size is a point-primitive builtin (ROADMAP item 19)"
-        )
-    return clip, vs_out, indices
+    return clip, vs_out, indices, _pop_point_sizes(vs_out)
 
 
 class PerDraw(tuple):
@@ -405,8 +496,6 @@ def draw_indexed(
     state = pipeline.desc.state
     rast_state = state.rasterization
     ds = state.depth_stencil
-    if state.multisample.samples > 1:
-        raise _msaa_unported()
 
     # -- vertex stage --------------------------------------------------------
     layout = pipeline.vertex_layout
@@ -419,7 +508,7 @@ def draw_indexed(
         index_buffer, state.input_assembly, rast_state.polygon_mode
     )
 
-    clip, vs_out, indices = _vertex_stage(
+    clip, vs_out, indices, point_sizes = _vertex_stage(
         pipeline, vertex_buffer, attrs, vs_res, indices, instance_count, instance_data
     )
     _warn_unused_bindings(pipeline.vertex_shader, vs_res)
@@ -442,24 +531,22 @@ def draw_indexed(
         depth_bias = (rast_state.depth_bias_constant, rast_state.depth_bias_slope)
     specs = _geo_specs(
         prim_kind, clip, indices, flat_vary, grid, rast_state, viewport, depth_bias,
+        point_sizes=point_sizes,
     )
     attr_layout.append(("__front", 1))
 
     # -- binning + raster ------------------------------------------------------
     bins = _bin_spec_parts(specs, grid, entry_budget=entry_budget,
                            budget_scale=budget_scale)
-    if depth is not None:
-        init_z = depth
-    else:
-        init_z = torch.zeros((grid.height, grid.width), dtype=torch.float32, device=clip.device)
-    stencil_out = None
-    if ds.stencil_test_enable:
-        init_s = stencil if stencil is not None else _default_stencil(ds, grid, clip.device)
-        z_out, acc, stencil_out = _raster_parts(
-            bins, grid, init_z, init_stencil=init_s, stencil_front=ds.stencil_front,
-            stencil_back=ds.stencil_back, **_raster_state(ds, rast_state))
-    else:
-        z_out, acc = _raster_parts(bins, grid, init_z, **_raster_state(ds, rast_state))
+    samples = state.multisample.samples
+    if samples > 1:
+        new_colors, new_depth, stencil_out = _raster_shade_msaa(
+            colors, depth, pipeline, resources, bins, grid, attr_layout, samples,
+            stencil, clip.device)
+        return new_colors, new_depth, DrawStats(bin_overflow=bins.overflow, stencil=stencil_out)
+
+    init_z = depth if depth is not None else _zero_depth(grid, clip.device)
+    z_out, acc, stencil_out = _raster_one(bins, grid, ds, rast_state, init_z, stencil)
 
     varyings, mask, builtins = shade.finalize_attrs(z_out, acc, attr_layout)
     new_colors = _shade_and_blend(colors, varyings, mask, builtins, pipeline, resources)
@@ -467,31 +554,155 @@ def draw_indexed(
     return new_colors, new_depth, DrawStats(bin_overflow=bins.overflow, stencil=stencil_out)
 
 
+def _fragment_outputs(pipeline, resources, varyings, builtins, n_colors):
+    """Run the fragment shader over finalized varyings → [(image, attachment
+    desc)] in attachment order."""
+    fs = pipeline.fragment_shader
+    fs_res = BoundResources(fs.reflection, resources)
+    frag_list = _normalize_frag_out(fs.fn(varyings, fs_res, builtins))
+    _warn_unused_bindings(fs, fs_res)
+    if len(frag_list) != n_colors:
+        raise ValueError(
+            f"fragment shader wrote {len(frag_list)} outputs for "
+            f"{n_colors} color attachments"
+        )
+    descs = pipeline.desc.color_attachment_descs or (None,) * n_colors
+    return [(src, d if d is not None else ColorAttachmentDesc())
+            for src, d in zip(frag_list, descs)]
+
+
 def _shade_and_blend(colors, varyings, mask, builtins, pipeline, resources):
     """Fragment shader → output merger for one sample, over finalized
     varyings."""
+    if pipeline.fragment_shader is None:
+        return list(colors)
+    constants = pipeline.desc.state.color_blend.blend_constants
+    return [blend_ops.apply_color_output(dst, src, mask, desc, constants)
+            for dst, (src, desc) in zip(colors, _fragment_outputs(
+                pipeline, resources, varyings, builtins, len(colors)))]
+
+
+# Vulkan standard sample locations (spec 25.3), draw.py:701-710. Every
+# position lies in [0, 1)², the range the CUDA raster wrappers accept.
+SAMPLE_POSITIONS = {
+    1: ((0.5, 0.5),),
+    2: ((0.75, 0.75), (0.25, 0.25)),
+    4: ((0.375, 0.125), (0.875, 0.375), (0.125, 0.625), (0.625, 0.875)),
+    8: (
+        (0.5625, 0.3125), (0.4375, 0.6875), (0.8125, 0.5625),
+        (0.3125, 0.1875), (0.1875, 0.8125), (0.0625, 0.4375),
+        (0.6875, 0.9375), (0.9375, 0.0625),
+    ),
+}
+
+
+def _sample_offsets(samples: int):
+    offsets = SAMPLE_POSITIONS.get(samples)
+    if offsets is None:
+        raise ValueError(f"unsupported sample count {samples} "
+                         f"(supported: {sorted(SAMPLE_POSITIONS)})")
+    return offsets
+
+
+def _plane_at(plane, s: int, samples: int):
+    """Sample ``s`` of a (S, H, W, ...) plane of an MSAA draw chain, or the
+    plane itself at one sample."""
+    return plane[s] if plane is not None and samples > 1 else plane
+
+
+def _join_samples(planes: list, samples: int):
+    """The per-sample planes of a draw as one (S, H, W, ...) tensor (the
+    plane itself at one sample; None when there are none)."""
+    if not planes:
+        return None
+    return torch.stack(planes) if samples > 1 else planes[0]
+
+
+def _raster_shade_msaa(colors, depth, pipeline, resources, bins, grid, attr_layout,
+                       samples, stencil, device):
+    """Multisampling (draw.py:713-787): one shared binning, one raster per
+    standard sample position, shading and blending per sample. Inside an
+    MSAA draw chain colours are (S, H, W, C), depth (S, H, W) and, when the
+    pipeline tests stencil, stencil (S, H, W) int32; the render graph
+    broadcasts clears and loads and resolves at the store. With
+    ``sample_shading`` off the draw shades once per pixel
+    (``_raster_shade_msaa_per_pixel``)."""
     state = pipeline.desc.state
-    fs = pipeline.fragment_shader
-    new_colors = list(colors)
-    if fs is not None:
-        fs_res = BoundResources(fs.reflection, resources)
-        frag_out = fs.fn(varyings, fs_res, builtins)
-        _warn_unused_bindings(fs, fs_res)
-        frag_list = _normalize_frag_out(frag_out)
-        descs = pipeline.desc.color_attachment_descs or tuple(
-            None for _ in new_colors
-        )
-        if len(frag_list) != len(new_colors):
-            raise ValueError(
-                f"fragment shader wrote {len(frag_list)} outputs for "
-                f"{len(new_colors)} color attachments"
-            )
-        for i, (dst, src) in enumerate(zip(new_colors, frag_list)):
-            desc = descs[i] if descs[i] is not None else ColorAttachmentDesc()
-            new_colors[i] = blend_ops.apply_color_output(
-                dst, src, mask, desc, state.color_blend.blend_constants
-            )
-    return new_colors
+    ds = state.depth_stencil
+    rast_state = state.rasterization
+    offsets = _sample_offsets(samples)
+    if not state.multisample.sample_shading:
+        return _raster_shade_msaa_per_pixel(colors, depth, pipeline, resources, bins, grid,
+                                            attr_layout, offsets, stencil, device)
+    out_colors = [[] for _ in colors]
+    out_z, out_s = [], []
+    for s, off in enumerate(offsets):
+        init_z = depth[s] if depth is not None else _zero_depth(grid, device)
+        z_s, acc_s, st_s = _raster_one(bins, grid, ds, rast_state, init_z,
+                                       stencil[s] if stencil is not None else None, off)
+        varyings, mask, builtins = shade.finalize_attrs(z_s, acc_s, attr_layout)
+        shaded = _shade_and_blend([c[s] for c in colors], varyings, mask, builtins,
+                                  pipeline, resources)
+        for i, c in enumerate(shaded):
+            out_colors[i].append(c)
+        out_z.append(z_s)
+        if st_s is not None:
+            out_s.append(st_s)
+    new_depth = torch.stack(out_z) if depth is not None else None
+    return [torch.stack(cs) for cs in out_colors], new_depth, _join_samples(out_s, len(offsets))
+
+
+def _raster_shade_msaa_per_pixel(colors, depth, pipeline, resources, bins, grid,
+                                 attr_layout, offsets, stencil, device):
+    """Shade-once-per-pixel MSAA (vk sampleShadingEnable=False,
+    draw.py:790-901): one raster per sample position resolves per-sample
+    visibility and depth (and stencil), one more raster at the pixel centre
+    resolves the shaded surface's attributes, the fragment shader runs once
+    per pixel, and each covered sample blends the result in through its own
+    output merge.
+
+    The centre plane is not kept between draws, so its depth seed is
+    rebuilt from the per-sample planes by the compare: the per-pixel max for
+    GREATER/GEQ, the min for LESS/LEQ, sample 0 otherwise. Silhouette
+    samples whose winner differs from the centre's take the centre
+    surface's colour, and samples covered where the centre is not keep
+    their previous contents (the reference's documented contract)."""
+    state = pipeline.desc.state
+    ds = state.depth_stencil
+    rast_state = state.rasterization
+    zs, accs, stens = [], [], []
+    for s, off in enumerate(offsets):
+        init_z = depth[s] if depth is not None else _zero_depth(grid, device)
+        z_s, acc_s, st_s = _raster_one(bins, grid, ds, rast_state, init_z,
+                                       stencil[s] if stencil is not None else None, off)
+        zs.append(z_s)
+        accs.append(acc_s)
+        if st_s is not None:
+            stens.append(st_s)
+
+    if depth is None:
+        init_zc = _zero_depth(grid, device)
+    elif ds.depth_compare_op in (CompareOp.GREATER, CompareOp.GREATER_OR_EQUAL):
+        init_zc = depth.amax(dim=0)
+    elif ds.depth_compare_op in (CompareOp.LESS, CompareOp.LESS_OR_EQUAL):
+        init_zc = depth.amin(dim=0)
+    else:
+        init_zc = depth[0]
+    z_c, acc_c = _raster_parts(bins, grid, init_zc, sample_offset=(0.5, 0.5),
+                               **_raster_state(ds, rast_state))
+    varyings, center_mask, builtins = shade.finalize_attrs(z_c, acc_c, attr_layout)
+
+    out_colors = [[c[s] for s in range(len(offsets))] for c in colors]
+    if pipeline.fragment_shader is not None:
+        constants = state.color_blend.blend_constants
+        frags = _fragment_outputs(pipeline, resources, varyings, builtins, len(colors))
+        for s in range(len(offsets)):
+            mask_s = (accs[s][-1] > 0.0) & center_mask
+            for i, (src, desc) in enumerate(frags):
+                out_colors[i][s] = blend_ops.apply_color_output(
+                    out_colors[i][s], src, mask_s, desc, constants)
+    new_depth = torch.stack(zs) if depth is not None else None
+    return [torch.stack(cs) for cs in out_colors], new_depth, _join_samples(stens, len(offsets))
 
 
 def _batch_records(pipeline, draws, grid, viewport, uniform_columns,
@@ -520,7 +731,7 @@ def _batch_records(pipeline, draws, grid, viewport, uniform_columns,
         )
         icount = int(inst.get("instance_count", 1)) if inst else 1
         idata = (inst.get("instance_data") or {}) if inst else None
-        clip, vs_out, prims = _vertex_stage(
+        clip, vs_out, prims, point_sizes = _vertex_stage(
             pipeline, vb, attrs, vs_res, prims, icount, idata
         )
         _warn_unused_bindings(pipeline.vertex_shader, vs_res)
@@ -552,6 +763,7 @@ def _batch_records(pipeline, draws, grid, viewport, uniform_columns,
         flat_vary = torch.cat(vary_cols, dim=1)
         all_specs.extend(_geo_specs(
             prim_kind, clip, prims, flat_vary, grid, rast_state, viewport, depth_bias,
+            point_sizes=point_sizes,
         ))
     attr_layout.append(("__front", 1))
     return all_specs, attr_layout
@@ -600,8 +812,6 @@ def draw_indexed_batch(
     n_draws = len(draws)
     if n_draws < 1:
         raise ValueError("draw_indexed_batch needs at least one draw")
-    if state.multisample.samples > 1:
-        raise _msaa_unported()
 
     blend_enabled = any(
         desc.blend_enable for desc in pipeline.desc.color_attachment_descs or ()
@@ -654,11 +864,11 @@ def draw_indexed_batch(
     bins = _bin_spec_parts(all_specs, grid, entry_budget=entry_budget,
                            budget_scale=budget_scale)
     dev = draws[0][0].device
-    if depth is not None:
-        init_z = depth
-    else:
-        init_z = torch.zeros((grid.height, grid.width), dtype=torch.float32, device=dev)
-    raster_kw = _raster_state(ds, rast_state)
+    samples = state.multisample.samples
+    # Batched MSAA shades per sample in both sample_shading modes, as the
+    # reference does (draw.py:1287-1294): colours (S, H, W, C), depth and
+    # stencil (S, H, W), one raster (or peel chain) per standard position.
+    offsets = _sample_offsets(samples) if samples > 1 else ((0.5, 0.5),)
 
     def shade_layer(z_out, acc, dst_colors):
         return _shade_batch(dst_colors, z_out, acc, attr_layout, pipeline, draws,
@@ -667,38 +877,56 @@ def draw_indexed_batch(
     if peel:
         # Depth peeling (Everitt 2001): peel k rejects fragments at or before
         # peel k-1's depth, so each pass resolves the next-nearest layer.
-        peel_kw = dict(raster_kw, depth_test=True, depth_write=True)
-        layers = []
-        bound = None
-        for _ in range(int(peel_layers)):
-            z_k, acc_k = _raster_parts(bins, grid, init_z, z_bound=bound, **peel_kw)
-            layers.append((z_k, acc_k))
-            bound = z_k
-        # Overflow probe: one more bounded pass, depth write off; any
-        # surviving fragment is a dropped (K+1)-th layer. The count stays a
-        # device tensor (no host read).
-        _, acc_over = _raster_parts(bins, grid, init_z, z_bound=bound,
-                                    **dict(peel_kw, depth_write=False))
-        over = (acc_over[-1] > 0.0).sum().to(torch.int32)
-        dst = colors[0]
-        for z_k, acc_k in reversed(layers):
-            dst = shade_layer(z_k, acc_k, [dst])[0]
-        new_depth = None
-        if depth is not None:
-            new_depth = layers[0][0] if ds.depth_write_enable else depth
-        return [dst], new_depth, DrawStats(bin_overflow=bins.overflow + over)
+        peel_kw = dict(_raster_state(ds, rast_state), depth_test=True, depth_write=True)
 
-    stencil_out = None
-    if ds.stencil_test_enable:
-        init_s = stencil if stencil is not None else _default_stencil(ds, grid, dev)
-        z_out, acc, stencil_out = _raster_parts(
-            bins, grid, init_z, init_stencil=init_s, stencil_front=ds.stencil_front,
-            stencil_back=ds.stencil_back, **raster_kw)
-    else:
-        z_out, acc = _raster_parts(bins, grid, init_z, **raster_kw)
-    new_colors = shade_layer(z_out, acc, colors)
-    new_depth = z_out if depth is not None else None
-    return new_colors, new_depth, DrawStats(bin_overflow=bins.overflow, stencil=stencil_out)
+        def peel_chain(init_z, dst, off):
+            layers = []
+            bound = None
+            for _ in range(int(peel_layers)):
+                z_k, acc_k = _raster_parts(bins, grid, init_z, z_bound=bound,
+                                           sample_offset=off, **peel_kw)
+                layers.append((z_k, acc_k))
+                bound = z_k
+            # Overflow probe: one more bounded pass, depth write off; any
+            # surviving fragment is a dropped (K+1)-th layer. The count stays
+            # a device tensor (no host read).
+            _, acc_over = _raster_parts(bins, grid, init_z, z_bound=bound, sample_offset=off,
+                                        **dict(peel_kw, depth_write=False))
+            over = (acc_over[-1] > 0.0).sum().to(torch.int32)
+            for z_k, acc_k in reversed(layers):
+                dst = shade_layer(z_k, acc_k, [dst])[0]
+            return dst, layers[0][0], over
+
+        out_c, out_z = [], []
+        over_total = bins.overflow
+        for s, off in enumerate(offsets):
+            init_z = _plane_at(depth, s, samples)
+            c_s, z_s, over = peel_chain(init_z if init_z is not None else _zero_depth(grid, dev),
+                                        _plane_at(colors[0], s, samples), off)
+            out_c.append(c_s)
+            out_z.append(z_s)
+            over_total = over_total + over
+        new_depth = depth
+        if depth is not None and ds.depth_write_enable:
+            new_depth = _join_samples(out_z, samples)
+        return [_join_samples(out_c, samples)], new_depth, DrawStats(bin_overflow=over_total)
+
+    out_colors = [[] for _ in colors]
+    out_z, out_s = [], []
+    for s, off in enumerate(offsets):
+        init_z = _plane_at(depth, s, samples)
+        z_s, acc_s, st_s = _raster_one(
+            bins, grid, ds, rast_state,
+            init_z if init_z is not None else _zero_depth(grid, dev),
+            _plane_at(stencil, s, samples), off)
+        for i, c in enumerate(shade_layer(z_s, acc_s, [_plane_at(c, s, samples) for c in colors])):
+            out_colors[i].append(c)
+        out_z.append(z_s)
+        if st_s is not None:
+            out_s.append(st_s)
+    new_depth = _join_samples(out_z, samples) if depth is not None else None
+    return ([_join_samples(cs, samples) for cs in out_colors], new_depth,
+            DrawStats(bin_overflow=bins.overflow, stencil=_join_samples(out_s, samples)))
 
 
 def make_shade_blend(fs, attr_layout, cdesc: ColorAttachmentDesc, constants, full_res):
@@ -761,8 +989,6 @@ def _draw_batch_blend(colors, depth, pipeline, draws, grid, viewport=None,
     rast_state = state.rasterization
     ds = state.depth_stencil
     fs = pipeline.fragment_shader
-    if state.multisample.samples > 1:
-        raise _msaa_unported()
 
     all_specs, attr_layout = _batch_records(
         pipeline, draws, grid, viewport, tuple(fs.reflection.binding_names()),
@@ -772,29 +998,46 @@ def _draw_batch_blend(colors, depth, pipeline, draws, grid, viewport=None,
     cdesc = (pipeline.desc.color_attachment_descs or (ColorAttachmentDesc(),))[0]
     shade_blend = make_shade_blend(fs, attr_layout, cdesc, state.color_blend.blend_constants,
                                    (grid.width, grid.height))
-
     dev = draws[0][0].device
-    z_p = depth if depth is not None else torch.zeros(
-        (grid.height, grid.width), dtype=torch.float32, device=dev)
-    c_p = colors[0]
-    s_p = None
-    if ds.stencil_test_enable:
-        s_p = stencil if stencil is not None else _default_stencil(ds, grid, dev)
-    # The in-order blend carries its state in the planes, so the sequential
-    # bin parts compose exactly.
-    for b in bins.parts:
-        out = raster_segmented_blend(
-            b, grid, z_p, c_p, shade_blend, init_stencil=s_p,
-            stencil_front=ds.stencil_front if s_p is not None else None,
-            stencil_back=ds.stencil_back if s_p is not None else None,
-            fragment_shader=fs, attr_layout=attr_layout, color_desc=cdesc,
-            **_raster_state(ds, rast_state))
+
+    def blend_parts(z_p, c_p, s_p, off):
+        # The in-order blend carries its state in the planes, so the
+        # sequential bin parts compose exactly.
+        for b in bins.parts:
+            out = raster_segmented_blend(
+                b, grid, z_p, c_p, shade_blend, init_stencil=s_p,
+                stencil_front=ds.stencil_front if s_p is not None else None,
+                stencil_back=ds.stencil_back if s_p is not None else None,
+                sample_offset=off, fragment_shader=fs, attr_layout=attr_layout,
+                color_desc=cdesc, **_raster_state(ds, rast_state))
+            if s_p is not None:
+                z_p, c_p, s_p = out
+            else:
+                z_p, c_p = out
+        return z_p, c_p, s_p
+
+    samples = state.multisample.samples
+    # MSAA runs one in-order blend pass per standard sample position; the
+    # fragment shader runs per fragment inside it, so shading is per sample
+    # in both sample_shading modes (draw.py:1536-1569).
+    offsets = _sample_offsets(samples) if samples > 1 else ((0.5, 0.5),)
+    out_z, out_c, out_s = [], [], []
+    for s, off in enumerate(offsets):
+        z_p = _plane_at(depth, s, samples)
+        s_p = None
+        if ds.stencil_test_enable:
+            s_p = _plane_at(stencil, s, samples)
+            if s_p is None:
+                s_p = _default_stencil(ds, grid, dev)
+        z_p, c_p, s_p = blend_parts(z_p if z_p is not None else _zero_depth(grid, dev),
+                                    _plane_at(colors[0], s, samples), s_p, off)
+        out_z.append(z_p)
+        out_c.append(c_p)
         if s_p is not None:
-            z_p, c_p, s_p = out
-        else:
-            z_p, c_p = out
-    new_depth = z_p if depth is not None else None
-    return [c_p], new_depth, DrawStats(bin_overflow=bins.overflow, stencil=s_p)
+            out_s.append(s_p)
+    new_depth = _join_samples(out_z, samples) if depth is not None else None
+    return ([_join_samples(out_c, samples)], new_depth,
+            DrawStats(bin_overflow=bins.overflow, stencil=_join_samples(out_s, samples)))
 
 
 def _shade_batch(colors, z_out, acc, attr_layout, pipeline, draws, per_draw_uniforms,

@@ -14,7 +14,9 @@ Dense tensor ops over all triangles at once. Outputs are static-shape
   attributes themselves and leaves them the identity.
 - ``tri_id``  (R,) i32, ``valid`` (R,) bool, ``aabb`` (R, 4) f32.
 
-R = 2 × number of input triangles (static near-clip expansion).
+R = 2 × number of input triangles (static near-clip expansion). Line and
+point setup expand each segment or point into a screen rectangle of two
+triangles on the same records (R = 2L, 2P).
 
 Conventions match the reference for per-pixel parity: pixel centres at
 (px+0.5, py+0.5), y down; det > 0 ⇔ clockwise on screen; top-left fill rule.
@@ -177,18 +179,156 @@ def setup_triangles(
                                  front_face, viewport, obary=obary)
 
 
-def setup_lines_with_attrs(*args, **kwargs):
-    raise NotImplementedError(
-        "line setup is not ported yet (ROADMAP item 19: lines, points and "
-        "polygon modes)"
+def setup_lines_with_attrs(
+    clip_positions: torch.Tensor,  # (Nv, 4)
+    segments: torch.Tensor,  # (L, 2) endpoint indices
+    varyings: torch.Tensor,  # (Nv, A)
+    width: int,
+    height: int,
+    line_width: float = 1.0,
+    viewport: "tuple | None" = None,
+    depth_clamp: bool = False,
+    seg_valid: Optional[torch.Tensor] = None,  # (L,) extra mask (wireframe cull)
+) -> "tuple[TriangleRecords, torch.Tensor]":
+    """Line setup (geometry.py:133-261): each segment becomes a
+    ``line_width``-wide screen rectangle with butt caps (Vulkan 27.6), two
+    triangles sharing a diagonal, on the ordinary triangle records. Depth,
+    1/w and attributes are per endpoint, so interpolation is
+    perspective-correct along the line and constant across it. Lines are
+    never culled and always front-facing; zero-length lines draw nothing.
+    Returns (records, corner data) with R = 2L."""
+    segments = segments.to(torch.int64)
+    nl = segments.shape[0]
+    a = varyings.shape[1]
+    combined = torch.cat([clip_positions.to(torch.float32), varyings.to(torch.float32)], dim=1)
+    ends = combined[segments.reshape(-1)].reshape(nl, 2, 4 + a)
+
+    # Near clip (z <= w, or w > 0 only under depth clamp): a clipped segment
+    # stays one segment.
+    d = ends[..., 3] if depth_clamp else ends[..., 3] - ends[..., 2]
+    inside = d > NEAR_W_EPS  # (L, 2)
+    valid = inside[:, 0] | inside[:, 1]
+    if seg_valid is not None:
+        valid = valid & seg_valid
+    denom = d[:, 0] - d[:, 1]
+    denom = torch.where(torch.abs(denom) > 1e-20, denom, torch.ones_like(denom))
+    t = torch.clamp((d[:, 0] - NEAR_W_EPS) / denom, 0.0, 1.0)[:, None]
+    crossing = _lerp_fma(ends[:, 0], ends[:, 1], t)
+    e0 = torch.where(inside[:, 0, None], ends[:, 0], crossing)
+    e1 = torch.where(inside[:, 1, None], ends[:, 1], crossing)
+
+    pts = torch.stack([e0, e1], dim=1)  # (L, 2, 4+A)
+    iw2 = 1.0 / torch.clamp(pts[..., 3], min=NEAR_W_EPS)  # (L, 2)
+    ndc = pts[..., :3] * iw2[..., None]
+    vx0, vy0, full_w, full_h = viewport if viewport is not None else (0, 0, width, height)
+    px = (ndc[..., 0] + 1.0) * (0.5 * full_w) - vx0  # (L, 2)
+    py = (ndc[..., 1] + 1.0) * (0.5 * full_h) - vy0
+    pz = ndc[..., 2]
+
+    # Rectangle expansion: +-(line_width / 2) along the screen normal.
+    dx = px[:, 1] - px[:, 0]
+    dy = py[:, 1] - py[:, 0]
+    ln = torch.sqrt(dx * dx + dy * dy)
+    ok = ln > 1e-6
+    valid = valid & ok
+    hw = 0.5 * float(line_width)
+    inv_ln = torch.where(ok, 1.0 / torch.where(ok, ln, torch.ones_like(ln)),
+                         torch.zeros_like(ln))
+    nx = -dy * inv_ln * hw
+    ny = dx * inv_ln * hw
+
+    # A_e = endpoint e shifted +n, B_e shifted -n; triangles (A0, B0, B1)
+    # and (A0, B1, A1), whose corners come from endpoints (0, 0, 1) and
+    # (0, 1, 1).
+    ax0, ay0 = px[:, 0] + nx, py[:, 0] + ny
+    bx0, by0 = px[:, 0] - nx, py[:, 0] - ny
+    ax1, ay1 = px[:, 1] + nx, py[:, 1] + ny
+    bx1, by1 = px[:, 1] - nx, py[:, 1] - ny
+    sx = torch.cat([torch.stack([ax0, bx0, bx1], 1), torch.stack([ax0, bx1, ax1], 1)])
+    sy = torch.cat([torch.stack([ay0, by0, by1], 1), torch.stack([ay0, by1, ay1], 1)])
+    ends_of = ((0, 0, 1), (0, 1, 1))
+
+    def per_endpoint(vals):  # (L, 2) -> (2L, 3)
+        return torch.cat([torch.stack([vals[:, e] for e in idx], 1) for idx in ends_of])
+
+    iw = per_endpoint(iw2)
+    ar = torch.arange(nl, dtype=torch.int32, device=clip_positions.device)
+    records = _edge_setup(
+        sx, sy, per_endpoint(pz), iw, torch.cat([valid, valid]), torch.cat([ar, ar]),
+        width, height, CullMode.NONE, FrontFace.COUNTER_CLOCKWISE,
+        depth_clamp=depth_clamp, force_front=True,
     )
 
+    attrs2 = pts[..., 4:]  # (L, 2, A)
+    halves = []
+    for j, idx in enumerate(ends_of):
+        iw_j = iw[j * nl:(j + 1) * nl]
+        blocks = []
+        for c, e in enumerate(idx):
+            iw_c = iw_j[:, c][:, None]
+            blocks += [attrs2[:, e, :] * iw_c, iw_c, iw_c]  # front = 1
+        halves.append(torch.cat(blocks, dim=1))
+    return records, torch.cat(halves, dim=0).to(torch.float32)
 
-def setup_points_with_attrs(*args, **kwargs):
-    raise NotImplementedError(
-        "point setup is not ported yet (ROADMAP item 19: lines, points and "
-        "polygon modes)"
+
+def setup_points_with_attrs(
+    clip_positions: torch.Tensor,  # (Nv, 4)
+    point_indices: torch.Tensor,  # (P,) vertex indices
+    varyings: torch.Tensor,  # (Nv, A)
+    width: int,
+    height: int,
+    point_sizes: Optional[torch.Tensor] = None,  # (Nv,) pixels (PointSize)
+    viewport: "tuple | None" = None,
+    depth_clamp: bool = False,
+    pt_valid: Optional[torch.Tensor] = None,  # (P,) extra mask (polygon cull)
+) -> "tuple[TriangleRecords, torch.Tensor]":
+    """Point setup (geometry.py:264-351): each point becomes a
+    ``point_size`` square centred on its vertex (Vulkan 27.5), two
+    triangles on the ordinary raster path; a point is drawn whole or not at
+    all. ``point_sizes`` is the vertex stage's PointSize, 1.0 by default.
+    Returns (records, corner data) with R = 2P."""
+    point_indices = point_indices.reshape(-1).to(torch.int64)
+    p = point_indices.shape[0]
+    dev = clip_positions.device
+    combined = torch.cat([clip_positions.to(torch.float32), varyings.to(torch.float32)], dim=1)
+    pts = combined[point_indices]  # (P, 4+A)
+    if point_sizes is not None:
+        sizes = point_sizes.reshape(-1).to(torch.float32)[point_indices]
+    else:
+        sizes = torch.ones((p,), dtype=torch.float32, device=dev)
+
+    d = pts[:, 3] if depth_clamp else pts[:, 3] - pts[:, 2]
+    valid = d > NEAR_W_EPS
+    if pt_valid is not None:
+        valid = valid & pt_valid
+
+    iw1 = 1.0 / torch.clamp(pts[:, 3], min=NEAR_W_EPS)
+    ndc = pts[:, :3] * iw1[:, None]
+    vx0, vy0, full_w, full_h = viewport if viewport is not None else (0, 0, width, height)
+    cx = (ndc[:, 0] + 1.0) * (0.5 * full_w) - vx0
+    cy = (ndc[:, 1] + 1.0) * (0.5 * full_h) - vy0
+    h = 0.5 * torch.clamp(sizes, min=1e-3)
+
+    # Corners clockwise on screen, (-,-) (+,-) (+,+) (-,+); triangles
+    # (c0, c1, c2) and (c0, c2, c3).
+    xs = (cx - h, cx + h, cx + h, cx - h)
+    ys = (cy - h, cy - h, cy + h, cy + h)
+    sx = torch.cat([torch.stack([xs[0], xs[1], xs[2]], 1), torch.stack([xs[0], xs[2], xs[3]], 1)])
+    sy = torch.cat([torch.stack([ys[0], ys[1], ys[2]], 1), torch.stack([ys[0], ys[2], ys[3]], 1)])
+
+    def dup(v):  # (P,) -> (2P, 3), constant across corners
+        v3 = v[:, None].expand(p, 3)
+        return torch.cat([v3, v3])
+
+    ar = torch.arange(p, dtype=torch.int32, device=dev)
+    records = _edge_setup(
+        sx, sy, dup(ndc[:, 2]), dup(iw1), torch.cat([valid, valid]), torch.cat([ar, ar]),
+        width, height, CullMode.NONE, FrontFace.COUNTER_CLOCKWISE,
+        depth_clamp=depth_clamp, force_front=True,
     )
+    iw1c = iw1[:, None]
+    one_tri = torch.cat([pts[:, 4:] * iw1c, iw1c, iw1c] * 3, dim=1)
+    return records, torch.cat([one_tri, one_tri], dim=0).to(torch.float32)
 
 
 def triangle_facing(
@@ -210,6 +350,19 @@ def triangle_facing(
     is_cw = det > 0.0
     front = is_cw if front_face == FrontFace.CLOCKWISE else ~is_cw
     return front, det == 0.0
+
+
+def _lerp_fma(a: torch.Tensor, b: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """``a + (b - a) * t`` rounded as the fused multiply-add that XLA
+    contracts it into when the reference is compiled. The float32 product is
+    exact in float64; the float64 sum and the cast to float32 then give the
+    fused result, except where the sum lands exactly on a float32 tie (the
+    cast then rounds it to even, which may differ from the fused result).
+    Near-clipped corners reach screen coordinates far off-screen, where
+    rounding the product and the sum apart moves the surface's interpolated
+    positions."""
+    d = (b - a).double()
+    return (a.double() + d * t.double()).to(torch.float32)
 
 
 def _clip_payload(corners: torch.Tensor, w_eps: float = NEAR_W_EPS,
@@ -238,15 +391,7 @@ def _clip_payload(corners: torch.Tensor, w_eps: float = NEAR_W_EPS,
         denom = dv[:, i] - dv[:, j]
         denom = torch.where(torch.abs(denom) > 1e-20, denom, torch.ones_like(denom))
         tt = torch.clamp((dv[:, i] - w_eps) / denom, 0.0, 1.0)[:, None]
-        d = (v[:, j] - v[:, i]).double()
-        # The float32 product is exact in float64; the float64 sum and the
-        # cast to float32 then give the fused multiply-add's result, except
-        # where the sum lands exactly on a float32 tie (the cast then rounds
-        # it to even, which may differ from the fused result). The
-        # near-clipped corners reach screen coordinates far off-screen, where
-        # rounding the product and the sum apart moves the surface's
-        # interpolated positions.
-        return (v[:, i].double() + d * tt.double()).to(torch.float32)
+        return _lerp_fma(v[:, i], v[:, j], tt)
 
     p01 = isect(0, 1)
     p12 = isect(1, 2)

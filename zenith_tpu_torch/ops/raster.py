@@ -15,6 +15,11 @@ are laid out). For CPU tensors each runs the plain PyTorch version beside it
 (``_raster_segmented_torch``, ``_raster_blend_torch``, ``_visibility_torch``,
 ``_interp_torch``), which is also the kernel's oracle on the card. There is
 no fallback between the two: a CUDA tensor launches the kernel or raises.
+The plain versions walk each tile's entries rank by rank, as the kernels
+do; without stencil, bins that carry their pixel rectangles resolve the
+same fragments at once instead (``_resolve_fragments``, bit-equal to the
+walk). The card's checks give the plain version bins without rectangles,
+so that the oracle culls nothing.
 
 Agreement of kernel and plain version on the card: z, coverage, stencil,
 slot and the attribute planes of K1, K3, K4, K7 and K8 are bit-equal; the
@@ -731,9 +736,156 @@ def _raster_segmented_torch(bins, grid, z, acc, compare, write, clamp, sample_of
     """Plain PyTorch version of K1, and with ``stencil``/``faces`` of K3,
     with ``z_bound``/``bound_op`` of K4: the same rounded operations in the
     same order as the kernels, so the result is theirs bit for bit. Updates
-    ``z``, ``acc`` (and ``stencil``) in place."""
-    _walk_raster(_TileWalk.segmented(bins, grid, z.device, sample_offset), z, acc, compare,
-                 write, clamp, stencil, faces, z_bound, bound_op)
+    ``z``, ``acc`` (and ``stencil``) in place.
+
+    Without stencil the only order dependence is which fragment each pixel
+    keeps, so where the bins carry their pixel rectangles (and the sample
+    offset lies in [0, 1)², as the kernels require) the fragments are
+    evaluated at once over those rectangles and resolved per pixel
+    (``_resolve_fragments``); otherwise, and with stencil, the pass walks the
+    tiles' entries rank by rank (``_walk_raster``)."""
+    walk = _TileWalk.segmented(bins, grid, z.device, sample_offset)
+    if (stencil is None and bins.rect is not None
+            and all(0.0 <= o < 1.0 for o in sample_offset)
+            and not (write and compare == CompareOp.NOT_EQUAL)):
+        _resolve_fragments(walk, bins.rect, grid, z, acc, compare, write, clamp,
+                           sample_offset, z_bound, bound_op)
+        return
+    _walk_raster(walk, z, acc, compare, write, clamp, stencil, faces, z_bound, bound_op)
+
+
+# Fragments evaluated together by _resolve_fragments (bounds its memory),
+# and the side of the pixel blocks it culls by the edge functions.
+_FRAGMENT_CHUNK = 1 << 20
+_BLOCK = 8
+
+
+def _resolve_fragments(walk, rect, grid, z, acc, compare, write, clamp, sample_offset,
+                       z_bound=None, bound_op=None) -> None:
+    """The rank walk's result without walking the ranks. Each entry's
+    fragments are evaluated over its row's pixel rectangle (which holds every
+    pixel the kernels let it cover) with ``_fragments``' operations; then per
+    pixel the fragment the walk would keep is chosen: with the depth written
+    under an ordering compare, the first (strict compare) or last (or-equal)
+    entry at the extreme depth, if that depth passes against the plane's;
+    otherwise the last entry that passes against the fixed plane. The
+    winner's depth and planes are recomputed from its own row, so the values
+    are the walk's bit for bit. Updates ``z`` and ``acc`` (padded planes) in
+    place."""
+    if walk.max_n == 0:
+        return
+    dev = z.device
+    th, tw = grid.tile_h, grid.tile_w
+    wp = z.shape[1]
+    a_n = acc.shape[0]
+    ti, rank = torch.nonzero(walk.table >= 0, as_tuple=True)
+    row = walk.table[ti, rank]
+    tile = walk.order[ti]
+    tx0 = (tile % grid.tiles_x) * tw
+    ty0 = (tile // grid.tiles_x) * th
+    box = rect[row].to(torch.int64)
+    x0 = torch.maximum(box[:, 0], tx0)
+    y0 = torch.maximum(box[:, 1], ty0)
+    bw = torch.clamp(torch.minimum(box[:, 2], tx0 + tw - 1) - x0 + 1, min=0)
+    bh = torch.clamp(torch.minimum(box[:, 3], ty0 + th - 1) - y0 + 1, min=0)
+    # Each entry's box in blocks of _BLOCK² pixels; a block stays unless
+    # one edge function is negative at every sample point of it, with a
+    # margin far above the rounding of its evaluation, so the pixel test
+    # below still decides every fragment.
+    nbx, nby = (bw + _BLOCK - 1) // _BLOCK, (bh + _BLOCK - 1) // _BLOCK
+    nb = nbx * nby
+    eb = torch.repeat_interleave(torch.arange(nb.shape[0], device=dev), nb)
+    kb = torch.arange(eb.shape[0], device=dev) - (torch.cumsum(nb, 0) - nb)[eb]
+    bx0 = x0[eb] + _BLOCK * (kb % nbx[eb])
+    by0 = y0[eb] + _BLOCK * (kb // nbx[eb])
+    bx1 = torch.minimum(bx0 + _BLOCK, x0[eb] + bw[eb])
+    by1 = torch.minimum(by0 + _BLOCK, y0[eb] + bh[eb])
+    edges = walk.rows[row[eb], :9].double()
+    xs = (bx0.double() + sample_offset[0], bx1.double() - 1.0 + sample_offset[0])
+    ys = (by0.double() + sample_offset[1], by1.double() - 1.0 + sample_offset[1])
+    keep = torch.ones_like(eb, dtype=torch.bool)
+    for i in (0, 3, 6):
+        a, b, c = edges[:, i], edges[:, i + 1], edges[:, i + 2]
+        e_max = c + torch.maximum(a * xs[0], a * xs[1]) + torch.maximum(b * ys[0], b * ys[1])
+        size = c.abs() + a.abs() * torch.maximum(xs[0].abs(), xs[1].abs()) \
+            + b.abs() * torch.maximum(ys[0].abs(), ys[1].abs())
+        keep &= ~(e_max < -1e-5 * size)
+    row, rank = row[eb][keep], rank[eb][keep]
+    x0, y0 = bx0[keep], by0[keep]
+    bw, bh = (bx1 - bx0)[keep], (by1 - by0)[keep]
+    area = bw * bh
+    ends = torch.cumsum(area, 0)
+
+    ordered = write and compare in (CompareOp.GREATER, CompareOp.GREATER_OR_EQUAL,
+                                    CompareOp.LESS, CompareOp.LESS_OR_EQUAL)
+    high = compare in (CompareOp.GREATER, CompareOp.GREATER_OR_EQUAL)
+    pick_first = ordered and compare in (CompareOp.GREATER, CompareOp.LESS)
+    z_flat = z.view(-1)
+    bound_flat = z_bound.reshape(-1) if z_bound is not None else None
+    npix = z_flat.numel()
+    # Coverage and depth read the 16 raster columns, laid out column by column.
+    cols16 = walk.rows[:, :16].T.contiguous()
+    kept_pix, kept_z, kept_rank = [], [], []
+    e0 = 0
+    n_e = area.shape[0]
+    while e0 < n_e:
+        # Entries [e0, e1) hold at most _FRAGMENT_CHUNK fragments (or one entry).
+        base = int(ends[e0 - 1]) if e0 else 0
+        e1 = max(int(torch.searchsorted(ends, base + _FRAGMENT_CHUNK, right=True)), e0 + 1)
+        a = area[e0:e1]
+        n_f = int(ends[e1 - 1]) - base
+        ent = torch.repeat_interleave(torch.arange(e0, e1, device=dev), a)
+        e0 = e1
+        if n_f == 0:
+            continue
+        k = torch.arange(n_f, device=dev) - (ends[ent] - area[ent] - base)
+        px = x0[ent] + k % bw[ent]
+        py = y0[ent] + k // bw[ent]
+        xm = px.to(torch.float32) + sample_offset[0]
+        ym = py.to(torch.float32) + sample_offset[1]
+        cov, _, _, _, zpx = _fragments(cols16[:, row[ent]].T, xm, ym, clamp)
+        pix = py * wp + px
+        if bound_flat is not None:
+            cov = cov & _compare(bound_op, zpx, bound_flat[pix])
+        if ordered:
+            cov = cov & ~torch.isnan(zpx)  # a NaN depth passes no ordering compare
+            kept_z.append(zpx[cov])
+        else:
+            # The plane is fixed: without writes, or where a pass writes only
+            # what it compared equal to, or under ALWAYS / NEVER.
+            cov = cov & _compare(compare, zpx, z_flat[pix])
+        kept_pix.append(pix[cov])
+        kept_rank.append(rank[ent][cov])
+    if not kept_pix:
+        return
+    pix, rank_f = torch.cat(kept_pix), torch.cat(kept_rank)
+    if ordered:
+        zf = torch.cat(kept_z)
+        best = torch.full((npix,), -torch.inf if high else torch.inf, device=dev)
+        best = best.scatter_reduce(0, pix, zf, "amax" if high else "amin", include_self=True)
+        eq = zf == best[pix]
+        none = walk.max_n if pick_first else -1
+        key = torch.full((npix,), none, dtype=torch.int64, device=dev).scatter_reduce(
+            0, pix[eq], rank_f[eq], "amin" if pick_first else "amax", include_self=True)
+        has = (key != none) & _compare(compare, best, z_flat)
+    else:
+        key = torch.full((npix,), -1, dtype=torch.int64, device=dev).scatter_reduce(
+            0, pix, rank_f, "amax", include_self=True)
+        has = key >= 0
+    sel = torch.nonzero(has, as_tuple=True)[0]
+    if sel.numel() == 0:
+        return
+    px, py = sel % wp, sel // wp
+    tile_of = (py // th) * grid.tiles_x + px // tw
+    pos = torch.empty_like(walk.order)
+    pos[walk.order] = torch.arange(walk.order.shape[0], device=dev)
+    c = walk.rows[walk.table[pos[tile_of], key[sel]]]
+    xm = px.to(torch.float32) + sample_offset[0]
+    ym = py.to(torch.float32) + sample_offset[1]
+    _, w0, w1, w2, zpx = _fragments(c, xm, ym, clamp)
+    if write:
+        z_flat[sel] = zpx
+    acc.view(a_n, -1)[:, sel] = _planes(c, w0, w1, w2, a_n).T
 
 
 def _walk_raster(walk, z, acc, compare, write, clamp, stencil=None, faces=None, z_bound=None,

@@ -27,11 +27,13 @@ content, if any, sampled at the vertices); ``"peel"`` takes depth peeling
 over K4 with the glass atlas sampled per pixel; ``"auto"`` picks peel for
 textured glass.
 
+``wireframe=True`` draws the G-buffer pass in LINE polygon mode (the
+shadow pass stays FILL): the edges get the full deferred lighting.
+
 Not ported yet; each raises NotImplementedError naming its ROADMAP item:
 instanced, skinned and morphed opaque objects, decals, SSAO, shadow-casting
 point lights, cascades, VSM, contact shadows, image-based light, the
-atmosphere, the velocity plane and the id buffer (item 21); the wireframe
-view (item 19).
+atmosphere, the velocity plane and the id buffer (item 21).
 """
 
 from __future__ import annotations
@@ -59,6 +61,7 @@ from zenith_tpu_torch.rendergraph.resource import RenderGraphResource
 from zenith_tpu_torch.renderer.forward import (
     _SHADOW_SAMPLER,
     _camera_dynamics,
+    _normalize,
     _shadow_vs,
     sun_view_projection,
 )
@@ -86,6 +89,7 @@ from zenith_tpu_torch.rhi.state import (
     CompareOp,
     DepthStencilDesc,
     GraphicPipelineState,
+    PolygonMode,
 )
 
 logger = log.get(__name__)
@@ -115,10 +119,6 @@ def _gbuffer_vs(attrs, res):
         "normal": attrs["normal"] @ res["Model"][:3, :3].T,
         "uv": attrs["tex_coord"],
     }
-
-
-def _normalize(v: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
-    return v / torch.clamp(torch.linalg.vector_norm(v, dim=-1, keepdim=True), min=eps)
 
 
 # Atlas binding name -> its per-draw UV-transform uniform name (each map
@@ -352,9 +352,7 @@ class DeferredRenderer:
                  glass_peel_layers: int = 4):
         self.scene = scene
         objs = scene.objects
-        if wireframe:
-            raise _unported("the wireframe view (LINE polygon mode)", 19,
-                            "lines, points and polygon modes")
+        self.wireframe = wireframe
         # velocity=None resolves to off: animated content (skins, morphs,
         # device-resident instance offsets) is not ported (_check_objects).
         for what, on in (("SSAO", ssao), ("the velocity plane", velocity),
@@ -400,6 +398,7 @@ class DeferredRenderer:
                 cull_mode=CullMode.BACK,
                 front_face=(FrontFace.CLOCKWISE if winding_flip
                             else FrontFace.COUNTER_CLOCKWISE),
+                polygon_mode=PolygonMode.LINE if wireframe else PolygonMode.FILL,
             )
         )
         self._shadow_depth = DepthStencilDesc(

@@ -18,13 +18,21 @@ Mirrors zenith-rendergraph/src/graph.rs:
   enqueues the frame's kernels on the current stream and returns.
 - ``present`` + ``RetiredRenderGraph`` (graph.rs:227-274, 656-674).
 
-Stencil attachments (single sample) ride the node context as an int32 plane:
-cleared or loaded at the node's start, threaded through its stencil-tested
-draws, stored at its end.
+Stencil attachments ride the node context as an int32 plane: cleared or
+loaded at the node's start, threaded through its stencil-tested draws,
+stored at its end.
 
-Not ported yet: the SPMD ``mesh``/``parallel`` modes (ROADMAP item 24),
-MSAA attachments (item 18) and sub-resource (mip/layer/range) views
-(item 21). Each raises when asked for.
+MSAA attachments (graph.py:1297-1460): a node whose pipeline has S > 1
+samples works on (S, H, W, ...) planes. Clears and loads broadcast to S
+samples; the store resolves colour by its mean over the samples and depth
+and stencil by sample 0, which is what every consumer reads. The
+per-sample planes are also kept for the frame (``msaa_state``), so a LOAD in
+a later node of the same sample count continues per sample instead of
+re-broadcasting the resolve; a lambda or single-sample write drops them.
+
+Not ported yet: the SPMD ``mesh``/``parallel`` modes (ROADMAP item 24) and
+sub-resource (mip/layer/range) views, with or without MSAA (item 21). Each
+raises when asked for.
 """
 
 from __future__ import annotations
@@ -654,6 +662,9 @@ class RenderGraph:
         def frame_fn(imports: Dict[str, Any], dynamics: Dict[str, torch.Tensor]):
             """Run every node in declaration order; no host reads."""
             state: Dict[int, Any] = {}
+            # rid -> (samples, (S, ...) planes) of the last MSAA node that
+            # stored the resource.
+            msaa_state: Dict[int, Tuple[int, torch.Tensor]] = {}
             for rid, st in enumerate(resources):
                 if st.is_imported:
                     state[rid] = imports[str(rid)]
@@ -663,8 +674,8 @@ class RenderGraph:
             for node in active_nodes:
                 with profile.scope(node.name):
                     overflow, nan_pixels = self._run_node(
-                        node, state, dynamics, device, pipelines, options, resources,
-                        overflow, nan_pixels, validate,
+                        node, state, msaa_state, dynamics, device, pipelines, options,
+                        resources, overflow, nan_pixels, validate,
                     )
 
             outputs = {str(rid): state[rid] for rid in output_ids if rid in state}
@@ -672,19 +683,20 @@ class RenderGraph:
 
         return frame_fn
 
-    def _run_node(self, node, state, dynamics, device, pipelines, options, resources,
-                  overflow, nan_pixels, validate):
+    def _run_node(self, node, state, msaa_state, dynamics, device, pipelines, options,
+                  resources, overflow, nan_pixels, validate):
         """Run one node of the frame function; returns the running
         (overflow, nan_pixels) counters."""
         if node.kind == "lambda":
             ctx = LambdaNodeExecutionContext(self, node, state, dynamics, device)
             node.job(ctx)
+            # A lambda write replaces the resolved surface: per-sample planes
+            # must not shadow it.
+            for a in node.outputs:
+                msaa_state.pop(a.resource_id, None)
             return overflow, nan_pixels
         pipeline = pipelines[node.index]
-        if pipeline.desc.state.multisample.samples > 1:
-            raise NotImplementedError(
-                "MSAA attachments are not ported yet (ROADMAP item 18: MSAA)"
-            )
+        samples = pipeline.desc.state.multisample.samples
         atts = list(node.color_attachments)
         if node.depth_attachment is not None:
             atts.append(node.depth_attachment)
@@ -702,37 +714,47 @@ class RenderGraph:
             tile_w=options.tile_w,
         )
 
+        def to_samples(arr):
+            if samples == 1:
+                return arr
+            return arr.unsqueeze(0).expand((samples,) + tuple(arr.shape))
+
+        def loaded(rid, resolve):
+            """A LOADed attachment: the per-sample planes an earlier node of
+            this sample count kept, else the resolved surface broadcast."""
+            if samples > 1:
+                kept = msaa_state.get(rid)
+                if kept is not None and kept[0] == samples:
+                    return kept[1]
+            return to_samples(resolve(state[rid]))
+
         colors = []
         for rid, cdesc, _, _ in node.color_attachments:
-            cur = state.get(rid)
-            if cdesc.load_op == LoadOp.CLEAR or cur is None:
-                cur = blend_ops.clear_color(
-                    grid.height, grid.width, cdesc.clear_value, device
-                )
-            colors.append(cur)
+            if cdesc.load_op == LoadOp.CLEAR or state.get(rid) is None:
+                colors.append(to_samples(blend_ops.clear_color(
+                    grid.height, grid.width, cdesc.clear_value, device)))
+            else:
+                colors.append(loaded(rid, lambda cur: cur))
 
         depth = None
         if node.depth_attachment is not None:
             rid, ddesc, _, _ = node.depth_attachment
-            cur = state.get(rid)
-            if ddesc.depth_load_op == LoadOp.CLEAR or cur is None:
-                depth = blend_ops.clear_depth(
-                    grid.height, grid.width, ddesc.depth_clear_value, device
-                )
+            if ddesc.depth_load_op == LoadOp.CLEAR or state.get(rid) is None:
+                depth = to_samples(blend_ops.clear_depth(
+                    grid.height, grid.width, ddesc.depth_clear_value, device))
             else:
-                depth = cur[..., 0] if cur.ndim == 3 else cur
+                depth = loaded(rid, lambda cur: cur[..., 0] if cur.ndim == 3 else cur)
 
         stencil = None
         if node.stencil_attachment is not None:
             sdesc = pipeline.desc.state.depth_stencil
-            cur = state.get(node.stencil_attachment)
-            if sdesc.stencil_load_op == LoadOp.CLEAR or cur is None:
-                stencil = torch.full(
+            if sdesc.stencil_load_op == LoadOp.CLEAR or state.get(node.stencil_attachment) is None:
+                stencil = to_samples(torch.full(
                     (grid.height, grid.width), sdesc.stencil_clear_value & 0xFF,
                     dtype=torch.int32, device=device,
-                )
+                ))
             else:
-                stencil = cur
+                stencil = loaded(node.stencil_attachment, lambda cur: cur)
 
         ctx = GraphicNodeExecutionContext(
             self, node, state, dynamics, device, pipeline, grid,
@@ -741,13 +763,23 @@ class RenderGraph:
         )
         node.job(ctx)
 
-        # Epilogue: store attachments back (store-op STORE semantics).
-        for (rid, _, _, _), arr in zip(node.color_attachments, ctx._colors):
+        # Epilogue: store attachments back (store-op STORE semantics), the
+        # MSAA planes resolved (colour: mean; depth and stencil: sample 0)
+        # and kept per sample for a later LOAD.
+        def store(rid, arr, resolve):
+            if samples > 1:
+                msaa_state[rid] = (samples, arr)
+                arr = resolve(arr)
+            else:
+                msaa_state.pop(rid, None)
             state[rid] = arr
+
+        for (rid, _, _, _), arr in zip(node.color_attachments, ctx._colors):
+            store(rid, arr, lambda a: a.mean(dim=0))
         if node.depth_attachment is not None and ctx._depth is not None:
-            state[node.depth_attachment[0]] = ctx._depth
+            store(node.depth_attachment[0], ctx._depth, lambda a: a[0])
         if node.stencil_attachment is not None and ctx._stencil is not None:
-            state[node.stencil_attachment] = ctx._stencil
+            store(node.stencil_attachment, ctx._stencil, lambda a: a[0])
         for ov in ctx.stats:
             overflow = overflow + ov
         if validate:

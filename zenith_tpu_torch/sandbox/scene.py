@@ -11,7 +11,17 @@ cerberus mesh replaced by ``standin_mesh``, a procedural mesh of its size;
 both share ``_sandbox_scene``. ``deferred_frame`` is bench.py::bench_scene's frame
 function. ``golden_scene`` is the scene of tests/test_golden.py (the
 reference's tests/test_renderers.py::build_test_scene with a sky cube).
-``SceneApp`` and the other sandbox apps are ROADMAP item 22.
+
+``SceneApp`` is the reference's scene app in forward mode (config #3: the
+sun's shadow pass and the forward lit pass, with ``--msaa``,
+``--wireframe``, ``--instances`` and ``--gun-instances``) and deferred mode
+(config #5, with the glass, textured and wireframe options), auto-retained.
+Its other flags name the ROADMAP item that ports them and raise before
+anything is built. Run it on the card:
+
+    python -m zenith_tpu_torch.sandbox.scene --frames 60 --out scene.png -- --mode forward --msaa 4
+
+The other sandbox apps (``terrain``, ``fly``, ``mesh``) are ROADMAP item 22.
 """
 
 from __future__ import annotations
@@ -24,7 +34,15 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from zenith_tpu_torch.app import Args, RenderableApp, RenderContext
 from zenith_tpu_torch.asset import AssetUrl, Mesh
+from zenith_tpu_torch.core.events import (
+    DeviceEvent,
+    KeyboardInput,
+    KeyCode,
+    MouseInput,
+    WindowEvent,
+)
 from zenith_tpu_torch.rhi import Format, Texture
 
 GOLDEN_W, GOLDEN_H = 128, 64
@@ -317,13 +335,13 @@ def build_scene(render_device, num_lights: int, rng: np.random.Generator,
     ``default_content_root()``, cache ZENITH_CACHE or ``cache``: a baked
     cache is loaded when the source is absent) and builds the sandbox scene
     around its first mesh. Raises where neither the content nor its baked
-    cache is found, as the reference does. The instanced rocks and guns, the
-    image-based light and the skinned and morphed objects are ROADMAP
-    item 21. Returns the Scene."""
+    cache is found, as the reference does. ``instances`` adds the ring of
+    instanced rocks, ``gun_instances`` draws the cerberus as one instanced
+    draw of that many copies; the image-based light and the skinned and
+    morphed objects are ROADMAP item 21. Returns the Scene."""
     from zenith_tpu_torch.asset import AssetManager, registry
 
-    for what, on in (("instanced rocks", instances), ("instanced guns", gun_instances),
-                     ("the image-based light", ibl), ("a skinned object", skinned),
+    for what, on in (("the image-based light", ibl), ("a skinned object", skinned),
                      ("a morphed object", morph)):
         if on:
             raise NotImplementedError(f"build_scene: {what} is not ported yet "
@@ -333,7 +351,7 @@ def build_scene(render_device, num_lights: int, rng: np.random.Generator,
     collection = mgr.request_load("mesh/cerberus/scene.gltf").get()
     mesh = registry().get(AssetUrl(collection.mesh_urls[0]), Mesh)
     return _sandbox_scene(render_device, mesh, num_lights, rng, textured, skybox, glass,
-                          glass_textured)
+                          glass_textured, instances, gun_instances)
 
 
 def build_standin_scene(render_device, num_lights: int, rng: np.random.Generator,
@@ -347,7 +365,8 @@ def build_standin_scene(render_device, num_lights: int, rng: np.random.Generator
 
 
 def _sandbox_scene(render_device, mesh: Mesh, num_lights: int, rng: np.random.Generator,
-                   textured: bool, skybox: bool, glass: bool, glass_textured: bool):
+                   textured: bool, skybox: bool, glass: bool, glass_textured: bool,
+                   instances: int = 0, gun_instances: int = 0):
     """build_scene's scene around ``mesh``: the same material and model
     centring, the 400-unit ground quad, ``num_lights`` point lights placed as
     build_scene places them, the sun with a 1024² shadow map over a 90-unit
@@ -356,7 +375,11 @@ def _sandbox_scene(render_device, mesh: Mesh, num_lights: int, rng: np.random.Ge
     with build_scene's textured factors; the brushed texture draws from
     ``rng`` before the lights, in build_scene's order. ``glass`` adds the two
     standing translucent panes in front of the mesh (drawn by the deferred
-    renderer's glass node), ``glass_textured`` gives them the 64² checker."""
+    renderer's glass node), ``glass_textured`` gives them the 64² checker.
+    ``gun_instances`` > 0 draws the mesh as that many instanced copies on a
+    ring (the geometry-scaling configuration: 30 copies of cerberus are ~1M
+    submitted triangles); ``instances`` > 0 adds one instanced draw of that
+    many 9-unit rocks around it, placed from ``rng`` after the lights."""
     from zenith_tpu_torch.core import mathtypes as m
     from zenith_tpu_torch.renderer import DirectionalLight, PointLight, Scene, SceneObject
 
@@ -366,11 +389,23 @@ def _sandbox_scene(render_device, mesh: Mesh, num_lights: int, rng: np.random.Ge
     model = YUP_TO_ZUP @ m.mat4_translation(-0.5 * (bmin + bmax))
     corners = np.stack(np.meshgrid(*zip(bmin, bmax), indexing="ij"), -1).reshape(-1, 3)
     z_min = min(float(m.transform_point(model, c)[2]) for c in corners)
+    gun_offsets = None
+    gun_budget = 16 * mesh.num_triangles
+    if gun_instances > 0:
+        ring = float(np.linalg.norm(bmax - bmin)) * 1.1
+        offs = [[0.0, 0.0, 0.0]]
+        for i in range(1, gun_instances):
+            a = 2 * math.pi * i / gun_instances
+            r = ring * (1.0 + 0.15 * ((i * 7) % 3))
+            offs.append([r * math.cos(a), r * math.sin(a), 2.0 * ((i * 5) % 4)])
+        gun_offsets = np.asarray(offs, np.float32)
+        gun_budget = None  # the default, 2x the records, scales with the copies
     gun = SceneObject.from_mesh(
         render_device, mesh, "cerberus", model_matrix=model,
         base_color=(0.62, 0.57, 0.55, 1.0), metallic=0.85, roughness=0.45,
-        entry_budget=16 * mesh.num_triangles,
+        entry_budget=gun_budget,
         base_color_texture=brushed_texture(rng=rng, device=dev) if textured else None,
+        instance_offsets=gun_offsets,
     )
     ground = SceneObject.quad(
         render_device, "ground", size=400.0, z=z_min - 2.0,
@@ -409,6 +444,16 @@ def _sandbox_scene(render_device, mesh: Mesh, num_lights: int, rng: np.random.Ge
                 np.array([dx, -0.4 * span, z_min + 0.4 * span], np.float32))
             pane.model_matrix = (trans @ YUP_TO_ZUP).astype(np.float32)
             objects.append(pane)
+    if instances > 0:
+        ring = float(np.linalg.norm(bmax - bmin)) * 0.9
+        offs = []
+        for i in range(instances):
+            a = 2 * math.pi * i / instances + 0.35
+            r = ring * (0.8 + 0.5 * rng.uniform())
+            offs.append([r * math.cos(a), r * math.sin(a), z_min - 2.0])
+        objects.append(SceneObject.cube(
+            render_device, "rocks", size=9.0, z0=0.0, base_color=(0.35, 0.33, 0.3, 1.0),
+            roughness=0.85, instance_offsets=np.asarray(offs, np.float32)))
     return Scene(
         objects=objects,
         sun=DirectionalLight(direction=(0.35, -0.3, 0.88), intensity=2.5,
@@ -454,3 +499,281 @@ def deferred_frame(render_device, renderer, camera, width: int, height: int, opt
     compiled = builder.build().compile(render_device, pipeline_cache or PipelineCache(), options)
     retired = compiled.execute(render_device)
     return compiled, final, hdr, retired
+
+
+# SceneApp flags that are not ported yet, with the ROADMAP item that ports
+# each; giving one raises before anything is built.
+_UNPORTED_FLAGS = {
+    "ibl": (21, "ibl/environment/probe"),
+    "probe": (21, "ibl/environment/probe"),
+    "ssao": (21, "ssao, contact"),
+    "contact_shadows": (21, "ssao, contact"),
+    "fxaa": (21, "post extras"),
+    "grade": (21, "post extras"),
+    "film": (21, "post extras"),
+    "auto_exposure": (21, "post extras"),
+    "taa": (21, "taa + velocity"),
+    "velocity": (21, "taa + velocity"),
+    "motion_blur": (21, "motion_blur"),
+    "ssr": (21, "ssr / screentrace"),
+    "fog": (21, "volumetric"),
+    "sky": (21, "atmosphere sky"),
+    "dof": (21, "dof"),
+    "flare": (21, "flare"),
+    "hud": (21, "hud"),
+    "decals": (21, "decals"),
+    "particles": (21, "particles"),
+    "soft_shadows": (21, "csm, omni, vsm"),
+    "cascades": (21, "csm, omni, vsm"),
+    "point_shadows": (21, "csm, omni, vsm"),
+    "skinned": (21, "animation (skin, morph)"),
+    "morph": (21, "animation (skin, morph)"),
+    "pick": (21, "picking"),
+}
+
+
+def _scene_app_parser():
+    """SceneApp's arguments (the reference's, scene.py:477-638)."""
+    import argparse
+
+    p = argparse.ArgumentParser("scene-app")
+    p.add_argument("--mode", choices=["forward", "deferred"], default="deferred")
+    p.add_argument("--lights", type=int, default=100)
+    p.add_argument("--no-post", action="store_true")
+    p.add_argument("--textured", action="store_true")
+    p.add_argument("--bloom-mips", type=int, default=0,
+                   help="bloom over a downsampled mip chain; 0 = single-node bloom")
+    p.add_argument("--glass", action="store_true",
+                   help="two translucent panes through the in-order blend kernel")
+    p.add_argument("--glass-textured", action="store_true",
+                   help="checker-textured panes (auto-selects the depth-peeled glass path)")
+    p.add_argument("--glass-mode", choices=["auto", "kernel", "peel"], default="auto")
+    p.add_argument("--spots", type=int, default=0,
+                   help="N coloured spot lights aimed at the ground (deferred mode)")
+    p.add_argument("--gun-instances", type=int, default=0,
+                   help="instanced cerberus copies (30 ~= 1M submitted triangles)")
+    p.add_argument("--instances", type=int, default=0,
+                   help="N instanced rocks around the gun (one draw)")
+    p.add_argument("--wireframe", action="store_true",
+                   help="LINE polygon mode on the lit / G-buffer pass")
+    p.add_argument("--msaa", type=int, default=1, choices=[1, 2, 4, 8],
+                   help="multisampling on the forward lit pass (forward mode only)")
+    p.add_argument("--retained", action="store_true",
+                   help="(the default) build the graph once, re-execute with fresh dynamics")
+    p.add_argument("--no-retained", action="store_true",
+                   help="rebuild the graph every frame")
+    for flag in ("ibl", "probe", "ssao", "contact-shadows", "fxaa", "grade", "film",
+                 "auto-exposure", "taa", "velocity", "motion-blur", "ssr", "fog", "sky",
+                 "dof", "flare", "hud", "soft-shadows", "point-shadows", "skinned", "morph",
+                 "pick"):
+        p.add_argument(f"--{flag}", action="store_true", help="not ported yet")
+    for flag, default in (("decals", 0), ("particles", 0), ("cascades", 1)):
+        p.add_argument(f"--{flag}", type=int, default=default, help="not ported yet")
+    return p
+
+
+class SceneApp(RenderableApp):
+    """The sandbox scene app (sandbox/scene.py:474-1173): forward mode
+    (config #3: ForwardShadowRenderer, ``--msaa``, ``--wireframe``,
+    ``--instances``, ``--gun-instances``) or deferred mode (config #5:
+    DeferredRenderer with ``--lights``, ``--spots``, ``--textured``,
+    ``--glass``, ``--wireframe``) over build_scene's cerberus scene, bloom +
+    ACES post unless ``--no-post``, an orbit camera that the first input event
+    hands to fly controls, and auto-retained execution."""
+
+    def __init__(self, args: Args):
+        super().__init__(args)
+        ns, _ = _scene_app_parser().parse_known_args(args.app_args)
+        for name, (item, what) in _UNPORTED_FLAGS.items():
+            value = getattr(ns, name)
+            if (value > 1) if name == "cascades" else value:
+                raise NotImplementedError(
+                    f"SceneApp --{name.replace('_', '-')} is not ported yet "
+                    f"(ROADMAP item {item}: {what})")
+        if ns.mode == "deferred" and (ns.instances or ns.gun_instances):
+            raise NotImplementedError(
+                "SceneApp --instances / --gun-instances in deferred mode: instanced opaque "
+                "objects in the deferred renderer are not ported yet (ROADMAP item 21: "
+                "screen-space and lighting features)")
+        if ns.bloom_mips >= 2:
+            raise NotImplementedError(
+                "SceneApp --bloom-mips >= 2 (the render-to-mip bloom chain) is not ported "
+                "yet (ROADMAP item 21: post extras)")
+        self.mode = ns.mode
+        deferred = ns.mode == "deferred"
+        self.textured = ns.textured and deferred
+        self.glass = (ns.glass or ns.glass_textured) and deferred
+        self.glass_textured = ns.glass_textured and deferred
+        self.glass_mode = ns.glass_mode
+        self.spots = ns.spots if deferred else 0
+        self.instances = ns.instances
+        self.gun_instances = ns.gun_instances
+        self.wireframe = ns.wireframe
+        self.msaa = ns.msaa
+        self.bloom_mips = ns.bloom_mips
+        self.num_lights = ns.lights if deferred else 0
+        self.post_enabled = not ns.no_post
+        # Auto-retained by default: every per-frame value rides a dynamic, so
+        # the engine re-runs the cached frame function; a structural scene
+        # edit calls mark_structure_dirty() and the next frame rebuilds.
+        self.retained = not ns.no_retained
+        self._structure_dirty = False
+        self.renderer = None
+        self.post = None
+        self.camera = None
+        # ZENITH_ORBIT_START pins the camera's initial orbit angle (rad).
+        self.orbit = float(os.environ.get("ZENITH_ORBIT_START", "0.0"))
+        self._radius = 120.0
+        self._height = 20.0
+        # The first real input event switches the scripted orbit to fly
+        # controls.
+        from zenith_tpu_torch.core.camera import CameraController
+        from zenith_tpu_torch.core.input import InputActionMapper
+
+        self.controller = CameraController(mouse_sensitivity=0.4)
+        self.controller.move_speed = 60.0
+        self.mapper = InputActionMapper()
+        self.mapper.register_axis("forward", [KeyCode.KEY_W], [KeyCode.KEY_S], 0.5)
+        self.mapper.register_axis("right", [KeyCode.KEY_D], [KeyCode.KEY_A], 0.5)
+        self.mapper.register_axis("up", [KeyCode.KEY_E], [KeyCode.KEY_Q], 0.5)
+        self.mapper.register_action("quit", [KeyCode.ESCAPE])
+        self._interactive = False
+        self._window = None
+        self._extent = (0, 0)
+
+    def prepare(self, render_device, window) -> None:
+        from zenith_tpu_torch.core.camera import Camera
+        from zenith_tpu_torch.core.mathtypes import Degree
+        from zenith_tpu_torch.renderer import (
+            DeferredRenderer,
+            ForwardShadowRenderer,
+            PostProcess,
+            SpotLight,
+        )
+
+        rng = np.random.default_rng(42)
+        scene = build_scene(render_device, self.num_lights, rng, textured=self.textured,
+                            instances=self.instances, gun_instances=self.gun_instances,
+                            glass=self.glass, glass_textured=self.glass_textured)
+        for i in range(self.spots):
+            a = 2 * math.pi * i / self.spots + 0.8
+            hue = [(3.0, 0.6, 0.5), (0.5, 3.0, 0.8), (0.6, 0.9, 3.0)][i % 3]
+            scene.spot_lights.append(SpotLight(
+                position=(60.0 * math.cos(a), 60.0 * math.sin(a), 45.0),
+                direction=(0.25 * math.cos(a + 2), 0.25 * math.sin(a + 2), -1.0),
+                color=hue, intensity=1800.0, radius=130.0, inner_deg=14.0, outer_deg=22.0,
+            ))
+        if self.mode == "deferred":
+            self.renderer = DeferredRenderer(scene, wireframe=self.wireframe,
+                                             glass_mode=self.glass_mode)
+        else:
+            self.renderer = ForwardShadowRenderer(scene, wireframe=self.wireframe, msaa=self.msaa)
+        self.post = PostProcess(bloom_mips=self.bloom_mips) if self.post_enabled else None
+        self.camera = Camera(fov_y=Degree(35.0), aspect_ratio=window.width / max(window.height, 1))
+        self._extent = (window.width, window.height)
+        self._window = window
+        self._radius = 170.0
+        self._height = 25.0
+        self._update_camera()
+
+    def on_window_event(self, event: WindowEvent) -> None:
+        if isinstance(event, (KeyboardInput, MouseInput)):
+            self._interactive = True
+        self.mapper.on_window_event(event)
+        self.controller.on_window_event(event)
+
+    def on_device_event(self, event: DeviceEvent) -> None:
+        self.controller.on_device_event(event)
+
+    def resize(self, width: int, height: int) -> None:
+        self._extent = (width, height)
+
+    def tick(self, delta_time: float) -> None:
+        if self._interactive:
+            self.mapper.tick(delta_time)
+            if self.mapper.is_action_just_pressed("quit") and self._window is not None:
+                self._window.request_close()
+            self.controller.update_cameras(
+                delta_time, self.mapper.get_axis("forward"), self.mapper.get_axis("right"),
+                self.mapper.get_axis("up"), [self.camera])
+        else:
+            self.orbit += delta_time * float(os.environ.get("ZENITH_ORBIT_SPEED", "0.4"))
+            self._update_camera()
+
+    def _update_camera(self) -> None:
+        from zenith_tpu_torch.core.mathtypes import Radians
+
+        x = math.sin(self.orbit) * self._radius
+        y = -math.cos(self.orbit) * self._radius
+        self.camera.set_position(np.array([x, y, self._height], np.float32))
+        pitch = -math.atan2(self._height - 5.0, self._radius)
+        self.camera.set_yaw_pitch(Radians(self.orbit), Radians(pitch))
+
+    def mark_structure_dirty(self) -> None:
+        """Call after a structural scene edit (an object added or removed, a
+        classifying field flipped, a texture swapped): the next
+        update_dynamics returns None once, which sends that frame through
+        the rebuild path and caches the new frame function. Value changes
+        (transforms, visibility, materials, lights) ride dynamics."""
+        self._structure_dirty = True
+
+    def update_dynamics(self):
+        """Auto-retained hook (engine.py): this frame's per-frame values, or
+        None (the rebuild path) with --no-retained or after
+        mark_structure_dirty()."""
+        if not self.retained or self.renderer is None:
+            return None
+        if self._structure_dirty:
+            self._structure_dirty = False
+            return None
+        if self.mode == "deferred":
+            return self.renderer.frame_dynamics(self.camera, include_models=True)
+        return self.renderer.frame_dynamics(self.camera)
+
+    def render(self, context: RenderContext) -> None:
+        from zenith_tpu_torch.rhi import TextureDesc
+
+        width, height = context.extent
+        if width == 0 or height == 0:
+            return
+        builder = context.builder()
+        out = builder.import_resource(context.swapchain_texture())
+        target = out
+        if self.post is not None:
+            target = builder.create(TextureDesc.color("scene.hdr", width, height, Format.RGBA32F))
+        if self.mode == "deferred":
+            self.renderer.render_to(builder, target, self.camera, width, height)
+        else:
+            depth = builder.create(TextureDesc.depth("scene.depth", width, height))
+            self.renderer.render_to(builder, target, depth, self.camera)
+        if self.post is not None:
+            self.post.render_to(builder, target, out)
+
+
+def main() -> None:
+    """``python -m zenith_tpu_torch.sandbox.scene [--frames N] [--out PNG]
+    [--width W] [--height H] -- [SceneApp flags]`` on the card."""
+    import argparse
+
+    from zenith_tpu_torch.launch import launch
+    from zenith_tpu_torch.window import Window
+
+    parser = argparse.ArgumentParser("zenith-sandbox scene")
+    parser.add_argument("--frames", type=int, default=60)
+    parser.add_argument("--out", type=str, default=None)
+    parser.add_argument("--width", type=int, default=1920)
+    parser.add_argument("--height", type=int, default=1080)
+    parser.add_argument("--readback-interval", type=int, default=1)
+    known, rest = parser.parse_known_args()
+    os.environ.setdefault("ZENITH_READBACK_INTERVAL", str(known.readback_interval))
+
+    window = Window(width=known.width, height=known.height, title="scene")
+    loop = launch(SceneApp, argv=rest, window=window, max_frames=known.frames, device="cuda")
+    if known.out and window.last_frame is not None:
+        window.write_png(known.out, window.last_frame)
+        print(f"wrote {known.out}")
+    print(f"rendered {loop.frames_rendered} frames")
+
+
+if __name__ == "__main__":
+    main()
