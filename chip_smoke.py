@@ -168,7 +168,27 @@ other than 0, no result line) on the first phase that fails:
     stencil bit-equal, colour within atol 1e-5 + rtol 1e-5 of the plain
     path; (15c) a 10,000-segment line list, a line strip with restart,
     20,000 points sized by the vertex shader and the deferred wireframe view
-    of phase 7's scene at 1080p, each against its plain path.
+    of phase 7's scene at 1080p, each against its plain path;
+16. the terrain flyover and the single-target screen-space passes:
+    (16a) launch(TerrainApp) at 1920x1080 at its defaults (a 768x768 grid,
+    1,176,578 triangles in one draw, a 2048² shadow map, the textured
+    G-buffer, the atmosphere sky, bloom + ACES), 30 frames, then 30 with
+    --contact-shadows: K1 2 and K2 0 launches a frame, no bin overflow, the
+    last frame equal to its plain-path frame (the per-pixel resolve), a
+    retained frame without host sync, FPS, p50/p99 and a profile (device
+    time, launches and idle share a frame, kernel time and launches by
+    node); K1 on the terrain's own shadow and G-buffer records bit-equal to
+    its unculled plain walk, with entries, largest tile, fragments, device
+    time and bound; (16b) the six feature goldens of
+    tests/test_golden_features.py (SSR, fog, sky, flare, contact, decals)
+    through sandbox.scene.feature_golden_scene on the card, <= 1 LSB and
+    < 1% of values, each golden differing from the base frame; (16c)
+    SceneApp --mode deferred --ssao --contact-shadows --ssr --fog --sky
+    --flare --decals 8 over the baked cerberus at 1080p, 30 frames: K1 2 and
+    K2 1 a frame, the last frame against the plain path, a retained frame
+    without host sync, a profile; (16d) FlyApp's scripted flight (60 frames
+    at 1280x720, K1 2 a frame) and MeshApp (30 frames at 1080p, K1 1 a
+    frame), each last frame against its plain path.
 
 Every kernel and its plain version are timed with CUDA events (median; a
 plain version that runs for seconds twice, not warmed up) and set beside
@@ -177,7 +197,7 @@ rows of the bins, not their padding; each plane read or written once) over
 3.35 TB/s and the fp32 operations these inputs need over 67 TFLOP/s.
 
 The line before the last is a JSON object listing each kernel (K1-K8) with
-its launches on the main paths (phases 4, 7, 11, 12, 13, 14a and 15), its largest
+its launches on the main paths (phases 4, 7, 11, 12, 13, 14a, 15 and 16), its largest
 difference from the plain version, its time, the plain version's, its bound
 and what bounds it, and the inputs these were taken at; the last line is the
 device record.
@@ -966,6 +986,17 @@ def rect_host_cost(frame, card: str) -> None:
           f"({(a - b) / a * 100:.2f}%); replayed frames bit-equal [{card}]")
 
 
+def launches_under(event) -> int:
+    """The kernel launches (``cudaLaunchKernel`` / ``cuLaunchKernel``
+    calls) recorded under a host event of torch.profiler, at any depth."""
+    n, stack = 0, list(event.cpu_children)
+    while stack:
+        child = stack.pop()
+        n += child.name.startswith(("cudaLaunchKernel", "cuLaunchKernel"))
+        stack.extend(child.cpu_children)
+    return n
+
+
 def profile_frames(frame, nodes, tag: str, card: str, frame_ms, watch, expect) -> None:
     """Where the time goes. Kernels only (little host slow-down): device
     time, launches, the busy share, the heaviest kernels per frame and the
@@ -1022,6 +1053,10 @@ def profile_frames(frame, nodes, tag: str, card: str, frame_ms, watch, expect) -
             total = sum(node_ms.values()) or 1.0
             line += "; kernel time by node " + ", ".join(
                 f"{n} {v:.3f} ms ({v / total * 100:.1f}%)" for n, v in node_ms.items())
+            node_launches = {n: sum(launches_under(e) for e in events if e.name == n)
+                             / PROFILED_FRAMES for n in nodes}
+            line += "; kernel launches by node " + ", ".join(
+                f"{n} {v:.0f}" for n, v in node_launches.items())
         else:
             by_name = {}
             for a, b, name in spans:
@@ -2956,6 +2991,281 @@ def forward_phases(dev, card: str, plain_k1, cull) -> dict:
     return launches
 
 
+TERRAIN_FRAMES = 30
+SCENE_FEATURE_FRAMES = 30
+FLY_FRAMES = 60
+MESH_FRAMES = 30
+FEATURE_FLAGS = ["--ssao", "--contact-shadows", "--ssr", "--fog", "--sky", "--flare",
+                 "--decals", "8"]
+
+
+def app_run(app_cls, argv, window, frames, dev, per_frame, label, frame_callback=None):
+    """Drive ``app_cls`` through the engine loop (``launch``, or the loop
+    with ``frame_callback`` as FlyApp's main drives it) for ``frames``
+    frames, with K1's and K2's counts set to 0 just before and read just
+    after. Checks that every frame launched (K1, K2) ``per_frame`` times
+    with no bin overflow and that a frame was presented. Returns (loop,
+    frame times in ms between frame ends, wall seconds, (K1, K2) launches)."""
+    import torch
+
+    from zenith_tpu_torch import asset
+    from zenith_tpu_torch.core.cli import EngineArgs
+    from zenith_tpu_torch.engine import Engine
+    from zenith_tpu_torch.launch import launch
+    from zenith_tpu_torch.main_loop import EngineLoop
+    from zenith_tpu_torch.ops.lighting import accumulate_point_lights
+    from zenith_tpu_torch.ops.raster import raster_segmented
+
+    log = []
+    real_render = Engine.render
+
+    def render(engine, app):
+        before = (raster_segmented.launches, accumulate_point_lights.launches)
+        real_render(engine, app)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        log.append((raster_segmented.launches - before[0],
+                    accumulate_point_lights.launches - before[1],
+                    engine.last_retired.bin_overflow, ev))
+
+    raster_segmented.launches = 0
+    accumulate_point_lights.launches = 0
+    t0 = time.perf_counter()
+    with mock.patch.object(Engine, "render", render):
+        if frame_callback is None:
+            loop = launch(app_cls, argv=["--log-level", "warn", *argv], window=window,
+                          max_frames=frames, device=dev)
+        else:
+            asset.initialize()
+            loop = EngineLoop(app_cls(EngineArgs.parse_args(["--log-level", "warn", *argv])),
+                              window=window, device=dev)
+            loop.run(max_frames=frames, frame_callback=frame_callback)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = (raster_segmented.launches, accumulate_point_lights.launches)
+    check(loop.frames_rendered == frames, f"{label}: rendered {loop.frames_rendered} frames")
+    seen = sorted({(k1, k2) for k1, k2, _, _ in log})
+    check(seen == [per_frame], f"{label}: (K1, K2) launched {seen} times a frame, not "
+          f"{per_frame}")
+    overflow = int(torch.stack([o for _, _, o, _ in log]).sum())
+    check(overflow == 0, f"{label}: bin overflow {overflow}")
+    last = window.last_frame
+    check(last is not None and last.shape == (window.height, window.width, 4)
+          and last[..., :3].std() > 1.0, f"{label}: no frame presented")
+    frame_ms = np.array([log[i - 1][3].elapsed_time(log[i][3]) for i in range(1, len(log))])
+    return loop, frame_ms, wall, counts
+
+
+def frame_line(tag, label, frames, wall, frame_ms, counts, card) -> None:
+    steady = frame_ms[4:]
+    print(f"{tag}: {label}: {frames} frames in {wall:.2f} s with the build; steady "
+          f"{1e3 / np.mean(steady):.2f} FPS, frame time p50 {np.percentile(steady, 50):.3f} ms, "
+          f"p99 {np.percentile(steady, 99):.3f} ms (CUDA events between frame ends, frames "
+          f"5-{frames}); K1 {counts[0]}, K2 {counts[1]} launches; bin overflow 0 [{card}]")
+
+
+def plain_frame_check(app, window, dev, plain_path, tag, label):
+    """The app's last frame again (no tick: the same camera) on a fresh
+    engine's rebuild path through the plain versions, against the frame the
+    run presented: <= 1 LSB, < 1% of values. Returns the plain path's
+    seconds."""
+    import torch
+
+    from zenith_tpu_torch.engine import Engine
+    from zenith_tpu_torch.window import Window
+
+    pwindow = Window(width=window.width, height=window.height, title="plain")
+    t0 = time.perf_counter()
+    with plain_path():
+        engine = Engine(pwindow, device=dev)
+        engine.render(app)
+        engine.shutdown()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    mx, frac = lsb_diff(window.last_frame, pwindow.last_frame)
+    print(f"{tag}: {label}: last frame vs the plain-path frame: max LSB diff {mx}, "
+          f"{frac * 100:.4f}% values differ (plain path {secs:.1f} s)")
+    check(mx <= 1 and frac < 0.01, f"{tag} {label}: the last frame differs from the "
+          "plain-path frame")
+    return secs
+
+
+def terrain_phases(dev, card: str, plain_k1) -> dict:
+    """Phase 16: the terrain flyover and item 21's single-target screen-space
+    passes. (16a) launch(TerrainApp) at 1920x1080 at its defaults, then with
+    --contact-shadows; (16b) the six feature goldens; (16c) SceneApp
+    --mode deferred with the seven flags over the baked cerberus; (16d)
+    FlyApp's scripted flight and MeshApp. Returns K1's and K2's launches on
+    these paths."""
+    import torch
+
+    from zenith_tpu_torch.engine import Engine
+    from zenith_tpu_torch.ops import draw as draw_mod
+    from zenith_tpu_torch.ops import raster as raster_mod
+    from zenith_tpu_torch.ops.lighting import accumulate_point_lights
+    from zenith_tpu_torch.ops.raster import raster_segmented
+    from zenith_tpu_torch.rhi import RhiCore
+    from zenith_tpu_torch.sandbox.fly import FlyApp, scripted_flight
+    from zenith_tpu_torch.sandbox.mesh import MeshApp
+    from zenith_tpu_torch.sandbox.scene import FEATURE_GOLDENS, SceneApp, feature_golden_frame
+    from zenith_tpu_torch.sandbox.terrain import TerrainApp
+    from zenith_tpu_torch.window import Window
+
+    launches = {"K1": 0, "K2": 0}
+
+    def resolve_k1(b, g, z, acc, compare, write, clamp, off):
+        # The plain K1 as it runs for bins with rectangles (the per-pixel
+        # resolve, bit-equal to the rank walk): whole frames of a million
+        # triangles; 16a holds K1 against the unculled walk on the terrain's
+        # own passes.
+        raster_mod._raster_segmented_torch(b, g, z, acc, compare, write, clamp, off)
+
+    @contextlib.contextmanager
+    def plain_path():
+        with plain_versions(resolve_k1):
+            yield
+
+    def add(counts):
+        launches["K1"] += counts[0]
+        launches["K2"] += counts[1]
+
+    def sync_free(engine, app, tag):
+        compiled = engine._retained[0]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            compiled.execute(engine.render_device, dynamics=app.update_dynamics())
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        print(f"{tag}: a retained frame made no host sync")
+
+    def profile_app(app, engine, tag, nodes, frame_ms, expect):
+        def frame(_t):
+            app.tick(0.004)
+            engine.render(app)
+
+        frame(0.0)
+        profile_frames(frame, nodes, tag, card, frame_ms,
+                       watch=("raster_segmented_kernel", "tiled_lights_kernel", "gather"),
+                       expect=expect)
+
+    # -- 16a. the terrain flyover at its defaults, 1920x1080 -----------------
+    for label, flags in (("defaults", []), ("--contact-shadows", ["--contact-shadows"])):
+        tag = f"phase 16a ({label})"
+        window = Window(width=W, height=H, title="terrain")
+        loop, frame_ms, wall, counts = app_run(TerrainApp, flags, window, TERRAIN_FRAMES, dev,
+                                               (2, 0), tag)
+        add(counts)
+        app = loop.app
+        check(app.tri_count == 2 * 767 * 767, f"{tag}: {app.tri_count} triangles")
+        frame_line(tag, f"TerrainApp {' '.join(flags) or '(no flags)'} at {W}x{H}, "
+                   f"{app.tri_count} triangles in one draw", TERRAIN_FRAMES, wall, frame_ms,
+                   counts, card)
+        if not flags:
+            # K1 on the terrain's own shadow and G-buffer records: bit-equal to
+            # its unculled plain walk, timed bare and against its bound.
+            device = RhiCore(dev).create_render_device()
+            calls = []
+            real_raster = draw_mod.raster_segmented
+
+            def recording_raster(bins, grid, init_z, **kw):
+                calls.append((bins, grid, init_z.clone(), kw))
+                return real_raster(bins, grid, init_z, **kw)
+
+            engine = Engine(Window(width=W, height=H, title="calls"), device=dev)
+            with mock.patch.object(draw_mod, "raster_segmented", recording_raster):
+                engine.render(app)
+            engine.shutdown()
+            check(len(calls) == 2, f"{tag}: K1 ran {len(calls)} times in a frame")
+            for name, (bins, grid, init_z, kw) in zip(("shadow 2048^2", "G-buffer"), calls):
+                k = raster_segmented(bins, grid, init_z, **kw)
+                t0 = time.perf_counter()
+                with mock.patch.object(raster_mod, "_raster_segmented_cuda", plain_k1):
+                    p = raster_segmented(bins, grid, init_z, **kw)
+                torch.cuda.synchronize()
+                p_s = time.perf_counter() - t0
+                for a, b_ in zip(k, p):
+                    check(torch.equal(a, b_), f"{tag}: K1 differs from its plain walk on the "
+                          f"{name} pass")
+                cov = int((k[1][-1] > 0).sum())
+                ms = kernel_ms(lambda c=(bins, grid, init_z, kw): raster_segmented(
+                    c[0], c[1], c[2], **c[3]), lambda: None)
+                b_ms, b_by, frags = k1_bound(bins, grid, cov)
+                print(f"{tag}: K1 {name} pass: {int(bins.blk_count.sum())} entries, largest "
+                      f"tile {tile_entries(bins, grid)}, {frags} fragments, {cov} px covered; "
+                      f"bit-equal to the unculled plain walk ({p_s:.1f} s); device time "
+                      f"{ms:.4f} ms (CUDA events round the bare launch), bound {b_ms:.4f} ms "
+                      f"({b_by}) [{card}]")
+            raster_segmented.launches = 0  # the checks above are not the path's launches
+        plain_frame_check(app, window, dev, plain_path, tag, "TerrainApp")
+        engine = Engine(Window(width=W, height=H, title="profile"), device=dev)
+        app.tick(0.004)
+        engine.render(app)
+        sync_free(engine, app, tag)
+        profile_app(app, engine, tag, ("shadow", "gbuffer", "lighting", "post"), frame_ms,
+                    {"raster_segmented_kernel": 2})
+        engine.shutdown()
+
+    # -- 16b. the six feature goldens on the card -------------------------------
+    device = RhiCore(dev).create_render_device()
+    base = feature_golden_frame(device, "base").cpu().numpy()
+    for cfg in FEATURE_GOLDENS:
+        before = (raster_segmented.launches, accumulate_point_lights.launches)
+        img = feature_golden_frame(device, cfg).cpu().numpy()
+        ran = (raster_segmented.launches - before[0], accumulate_point_lights.launches - before[1])
+        golden = np.load(REPO / "tests" / "golden" / f"feat_{cfg}_128x64.npy")
+        mx, frac = lsb_diff(img, golden)
+        print(f"phase 16b: feat_{cfg}_128x64 on the card: max LSB diff {mx}, "
+              f"{frac * 100:.3f}% values differ; K1 {ran[0]}, K2 {ran[1]} launches; the golden "
+              f"differs from the base frame in {int((golden != base).any(-1).sum())} pixels")
+        check(ran == (2, 1), f"16b {cfg}: (K1, K2) ran {ran} times")
+        check(mx <= 1 and frac < 0.01, f"16b: the {cfg} golden drifted")
+        check((golden != base).any(), f"16b: the {cfg} golden equals the base frame")
+    raster_segmented.launches = 0
+    accumulate_point_lights.launches = 0
+
+    # -- 16c. SceneApp --mode deferred with the seven flags at 1080p -----------
+    tag = "phase 16c"
+    window = Window(width=W, height=H, title="scene")
+    loop, frame_ms, wall, counts = app_run(SceneApp, ["--mode", "deferred", *FEATURE_FLAGS],
+                                           window, SCENE_FEATURE_FRAMES, dev, (2, 1), tag)
+    add(counts)
+    app = loop.app
+    check(app.renderer.ssao is not None and app.ssr is not None and app.fog is not None
+          and app.flare is not None and app.renderer.scene.atmosphere is not None
+          and len(app.renderer.scene.decals) == 8 and app.renderer.scene.sun.contact_shadows,
+          f"{tag}: a flag did not reach the renderer")
+    frame_line(tag, f"SceneApp --mode deferred {' '.join(FEATURE_FLAGS)} at {W}x{H}",
+               SCENE_FEATURE_FRAMES, wall, frame_ms, counts, card)
+    plain_frame_check(app, window, dev, plain_path, tag, "SceneApp")
+    engine = Engine(Window(width=W, height=H, title="profile"), device=dev)
+    app.tick(0.004)
+    engine.render(app)
+    sync_free(engine, app, tag)
+    profile_app(app, engine, tag, ("shadow", "gbuffer", "decals", "ssao", "lighting", "ssr",
+                                   "fog", "flare", "post"), frame_ms,
+                {"raster_segmented_kernel": 2, "tiled_lights_kernel": 1})
+    engine.shutdown()
+
+    # -- 16d. FlyApp's scripted flight and MeshApp ------------------------------
+    for label, app_cls, size, frames, per_frame, callback in (
+            ("FlyApp", FlyApp, (1280, 720), FLY_FRAMES, (2, 0), scripted_flight),
+            ("MeshApp", MeshApp, (W, H), MESH_FRAMES, (1, 0), None)):
+        tag = f"phase 16d ({label})"
+        window = Window(width=size[0], height=size[1], title=label)
+        loop, frame_ms, wall, counts = app_run(app_cls, [], window, frames, dev, per_frame,
+                                               tag, frame_callback=callback)
+        add(counts)
+        frame_line(tag, f"{label} at {size[0]}x{size[1]}", frames, wall, frame_ms, counts,
+                   card)
+        if label == "FlyApp":
+            print(f"{tag}: camera at {np.round(np.asarray(loop.app.camera.location), 3)} "
+                  f"after the scripted flight")
+        plain_frame_check(loop.app, window, dev, plain_path, tag, label)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3260,15 +3570,16 @@ def main() -> int:
     capped = capped_phase(dev, card, (clip, idx, colors))
     textured = textured_phases(dev, card, plain)
     forward = forward_phases(dev, card, plain, (c_bins, init, compare_exact, both))
+    terrain = terrain_phases(dev, card, plain)
     k1_def = deferred["k1"]
-    deferred["k2"]["launches"] += glass_launches["K2"] + textured["K2"]
+    deferred["k2"]["launches"] += glass_launches["K2"] + textured["K2"] + terrain["K2"]
     kernels = [{
         "name": "K1 segmented raster (_segmented_kernel)",
         "route": "cuda",
         "source": "zenith_tpu_torch/csrc/raster.cu",
         "replaces": "zenith_tpu/ops/raster.py:311",
         "launches": (main_launches + deferred["k1_launches"] + glass_launches["K1"]
-                     + textured["K1"] + forward["K1"]),
+                     + textured["K1"] + forward["K1"] + terrain["K1"]),
         "max_abs_err": max(max_err, k1_def["max_abs_err"]),
         "ms": k1_def["ms"],
         "plain_ms": k1_def["plain_ms"],
@@ -3282,8 +3593,9 @@ def main() -> int:
     print(f"  launches on the main paths: K1 {main_launches} (triangle, phase 4) + "
           f"{deferred['k1_launches']} (deferred, phase 7) + {glass_launches['K1']} (glass and "
           f"stencil frames, phases 11-12) + {textured['K1']} (textured, phase 14a) + "
-          f"{forward['K1']} (forward SceneApp, MSAA, lines and points, phase 15); K2 "
-          f"{deferred['k2']['launches']} (phases 7, 11 and 14a); "
+          f"{forward['K1']} (forward SceneApp, MSAA, lines and points, phase 15) + "
+          f"{terrain['K1']} (terrain, feature SceneApp, fly and mesh, phase 16); K2 "
+          f"{deferred['k2']['launches']} (phases 7, 11, 14a and 16c); "
           + "; ".join(f"{r['name'][:2]} {r['launches']}" for r in translucent)
           + f" (phases 11-12; K3 {forward['K3']}, K4 {forward['K4']} and K5 {forward['K5']} "
           f"of them under 4x MSAA, phase 15b); "

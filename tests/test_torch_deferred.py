@@ -194,12 +194,18 @@ def test_unported_branches_name_their_roadmap_item():
         (dict(objects=[dataclasses.replace(quad, base_color_texture=None, translucent=True,
                                            morph_deltas=quad.vertex_buffer)]), {}, 21),
         (dict(objects=[dataclasses.replace(quad, instance_offsets=np.zeros((2, 3)))]), {}, 21),
-        ({}, dict(ssao=True), 21),
         ({}, dict(id_buffer=True), 21),
+        ({}, dict(velocity=True), 21),
     ]
     for scene_kw, ctor_kw, item in cases:
         with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
             TDeferred(dataclasses.replace(scene, **scene_kw), **ctor_kw)
+    # SSAO is ported (item 21's single-target passes): True takes the
+    # default options.
+    from zenith_tpu_torch.renderer import SSAOOptions
+
+    assert isinstance(TDeferred(scene, ssao=True).ssao, SSAOOptions)
+    assert TDeferred(scene).ssao is None
     # The wireframe view (item 19) is ported: the G-buffer pass draws LINEs.
     wire = TDeferred(scene, wireframe=True)
     from zenith_tpu_torch.rhi.state import PolygonMode
@@ -211,5 +217,14 @@ def test_unported_branches_name_their_roadmap_item():
     with pytest.raises(NotImplementedError, match="ROADMAP item 21"):
         TDeferred(omni).render_to(RenderGraphBuilder(), None, golden_scene(device)[1],
                                   128, 64)
+    # Still unported at render time: cascades, variance shadows and the
+    # image-based light (the atmosphere, decals and contact shadows are
+    # ported and render: tests/test_torch_features.py).
+    for kw in (dict(sun=dataclasses.replace(scene.sun, cascades=3)),
+               dict(sun=dataclasses.replace(scene.sun, soft_shadows=True)),
+               dict(environment=object())):
+        with pytest.raises(NotImplementedError, match="ROADMAP item 21"):
+            TDeferred(dataclasses.replace(scene, **kw)).render_to(
+                RenderGraphBuilder(), None, golden_scene(device)[1], 128, 64)
     with pytest.raises(NotImplementedError, match="ROADMAP item 21"):
         PostProcess(bloom_mips=3)

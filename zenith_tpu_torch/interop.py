@@ -3,7 +3,7 @@
 The reference package's results reach the port as numpy arrays (buffer
 contents, ``TriangleRecords``, ``SegmentedBins``, ``TileBins``, stencil
 planes and face states, scene objects, light tables, 2D and cube textures,
-materials);
+materials, the sky, decals and the screen-space passes' settings);
 these helpers turn them into the port's tensors and objects on a given
 device, field for field, so the same inputs can be fed to both
 implementations. They read the reference's objects by attribute name
@@ -137,21 +137,82 @@ def scene_object_from(obj: Any, device: "torch.device | str"):
     )
 
 
-def scene_from(scene: Any, device: "torch.device | str"):
-    """A scene (objects, sun, point/spot lights, ambient, skybox) → the
-    port's Scene on ``device`` with the same numbers."""
+def _copy_dataclass(cls, src):
+    """``cls`` built from the same-named fields of ``src``."""
     import dataclasses
 
-    from zenith_tpu_torch.renderer.scene import DirectionalLight, PointLight, Scene, SpotLight
+    return cls(**{f.name: getattr(src, f.name) for f in dataclasses.fields(cls)})
 
-    def copy(cls, src):
-        return cls(**{f.name: getattr(src, f.name) for f in dataclasses.fields(cls)})
+
+def atmosphere_from(atmosphere: Any):
+    """A procedural-sky config → the port's ``Atmosphere``, field for field."""
+    from zenith_tpu_torch.ops.atmosphere import Atmosphere
+
+    return _copy_dataclass(Atmosphere, atmosphere)
+
+
+def decal_from(decal: Any, device: "torch.device | str"):
+    """A decal (box, projection, colour, fade, optional texture) → the
+    port's ``Decal``, its texture on ``device``."""
+    import dataclasses
+
+    from zenith_tpu_torch.renderer.decal import Decal
+
+    return dataclasses.replace(
+        _copy_dataclass(Decal, decal),
+        texture=None if decal.texture is None else texture_from(decal.texture, device))
+
+
+def ssao_options_from(options: Any):
+    """SSAO settings → the port's ``SSAOOptions`` with the same fields."""
+    from zenith_tpu_torch.renderer.deferred import SSAOOptions
+
+    return SSAOOptions(samples=options.samples, radius=options.radius, bias=options.bias,
+                       intensity=options.intensity, blur_taps=options.blur_taps,
+                       depth_tol=options.depth_tol)
+
+
+def ssr_from(ssr: Any):
+    """Screen-space-reflection settings → the port's ``ScreenSpaceReflections``."""
+    from zenith_tpu_torch.renderer.ssr import ScreenSpaceReflections
+
+    return ScreenSpaceReflections(steps=ssr.steps, refine=ssr.refine,
+                                  max_distance=ssr.max_distance, thickness=ssr.thickness,
+                                  strength=ssr.strength, max_roughness=ssr.max_roughness,
+                                  jitter=ssr.jitter)
+
+
+def fog_from(fog: Any):
+    """Volumetric-fog settings → the port's ``VolumetricFog``."""
+    from zenith_tpu_torch.renderer.volumetric import VolumetricFog
+
+    return VolumetricFog(density=fog.density, height=fog.height,
+                         height_falloff=fog.height_falloff, anisotropy=fog.anisotropy,
+                         max_distance=fog.max_distance, sun_boost=fog.sun_boost,
+                         ambient=fog.ambient, steps=fog.steps, jitter=fog.jitter,
+                         shafts=fog.shafts)
+
+
+def flare_from(flare: Any):
+    """Lens-flare settings → the port's ``LensFlare``, field for field."""
+    from zenith_tpu_torch.renderer.flare import LensFlare
+
+    return _copy_dataclass(LensFlare, flare)
+
+
+def scene_from(scene: Any, device: "torch.device | str"):
+    """A scene (objects, sun with its contact-shadow fields, point/spot
+    lights, ambient, skybox, atmosphere, decals) → the port's Scene on
+    ``device`` with the same numbers."""
+    from zenith_tpu_torch.renderer.scene import DirectionalLight, PointLight, Scene, SpotLight
 
     return Scene(
         objects=[scene_object_from(o, device) for o in scene.objects],
-        sun=None if scene.sun is None else copy(DirectionalLight, scene.sun),
-        point_lights=[copy(PointLight, pl) for pl in scene.point_lights],
-        spot_lights=[copy(SpotLight, sl) for sl in scene.spot_lights],
+        sun=None if scene.sun is None else _copy_dataclass(DirectionalLight, scene.sun),
+        point_lights=[_copy_dataclass(PointLight, pl) for pl in scene.point_lights],
+        spot_lights=[_copy_dataclass(SpotLight, sl) for sl in scene.spot_lights],
         ambient=tuple(scene.ambient),
         skybox=None if scene.skybox is None else cube_texture_from(scene.skybox, device),
+        decals=[decal_from(d, device) for d in scene.decals],
+        atmosphere=None if scene.atmosphere is None else atmosphere_from(scene.atmosphere),
     )

@@ -14,10 +14,17 @@ Node ``gbuffer`` (graphic, MRT, one batched draw over K1):
   per-draw UV transform; the normal map bends the normal through the
   derivative-built tangent frame (ops.shade.perturb_normal).
 
-Node ``lighting`` (lambda): full-screen PBR resolve — flat ambient, the sun
-with 2×2 PCF shadows, the point/spot-light sum over the tiled kernel K2
-(ops.lighting), and the cube-map skybox (or a constant background) where no
-surface was drawn.
+Node ``decals`` (lambda, when the scene holds decals): projected decals
+rewrite the G-buffer albedo before lighting (renderer.decal).
+
+Node ``ssao`` (lambda, with ``ssao=``): the ambient-occlusion factor from the
+G-buffer (ops.ssao), blurred, into an R32F plane.
+
+Node ``lighting`` (lambda): full-screen PBR resolve — flat ambient (times the
+AO factor), the sun with 2×2 PCF shadows and optional screen-space contact
+shadows (ops.contact), the point/spot-light sum over the tiled kernel K2
+(ops.lighting), and, where no surface was drawn, the cube-map skybox, the
+procedural atmosphere (ops.atmosphere) or a constant background.
 
 Node ``glass`` (graphic, after lighting, when the scene holds translucent
 objects): one batched blended draw over the lit HDR frame, depth-tested
@@ -31,9 +38,9 @@ textured glass.
 shadow pass stays FILL): the edges get the full deferred lighting.
 
 Not ported yet; each raises NotImplementedError naming its ROADMAP item:
-instanced, skinned and morphed opaque objects, decals, SSAO, shadow-casting
-point lights, cascades, VSM, contact shadows, image-based light, the
-atmosphere, the velocity plane and the id buffer (item 21).
+instanced, skinned and morphed opaque objects, shadow-casting point lights,
+cascades, VSM, image-based light, the velocity plane and the id buffer
+(item 21).
 """
 
 from __future__ import annotations
@@ -46,7 +53,10 @@ import torch
 from zenith_tpu_torch.asset.render_types import Vertex as VERTEX_LAYOUT
 from zenith_tpu_torch.core import mathtypes as m
 from zenith_tpu_torch.core.camera import Camera
+from zenith_tpu_torch.ops.atmosphere import sky_radiance
+from zenith_tpu_torch.ops.contact import contact_shadow_factor
 from zenith_tpu_torch.ops.lighting import accumulate_point_lights
+from zenith_tpu_torch.ops.ssao import hemisphere_kernel, ssao_blur, ssao_occlusion
 from zenith_tpu_torch.ops.shade import perturb_normal
 from zenith_tpu_torch.core import log
 from zenith_tpu_torch.core import validate as _validate
@@ -58,6 +68,7 @@ from zenith_tpu_torch.ops.sampling import (
 )
 from zenith_tpu_torch.rendergraph import RenderGraphBuilder
 from zenith_tpu_torch.rendergraph.resource import RenderGraphResource
+from zenith_tpu_torch.renderer.decal import apply_decal, stacked_decal_colors, stacked_decal_mats
 from zenith_tpu_torch.renderer.forward import (
     _SHADOW_SAMPLER,
     _camera_dynamics,
@@ -66,6 +77,7 @@ from zenith_tpu_torch.renderer.forward import (
     sun_view_projection,
 )
 from zenith_tpu_torch.renderer.scene import Scene, stacked_models
+from zenith_tpu_torch.renderer.volumetric import view_rays
 from zenith_tpu_torch.renderer.static_batch import StaticGeometryCache
 from zenith_tpu_torch.rhi import (
     BlendFactor,
@@ -339,12 +351,31 @@ def _ggx_brdf(n, v, l, albedo, metallic, roughness):
     return (kd * albedo / math.pi + spec) * ndl
 
 
+class SSAOOptions:
+    """Screen-space ambient-occlusion settings (ops.ssao; deferred.py:549-564).
+    ``radius`` and ``bias`` are world-space; tune radius to the scene scale."""
+
+    def __init__(self, samples: int = 12, radius: float = 4.0,
+                 bias: float = 0.04, intensity: float = 1.0,
+                 blur_taps: int = 4, depth_tol: float = 5e-4):
+        self.samples = int(samples)
+        self.radius = float(radius)
+        self.bias = float(bias)
+        self.intensity = float(intensity)
+        self.blur_taps = int(blur_taps)
+        self.depth_tol = float(depth_tol)
+
+    def __zenith_capture_key__(self):
+        return ("ssao-opts", self.samples, self.radius, self.bias,
+                self.intensity, self.blur_taps, self.depth_tol)
+
+
 class DeferredRenderer:
     """G-buffer + PBR lighting over a Scene (deferred.py:568)."""
 
     def __init__(self, scene: Scene, shadows: bool = True,
                  wireframe: bool = False,
-                 ssao=False,
+                 ssao: "bool | SSAOOptions" = False,
                  winding_flip: bool = False,
                  id_buffer: bool = False,
                  velocity: "bool | None" = None,
@@ -355,11 +386,14 @@ class DeferredRenderer:
         self.wireframe = wireframe
         # velocity=None resolves to off: animated content (skins, morphs,
         # device-resident instance offsets) is not ported (_check_objects).
-        for what, on in (("SSAO", ssao), ("the velocity plane", velocity),
+        for what, on in (("the velocity plane", velocity),
                          ("the object-id buffer", id_buffer)):
             if on:
                 raise _unported(what, 21, "screen-space and lighting features")
         self._check_objects(objs)
+        if ssao is True:
+            ssao = SSAOOptions()
+        self.ssao: "SSAOOptions | None" = ssao or None
         self.shadows = shadows and scene.sun is not None and scene.sun.cast_shadows
         self._static_cache = StaticGeometryCache()
 
@@ -563,10 +597,6 @@ class DeferredRenderer:
         sun = scene.sun
         if scene.environment is not None:
             raise _unported("the image-based light (environment)", 21, "ibl/environment/probe")
-        if scene.skybox is None and scene.atmosphere is not None:
-            raise _unported("the procedural atmosphere", 21, "atmosphere sky")
-        if scene.decals:
-            raise _unported("decals", 21, "decals")
         if any(pl.cast_shadows for pl in scene.point_lights):
             raise _unported("shadow-casting point lights (omni shadows)", 21, "omni")
         if self.shadows:
@@ -574,14 +604,24 @@ class DeferredRenderer:
                              ("variance (soft) shadows", sun.soft_shadows)):
                 if on:
                     raise _unported(what, 21, "csm, omni, vsm")
-        if sun is not None and sun.contact_shadows:
-            raise _unported("contact shadows", 21, "ssao, contact")
+
+    def _atmosphere(self):
+        """The scene's procedural sky, where no skybox or environment cube
+        overrides it (deferred.py:1070-1072)."""
+        scene = self.scene
+        if scene.skybox is None and scene.environment is None:
+            return scene.atmosphere
+        return None
 
     def frame_dynamics(self, camera: Camera, include_models: bool = False) -> dict:
         """Per-frame dynamic values for RETAINED execution
         (deferred.py:1061-1130). Pass ``include_models=True`` when objects
         move or toggle ``SceneObject.visible`` between retained frames."""
-        d = _camera_dynamics("def", camera, want_inv_vp=self.scene.skybox is not None)
+        atmo = self._atmosphere()
+        d = _camera_dynamics("def", camera,
+                             want_inv_vp=self.scene.skybox is not None or atmo is not None)
+        if atmo is not None:
+            d["def.atmo"] = atmo.packed(float(camera.location[2]))
         if include_models:
             d["def.models"] = stacked_models(self.scene.objects)
         return d
@@ -612,10 +652,16 @@ class DeferredRenderer:
             pl_rad = np.concatenate([pl_rad, sl_rad])
             builder.set_dynamic("def.sl_params", spot_params)
 
+        atmo = self._atmosphere()
         builder.set_dynamic("def.view_proj", camera.render_view_projection)
         builder.set_dynamic("def.camera_pos", camera.location)
-        if scene.skybox is not None:
+        if scene.skybox is not None or atmo is not None:
             builder.set_dynamic("def.inv_vp", camera.render_inv_view_projection)
+        if atmo is not None:
+            builder.set_dynamic("def.atmo", atmo.packed(float(camera.location[2])))
+            if sun is None:
+                # The sky still needs a sun direction to scatter from.
+                builder.set_dynamic("def.sun_dir", np.asarray([0.0, 0.0, 1.0], np.float32))
         builder.set_dynamic("def.ambient", np.asarray(scene.ambient, np.float32))
         builder.set_dynamic("def.background", np.asarray(background, np.float32))
         if pl_pos.shape[0]:
@@ -767,6 +813,59 @@ class DeferredRenderer:
 
         node.execute(record_gbuffer)
 
+        # -- node: decals (lambda; renderer.decal) -----------------------------
+        # Projected decals rewrite the G-buffer albedo before SSAO and
+        # lighting, so they receive the full PBR shading and shadows.
+        if scene.decals:
+            builder.set_dynamic("def.decal_mats", stacked_decal_mats(scene.decals))
+            builder.set_dynamic("def.decal_cols", stacked_decal_colors(scene.decals))
+            dnode = builder.add_lambda_node("decals")
+            d_tex_acc = [dnode.read(builder.import_resource(d.texture))
+                         if d.texture is not None else None for d in scene.decals]
+            da_in = dnode.read(g_albedo)
+            dp_in = dnode.read(g_pos)
+            dn_in = dnode.read(g_normal)
+            da_out = dnode.write(g_albedo)
+            d_fades = [float(d.normal_fade) for d in scene.decals]
+
+            def record_decals(ctx):
+                am = ctx.get(da_in)
+                pos = ctx.get(dp_in)[..., :3]
+                nrm = ctx.get(dn_in)[..., :3]
+                mats = ctx.dynamic("def.decal_mats")
+                cols = ctx.dynamic("def.decal_cols")
+                rgb = am[..., :3]
+                for k, acc in enumerate(d_tex_acc):
+                    tex = ctx.get(acc) if acc is not None else None
+                    rgb = apply_decal(rgb, pos, nrm, mats[k], cols[k], tex, d_fades[k])
+                ctx.set(da_out, torch.cat([rgb, am[..., 3:]], dim=-1))
+
+            dnode.execute(record_decals)
+
+        # -- node: SSAO (lambda, full-screen; ops.ssao) ------------------------
+        ao_handle = None
+        if self.ssao is not None:
+            opts = self.ssao
+            kern = hemisphere_kernel(opts.samples)  # tiny (K, 3) host constant
+            ao_handle = builder.create(TextureDesc.color("ssao.ao", width, height, Format.R32F))
+            anode = builder.add_lambda_node("ssao")
+            ao_n_in = anode.read(g_normal)
+            ao_p_in = anode.read(g_pos)
+            ao_d_in = anode.read(g_depth)
+            ao_w = anode.write(ao_handle)
+
+            def record_ssao(ctx):
+                dep = ctx.get(ao_d_in)
+                raw = ssao_occlusion(
+                    ctx.get(ao_p_in)[..., :3], ctx.get(ao_n_in)[..., :3], dep,
+                    ctx.dynamic("def.view_proj"), kern, radius=opts.radius, bias=opts.bias,
+                    intensity=opts.intensity,
+                )
+                ctx.set(ao_w, ssao_blur(raw, dep, taps=opts.blur_taps,
+                                        depth_tol=opts.depth_tol)[..., None])
+
+            anode.execute(record_ssao)
+
         # -- node: lighting resolve (lambda, full-screen) ----------------------
         sky_handle = (
             builder.import_resource(scene.skybox) if scene.skybox is not None else None
@@ -778,10 +877,16 @@ class DeferredRenderer:
         d_in = node.read(g_depth)
         sm_in = node.read(sm_handle) if sm_handle is not None else None
         sky_in = node.read(sky_handle) if sky_handle is not None else None
+        ao_in = node.read(ao_handle) if ao_handle is not None else None
         out_w = node.write(output)
         num_lights = pl_pos.shape[0]
         shadows = self.shadows
         has_sun = sun is not None
+        contact_cfg = (
+            (float(sun.contact_strength), float(sun.contact_distance),
+             float(sun.contact_thickness), int(sun.contact_steps))
+            if has_sun and getattr(sun, "contact_shadows", False) else None
+        )
 
         def record_lighting(ctx):
             albedo_metal = ctx.get(a_in)
@@ -799,7 +904,13 @@ class DeferredRenderer:
 
             cam_pos = ctx.dynamic("def.camera_pos")
             v = _normalize(cam_pos - world)
-            color = ctx.dynamic("def.ambient") * albedo + emissive * albedo
+            # SSAO attenuates the ambient term only; direct light keeps its
+            # shadow-map visibility.
+            if ao_in is not None:
+                ambient = ctx.dynamic("def.ambient") * albedo * ctx.get(ao_in)[..., 0:1]
+            else:
+                ambient = ctx.dynamic("def.ambient") * albedo
+            color = ambient + emissive * albedo
 
             if has_sun:
                 l = ctx.dynamic("def.sun_dir")
@@ -819,6 +930,15 @@ class DeferredRenderer:
                         & (uv[..., 1] >= 0) & (uv[..., 1] <= 1)
                     )
                     contrib = contrib * torch.where(inside, lit, torch.ones_like(lit))[..., None]
+                if contact_cfg is not None:
+                    # Contact shadows: a short G-buffer march toward the sun
+                    # (ops.contact) closes the shadow map's bias leak.
+                    c_str, c_dist, c_thick, c_steps = contact_cfg
+                    cvis = contact_shadow_factor(
+                        world, depth, world, depth, l, cam_pos, ctx.dynamic("def.view_proj"),
+                        strength=c_str, max_dist=c_dist, thickness=c_thick, steps=c_steps,
+                    )
+                    contrib = contrib * cvis[..., None]
                 color = color + contrib
 
             if num_lights:
@@ -835,21 +955,18 @@ class DeferredRenderer:
                     spot_params=ctx.dynamic("def.sl_params") if has_spots else None,
                 )
 
-            if sky_in is not None:
-                # Per-pixel view rays for the background, cube-sampled
-                # (texture.rs:94-105).
+            if sky_in is not None or atmo is not None:
+                # Per-pixel view rays for the background: cube-sample them
+                # (texture.rs:94-105) or feed the procedural atmosphere's
+                # march (ops.atmosphere).
                 hh, ww = depth.shape
-                dev = depth.device
-                ndc_x = (torch.arange(ww, dtype=torch.float32, device=dev) + 0.5) / ww * 2 - 1
-                ndc_y = (torch.arange(hh, dtype=torch.float32, device=dev) + 0.5) / hh * 2 - 1
-                px = ndc_x[None, :].expand(hh, ww)
-                py = ndc_y[:, None].expand(hh, ww)
-                ndc = torch.stack(
-                    [px, py, torch.full_like(px, 0.5), torch.ones_like(px)], -1
-                )
-                p = ndc @ ctx.dynamic("def.inv_vp").T
-                dirs = p[..., :3] / p[..., 3:4] - cam_pos
-                bg = sample_cube(ctx.get(sky_in), dirs)[..., :3]
+                dirs = view_rays(ctx.dynamic("def.inv_vp"), cam_pos, hh, ww)
+                if sky_in is not None:
+                    bg = sample_cube(ctx.get(sky_in), dirs)[..., :3]
+                else:
+                    rays = dirs / torch.sqrt(torch.sum(dirs * dirs, dim=-1, keepdim=True))
+                    bg = sky_radiance(rays, ctx.dynamic("def.sun_dir"), ctx.dynamic("def.atmo"),
+                                      atmo)
             else:
                 bg = ctx.dynamic("def.background").expand(color.shape)
             rgb = torch.where(covered, color, bg)

@@ -15,13 +15,17 @@ reference's tests/test_renderers.py::build_test_scene with a sky cube).
 ``SceneApp`` is the reference's scene app in forward mode (config #3: the
 sun's shadow pass and the forward lit pass, with ``--msaa``,
 ``--wireframe``, ``--instances`` and ``--gun-instances``) and deferred mode
-(config #5, with the glass, textured and wireframe options), auto-retained.
+(config #5, with the glass, textured, wireframe and screen-space options),
+auto-retained.
 Its other flags name the ROADMAP item that ports them and raise before
 anything is built. Run it on the card:
 
     python -m zenith_tpu_torch.sandbox.scene --frames 60 --out scene.png -- --mode forward --msaa 4
 
-The other sandbox apps (``terrain``, ``fly``, ``mesh``) are ROADMAP item 22.
+``feature_golden_scene`` builds the screen-space feature frames of
+tests/test_golden_features.py (SSR, fog, sky, flare, contact shadows,
+decals). The other sandbox apps are ``sandbox/terrain.py``, ``fly.py`` and
+``mesh.py``.
 """
 
 from __future__ import annotations
@@ -214,6 +218,102 @@ def golden_scene(render_device, num_lights: int = 8, sky_size: int = 16):
     cam.set_position(np.array([0.0, -60.0, 25.0], np.float32))
     cam.set_yaw_pitch(Radians(0.0), Radians(-0.25))
     return scene, cam
+
+
+# The screen-space feature frames of tests/test_golden_features.py that the
+# port renders, each pinned by tests/golden/feat_<name>_128x64.npy.
+FEATURE_GOLDENS = ("ssr", "fog", "sky", "flare", "contact", "decals")
+
+
+def feature_golden_scene(render_device, cfg: str):
+    """tests/test_golden_features.py::_render's scene and graph for the
+    feature ``cfg`` (one of FEATURE_GOLDENS, or "base": the same scene with
+    no feature): golden_scene's cube over the ground with eight point lights
+    and a 16² sky cube; "ssr" swaps the ground for a glossy mirror quad,
+    "sky" replaces the sky cube with the procedural atmosphere and "sky" and
+    "flare" drop the sun toward the horizon, "contact" turns on the sun's
+    contact shadows, "decals" adds two solid decals. Returns (scene, camera,
+    declare), where ``declare(builder, width, height)`` declares the frame
+    (the deferred renderer, SSR, fog or flare, PostProcess into an RGBA32F
+    target) on ``builder`` and returns the target's handle."""
+    from zenith_tpu_torch.renderer import (
+        Atmosphere,
+        Decal,
+        DeferredRenderer,
+        LensFlare,
+        PostProcess,
+        SceneObject,
+        ScreenSpaceReflections,
+        VolumetricFog,
+    )
+    from zenith_tpu_torch.rhi import TextureDesc
+
+    if cfg not in FEATURE_GOLDENS + ("base",):
+        raise NotImplementedError(
+            f"feature golden {cfg!r} is not ported yet (ROADMAP item 21: post extras)")
+    scene, cam = golden_scene(render_device)
+    if cfg == "ssr":
+        # A smooth receiver whose reflection rays hit on-screen geometry.
+        mirror = SceneObject.quad(render_device, "mirror", size=200.0, z=0.0,
+                                  base_color=(0.6, 0.6, 0.65, 1.0), metallic=0.8,
+                                  roughness=0.1)
+        scene = dataclasses.replace(scene, objects=[scene.objects[0], mirror])
+    if cfg in ("flare", "sky"):
+        # The sun low on the horizon, so the flare and the sky are in frame.
+        scene.sun = dataclasses.replace(scene.sun, direction=(0.8, -0.55, 0.1))
+    if cfg == "contact":
+        scene.sun = dataclasses.replace(scene.sun, contact_shadows=True)
+    if cfg == "sky":
+        scene = dataclasses.replace(scene, skybox=None)
+        scene.atmosphere = Atmosphere()
+    if cfg == "decals":
+        scene.decals.append(Decal(name="splat0", position=(0.0, -20.0, 0.1),
+                                  size=(22.0, 22.0, 4.0), color=(0.9, 0.25, 0.2, 0.85)))
+        scene.decals.append(Decal(name="splat1", position=(18.0, 0.0, 0.1),
+                                  size=(14.0, 14.0, 4.0), color=(0.2, 0.4, 0.9, 0.7)))
+    renderer = DeferredRenderer(scene)
+
+    def declare(builder, width: int, height: int):
+        hdr = builder.create(TextureDesc.color("hdr", width, height, Format.RGBA32F))
+        out = builder.create(TextureDesc.color("ldr", width, height, Format.RGBA32F))
+        renderer.render_to(builder, hdr, cam, width, height)
+        post_in = hdr
+        if cfg == "ssr":
+            ssr_out = builder.create(TextureDesc.color("ssr", width, height, Format.RGBA32F))
+            ScreenSpaceReflections().render_to(builder, post_in, ssr_out, cam,
+                                               renderer.gbuffer_handles)
+            post_in = ssr_out
+        if cfg == "fog":
+            fog_out = builder.create(TextureDesc.color("fog", width, height, Format.RGBA32F))
+            VolumetricFog().render_to(builder, post_in, fog_out, cam, renderer.gbuffer_handles,
+                                      sun=scene.sun)
+            post_in = fog_out
+        if cfg == "flare":
+            flare = LensFlare()
+            for k, v in flare.sun_dynamics(cam, scene.sun.direction).items():
+                builder.set_dynamic(k, v)
+            flare.render_to(builder, post_in, sun_color=(1.0, 0.92, 0.8))
+        PostProcess().render_to(builder, post_in, out)
+        return out
+
+    return scene, cam, declare
+
+
+def feature_golden_frame(render_device, cfg: str, options=None):
+    """One frame of ``feature_golden_scene(render_device, cfg)`` at 128×64
+    with test_golden_features.py's 8×128 tiles (or ``options``), encoded as
+    the golden is (RGBA8 sRGB): a (64, 128, 4) uint8 tensor on the device."""
+    from zenith_tpu_torch.rendergraph import CompileOptions, RenderGraphBuilder
+    from zenith_tpu_torch.rhi import PipelineCache, encode_present
+
+    _, _, declare = feature_golden_scene(render_device, cfg)
+    builder = RenderGraphBuilder()
+    out = declare(builder, GOLDEN_W, GOLDEN_H)
+    builder.export(out)
+    compiled = builder.build().compile(render_device, PipelineCache(),
+                                       options or CompileOptions(tile_h=8, tile_w=128))
+    compiled.execute(render_device)
+    return encode_present(compiled.value(out), Format.RGBA8_SRGB)
 
 
 def emissive_pixels(size: int = 64) -> np.ndarray:
@@ -506,8 +606,6 @@ def deferred_frame(render_device, renderer, camera, width: int, height: int, opt
 _UNPORTED_FLAGS = {
     "ibl": (21, "ibl/environment/probe"),
     "probe": (21, "ibl/environment/probe"),
-    "ssao": (21, "ssao, contact"),
-    "contact_shadows": (21, "ssao, contact"),
     "fxaa": (21, "post extras"),
     "grade": (21, "post extras"),
     "film": (21, "post extras"),
@@ -515,13 +613,8 @@ _UNPORTED_FLAGS = {
     "taa": (21, "taa + velocity"),
     "velocity": (21, "taa + velocity"),
     "motion_blur": (21, "motion_blur"),
-    "ssr": (21, "ssr / screentrace"),
-    "fog": (21, "volumetric"),
-    "sky": (21, "atmosphere sky"),
     "dof": (21, "dof"),
-    "flare": (21, "flare"),
     "hud": (21, "hud"),
-    "decals": (21, "decals"),
     "particles": (21, "particles"),
     "soft_shadows": (21, "csm, omni, vsm"),
     "cascades": (21, "csm, omni, vsm"),
@@ -562,12 +655,26 @@ def _scene_app_parser():
                    help="(the default) build the graph once, re-execute with fresh dynamics")
     p.add_argument("--no-retained", action="store_true",
                    help="rebuild the graph every frame")
-    for flag in ("ibl", "probe", "ssao", "contact-shadows", "fxaa", "grade", "film",
-                 "auto-exposure", "taa", "velocity", "motion-blur", "ssr", "fog", "sky",
-                 "dof", "flare", "hud", "soft-shadows", "point-shadows", "skinned", "morph",
-                 "pick"):
+    p.add_argument("--ssao", action="store_true",
+                   help="screen-space ambient occlusion on the ambient term (deferred mode)")
+    p.add_argument("--contact-shadows", action="store_true",
+                   help="screen-space contact shadows: a short march toward the sun "
+                        "(deferred mode)")
+    p.add_argument("--ssr", action="store_true",
+                   help="screen-space reflections on smooth surfaces (deferred mode)")
+    p.add_argument("--fog", action="store_true",
+                   help="volumetric height fog + sun shafts from the shadow map (deferred mode)")
+    p.add_argument("--sky", action="store_true",
+                   help="procedural atmosphere sky (deferred); drops the sun toward the horizon")
+    p.add_argument("--flare", action="store_true",
+                   help="lens flare on the HDR frame (drops the sun toward the horizon)")
+    p.add_argument("--decals", type=int, default=0,
+                   help="N projected decals stamped in a ring on the ground (deferred mode)")
+    for flag in ("ibl", "probe", "fxaa", "grade", "film", "auto-exposure", "taa",
+                 "velocity", "motion-blur", "dof", "hud", "soft-shadows", "point-shadows",
+                 "skinned", "morph", "pick"):
         p.add_argument(f"--{flag}", action="store_true", help="not ported yet")
-    for flag, default in (("decals", 0), ("particles", 0), ("cascades", 1)):
+    for flag, default in (("particles", 0), ("cascades", 1)):
         p.add_argument(f"--{flag}", type=int, default=default, help="not ported yet")
     return p
 
@@ -577,8 +684,10 @@ class SceneApp(RenderableApp):
     (config #3: ForwardShadowRenderer, ``--msaa``, ``--wireframe``,
     ``--instances``, ``--gun-instances``) or deferred mode (config #5:
     DeferredRenderer with ``--lights``, ``--spots``, ``--textured``,
-    ``--glass``, ``--wireframe``) over build_scene's cerberus scene, bloom +
-    ACES post unless ``--no-post``, an orbit camera that the first input event
+    ``--glass``, ``--wireframe``, ``--ssao``, ``--contact-shadows``,
+    ``--decals N``, ``--sky``, then the ``--ssr`` and ``--fog`` passes) over
+    build_scene's cerberus scene, ``--flare`` on the HDR frame, bloom + ACES
+    post unless ``--no-post``, an orbit camera that the first input event
     hands to fly controls, and auto-retained execution."""
 
     def __init__(self, args: Args):
@@ -613,6 +722,17 @@ class SceneApp(RenderableApp):
         self.bloom_mips = ns.bloom_mips
         self.num_lights = ns.lights if deferred else 0
         self.post_enabled = not ns.no_post
+        self.ssao = ns.ssao and deferred
+        self.contact_shadows = ns.contact_shadows and deferred
+        self.n_decals = ns.decals if deferred else 0
+        self.use_sky = ns.sky and deferred
+        self.use_flare = ns.flare
+        self.use_ssr = ns.ssr and deferred
+        self.use_fog = ns.fog and deferred
+        self.flare = None
+        self.ssr = None
+        self.fog = None
+        self._sun_dir = (0.35, -0.3, 0.88)
         # Auto-retained by default: every per-frame value rides a dynamic, so
         # the engine re-runs the cached frame function; a structural scene
         # edit calls mark_structure_dirty() and the next frame rebuilds.
@@ -645,16 +765,30 @@ class SceneApp(RenderableApp):
         from zenith_tpu_torch.core.camera import Camera
         from zenith_tpu_torch.core.mathtypes import Degree
         from zenith_tpu_torch.renderer import (
+            Atmosphere,
+            Decal,
             DeferredRenderer,
             ForwardShadowRenderer,
+            LensFlare,
             PostProcess,
+            ScreenSpaceReflections,
             SpotLight,
+            SSAOOptions,
+            VolumetricFog,
         )
 
         rng = np.random.default_rng(42)
         scene = build_scene(render_device, self.num_lights, rng, textured=self.textured,
                             instances=self.instances, gun_instances=self.gun_instances,
                             glass=self.glass, glass_textured=self.glass_textured)
+        palette = [(1.0, 0.2, 0.15, 0.85), (0.2, 0.9, 1.0, 0.85),
+                   (1.0, 0.8, 0.2, 0.85), (0.6, 0.3, 1.0, 0.85)]
+        for k in range(self.n_decals):
+            a = 2.0 * math.pi * k / self.n_decals
+            # A deep box, so the down-projection reaches the ground plane.
+            scene.decals.append(Decal(f"mark{k}", position=(85.0 * math.cos(a),
+                                                            85.0 * math.sin(a), 0.0),
+                                      size=(26.0, 26.0, 120.0), color=palette[k % len(palette)]))
         for i in range(self.spots):
             a = 2 * math.pi * i / self.spots + 0.8
             hue = [(3.0, 0.6, 0.5), (0.5, 3.0, 0.8), (0.6, 0.9, 3.0)][i % 3]
@@ -663,12 +797,31 @@ class SceneApp(RenderableApp):
                 direction=(0.25 * math.cos(a + 2), 0.25 * math.sin(a + 2), -1.0),
                 color=hue, intensity=1800.0, radius=130.0, inner_deg=14.0, outer_deg=22.0,
             ))
+        if self.contact_shadows and scene.sun is not None:
+            scene.sun = dataclasses.replace(scene.sun, contact_shadows=True)
         if self.mode == "deferred":
-            self.renderer = DeferredRenderer(scene, wireframe=self.wireframe,
-                                             glass_mode=self.glass_mode)
+            self.renderer = DeferredRenderer(
+                scene, wireframe=self.wireframe,
+                ssao=SSAOOptions(radius=6.0) if self.ssao else False,
+                glass_mode=self.glass_mode)
         else:
             self.renderer = ForwardShadowRenderer(scene, wireframe=self.wireframe, msaa=self.msaa)
         self.post = PostProcess(bloom_mips=self.bloom_mips) if self.post_enabled else None
+        if (self.use_sky or self.use_flare) and scene.sun is not None:
+            # Sunset: the sun drops toward the horizon so that it enters the
+            # orbit camera's 35-degree frame.
+            scene.sun = dataclasses.replace(scene.sun, direction=(0.8, -0.55, 0.1))
+            self._sun_dir = scene.sun.direction
+        if self.use_sky:
+            # The procedural sky replaces the demo cube skybox.
+            scene.skybox = None
+            scene.atmosphere = Atmosphere()
+        if self.use_flare and self.post is not None and scene.sun is not None:
+            self.flare = LensFlare()
+        if self.use_ssr:
+            self.ssr = ScreenSpaceReflections()
+        if self.use_fog:
+            self.fog = VolumetricFog()
         self.camera = Camera(fov_y=Degree(35.0), aspect_ratio=window.width / max(window.height, 1))
         self._extent = (window.width, window.height)
         self._window = window
@@ -726,9 +879,15 @@ class SceneApp(RenderableApp):
         if self._structure_dirty:
             self._structure_dirty = False
             return None
-        if self.mode == "deferred":
-            return self.renderer.frame_dynamics(self.camera, include_models=True)
-        return self.renderer.frame_dynamics(self.camera)
+        d = (self.renderer.frame_dynamics(self.camera, include_models=True)
+             if self.mode == "deferred" else self.renderer.frame_dynamics(self.camera))
+        if self.ssr is not None:
+            d.update(self.ssr.frame_dynamics(self.camera))
+        if self.fog is not None:
+            d.update(self.fog.frame_dynamics(self.camera))
+        if self.flare is not None:
+            d.update(self.flare.sun_dynamics(self.camera, self._sun_dir))
+        return d
 
     def render(self, context: RenderContext) -> None:
         from zenith_tpu_torch.rhi import TextureDesc
@@ -738,14 +897,35 @@ class SceneApp(RenderableApp):
             return
         builder = context.builder()
         out = builder.import_resource(context.swapchain_texture())
+        # The ordered chain of screen-space passes after the scene render
+        # (scene.py:1058-1160): SSR, then fog; the flare adds in place after
+        # them, before post.
+        chain = []
+        if self.ssr is not None:
+            chain.append(("ssr", lambda src, dst: self.ssr.render_to(
+                builder, src, dst, self.camera, self.renderer.gbuffer_handles)))
+        if self.fog is not None:
+            chain.append(("fog", lambda src, dst: self.fog.render_to(
+                builder, src, dst, self.camera, self.renderer.gbuffer_handles,
+                sun=self.renderer.scene.sun)))
         target = out
-        if self.post is not None:
+        if chain or self.post is not None:
             target = builder.create(TextureDesc.color("scene.hdr", width, height, Format.RGBA32F))
         if self.mode == "deferred":
             self.renderer.render_to(builder, target, self.camera, width, height)
         else:
             depth = builder.create(TextureDesc.depth("scene.depth", width, height))
             self.renderer.render_to(builder, target, depth, self.camera)
+        for i, (name, render_stage) in enumerate(chain):
+            last_writer = i == len(chain) - 1 and self.post is None
+            dst = out if last_writer else builder.create(
+                TextureDesc.color(f"scene.{name}", width, height, Format.RGBA32F))
+            render_stage(target, dst)
+            target = dst
+        if self.flare is not None:
+            for k, v in self.flare.sun_dynamics(self.camera, self._sun_dir).items():
+                builder.set_dynamic(k, v)
+            self.flare.render_to(builder, target, sun_color=(1.0, 0.92, 0.8))
         if self.post is not None:
             self.post.render_to(builder, target, out)
 
