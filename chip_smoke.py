@@ -33,7 +33,7 @@ other than 0, no result line) on the first phase that fails:
    the card must match tests/golden/triangle_128x32_t1_25.npy (<= 1 LSB,
    < 1% of pixels differing);
 4. the triangle's main path: the triangle app through zenith_tpu_torch.launch
-   at 1920x1080 for 60 frames, on the rebuild and the auto-retained paths.
+   at 1920x1080 for 30 frames, on the rebuild and the auto-retained paths.
    K1 must launch at least once per frame, the last frame must equal the
    frame rendered on the card through the plain raster at the same time, and
    a retained run of the frame function must make no host sync;
@@ -56,7 +56,7 @@ other than 0, no result line) on the first phase that fails:
    values differing);
 7. the deferred main path: bench.py::bench_scene's frame function (rebuild →
    DeferredRenderer.render_to → PostProcess → PresentEncode(BGRA8_SRGB),
-   camera orbit at radius 170, fov 35°) at 1920x1080 for 60 frames, on
+   camera orbit at radius 170, fov 35°) at 1920x1080 for 30 frames, on
    zenith_tpu/sandbox/scene.py::build_scene's settings with the cerberus
    mesh replaced by a procedural stand-in of its size
    (zenith_tpu_torch/sandbox/scene.py::build_standin_scene). Each
@@ -91,7 +91,7 @@ other than 0, no result line) on the first phase that fails:
     and K6's per-entry rectangle cull must drop nothing: z and stencil
     bit-equal, colour within atol 1e-5 + rtol 1e-5;
 11. the deferred main path with build_scene's two glass panes at 1920x1080,
-    100 lights, 40 frames per mode: glass_mode="kernel" (K5, the glass
+    100 lights, 20 frames per mode: glass_mode="kernel" (K5, the glass
     shader's device source) and glass_mode="peel" with the 64² checker and 4
     layers (K1 for layer 1, K4 for layers 2-4 and the probe). Each frame
     must launch K1, K2 and K5 or K4 the expected number of times with no bin
@@ -136,7 +136,7 @@ other than 0, no result line) on the first phase that fails:
 14. textured materials end to end: (14a) build_scene's textured deferred
     scene (the stand-in mesh with the brushed texture, the ground with the
     checker, bump normal and MRA maps through the G-buffer's material
-    atlases) at 1920x1080 with 100 lights and phase 7's camera orbit, 40
+    atlases) at 1920x1080 with 100 lights and phase 7's camera orbit, 20
     frames: each frame must run K1 twice and K2 once with no bin overflow,
     the last frame must match the plain-path frame (<= 1 LSB, < 1% of
     values); K2 and K1's passes timed as bare launches (CUDA events), and a
@@ -188,7 +188,26 @@ other than 0, no result line) on the first phase that fails:
     K2 1 a frame, the last frame against the plain path, a retained frame
     without host sync, a profile; (16d) FlyApp's scripted flight (60 frames
     at 1280x720, K1 2 a frame) and MeshApp (30 frames at 1080p, K1 1 a
-    frame), each last frame against its plain path.
+    frame), each last frame against its plain path;
+17. deferred instancing, the render graph's sub-resource views and the
+    layered shadows: (17a) SceneApp --mode deferred --gun-instances 30
+    --instances 64 over the baked cerberus at 1920x1080 (1,006,292
+    triangles submitted to each pass), 30 frames: K1 6 and K2 1 a frame
+    (the count the node structure predicts), no bin overflow, K1 on every
+    pass of a still frame bit-equal to its unculled plain walk, the still
+    frame against the same scene drawn as 95 separate objects (<= 1 LSB,
+    < 1% of values, but for silhouette pixels on at most 0.05% of the
+    frame, where the two vertex paths round positions apart); (17b) the
+    same with --cascades 3 --point-shadows --bloom-mips 5: K1 18 and K2 1 a
+    frame, K1 bit-equal to the unculled walk on every pass into the three
+    cascade layers and the six cube faces, the bin overflow of each pass
+    printed (only the cascades' instanced passes may overflow), K2 on the
+    100 unshadowed lights against its plain version; (17c) with
+    --soft-shadows (VSM); each with its last frame against the plain path,
+    a retained frame without host sync and a profile; (17d) the
+    sub-resource graphs (a cube face rendered and sampled, a layer of a
+    depth array, render-to-mip, buffer ranges, a layered mip chain, the
+    bloom chain) on the card against the same code on the CPU.
 
 Every kernel and its plain version are timed with CUDA events (median; a
 plain version that runs for seconds twice, not warmed up) and set beside
@@ -197,7 +216,7 @@ rows of the bins, not their padding; each plane read or written once) over
 3.35 TB/s and the fp32 operations these inputs need over 67 TFLOP/s.
 
 The line before the last is a JSON object listing each kernel (K1-K8) with
-its launches on the main paths (phases 4, 7, 11, 12, 13, 14a, 15 and 16), its largest
+its launches on the main paths (phases 4, 7, 11, 12, 13, 14a, 15, 16 and 17), its largest
 difference from the plain version, its time, the plain version's, its bound
 and what bounds it, and the inputs these were taken at; the last line is the
 device record.
@@ -219,10 +238,14 @@ import numpy as np
 
 REPO = Path(__file__).resolve().parent
 W, H = 1920, 1080
-FRAMES = 60
-DEFERRED_FRAMES = 60
-GLASS_FRAMES = 40
-PROFILED_FRAMES = 10
+# Frames per run: phases 4, 7, 11 and 14a run half their former frames, and
+# each profile 4 frames (10 before), which keeps the script, phase 17
+# included, under ten minutes (most of a profile's cost is processing its
+# events).
+FRAMES = 30
+DEFERRED_FRAMES = 30
+GLASS_FRAMES = 20
+PROFILED_FRAMES = 4
 # Frames per run of phase 7's A/B of the per-row rectangles' host cost.
 RECT_FRAMES = 30
 
@@ -2285,7 +2308,7 @@ def cull_stress_capped(dev, card: str) -> dict:
     return err
 
 
-TEXTURED_FRAMES = 40
+TEXTURED_FRAMES = 20
 
 
 def plate_gltf(path: Path, n: int = 96) -> None:
@@ -2999,13 +3022,15 @@ FEATURE_FLAGS = ["--ssao", "--contact-shadows", "--ssr", "--fog", "--sky", "--fl
                  "--decals", "8"]
 
 
-def app_run(app_cls, argv, window, frames, dev, per_frame, label, frame_callback=None):
+def app_run(app_cls, argv, window, frames, dev, per_frame, label, frame_callback=None,
+            overflow_ok=False):
     """Drive ``app_cls`` through the engine loop (``launch``, or the loop
     with ``frame_callback`` as FlyApp's main drives it) for ``frames``
     frames, with K1's and K2's counts set to 0 just before and read just
     after. Checks that every frame launched (K1, K2) ``per_frame`` times
-    with no bin overflow and that a frame was presented. Returns (loop,
-    frame times in ms between frame ends, wall seconds, (K1, K2) launches)."""
+    with no bin overflow (unless ``overflow_ok``: then it is printed) and
+    that a frame was presented. Returns (loop, frame times in ms between
+    frame ends, wall seconds, (K1, K2) launches)."""
     import torch
 
     from zenith_tpu_torch import asset
@@ -3048,7 +3073,10 @@ def app_run(app_cls, argv, window, frames, dev, per_frame, label, frame_callback
     check(seen == [per_frame], f"{label}: (K1, K2) launched {seen} times a frame, not "
           f"{per_frame}")
     overflow = int(torch.stack([o for _, _, o, _ in log]).sum())
-    check(overflow == 0, f"{label}: bin overflow {overflow}")
+    if overflow_ok:
+        print(f"{label}: bin overflow {overflow} entries in {frames} frames")
+    else:
+        check(overflow == 0, f"{label}: bin overflow {overflow}")
     last = window.last_frame
     check(last is not None and last.shape == (window.height, window.width, 4)
           and last[..., :3].std() > 1.0, f"{label}: no frame presented")
@@ -3056,12 +3084,13 @@ def app_run(app_cls, argv, window, frames, dev, per_frame, label, frame_callback
     return loop, frame_ms, wall, counts
 
 
-def frame_line(tag, label, frames, wall, frame_ms, counts, card) -> None:
+def frame_line(tag, label, frames, wall, frame_ms, counts, card, overflow_ok=False) -> None:
     steady = frame_ms[4:]
     print(f"{tag}: {label}: {frames} frames in {wall:.2f} s with the build; steady "
           f"{1e3 / np.mean(steady):.2f} FPS, frame time p50 {np.percentile(steady, 50):.3f} ms, "
           f"p99 {np.percentile(steady, 99):.3f} ms (CUDA events between frame ends, frames "
-          f"5-{frames}); K1 {counts[0]}, K2 {counts[1]} launches; bin overflow 0 [{card}]")
+          f"5-{frames}); K1 {counts[0]}, K2 {counts[1]} launches; "
+          f"{'bin overflow per pass below' if overflow_ok else 'bin overflow 0'} [{card}]")
 
 
 def plain_frame_check(app, window, dev, plain_path, tag, label):
@@ -3266,6 +3295,409 @@ def terrain_phases(dev, card: str, plain_k1) -> dict:
     return launches
 
 
+LAYERED_FRAMES = 30
+INSTANCED_FLAGS = ["--mode", "deferred", "--gun-instances", "30", "--instances", "64"]
+LAYERED_FLAGS = ["--cascades", "3", "--point-shadows", "--bloom-mips", "5"]
+# K1 a frame, from the node structure (renderer/deferred.py): the plain
+# shadow pass (the ground) and one instanced draw per instanced object
+# (cerberus x30, the rocks) per shadow map or cascade layer, the six cube
+# faces of the point light (the ground), the G-buffer pass and its two
+# instanced draws.
+K1_INSTANCED = 1 + 2 + 1 + 2
+K1_LAYERED = 3 * (1 + 2) + 6 + 1 + 2
+
+
+def recorded_frame(engine_dev, app, calls_of):
+    """One frame of ``app`` on a fresh engine with K1's and K2's wrappers
+    recorded: returns [(render-graph node, wrapper, args, kwargs)] in call
+    order, the inputs cloned before the call."""
+    import torch
+
+    from zenith_tpu_torch.core import profile
+    from zenith_tpu_torch.engine import Engine
+    from zenith_tpu_torch.ops import draw as draw_mod
+    from zenith_tpu_torch.renderer import deferred as deferred_mod
+    from zenith_tpu_torch.window import Window
+
+    node = ["?"]
+    calls = []
+    real_scope, real_raster = profile.scope, draw_mod.raster_segmented
+    real_lights = deferred_mod.accumulate_point_lights
+
+    @contextlib.contextmanager
+    def scope(name):
+        node[0] = name
+        with real_scope(name):
+            yield
+
+    def rec(kind, fn):
+        def call(*args, **kw):
+            if kind in calls_of:
+                cloned = [a.clone() if isinstance(a, torch.Tensor) else a for a in args]
+                calls.append((node[0], kind, cloned, dict(kw)))
+            return fn(*args, **kw)
+        return call
+
+    engine = Engine(Window(width=W, height=H, title="calls"), device=engine_dev)
+    with mock.patch.object(profile, "scope", scope), \
+            mock.patch.object(draw_mod, "raster_segmented", rec("K1", real_raster)), \
+            mock.patch.object(deferred_mod, "accumulate_point_lights", rec("K2", real_lights)):
+        engine.render(app)
+    engine.shutdown()
+    torch.cuda.synchronize()
+    return calls
+
+
+def k1_against_unculled(calls, plain_k1, tag, card, want, overflow_ok=()) -> None:
+    """Each recorded K1 call of a node that ``want`` accepts: the kernel
+    bit-equal to its unculled plain walk (bins without rectangles), with
+    its entries, fragments, overflow, device time and bound. Only nodes
+    named in ``overflow_ok`` may overflow their bins."""
+    import torch
+
+    from zenith_tpu_torch.ops import raster as raster_mod
+    from zenith_tpu_torch.ops.raster import raster_segmented
+
+    checked = 0
+    for node, _, (bins, grid, init_z), kw in calls:
+        if not want(node):
+            continue
+        k = raster_segmented(bins, grid, init_z, **kw)
+        t0 = time.perf_counter()
+        with mock.patch.object(raster_mod, "_raster_segmented_cuda", plain_k1):
+            p = raster_segmented(bins, grid, init_z, **kw)
+        torch.cuda.synchronize()
+        p_s = time.perf_counter() - t0
+        for a, b_ in zip(k, p):
+            check(torch.equal(a, b_), f"{tag}: K1 differs from its unculled plain walk on {node}")
+        cov = int((k[1][-1] > 0).sum())
+        ms = kernel_ms(lambda c=(bins, grid, init_z, kw): raster_segmented(
+            c[0], c[1], c[2], **c[3]), lambda: None)
+        b_ms, b_by, frags = k1_bound(bins, grid, cov)
+        print(f"{tag}: K1 {node} ({grid.width}x{grid.height}): {int(bins.blk_count.sum())} "
+              f"entries, largest tile {tile_entries(bins, grid)}, {frags} fragments, {cov} px "
+              f"covered, overflow {int(bins.overflow)}; bit-equal to the unculled plain walk "
+              f"({p_s:.1f} s); device time {ms:.4f} ms (CUDA events round the bare launch), "
+              f"bound {b_ms:.4f} ms ({b_by}) [{card}]")
+        check(int(bins.overflow) == 0 or node in overflow_ok,
+              f"{tag}: {node} overflowed its bins")
+        checked += 1
+    check(checked > 0, f"{tag}: no K1 call checked")
+    raster_segmented.launches = 0  # the checks are not the path's launches
+
+
+def separate_objects(scene):
+    """``scene`` with every instanced object replaced by one object per
+    instance at a translated model matrix (the oracle of the reference's
+    tests/test_instancing.py::TestInstancedScene)."""
+    from zenith_tpu_torch.core.mathtypes import mat4_translation
+
+    objects = []
+    for o in scene.objects:
+        if o.instance_offsets is None:
+            objects.append(o)
+            continue
+        for k, off in enumerate(np.asarray(o.instance_offsets, np.float32)):
+            objects.append(dataclasses.replace(
+                o, name=f"{o.name}.{k}", instance_offsets=None,
+                model_matrix=(mat4_translation(off) @ o.model_matrix).astype(np.float32)))
+    return dataclasses.replace(scene, objects=objects)
+
+
+def subresource_cases(dev) -> dict:
+    """The render graph's sub-resource views through the port on ``dev``
+    (twins of tests/test_subresource.py): a triangle rendered into one cube
+    face and cube-sampled, a depth draw into one layer of a 2D array, a
+    render-to-mip, buffer ranges, a layered mip chain written at (mip 1,
+    layer 1) and the render-to-mip bloom chain. Returns {case: [numpy
+    arrays]}."""
+    import torch
+
+    from zenith_tpu_torch.ops.sampling import sample_cube
+    from zenith_tpu_torch.renderer import PostProcess
+    from zenith_tpu_torch.rendergraph import CompileOptions, RenderGraphBuilder
+    from zenith_tpu_torch.rhi import (
+        BufferDesc,
+        ColorAttachmentDesc,
+        Format,
+        GraphicShaderInput,
+        PipelineCache,
+        RhiCore,
+        Shader,
+        TextureDesc,
+        attr,
+    )
+    from zenith_tpu_torch.rhi.state import (
+        CompareOp,
+        CullMode,
+        DepthStencilDesc,
+        GraphicPipelineState,
+        RasterizationState,
+        VertexLayout,
+    )
+
+    device = RhiCore(dev).create_render_device()
+    layout = VertexLayout.from_fields(("position", 3), ("color", 3))
+    vs = Shader.vertex("sub.vs", lambda a, r: {
+        "position": torch.cat([a["position"], torch.ones_like(a["position"][:, :1])], 1),
+        "color": a["color"]}, inputs=[attr("position", 3), attr("color", 3)])
+    fs = Shader.fragment("sub.fs", lambda v, r, b: torch.cat(
+        [v["color"], torch.ones_like(v["color"][..., :1])], -1))
+    state = GraphicPipelineState(rasterization=RasterizationState(cull_mode=CullMode.NONE))
+    tri = np.array([[-0.9, -0.9, 0.5, 1, 0, 0], [0.9, -0.9, 0.5, 1, 0, 0],
+                    [0.0, 0.9, 0.5, 1, 0, 0]], np.float32)
+    opts = CompileOptions(tile_h=8, tile_w=128)
+
+    def run(builder, handles):
+        compiled = builder.build().compile(device, PipelineCache(), opts)
+        compiled.execute(device)
+        out = []
+        for h in handles:
+            v = compiled.value(h)
+            out += [x.cpu().numpy() for x in (v if isinstance(v, tuple) else (v,))]
+        return out
+
+    def draw_into(name, handle, with_fs=True, depth=False, **sel):
+        builder, tex = handle
+        node = builder.add_graphic_node(name)
+        vb = builder.import_resource(device.upload_buffer("vb", tri))
+        ib = builder.import_resource(device.upload_buffer("ib", np.array([0, 1, 2], np.int32)))
+        vba, iba = node.read(vb), node.read(ib)
+        rt = node.write(tex, **sel)
+        with node.pipeline(GraphicShaderInput(vs, fs if with_fs else None, layout),
+                           state) as binder:
+            if depth:
+                binder.set_depth(rt, DepthStencilDesc(
+                    depth_test_enable=True, depth_write_enable=True,
+                    depth_compare_op=CompareOp.GREATER, depth_clear_value=0.0))
+            else:
+                binder.push_color(rt, ColorAttachmentDesc(clear_value=(0, 0, 1, 1)))
+        node.execute(lambda ctx: ctx.draw_indexed(vba, iba, {}))
+
+    cases = {}
+    b = RenderGraphBuilder()
+    cube = b.create(TextureDesc.new_cube("cube", 64, Format.RGBA32F))
+    b.export(cube)
+    draw_into("to_face", (b, cube), layer=2)
+    out = b.create(TextureDesc.color("sampled", 8, 8))
+    b.export(out)
+    node = b.add_lambda_node("sample")
+    cin, dst = node.read(cube), node.write(out)
+    node.execute(lambda ctx: ctx.set(dst, sample_cube(ctx.get(cin), torch.tensor(
+        [0.0, 1.0, 0.0], device=dev).expand(8, 8, 3))))
+    cases["cube face"] = run(b, [cube, out])
+    b = RenderGraphBuilder()
+    arr = b.create(TextureDesc.new_2d_array("cascades", 128, 32, 2, Format.D32F))
+    b.export(arr)
+    draw_into("cascade1", (b, arr), with_fs=False, depth=True, layer=1)
+    cases["layer depth"] = run(b, [arr])
+    b = RenderGraphBuilder()
+    mips = b.create(TextureDesc("mips", 256, 128, Format.RGBA32F, mip_levels=3))
+    b.export(mips)
+    draw_into("to_mip1", (b, mips), mip=1)
+    cases["render-to-mip"] = run(b, [mips])
+    b = RenderGraphBuilder()
+    buf = b.create(BufferDesc("ranges", (16,), "float32"))
+    b.export(buf)
+    node = b.add_lambda_node("fill")
+    head, tail = node.write(buf, brange=(0, 4)), node.write(buf, brange=(12, 4))
+
+    def fill(ctx):
+        ctx.set(head, torch.full((4,), 1.0, device=dev))
+        ctx.set(tail, torch.full((4,), 2.0, device=dev))
+
+    node.execute(fill)
+    cases["buffer range"] = run(b, [buf])
+    b = RenderGraphBuilder()
+    env = b.create(TextureDesc("env", 256, 128, Format.RGBA32F, mip_levels=2, array_layers=2))
+    b.export(env)
+    draw_into("to_mip1_layer1", (b, env), mip=1, layer=1)
+    cases["layered mip chain"] = run(b, [env])
+    b = RenderGraphBuilder()
+    hdr_np = np.zeros((68, 136, 4), np.float32)
+    hdr_np[20:30, 40:60, :3] = 5.0
+    hdr = b.create(TextureDesc.color("hdr", 136, 68))
+    ldr = b.create(TextureDesc.color("ldr", 136, 68))
+    b.export(ldr)
+    node = b.add_lambda_node("seed")
+    sdst = node.write(hdr)
+    node.execute(lambda ctx: ctx.set(sdst, torch.from_numpy(hdr_np).to(dev)))
+    PostProcess(bloom_mips=3).render_to(b, hdr, ldr)
+    cases["bloom mip chain"] = run(b, [ldr])
+    return cases
+
+
+def layered_phases(dev, card: str, plain_k1) -> dict:
+    """Phase 17: deferred instancing, the render graph's sub-resource views
+    and the layered shadows with the bloom mip chain. (17a) SceneApp --mode
+    deferred --gun-instances 30 --instances 64 at 1920x1080: K1 on every
+    pass bit-equal to its unculled plain walk, the frame against the same
+    scene drawn as separate objects; (17b) the same with --cascades 3
+    --point-shadows --bloom-mips 5: K1 on the three cascade layers and the
+    six cube faces bit-equal to the unculled walk, K2 on the 100 unshadowed
+    lights against its plain version; (17c) with --soft-shadows (VSM);
+    each last frame against its plain path, a retained frame without host
+    sync, a profile; (17d) the sub-resource views on the card against the
+    same code on the CPU. Returns K1's and K2's launches on these paths."""
+    import torch
+
+    from zenith_tpu_torch.engine import Engine
+    from zenith_tpu_torch.ops import lighting as lighting_mod
+    from zenith_tpu_torch.ops import raster as raster_mod
+    from zenith_tpu_torch.rendergraph import CompileOptions
+    from zenith_tpu_torch.renderer import DeferredRenderer
+    from zenith_tpu_torch.rhi import Format, RhiCore
+    from zenith_tpu_torch.sandbox.scene import SceneApp, deferred_frame
+    from zenith_tpu_torch.window import Window
+
+    launches = {"K1": 0, "K2": 0}
+
+    def resolve_k1(b, g, z, acc, compare, write, clamp, off):
+        raster_mod._raster_segmented_torch(b, g, z, acc, compare, write, clamp, off)
+
+    @contextlib.contextmanager
+    def plain_path():
+        with plain_versions(resolve_k1):
+            yield
+
+    def sync_free(engine, app, tag):
+        compiled = engine._retained[0]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            compiled.execute(engine.render_device, dynamics=app.update_dynamics())
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        print(f"{tag}: a retained frame made no host sync")
+
+    def run(tag, flags, per_frame, nodes, overflow_ok=False):
+        window = Window(width=W, height=H, title="scene")
+        loop, frame_ms, wall, counts = app_run(SceneApp, flags, window, LAYERED_FRAMES, dev,
+                                               per_frame, tag, overflow_ok=overflow_ok)
+        launches["K1"] += counts[0]
+        launches["K2"] += counts[1]
+        app = loop.app
+        objs = [o for o in app.renderer.scene.objects if not o.translucent]
+        tris = sum(o.tri_count * o.instance_count for o in objs)
+        frame_line(tag, f"SceneApp {' '.join(flags)} at {W}x{H}, {tris} triangles submitted "
+                   f"to each of the G-buffer and every shadow pass", LAYERED_FRAMES, wall,
+                   frame_ms, counts, card, overflow_ok)
+        print(f"{tag}: K1 {per_frame[0]}, K2 {per_frame[1]} launches a frame, as predicted "
+              f"from the node structure; render-graph nodes {', '.join(nodes)}")
+        plain_frame_check(app, window, dev, plain_path, tag, "SceneApp")
+        engine = Engine(Window(width=W, height=H, title="profile"), device=dev)
+        app.tick(0.004)
+        engine.render(app)
+        sync_free(engine, app, tag)
+
+        def frame(_t):
+            app.tick(0.004)
+            engine.render(app)
+
+        frame(0.0)
+        # "gemm": cuBLAS runs the lighting's (H, W, 4) x (4, 4) projections,
+        # the cascade selection's among them (reference deferred.py:2125-2135).
+        profile_frames(frame, nodes, tag, card, frame_ms,
+                       watch=("raster_segmented_kernel", "tiled_lights_kernel", "gather",
+                              "gemm"),
+                       expect={"raster_segmented_kernel": per_frame[0],
+                               "tiled_lights_kernel": per_frame[1]})
+        engine.shutdown()
+        return app
+
+    # -- 17a. deferred instancing: x30 cerberus and 64 rocks -------------------
+    t0 = time.perf_counter()
+    tag = "phase 17a"
+    inst_nodes = ("shadow", "shadow.inst", "gbuffer", "gbuffer.inst", "lighting", "post")
+    app = run(tag, INSTANCED_FLAGS, (K1_INSTANCED, 1), inst_nodes)
+    calls = recorded_frame(dev, app, ("K1",))
+    check([c[0] for c in calls] == ["shadow", "shadow.inst", "shadow.inst", "gbuffer",
+                                    "gbuffer.inst", "gbuffer.inst"],
+          f"{tag}: K1 ran on nodes {[c[0] for c in calls]}")
+    k1_against_unculled(calls, plain_k1, tag, card, lambda n: True)
+    device = RhiCore(dev).create_render_device()
+    images = []
+    for renderer in (app.renderer, DeferredRenderer(separate_objects(app.renderer.scene))):
+        compiled, final, _, retired = deferred_frame(device, renderer, app.camera, W, H,
+                                                     CompileOptions(),
+                                                     present_format=Format.RGBA8_SRGB)
+        check(int(retired.bin_overflow) == 0, f"{tag}: bin overflow in the oracle frames")
+        images.append(compiled.value(final).cpu().numpy())
+    # The two vertex paths round world positions apart ((M p) + o against
+    # (T(o) M) p), so a few silhouette pixels flip coverage: <= 1 LSB with
+    # < 1% of values differing on all but 0.05% of the pixels.
+    mx, frac = lsb_diff(*images)
+    d = np.abs(images[0].astype(np.int16) - images[1].astype(np.int16)).max(-1)
+    print(f"{tag}: the still frame against the same scene drawn as "
+          f"{len(separate_objects(app.renderer.scene).objects)} separate objects: max LSB diff "
+          f"{mx}, {frac * 100:.4f}% values differ, {int((d > 1).sum())} pixels by more than 1 "
+          f"LSB [{card}]")
+    check(frac < 0.01 and (d > 1).mean() < 5e-4,
+          f"{tag}: the instanced frame differs from separate objects")
+
+    print(f"phase 17a took {time.perf_counter() - t0:.1f} s")
+
+    # -- 17b. three cascades, a shadow-casting point light, 5 bloom mips -------
+    t0 = time.perf_counter()
+    tag = "phase 17b"
+    layered_nodes = tuple(f"shadow{s}.c{k}" for k in range(3) for s in ("", ".inst")) + tuple(
+        f"omni0.f{k}" for k in range(6)) + ("gbuffer", "gbuffer.inst", "lighting",
+                                            "post.bright", "post.combine")
+    # The cascades fit the camera's frustum slices: the nearest one magnifies
+    # the guns, whose instanced draw then bins more entries than its budget
+    # (2x its records, the reference's default). Which passes overflow is
+    # printed; the G-buffer and the cube faces must not.
+    cascade_inst = tuple(f"shadow.inst.c{k}" for k in range(3))
+    app = run(tag, INSTANCED_FLAGS + LAYERED_FLAGS, (K1_LAYERED, 1), layered_nodes,
+              overflow_ok=True)
+    sun = app.renderer.scene.sun
+    check(sun.cascades == 3 and app.post.bloom_mips == 5
+          and sum(pl.cast_shadows for pl in app.renderer.scene.point_lights) == 1,
+          f"{tag}: a flag did not reach the renderer")
+    calls = recorded_frame(dev, app, ("K1", "K2"))
+    k1_calls = [c for c in calls if c[1] == "K1"]
+    check(len(k1_calls) == K1_LAYERED, f"{tag}: K1 ran {len(k1_calls)} times in a frame")
+    k1_against_unculled(k1_calls, plain_k1, tag, card,
+                        lambda n: n.startswith(("shadow.c", "shadow.inst.c", "omni0.f")),
+                        overflow_ok=cascade_inst)
+    for node, _, (bins, _g, _z), _kw in k1_calls:
+        check(int(bins.overflow) == 0 or node in cascade_inst,
+              f"{tag}: {node} overflowed its bins")
+    (_, _, args, kw), = [c for c in calls if c[1] == "K2"]
+    check(args[5].shape[0] == 100, f"{tag}: K2 shaded {args[5].shape[0]} lights, not the 100 "
+          "unshadowed ones")
+    k = lighting_mod.accumulate_point_lights(*args, **kw)
+    with mock.patch.object(lighting_mod, "_accumulate_point_lights_cuda", plain_k2):
+        p = lighting_mod.accumulate_point_lights(*args, **kw)
+    err = float((k - p).abs().max())
+    check(torch.allclose(k, p, atol=2e-4, rtol=2e-3), f"{tag}: K2 beyond atol 2e-4 / rtol 2e-3 "
+          f"of its plain version (max {err})")
+    print(f"{tag}: K2 on the 100 unshadowed lights (the shadow-casting one shades densely): "
+          f"max |kernel - plain| {err:.3e}, within atol 2e-4 / rtol 2e-3 [{card}]")
+
+    print(f"phase 17b took {time.perf_counter() - t0:.1f} s")
+
+    # -- 17c. variance soft shadows --------------------------------------------
+    t0 = time.perf_counter()
+    run("phase 17c", INSTANCED_FLAGS + ["--soft-shadows"], (K1_INSTANCED, 1), inst_nodes)
+    print(f"phase 17c took {time.perf_counter() - t0:.1f} s")
+
+    # -- 17d. the sub-resource views on the card against the CPU ---------------
+    card_cases = subresource_cases(dev)
+    cpu_cases = subresource_cases(torch.device("cpu"))
+    for name, arrays in card_cases.items():
+        # The bloom chain's elementwise ops contract into FMAs on the card.
+        atol = 1e-5 if name == "bloom mip chain" else 0.0
+        ok = all(np.allclose(a, b, rtol=0, atol=atol) for a, b in zip(arrays, cpu_cases[name]))
+        check(ok, f"phase 17d: {name} differs between the card and the CPU")
+        print(f"phase 17d: {name}: the card equals the CPU"
+              + (f" (atol {atol})" if atol else " exactly"))
+    raster_mod.raster_segmented.launches = 0
+    lighting_mod.accumulate_point_lights.launches = 0
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3282,6 +3714,7 @@ def main() -> int:
     from zenith_tpu_torch.ops.raster import raster_segmented
     from zenith_tpu_torch.rhi.state import CompareOp, CullMode
 
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -3565,21 +3998,33 @@ def main() -> int:
           f"{stress_bound[2]} fragments) [H100 SXM peaks: 3.35 TB/s, "
           f"67 TFLOP/s fp32]")
 
-    deferred = deferred_phases(dev, card, plain)
-    translucent, glass_launches = translucency_phases(dev, card, (bins, grid, init), plain)
-    capped = capped_phase(dev, card, (clip, idx, colors))
-    textured = textured_phases(dev, card, plain)
-    forward = forward_phases(dev, card, plain, (c_bins, init, compare_exact, both))
-    terrain = terrain_phases(dev, card, plain)
+    print(f"phases 1-4 took {time.perf_counter() - t_start:.1f} s")
+
+    def timed(label, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        print(f"{label} took {time.perf_counter() - t0:.1f} s")
+        return out
+
+    deferred = timed("phases 5-7", deferred_phases, dev, card, plain)
+    translucent, glass_launches = timed("phases 8-12", translucency_phases, dev, card,
+                                        (bins, grid, init), plain)
+    capped = timed("phase 13", capped_phase, dev, card, (clip, idx, colors))
+    textured = timed("phase 14", textured_phases, dev, card, plain)
+    forward = timed("phase 15", forward_phases, dev, card, plain,
+                    (c_bins, init, compare_exact, both))
+    terrain = timed("phase 16", terrain_phases, dev, card, plain)
+    layered = timed("phase 17", layered_phases, dev, card, plain)
     k1_def = deferred["k1"]
-    deferred["k2"]["launches"] += glass_launches["K2"] + textured["K2"] + terrain["K2"]
+    deferred["k2"]["launches"] += (glass_launches["K2"] + textured["K2"] + terrain["K2"]
+                                   + layered["K2"])
     kernels = [{
         "name": "K1 segmented raster (_segmented_kernel)",
         "route": "cuda",
         "source": "zenith_tpu_torch/csrc/raster.cu",
         "replaces": "zenith_tpu/ops/raster.py:311",
         "launches": (main_launches + deferred["k1_launches"] + glass_launches["K1"]
-                     + textured["K1"] + forward["K1"] + terrain["K1"]),
+                     + textured["K1"] + forward["K1"] + terrain["K1"] + layered["K1"]),
         "max_abs_err": max(max_err, k1_def["max_abs_err"]),
         "ms": k1_def["ms"],
         "plain_ms": k1_def["plain_ms"],
@@ -3594,8 +4039,9 @@ def main() -> int:
           f"{deferred['k1_launches']} (deferred, phase 7) + {glass_launches['K1']} (glass and "
           f"stencil frames, phases 11-12) + {textured['K1']} (textured, phase 14a) + "
           f"{forward['K1']} (forward SceneApp, MSAA, lines and points, phase 15) + "
-          f"{terrain['K1']} (terrain, feature SceneApp, fly and mesh, phase 16); K2 "
-          f"{deferred['k2']['launches']} (phases 7, 11, 14a and 16c); "
+          f"{terrain['K1']} (terrain, feature SceneApp, fly and mesh, phase 16) + "
+          f"{layered['K1']} (instancing, cascades, cube faces and VSM, phase 17); K2 "
+          f"{deferred['k2']['launches']} (phases 7, 11, 14a, 16c and 17); "
           + "; ".join(f"{r['name'][:2]} {r['launches']}" for r in translucent)
           + f" (phases 11-12; K3 {forward['K3']}, K4 {forward['K4']} and K5 {forward['K5']} "
           f"of them under 4x MSAA, phase 15b); "

@@ -193,7 +193,10 @@ def test_unported_branches_name_their_roadmap_item():
     cases = [
         (dict(objects=[dataclasses.replace(quad, base_color_texture=None, translucent=True,
                                            morph_deltas=quad.vertex_buffer)]), {}, 21),
-        (dict(objects=[dataclasses.replace(quad, instance_offsets=np.zeros((2, 3)))]), {}, 21),
+        # Host instance offsets render (item 21.1, tests/test_torch_instancing.py);
+        # device-resident ones turn on the unported velocity plane.
+        (dict(objects=[dataclasses.replace(quad, base_color_texture=None,
+                                           instance_offsets=torch.zeros((2, 3)))]), {}, 21),
         ({}, dict(id_buffer=True), 21),
         ({}, dict(velocity=True), 21),
     ]
@@ -211,20 +214,26 @@ def test_unported_branches_name_their_roadmap_item():
     from zenith_tpu_torch.rhi.state import PolygonMode
 
     assert wire._gbuffer_state.rasterization.polygon_mode == PolygonMode.LINE
-    omni = dataclasses.replace(scene, point_lights=[PointLight((0, 0, 5), cast_shadows=True)])
     from zenith_tpu_torch.rendergraph import RenderGraphBuilder
+    from zenith_tpu_torch.rhi import TextureDesc
 
+    def nodes(**kw):
+        builder = RenderGraphBuilder()
+        out = builder.create(TextureDesc.color("o", 128, 64))
+        TDeferred(dataclasses.replace(scene, **kw)).render_to(
+            builder, out, golden_scene(device)[1], 128, 64)
+        return [n.name for n in builder.nodes]
+
+    # Ported since (item 21.3): shadow-casting point lights, cascades and
+    # variance shadows build their nodes (their frames: tests/test_torch_
+    # omni.py, test_torch_csm.py, test_torch_vsm.py); the image-based light
+    # still raises at render time.
+    assert "omni0.f5" in nodes(point_lights=[PointLight((0, 0, 5), cast_shadows=True)])
+    assert "shadow.c2" in nodes(sun=dataclasses.replace(scene.sun, cascades=3))
+    assert "shadow" in nodes(sun=dataclasses.replace(scene.sun, soft_shadows=True))
     with pytest.raises(NotImplementedError, match="ROADMAP item 21"):
-        TDeferred(omni).render_to(RenderGraphBuilder(), None, golden_scene(device)[1],
-                                  128, 64)
-    # Still unported at render time: cascades, variance shadows and the
-    # image-based light (the atmosphere, decals and contact shadows are
-    # ported and render: tests/test_torch_features.py).
-    for kw in (dict(sun=dataclasses.replace(scene.sun, cascades=3)),
-               dict(sun=dataclasses.replace(scene.sun, soft_shadows=True)),
-               dict(environment=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 21"):
-            TDeferred(dataclasses.replace(scene, **kw)).render_to(
-                RenderGraphBuilder(), None, golden_scene(device)[1], 128, 64)
+        nodes(environment=object())
+    # The bloom mip chain is ported (item 21.5); FXAA still raises.
+    assert PostProcess(bloom_mips=3).bloom_mips == 3
     with pytest.raises(NotImplementedError, match="ROADMAP item 21"):
-        PostProcess(bloom_mips=3)
+        PostProcess(fxaa=True)

@@ -89,17 +89,18 @@ def test_pixel_hash_bits_are_the_reference_bits(h, w, row0, seed):
 
     ref = np.asarray(jax.jit(lambda r, s: _pixel_hash_bits(h, w, r, s))(
         np.uint32(row0), None if seed is None else np.uint32(seed)))
-    port = tssao._pixel_hash_bits(h, w, row0, seed).numpy()
+    port = tssao._pixel_hash_bits(h, w, row0, seed, device=CPU).numpy()
     np.testing.assert_array_equal(port.astype(np.int64), ref.astype(np.int64))
     if seed is not None:  # a device-valued seed and row0 give the same bits
-        port_t = tssao._pixel_hash_bits(h, w, torch.tensor(row0), torch.tensor(seed)).numpy()
+        port_t = tssao._pixel_hash_bits(h, w, torch.tensor(row0), torch.tensor(seed),
+                                         device=CPU).numpy()
         np.testing.assert_array_equal(port_t, port)
 
 
 def test_hash_angle_and_hemisphere_kernel_equal_the_reference():
     from zenith_tpu.ops.ssao import _pixel_hash_angle, hemisphere_kernel
 
-    np.testing.assert_array_equal(tssao._pixel_hash_angle(H, W).numpy(),
+    np.testing.assert_array_equal(tssao._pixel_hash_angle(H, W, device=CPU).numpy(),
                                   np.asarray(jax.jit(lambda: _pixel_hash_angle(H, W))()))
     for k, seed in ((12, 11), (7, 3)):
         np.testing.assert_array_equal(tssao.hemisphere_kernel(k, seed), hemisphere_kernel(k, seed))

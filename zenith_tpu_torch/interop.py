@@ -201,9 +201,11 @@ def flare_from(flare: Any):
 
 
 def scene_from(scene: Any, device: "torch.device | str"):
-    """A scene (objects, sun with its contact-shadow fields, point/spot
-    lights, ambient, skybox, atmosphere, decals) → the port's Scene on
-    ``device`` with the same numbers."""
+    """A scene (objects with their instance offsets, the sun with its
+    contact-shadow, cascade and soft-shadow fields, point lights with their
+    cube-shadow fields, spot lights, ambient, skybox, atmosphere, decals) →
+    the port's Scene on ``device`` with the same numbers. The lights are
+    copied field for field, so every shadow setting crosses."""
     from zenith_tpu_torch.renderer.scene import DirectionalLight, PointLight, Scene, SpotLight
 
     return Scene(

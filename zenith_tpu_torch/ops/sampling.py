@@ -1,14 +1,12 @@
 """Texture sampling — the sampler hardware of the Vulkan pipeline (torch port
 of zenith_tpu/ops/sampling.py: the single-level, trilinear, layered, cube and
-shadow-compare paths, and anisotropic filtering).
+shadow-compare paths, the explicit-LOD cube, volume and layered
+shadow-compare samplers, and anisotropic filtering).
 
 Dense gather-based sampling over per-pixel UV images, interpreting
 SamplerConfig (zenith_tpu_torch.rhi.sampler). Vulkan texel conventions:
 unnormalized coords x = u*W - 0.5; bilinear weights from the fractional
 part; wrap applied per tap on texel indices.
-
-Not ported yet: ``sample_cube_lod`` and ``sample_3d`` (ROADMAP item 21),
-and ``sample_shadow_pcf_layered`` (item 21).
 """
 
 from __future__ import annotations
@@ -353,6 +351,60 @@ def sample_cube(
     return sample_2d_array(tex, uv, face, clamped)
 
 
+def sample_cube_lod(
+    levels,  # sequence of (6, S_m, S_m, C) cube mips
+    directions: torch.Tensor,  # (..., 3), need not be normalized
+    lod: torch.Tensor,  # (...,) float mip level
+    sampler: SamplerConfig = SamplerConfig(),
+) -> torch.Tensor:
+    """Cube sample with an explicit per-pixel LOD (textureLod on a cube,
+    sampling.py:355-384): every level is sampled and blended with the tent
+    weight max(0, 1 - |lod - m|), at most two of them non-zero, which is
+    trilinear filtering across the levels."""
+    face, uv = cube_direction_to_face_uv(directions)
+    clamped = SamplerConfig(
+        mag_filter=sampler.mag_filter,
+        min_filter=sampler.min_filter,
+        address_mode_u=AddressMode.CLAMP_TO_EDGE,
+        address_mode_v=AddressMode.CLAMP_TO_EDGE,
+        border_color=sampler.border_color,
+    )
+    lod = torch.clamp(lod + sampler.mip_lod_bias, 0.0, float(len(levels) - 1))
+    acc = None
+    for m, tex in enumerate(levels):
+        w = torch.clamp(1.0 - torch.abs(lod - m), 0.0, 1.0)[..., None]
+        tap = sample_2d_array(tex, uv, face, clamped) * w
+        acc = tap if acc is None else acc + tap
+    return acc
+
+
+def sample_3d(
+    tex: torch.Tensor,  # (D, H, W, C)
+    uvw: torch.Tensor,  # (..., 3)
+    sampler: SamplerConfig = SamplerConfig(),
+) -> torch.Tensor:
+    """Volume sample (sampling.py:387-413): linear across the two nearest
+    depth slices, each filtered in-plane (the nearest slice under NEAREST)."""
+    d = tex.shape[0]
+    zc = uvw[..., 2] * d
+    if sampler.mag_filter == Filter.NEAREST:
+        iz = torch.floor(zc).to(torch.int64)
+        iz = torch.remainder(iz, d) if sampler.address_mode_w == AddressMode.REPEAT \
+            else torch.clamp(iz, 0, d - 1)
+        return sample_2d_array(tex, uvw[..., :2], iz, sampler)
+    z = zc - 0.5
+    z0 = torch.floor(z)
+    fz = (z - z0)[..., None]
+    z0 = z0.to(torch.int64)
+    if sampler.address_mode_w == AddressMode.REPEAT:
+        za, zb = torch.remainder(z0, d), torch.remainder(z0 + 1, d)
+    else:
+        za, zb = torch.clamp(z0, 0, d - 1), torch.clamp(z0 + 1, 0, d - 1)
+    s0 = sample_2d_array(tex, uvw[..., :2], za, sampler)
+    s1 = sample_2d_array(tex, uvw[..., :2], zb, sampler)
+    return s0 * (1 - fz) + s1 * fz
+
+
 _COMPARE = {
     CompareOp.GREATER_OR_EQUAL: lambda a, b: a >= b,
     CompareOp.GREATER: lambda a, b: a > b,
@@ -381,6 +433,47 @@ def sample_shadow_pcf(
 
     def tap(ix, iy):
         d = _fetch(tex, ix, iy, sampler)[..., 0]
+        return cmp(ref_z, d).to(torch.float32)
+
+    t00, t10 = tap(x0, y0), tap(x0 + 1, y0)
+    t01, t11 = tap(x0, y0 + 1), tap(x0 + 1, y0 + 1)
+    top = t00 * (1 - fx) + t10 * fx
+    bot = t01 * (1 - fx) + t11 * fx
+    return top * (1 - fy) + bot * fy
+
+
+def sample_shadow_pcf_layered(
+    shadow_layers: torch.Tensor,  # (L, H, W) or (L, H, W, 1) depth layers
+    layer: torch.Tensor,  # (...,) integer per-pixel layer index in [0, L)
+    uv: torch.Tensor,  # (..., 2)
+    ref_z: torch.Tensor,  # (...,) reference depth to compare
+    sampler: SamplerConfig = SamplerConfig.shadow_pcf(),
+) -> torch.Tensor:
+    """2×2 PCF compare sample from one layer of a depth array texture,
+    chosen per pixel (sampling.py:456-502): the cascades of renderer.csm
+    and the cube faces of renderer.omni. The taps gather from the flattened
+    (L·H·W) stack at a per-pixel layer base, as many gathers as the
+    single-layer PCF."""
+    if shadow_layers.ndim == 4:
+        shadow_layers = shadow_layers[..., 0]
+    n_layers, h, w = shadow_layers.shape
+    x = uv[..., 0] * w - 0.5
+    y = uv[..., 1] * h - 0.5
+    x0f, y0f = torch.floor(x), torch.floor(y)
+    fx, fy = x - x0f, y - y0f
+    x0, y0 = x0f.to(torch.int64), y0f.to(torch.int64)
+    cmp = _COMPARE[sampler.compare_op]
+    flat = shadow_layers.reshape(-1)
+    base = torch.clamp(layer.to(torch.int64), 0, n_layers - 1) * (h * w)
+    border = float(sampler.border_color.value[0])
+
+    def tap(ix, iy):
+        jx, okx = _wrap_indices(ix, w, sampler.address_mode_u)
+        jy, oky = _wrap_indices(iy, h, sampler.address_mode_v)
+        d = flat[(base + jy * w + jx).reshape(-1)].reshape(ix.shape)
+        ok = okx if oky is None else (oky if okx is None else okx & oky)
+        if ok is not None:
+            d = torch.where(ok, d, torch.full_like(d, border))
         return cmp(ref_z, d).to(torch.float32)
 
     t00, t10 = tap(x0, y0), tap(x0 + 1, y0)

@@ -43,15 +43,15 @@ def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
     return (a * lo + (((a * hi) & 0xFFFF) << 16)) & _MASK32
 
 
-def _pixel_hash_bits(h: int, w: int, row0=0, seed=None,
-                     device: "torch.device | str" = "cpu") -> torch.Tensor:
+def _pixel_hash_bits(h: int, w: int, row0=0, seed=None, *,
+                     device: "torch.device | str") -> torch.Tensor:
     """(H, W) int32 integer-coordinate hash, low 16 bits uniform
     (ssao.py:47-60): the shared screen-space dither source. ``row0`` offsets
-    to global rows, ``seed`` (an int or an integer tensor) remixes per
-    frame. Bit for bit the reference's uint32 values. Python ints enter as
-    scalars, so the hash copies nothing from the host."""
-    if isinstance(row0, torch.Tensor):
-        device = row0.device
+    to global rows, ``seed`` (an int or an integer tensor on ``device``)
+    remixes per frame. Bit for bit the reference's uint32 values. Python
+    ints enter as scalars, so the hash copies nothing from the host; the
+    device has no default, so that no caller computes on the host by
+    omission."""
     ys = (torch.arange(h, dtype=torch.int64, device=device) + row0) & _MASK32
     xs = torch.arange(w, dtype=torch.int64, device=device)
     n = (_mul32(ys, 374761393)[:, None] + _mul32(xs, 668265263)[None, :]) & _MASK32
@@ -64,8 +64,8 @@ def _pixel_hash_bits(h: int, w: int, row0=0, seed=None,
     return (n & 0xFFFF).to(torch.int32)
 
 
-def _pixel_hash_angle(h: int, w: int, row0=0,
-                      device: "torch.device | str" = "cpu") -> torch.Tensor:
+def _pixel_hash_angle(h: int, w: int, row0=0, *,
+                      device: "torch.device | str") -> torch.Tensor:
     """(H, W) per-pixel rotation angle from the coordinate hash
     (ssao.py:63-67)."""
     return _pixel_hash_bits(h, w, row0, device=device).to(torch.float32) * (

@@ -3,15 +3,25 @@ point lights and a Cook-Torrance GGX BRDF (torch port of
 zenith_tpu/renderer/deferred.py, the branches the default scene takes).
 
 Node ``shadow`` (graphic, depth only): the sun's shadow map, every plain
-opaque object in one batched draw over kernel K1.
+opaque object in one batched draw over kernel K1; ``shadow.inst`` LOADs it
+and adds each instanced object, one instanced draw each. With
+``sun.cascades`` = N > 1 the map is a depth array of N layers, fit to the
+camera's frustum slices every frame (renderer.csm), and each layer is
+rendered by its own ``shadow.c{k}`` and ``shadow.inst.c{k}`` nodes through
+the render graph's render-to-layer writes.
+
+Nodes ``omni{i}.f{k}`` (graphic, depth only): the six cube faces of each
+shadow-casting point light (renderer.omni), the plain opaque objects drawn
+into one layer of a cube depth texture each.
 
 Node ``gbuffer`` (graphic, MRT, one batched draw over K1):
   - albedo+metallic   (RGBA32F: rgb albedo, a metallic)
   - normal+roughness  (RGBA32F: xyz world normal, w roughness)
   - world-pos+emissive-luma (RGBA32F)
-  plus reverse-Z depth. Textured materials are sampled from one atlas per map
-  type (base colour, normal, metallic-roughness, emissive; rhi.atlas) with a
-  per-draw UV transform; the normal map bends the normal through the
+  plus reverse-Z depth. ``gbuffer.inst`` LOADs the planes and adds each
+  instanced object (the per-instance ``inst_offset`` attribute). Textured
+  materials are sampled from one atlas per map type (base colour, normal,
+  metallic-roughness, emissive; rhi.atlas) with a per-draw UV transform; the normal map bends the normal through the
   derivative-built tangent frame (ops.shade.perturb_normal).
 
 Node ``decals`` (lambda, when the scene holds decals): projected decals
@@ -21,10 +31,13 @@ Node ``ssao`` (lambda, with ``ssao=``): the ambient-occlusion factor from the
 G-buffer (ops.ssao), blurred, into an R32F plane.
 
 Node ``lighting`` (lambda): full-screen PBR resolve — flat ambient (times the
-AO factor), the sun with 2×2 PCF shadows and optional screen-space contact
-shadows (ops.contact), the point/spot-light sum over the tiled kernel K2
-(ops.lighting), and, where no surface was drawn, the cube-map skybox, the
-procedural atmosphere (ops.atmosphere) or a constant background.
+AO factor), the sun with 2×2 PCF shadows (per pixel from its cascade's
+layer under CSM; variance soft shadows, ops.vsm, with ``soft_shadows`` and
+one cascade) and optional screen-space contact shadows (ops.contact), the
+point/spot-light sum over the tiled kernel K2 (ops.lighting), each
+shadow-casting point light densely with cube PCF visibility, and, where no
+surface was drawn, the cube-map skybox, the procedural atmosphere
+(ops.atmosphere) or a constant background.
 
 Node ``glass`` (graphic, after lighting, when the scene holds translucent
 objects): one batched blended draw over the lit HDR frame, depth-tested
@@ -38,13 +51,14 @@ textured glass.
 shadow pass stays FILL): the edges get the full deferred lighting.
 
 Not ported yet; each raises NotImplementedError naming its ROADMAP item:
-instanced, skinned and morphed opaque objects, shadow-casting point lights,
-cascades, VSM, image-based light, the velocity plane and the id buffer
-(item 21).
+skinned and morphed objects, the image-based light, the velocity plane
+(and with it device-resident instance offsets, which turn it on by
+default) and the id buffer (item 21).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
@@ -61,21 +75,27 @@ from zenith_tpu_torch.ops.shade import perturb_normal
 from zenith_tpu_torch.core import log
 from zenith_tpu_torch.core import validate as _validate
 from zenith_tpu_torch.ops.sampling import (
+    cube_direction_to_face_uv,
     sample_2d,
     sample_cube,
     sample_shadow_pcf,
+    sample_shadow_pcf_layered,
     sample_texture,
 )
+from zenith_tpu_torch.ops.vsm import depth_to_moments, sample_vsm
 from zenith_tpu_torch.rendergraph import RenderGraphBuilder
 from zenith_tpu_torch.rendergraph.resource import RenderGraphResource
+from zenith_tpu_torch.renderer.csm import fit_cascades
 from zenith_tpu_torch.renderer.decal import apply_decal, stacked_decal_colors, stacked_decal_mats
 from zenith_tpu_torch.renderer.forward import (
     _SHADOW_SAMPLER,
     _camera_dynamics,
     _normalize,
+    _shadow_inst_vs,
     _shadow_vs,
     sun_view_projection,
 )
+from zenith_tpu_torch.renderer.omni import omni_face_matrices, omni_reference_z
 from zenith_tpu_torch.renderer.scene import Scene, stacked_models
 from zenith_tpu_torch.renderer.volumetric import view_rays
 from zenith_tpu_torch.renderer.static_batch import StaticGeometryCache
@@ -128,6 +148,23 @@ def _gbuffer_vs(attrs, res):
     return {
         "position": world @ res["ViewProj"].T,
         "world_pos": world[:, :3],
+        "normal": attrs["normal"] @ res["Model"][:3, :3].T,
+        "uv": attrs["tex_coord"],
+    }
+
+
+def _gbuffer_inst_vs(attrs, res):
+    """Instanced G-buffer vertex stage (deferred.py:104-130, velocity off):
+    the per-instance world-space offset ``inst_offset``, an instance-rate
+    vertex attribute (ops.draw instance_data)."""
+    pos = attrs["position"]
+    hom = torch.cat([pos, torch.ones_like(pos[:, :1])], dim=1)
+    world = hom @ res["Model"].T
+    world_pos = world[:, :3] + attrs["inst_offset"]
+    clip_hom = torch.cat([world_pos, world[:, 3:4]], dim=1)
+    return {
+        "position": clip_hom @ res["ViewProj"].T,
+        "world_pos": world_pos,
         "normal": attrs["normal"] @ res["Model"][:3, :3].T,
         "uv": attrs["tex_coord"],
     }
@@ -384,13 +421,19 @@ class DeferredRenderer:
         self.scene = scene
         objs = scene.objects
         self.wireframe = wireframe
-        # velocity=None resolves to off: animated content (skins, morphs,
-        # device-resident instance offsets) is not ported (_check_objects).
+        self._check_objects(objs)
+        # velocity=None is the reference's automatic choice (deferred.py:
+        # 598-604): on when the scene holds motion the camera-only
+        # reprojection cannot represent, here device-resident instance
+        # offsets (skins and morphs raise above). Host offsets render with
+        # it off, as in the reference.
+        if velocity is None and any(isinstance(o.instance_offsets, torch.Tensor) for o in objs):
+            raise _unported("the velocity plane, on by default for device-resident instance "
+                            "offsets,", 21, "taa + velocity")
         for what, on in (("the velocity plane", velocity),
                          ("the object-id buffer", id_buffer)):
             if on:
                 raise _unported(what, 21, "screen-space and lighting features")
-        self._check_objects(objs)
         if ssao is True:
             ssao = SSAOOptions()
         self.ssao: "SSAOOptions | None" = ssao or None
@@ -415,11 +458,27 @@ class DeferredRenderer:
             bindings=[uniform("Model"), uniform("LightViewProj")],
             inputs=[attr("position", 3)],
         )
+        # Instanced variants (deferred.py:703-717): the same stages plus the
+        # per-instance inst_offset attribute.
+        self.gbuffer_inst_vs = Shader.vertex(
+            "gbuffer.inst.vs", _gbuffer_inst_vs,
+            bindings=[uniform("Model"), uniform("ViewProj")],
+            inputs=[attr("position", 3), attr("normal", 3), attr("tex_coord", 2),
+                    attr("inst_offset", 3, per_instance=True)],
+        )
+        self.shadow_inst_vs = Shader.vertex(
+            "shadow.inst.vs", _shadow_inst_vs,
+            bindings=[uniform("Model"), uniform("LightViewProj")],
+            inputs=[attr("position", 3), attr("inst_offset", 3, per_instance=True)],
+        )
         # Frame-invariant pipeline inputs, built ONCE: render_to runs every
         # frame, and reusing the same desc objects keeps the structure key
         # and the pipeline cache on their identity fast paths.
         self._shadow_si = GraphicShaderInput(self.shadow_vs, None, VERTEX_LAYOUT)
         self._gbuffer_si = GraphicShaderInput(self.gbuffer_vs, self.gbuffer_fs, VERTEX_LAYOUT)
+        self._shadow_inst_si = GraphicShaderInput(self.shadow_inst_vs, None, VERTEX_LAYOUT)
+        self._gbuffer_inst_si = GraphicShaderInput(self.gbuffer_inst_vs, self.gbuffer_fs,
+                                                   VERTEX_LAYOUT)
         self._shadow_state = GraphicPipelineState(
             rasterization=RasterizationState(
                 cull_mode=CullMode.NONE, front_face=FrontFace.CLOCKWISE
@@ -441,9 +500,14 @@ class DeferredRenderer:
             depth_compare_op=CompareOp.LESS,
             depth_clear_value=1.0,
         )
+        self._shadow_depth_load = dataclasses.replace(self._shadow_depth,
+                                                      depth_load_op=LoadOp.LOAD)
         self._gbuffer_depth = DepthStencilDesc().reverse_z()
+        self._gbuffer_depth_load = dataclasses.replace(self._gbuffer_depth,
+                                                       depth_load_op=LoadOp.LOAD)
         self._ca_clear0 = ColorAttachmentDesc(clear_value=(0, 0, 0, 0))
         self._ca_clear01 = ColorAttachmentDesc(clear_value=(0, 0, 0, 1))
+        self._ca_load = ColorAttachmentDesc(load_op=LoadOp.LOAD)
         self._init_glass(objs, glass_mode, glass_peel_layers)
 
     def _init_atlases(self, objs) -> None:
@@ -579,31 +643,11 @@ class DeferredRenderer:
     @staticmethod
     def _check_objects(objs) -> None:
         for o in objs:
-            if o.translucent:
-                for what, on in (("skinned", o.skin is not None),
-                                 ("morphed", o.morph_deltas is not None)):
-                    if on:
-                        raise _unported(f"{what} object {o.name!r}", 21,
-                                        "screen-space and lighting features")
-                continue
-            for what, on in (("instanced", o.instance_offsets is not None),
-                             ("skinned", o.skin is not None),
+            for what, on in (("skinned", o.skin is not None),
                              ("morphed", o.morph_deltas is not None)):
                 if on:
                     raise _unported(f"{what} object {o.name!r}", 21,
                                     "screen-space and lighting features")
-
-    def _check_scene(self, scene: Scene) -> None:
-        sun = scene.sun
-        if scene.environment is not None:
-            raise _unported("the image-based light (environment)", 21, "ibl/environment/probe")
-        if any(pl.cast_shadows for pl in scene.point_lights):
-            raise _unported("shadow-casting point lights (omni shadows)", 21, "omni")
-        if self.shadows:
-            for what, on in (("cascaded shadow maps", int(sun.cascades) > 1),
-                             ("variance (soft) shadows", sun.soft_shadows)):
-                if on:
-                    raise _unported(what, 21, "csm, omni, vsm")
 
     def _atmosphere(self):
         """The scene's procedural sky, where no skybox or environment cube
@@ -622,8 +666,34 @@ class DeferredRenderer:
                              want_inv_vp=self.scene.skybox is not None or atmo is not None)
         if atmo is not None:
             d["def.atmo"] = atmo.packed(float(camera.location[2]))
+        sun = self.scene.sun
+        if self.shadows and int(sun.cascades) > 1:
+            # The cascade fits follow the camera.
+            vps, splits, noffs = fit_cascades(sun, camera, int(sun.cascades))
+            d["def.light_vp"] = vps
+            d["def.casc_splits"] = splits
+            d["def.camera_fwd"] = camera.forward
+            d["def.shadow_noffs"] = noffs
+        # Shadow-casting point lights may move between retained frames.
+        d.update(self._omni_dynamics())
         if include_models:
             d["def.models"] = stacked_models(self.scene.objects)
+            # Instanced objects may move their instances too (the reference
+            # refreshes them only with its velocity plane, not ported).
+            for o in self.scene.objects:
+                if o.instance_offsets is not None:
+                    d[f"def.inst.{o.name}"] = np.asarray(o.instance_offsets, np.float32)
+        return d
+
+    def _omni_dynamics(self) -> dict:
+        """The face matrices, position and colour of each shadow-casting
+        point light (deferred.py:1097-1112, 1216-1230)."""
+        d = {}
+        omni = [pl for pl in self.scene.point_lights if pl.cast_shadows]
+        for li, pl in enumerate(omni):
+            d[f"def.omni{li}.vps"] = omni_face_matrices(pl.position, pl.shadow_near, pl.radius)
+            d[f"def.omni{li}.pos"] = np.asarray(pl.position, np.float32)
+            d[f"def.omni{li}.col"] = np.asarray(pl.color, np.float32) * pl.intensity
         return d
 
     def render_to(
@@ -637,8 +707,11 @@ class DeferredRenderer:
     ) -> None:
         scene = self.scene
         sun = scene.sun
-        self._check_scene(scene)
-        pl_pos, pl_col, pl_rad, _omni = scene.light_partition()
+        if scene.environment is not None:
+            raise _unported("the image-based light (environment)", 21, "ibl/environment/probe")
+        # Shadow-casting point lights leave K2's table and shade densely with
+        # cube-PCF visibility (renderer.omni).
+        pl_pos, pl_col, pl_rad, omni_lights = scene.light_partition()
         sl_pos, sl_col, sl_rad, sl_params = scene.spot_light_arrays()
         has_spots = sl_pos.shape[0] > 0
         if has_spots:
@@ -675,12 +748,24 @@ class DeferredRenderer:
             builder.set_dynamic(
                 "def.sun_color", np.asarray(sun.color, np.float32) * sun.intensity
             )
+        for name, value in self._omni_dynamics().items():
+            builder.set_dynamic(name, value)
+        n_casc = max(1, int(sun.cascades)) if self.shadows else 1
         if self.shadows:
             builder.set_dynamic("def.shadow_bias", np.float32(sun.shadow_bias))
-            builder.set_dynamic("def.light_vp", sun_view_projection(sun))
-            builder.set_dynamic(
-                "def.shadow_noffs", np.float32(sun.effective_normal_offset)
-            )
+            if n_casc > 1:
+                # Cascaded shadow maps (renderer.csm): the camera-frustum fits
+                # are per-frame values and ride dynamics.
+                vps, splits, noffs = fit_cascades(sun, camera, n_casc)
+                builder.set_dynamic("def.light_vp", vps)  # (N, 4, 4)
+                builder.set_dynamic("def.casc_splits", splits)  # (N,)
+                builder.set_dynamic("def.camera_fwd", camera.forward)
+                builder.set_dynamic("def.shadow_noffs", noffs)  # (N,)
+            else:
+                builder.set_dynamic("def.light_vp", sun_view_projection(sun))
+                builder.set_dynamic(
+                    "def.shadow_noffs", np.float32(sun.effective_normal_offset)
+                )
         # One dynamic per FIELD, not per object×field; record closures take
         # their draw's row.
         builder.set_dynamic("def.models", stacked_models(scene.objects))
@@ -693,20 +778,27 @@ class DeferredRenderer:
         for aname, a in self._atlases.items():
             builder.set_dynamic(f"def.uvx.{aname}", a.transforms)
         # Of the reference's draw classes (deferred.py:1292-1310) the plain
-        # opaque and the translucent one are ported. Translucent objects skip
-        # the opaque passes (shadow + G-buffer) and draw in the glass node
-        # after lighting.
+        # opaque, the instanced opaque and the translucent one are ported.
+        # Instanced objects draw through their own nodes (their vertex stage
+        # differs); translucent objects skip the opaque passes (shadow +
+        # G-buffer) and draw in the glass node after lighting.
         self._check_objects(scene.objects)
         objects = scene.objects
-        plain_ix = [i for i, o in enumerate(objects) if not o.translucent]
+        if any(isinstance(o.instance_offsets, torch.Tensor) for o in objects):
+            raise _unported("the velocity plane, on by default for device-resident instance "
+                            "offsets,", 21, "taa + velocity")
+        plain_ix = [i for i, o in enumerate(objects)
+                    if not o.translucent and o.instance_offsets is None]
+        inst_ix = [i for i, o in enumerate(objects)
+                   if not o.translucent and o.instance_offsets is not None]
         trans_ix = [i for i, o in enumerate(objects) if o.translucent]
         if trans_ix and not getattr(self, "has_translucents", False):
             raise ValueError("the scene gained translucent objects after the renderer "
                              "was built: rebuild the DeferredRenderer")
-        for i in trans_ix:
-            if objects[i].instance_offsets is not None:
-                builder.set_dynamic(f"def.inst.{objects[i].name}",
-                                    np.asarray(objects[i].instance_offsets, np.float32))
+        for o in objects:
+            if o.instance_offsets is not None:
+                builder.set_dynamic(f"def.inst.{o.name}",
+                                    np.asarray(o.instance_offsets, np.float32))
         if trans_ix:
             if self.glass_peel:
                 builder.set_dynamic("def.uvx.glass", self._glass_atlas.transforms)
@@ -719,7 +811,9 @@ class DeferredRenderer:
         # vertex/index buffer pair, imported once per frame. Translucent
         # objects keep per-object buffers.
         static_geo = self._static_cache.get(scene.objects, plain_ix)
-        per_obj_ix = trans_ix if static_geo is not None else plain_ix + trans_ix
+        per_obj_ix = inst_ix + trans_ix
+        if static_geo is None:
+            per_obj_ix = plain_ix + per_obj_ix
         handles = {
             i: (
                 builder.import_resource(scene.objects[i].vertex_buffer),
@@ -758,24 +852,81 @@ class DeferredRenderer:
                         for i in plain_ix}, None
             return None, (node.read(s_vb_h), node.read(s_ib_h))
 
-        # -- node: the sun's shadow map (n_casc == 1) -------------------------
-        sm_handle = None
-        if self.shadows:
-            smsz = sun.shadow_map_size
-            sm_handle = builder.create(TextureDesc.depth("sun.shadow", smsz, smsz))
-            node = builder.add_graphic_node("shadow")
+        def instanced_draws(ctx, accesses, extra):
+            """One instanced draw_indexed per instanced object."""
+            models = ctx.dynamic("def.models")
+            for i in inst_ix:
+                obj = objects[i]
+                ctx.draw_indexed(
+                    accesses[i][0], accesses[i][1], {"Model": models[i], **extra(i)},
+                    instance_count=obj.instance_count,
+                    instance_data={"inst_offset": ctx.dynamic(f"def.inst.{obj.name}")},
+                )
+
+        def shadow_node(name, depth_handle, layer, matrix):
+            """A depth-only pass of the plain opaque objects into the shadow
+            map, or into one of its layers; ``matrix(ctx)`` gives the light's
+            view-projection."""
+            node = builder.add_graphic_node(name)
             accesses, s_acc = geometry_reads(node)
-            sm = node.write(sm_handle)
+            sm = node.write(depth_handle, layer=layer)
             with node.pipeline(self._shadow_si, self._shadow_state) as binder:
                 binder.set_depth(sm, self._shadow_depth)
 
             def record_shadow(ctx, accesses=accesses, s_acc=s_acc):
-                ctx.bind("LightViewProj", ctx.dynamic("def.light_vp"))
-                if not plain_ix:
+                ctx.bind("LightViewProj", matrix(ctx))
+                if not plain_ix:  # an all-instanced scene clears only
                     return
                 ctx.draw_indexed_batch(plain_draws(ctx, accesses, s_acc, lambda i: {}))
 
             node.execute(record_shadow)
+
+        # -- nodes: the sun's shadow map, one layer per cascade ---------------
+        # n_casc == 1: one fixed-extent map. n_casc > 1: one depth array
+        # texture, each layer rendered by its own nodes (deferred.py:1380-1475).
+        sm_handle = None
+        if self.shadows:
+            smsz = sun.shadow_map_size
+            if n_casc > 1:
+                sm_handle = builder.create(TextureDesc.new_2d_array(
+                    "sun.shadow", smsz, smsz, n_casc, Format.D32F))
+            else:
+                sm_handle = builder.create(TextureDesc.depth("sun.shadow", smsz, smsz))
+            for k in range(n_casc):
+                layer = None if n_casc == 1 else k
+                suffix = "" if n_casc == 1 else f".c{k}"
+
+                def light_vp(ctx, k=k):
+                    lvp = ctx.dynamic("def.light_vp")
+                    return lvp if n_casc == 1 else lvp[k]
+
+                shadow_node(f"shadow{suffix}", sm_handle, layer, light_vp)
+                if inst_ix:
+                    node = builder.add_graphic_node(f"shadow.inst{suffix}")
+                    inst_acc = {i: (node.read(handles[i][0]), node.read(handles[i][1]))
+                                for i in inst_ix}
+                    node.read(sm_handle)
+                    sm = node.write(sm_handle, layer=layer)
+                    with node.pipeline(self._shadow_inst_si, self._shadow_state) as binder:
+                        binder.set_depth(sm, self._shadow_depth_load)
+
+                    def record_shadow_inst(ctx, light_vp=light_vp, inst_acc=inst_acc):
+                        ctx.bind("LightViewProj", light_vp(ctx))
+                        instanced_draws(ctx, inst_acc, lambda i: {})
+
+                    node.execute(record_shadow_inst)
+
+        # -- nodes: the cube faces of each shadow-casting point light ---------
+        # Six render-to-layer depth passes of the plain opaque objects per
+        # light (deferred.py:1553-1604).
+        omni_handles = []
+        for li, pl in enumerate(omni_lights):
+            cube = builder.create(TextureDesc.new_cube(
+                f"omni{li}.shadow", pl.shadow_map_size, Format.D32F))
+            for fk in range(6):
+                shadow_node(f"omni{li}.f{fk}", cube, fk,
+                            lambda ctx, li=li, fk=fk: ctx.dynamic(f"def.omni{li}.vps")[fk])
+            omni_handles.append(cube)
 
         # -- node: G-buffer (MRT) ---------------------------------------------
         node = builder.add_graphic_node("gbuffer")
@@ -793,13 +944,13 @@ class DeferredRenderer:
 
         per_draw = ("BaseColor", "MatParams") + tuple(_UVX_NAME[a] for a in atlas_accesses)
 
-        def record_gbuffer(ctx, accesses=accesses, s_acc=s_acc):
-            ctx.bind("ViewProj", ctx.dynamic("def.view_proj"))
-            for name, acc in atlas_accesses.items():
+        def materials(ctx, atlases):
+            """``material(i)``: the per-draw uniforms of object i."""
+            for name, acc in atlases.items():
                 ctx.bind(name, ctx.get(acc))
             bcs = ctx.dynamic("def.base_colors")
             mats = ctx.dynamic("def.mats")
-            uvx = {name: ctx.dynamic(f"def.uvx.{name}") for name in atlas_accesses}
+            uvx = {name: ctx.dynamic(f"def.uvx.{name}") for name in atlases}
 
             def material(i):
                 res = {"BaseColor": bcs[i], "MatParams": mats[i]}
@@ -807,11 +958,39 @@ class DeferredRenderer:
                     res[_UVX_NAME[name]] = table[i]
                 return res
 
-            if plain_ix:
+            return material
+
+        def record_gbuffer(ctx, accesses=accesses, s_acc=s_acc):
+            ctx.bind("ViewProj", ctx.dynamic("def.view_proj"))
+            material = materials(ctx, atlas_accesses)
+            if plain_ix:  # an all-instanced scene clears only
                 ctx.draw_indexed_batch(plain_draws(ctx, accesses, s_acc, material),
                                        per_draw_uniforms=per_draw)
 
         node.execute(record_gbuffer)
+
+        if inst_ix:
+            node = builder.add_graphic_node("gbuffer.inst")
+            inst_acc = {i: (node.read(handles[i][0]), node.read(handles[i][1]))
+                        for i in inst_ix}
+            inst_atlas = {name: node.read(h) for name, h in atlas_handles.items()}
+            for h in (g_albedo, g_normal, g_pos, g_depth):
+                node.read(h)
+            a2 = node.write(g_albedo)
+            n2 = node.write(g_normal)
+            p2 = node.write(g_pos)
+            d2 = node.write(g_depth)
+            with node.pipeline(self._gbuffer_inst_si, self._gbuffer_state) as binder:
+                binder.push_color(a2, self._ca_load)
+                binder.push_color(n2, self._ca_load)
+                binder.push_color(p2, self._ca_load)
+                binder.set_depth(d2, self._gbuffer_depth_load)
+
+            def record_gbuffer_inst(ctx):
+                ctx.bind("ViewProj", ctx.dynamic("def.view_proj"))
+                instanced_draws(ctx, inst_acc, materials(ctx, inst_atlas))
+
+            node.execute(record_gbuffer_inst)
 
         # -- node: decals (lambda; renderer.decal) -----------------------------
         # Projected decals rewrite the G-buffer albedo before SSAO and
@@ -876,12 +1055,19 @@ class DeferredRenderer:
         p_in = node.read(g_pos)
         d_in = node.read(g_depth)
         sm_in = node.read(sm_handle) if sm_handle is not None else None
+        omni_in = [node.read(h) for h in omni_handles]
+        omni_params = [(float(pl.shadow_near), float(pl.radius), float(pl.shadow_bias))
+                       for pl in omni_lights]
         sky_in = node.read(sky_handle) if sky_handle is not None else None
         ao_in = node.read(ao_handle) if ao_handle is not None else None
         out_w = node.write(output)
         num_lights = pl_pos.shape[0]
         shadows = self.shadows
         has_sun = sun is not None
+        # Variance soft shadows take the single map only (deferred.py:2039-2043).
+        soft_shadows = bool(shadows and n_casc == 1 and sun.soft_shadows)
+        vsm_blur = int(sun.vsm_blur) if soft_shadows else 0
+        vsm_bleed = float(sun.vsm_bleed_reduction) if soft_shadows else 0.0
         contact_cfg = (
             (float(sun.contact_strength), float(sun.contact_distance),
              float(sun.contact_thickness), int(sun.contact_steps))
@@ -916,7 +1102,37 @@ class DeferredRenderer:
                 l = ctx.dynamic("def.sun_dir")
                 contrib = _ggx_brdf(n, v, l.expand(n.shape), albedo, metallic,
                                     roughness) * ctx.dynamic("def.sun_color")
-                if shadows:
+                if shadows and n_casc > 1:
+                    # Cascade selection (deferred.py:2118-2160): the view
+                    # distance against the split edges (a sum of compares),
+                    # the pixel's light VP picked by a where over the N
+                    # cascades, and the PCF taps from the pixel's layer.
+                    lvps = ctx.dynamic("def.light_vp")  # (N, 4, 4)
+                    splits = ctx.dynamic("def.casc_splits")  # (N,)
+                    dist = torch.sum((world - cam_pos) * ctx.dynamic("def.camera_fwd"), dim=-1)
+                    k_idx = torch.zeros(dist.shape, dtype=torch.int64, device=dist.device)
+                    for i in range(n_casc - 1):
+                        k_idx = k_idx + (dist > splits[i]).to(torch.int64)
+                    noff_px = ctx.dynamic("def.shadow_noffs")[k_idx][..., None]
+                    sample_pos = world + n * noff_px
+                    hom = torch.cat([sample_pos, torch.ones_like(world[..., :1])], dim=-1)
+                    lclip = torch.zeros_like(hom)
+                    for i in range(n_casc):
+                        lclip = torch.where((k_idx == i)[..., None], hom @ lvps[i].T, lclip)
+                    uv = torch.stack(
+                        [(lclip[..., 0] + 1) * 0.5, (lclip[..., 1] + 1) * 0.5], -1
+                    )
+                    ref = lclip[..., 2] - ctx.dynamic("def.shadow_bias")
+                    lit = sample_shadow_pcf_layered(ctx.get(sm_in), k_idx, uv, ref,
+                                                    _SHADOW_SAMPLER)
+                    # Beyond the last split, or off every map: lit.
+                    inside = (
+                        (uv[..., 0] >= 0) & (uv[..., 0] <= 1)
+                        & (uv[..., 1] >= 0) & (uv[..., 1] <= 1)
+                        & (dist <= splits[n_casc - 1])
+                    )
+                    contrib = contrib * torch.where(inside, lit, torch.ones_like(lit))[..., None]
+                elif shadows:
                     sample_pos = world + n * ctx.dynamic("def.shadow_noffs")
                     hom = torch.cat([sample_pos, torch.ones_like(world[..., :1])], dim=-1)
                     lclip = hom @ ctx.dynamic("def.light_vp").T
@@ -924,7 +1140,14 @@ class DeferredRenderer:
                         [(lclip[..., 0] + 1) * 0.5, (lclip[..., 1] + 1) * 0.5], -1
                     )
                     ref = lclip[..., 2] - ctx.dynamic("def.shadow_bias")
-                    lit = sample_shadow_pcf(ctx.get_full(sm_in), uv, ref, _SHADOW_SAMPLER)
+                    if soft_shadows:
+                        # VSM (ops.vsm, deferred.py:2165-2180): the moments
+                        # are derived and blurred from the depth map here,
+                        # then one bilinear fetch.
+                        moments = depth_to_moments(ctx.get_full(sm_in), taps=vsm_blur)
+                        lit = sample_vsm(moments, uv, ref, bleed_reduction=vsm_bleed)
+                    else:
+                        lit = sample_shadow_pcf(ctx.get_full(sm_in), uv, ref, _SHADOW_SAMPLER)
                     inside = (
                         (uv[..., 0] >= 0) & (uv[..., 0] <= 1)
                         & (uv[..., 1] >= 0) & (uv[..., 1] <= 1)
@@ -954,6 +1177,25 @@ class DeferredRenderer:
                     ctx.dynamic("def.pl_rad"),
                     spot_params=ctx.dynamic("def.sl_params") if has_spots else None,
                 )
+
+            # Shadow-casting point lights (deferred.py:2233-2262): the dense
+            # BRDF with the kernel's distance window, times cube-PCF
+            # visibility from the light's faces.
+            for li, (o_near, o_far, o_bias) in enumerate(omni_params):
+                to_l = ctx.dynamic(f"def.omni{li}.pos") - world
+                d2 = torch.clamp(torch.sum(to_l * to_l, dim=-1), min=1e-8)
+                dist = torch.sqrt(d2)
+                ldir = to_l / dist[..., None]
+                win = torch.clamp(1.0 - (dist / o_far) ** 4, 0.0, 1.0) ** 2
+                contrib = _ggx_brdf(n, v, ldir, albedo, metallic, roughness) \
+                    * ctx.dynamic(f"def.omni{li}.col") * (win / d2)[..., None]
+                l2f = -to_l
+                face, uv = cube_direction_to_face_uv(l2f)
+                zref = omni_reference_z(torch.amax(torch.abs(l2f), dim=-1) - o_bias, o_near, o_far)
+                vis = sample_shadow_pcf_layered(ctx.get(omni_in[li]), face, uv, zref,
+                                                _SHADOW_SAMPLER)
+                vis = torch.where(dist < o_far, vis, torch.ones_like(vis))
+                color = color + contrib * vis[..., None]
 
             if sky_in is not None or atmo is not None:
                 # Per-pixel view rays for the background: cube-sample them

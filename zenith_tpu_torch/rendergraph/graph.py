@@ -26,13 +26,23 @@ MSAA attachments (graph.py:1297-1460): a node whose pipeline has S > 1
 samples works on (S, H, W, ...) planes. Clears and loads broadcast to S
 samples; the store resolves colour by its mean over the samples and depth
 and stencil by sample 0, which is what every consumer reads. The
-per-sample planes are also kept for the frame (``msaa_state``), so a LOAD in
-a later node of the same sample count continues per sample instead of
-re-broadcasting the resolve; a lambda or single-sample write drops them.
+per-sample planes are also kept for the frame (``msaa_state``, keyed by
+(resource, mip, layer)), so a LOAD in a later node of the same sample count
+continues per sample instead of re-broadcasting the resolve; a lambda or
+single-sample write drops them.
 
-Not ported yet: the SPMD ``mesh``/``parallel`` modes (ROADMAP item 24) and
-sub-resource (mip/layer/range) views, with or without MSAA (item 21). Each
-raises when asked for.
+Sub-resource views (graph.py:425-570, 833-860, 1163-1300; the reference's
+per-subresource image views, texture.rs:536-559, and BufferRange,
+buffer.rs:276-322): accesses declared with ``mip``/``layer``/``brange``
+read and write one mip level, one array layer or one buffer range. A
+mip-mapped managed texture materializes as a tuple of per-level tensors,
+and a graphic node may render into one level or layer (the surface is
+``width >> mip`` by ``height >> mip``). Writes splice functionally: a
+layer or range write makes a new tensor, so a value read earlier in the
+frame, or an export the caller still holds, never changes.
+
+Not ported yet: the SPMD ``mesh``/``parallel`` modes (ROADMAP item 24),
+which raise when asked for.
 """
 
 from __future__ import annotations
@@ -305,15 +315,36 @@ def _capture_key_uncached(v, depth: int, memo: "Optional[dict]"):
     return ("cap-obj", type(v).__qualname__, fields)
 
 
-def _whole(access: RenderGraphResourceAccess) -> int:
-    """The resource id of an access to a whole resource. Sub-resource views
-    (mip levels, array layers, buffer ranges) are not ported yet."""
-    if any(getattr(access, k, None) is not None for k in ("mip", "layer", "brange")):
-        raise NotImplementedError(
-            "sub-resource accesses (mip/layer/brange) are not ported yet "
-            "(ROADMAP item 21: render-to-mip and render-to-layer features)"
-        )
-    return access.id
+def _mip_splice(cur: tuple, mip: int, arr) -> tuple:
+    """One level of a mip-chain tuple replaced (graph.py:425-428; shared by
+    lambda ``ctx.set`` and the graphic-node attachment store)."""
+    return cur[:mip] + (arr,) + cur[mip + 1:]
+
+
+def _layer_splice(cur: torch.Tensor, layer: int, arr: torch.Tensor) -> torch.Tensor:
+    """``cur`` with one array layer replaced, as a new tensor (graph.py:
+    431-436, the reference's functional ``.at[layer].set``): (H, W) depth
+    planes expand to the stored (L, H, W, 1) channel layout."""
+    if cur.ndim == arr.ndim + 2:
+        arr = arr[..., None]
+    out = cur.clone()
+    out[layer] = arr
+    return out
+
+
+def _view(val, mip, layer, brange):
+    """The sub-resource view of a resource's value (graph.py:533-545)."""
+    if mip is not None:
+        if not isinstance(val, tuple):
+            raise ValueError(f"the resource has no mip chain (read with mip={mip})")
+        lvl = val[mip]
+        return lvl if layer is None else lvl[layer]
+    if layer is not None:
+        return val[layer]
+    if brange is not None:
+        off, size = brange
+        return val[off:off + size]
+    return val
 
 
 class _NodeContextBase:
@@ -336,13 +367,15 @@ class _NodeContextBase:
         return self._dynamics[name]
 
     def get(self, access: RenderGraphResourceAccess):
-        """Current value of a resource."""
-        rid = _whole(access)
+        """Current value of a resource (a tensor, or the tuple of levels of
+        a mip-mapped texture); an access declared with ``mip``/``layer``/
+        ``brange`` resolves to that sub-resource view (graph.py:527-545)."""
+        rid = access.id
         val = self._state.get(rid)
         if val is None:
             val = self._graph._materialize_default(rid, self.device)
             self._state[rid] = val
-        return val
+        return _view(val, access.mip, access.layer, access.brange)
 
     def get_full(self, access: RenderGraphResourceAccess):
         """Full (all-rows) value of a resource (graph.py:481-493): on one
@@ -354,13 +387,17 @@ class LambdaNodeExecutionContext(_NodeContextBase):
     """(graph.rs:635-654) Arbitrary tensor compute over declared resources."""
 
     def set(self, access: RenderGraphResourceAccess, value) -> None:
-        rid = _whole(access)
+        rid = access.id
         if not any(a.resource_id == rid for a in self._node.outputs):
             raise ValueError(
                 f"node '{self._node.name}' writes resource #{rid} without "
                 f"declaring write()"
             )
-        self._state[rid] = value
+        if access.mip is None and access.layer is None and access.brange is None:
+            self._state[rid] = value
+        else:
+            self._graph._store(self._state, rid, access.mip, access.layer, access.brange,
+                               value, self.device)
 
 
 class GraphicNodeExecutionContext(_NodeContextBase):
@@ -533,12 +570,57 @@ class RenderGraph:
     # -- helpers --------------------------------------------------------------
 
     def _materialize_default(self, rid: int, device: torch.device):
-        """Managed resource first touched by a read: zero contents."""
+        """Managed resource first touched: zero contents. A mip-mapped
+        texture materializes as a tuple of per-level tensors, as imported
+        mip textures arrive (graph.py:833-860): 3D levels halve every
+        extent, array layers never shrink."""
         desc = self.resources[rid].desc
         if desc is None:
             raise ValueError(f"imported resource #{rid} has no value")
+        if isinstance(desc, TextureDesc) and desc.mip_levels > 1:
+            c = desc.format.channels
+            dtype = desc.format.compute_dtype
+
+            def level_shape(k):
+                hw = (max(1, desc.height >> k), max(1, desc.width >> k), c)
+                if desc.depth > 1:
+                    return (max(1, desc.depth >> k),) + hw
+                if desc.array_layers > 1:
+                    return (desc.array_layers,) + hw
+                return hw
+
+            return tuple(torch.zeros(level_shape(k), dtype=dtype, device=device)
+                         for k in range(desc.mip_levels))
         sds = desc.shape_dtype()
         return torch.zeros(sds.shape, dtype=sds.dtype, device=device)
+
+    def _store(self, state, rid: int, mip, layer, brange, value, device) -> None:
+        """Write ``value`` into one sub-resource of resource ``rid`` (the
+        splices of graph.py:533-570 and 1229-1251, shared by lambda
+        ``ctx.set`` and the graphic-node attachment store)."""
+        cur = state.get(rid)
+        tex = self.resources[rid].texture_desc()
+        if isinstance(cur, tuple) or (tex is not None and tex.mip_levels > 1):
+            if not isinstance(cur, tuple):
+                cur = self._materialize_default(rid, device)
+            mip = mip or 0
+            if layer is not None:
+                value = _layer_splice(cur[mip], layer, value)
+            state[rid] = _mip_splice(cur, mip, value)
+            return
+        if mip:
+            raise ValueError(f"resource #{rid} has no mip chain (write with mip={mip})")
+        if cur is None and (layer is not None or brange is not None):
+            cur = self._materialize_default(rid, device)
+        if layer is not None:
+            state[rid] = _layer_splice(cur, layer, value)
+        elif brange is not None:
+            off, size = brange
+            out = cur.clone()
+            out[off:off + size] = value
+            state[rid] = out
+        else:
+            state[rid] = value
 
     def _written_imports(self) -> List[int]:
         out = []
@@ -593,6 +675,51 @@ class RenderGraph:
         add(tuple(sorted(self.exports)))
         return tuple(parts)
 
+    def _deep_capture_fingerprint(self) -> tuple:
+        """Validate-mode self-check (graph.py:937-961): content fingerprints
+        of the big host numpy arrays captured by node closures, the one
+        capture the structure key keys by shape alone. Device tensors stay
+        shape-keyed even here: reading them back would make the host wait
+        for the card. Run on a cadence, not per frame."""
+        from zenith_tpu_torch.core.collections import default_hasher
+
+        fps = []
+        for node in self.nodes:
+            if node.job is None:
+                continue
+            for cell in node.job.__closure__ or ():
+                try:
+                    v = cell.cell_contents
+                except ValueError:
+                    continue
+                if isinstance(v, _np.ndarray) and v.size > 256:
+                    fps.append((node.index, v.shape,
+                                default_hasher(_np.ascontiguousarray(v).tobytes())))
+        return tuple(fps)
+
+    def _capture_self_check(self, key: "_HKey") -> None:
+        """Every 64th cache hit under ZENITH_VALIDATE=1 (graph.py:1010-1034):
+        warn when a big captured numpy array changed content while the
+        cached frame function, which closes over the first graph's
+        captures, kept being served."""
+        global _SELFCHECK_TICK
+        _SELFCHECK_TICK += 1
+        if _SELFCHECK_TICK % 64:
+            return
+        deep = self._deep_capture_fingerprint()
+        prev = _DEEP_FP_CACHE.get(key)
+        if prev is None:
+            if len(_DEEP_FP_CACHE) > 256:
+                _DEEP_FP_CACHE.clear()
+        elif prev != deep:
+            logger.warning(
+                "[validate] capture self-check: a closure-captured big np array "
+                "CHANGED CONTENT while the frame-function cache served the same "
+                "function, which still closes over the old values. Route "
+                "per-frame arrays through builder.set_dynamic or import_resource."
+            )
+        _DEEP_FP_CACHE[key] = deep
+
     # -- compile ---------------------------------------------------------------
 
     def compile(
@@ -628,6 +755,8 @@ class RenderGraph:
         if cached is not None:
             _FRAME_PROGRAM_CACHE.move_to_end(key)
             _MISS_STREAK = 0
+            if _validate_enabled():
+                self._capture_self_check(key)
         else:
             cached = self._build_frame_fn(active_nodes, options, dev)
             _FRAME_PROGRAM_CACHE[key] = cached
@@ -662,9 +791,9 @@ class RenderGraph:
         def frame_fn(imports: Dict[str, Any], dynamics: Dict[str, torch.Tensor]):
             """Run every node in declaration order; no host reads."""
             state: Dict[int, Any] = {}
-            # rid -> (samples, (S, ...) planes) of the last MSAA node that
-            # stored the resource.
-            msaa_state: Dict[int, Tuple[int, torch.Tensor]] = {}
+            # (rid, mip, layer) -> (samples, (S, ...) planes) of the last
+            # MSAA node that stored that sub-surface.
+            msaa_state: Dict[tuple, Tuple[int, torch.Tensor]] = {}
             for rid, st in enumerate(resources):
                 if st.is_imported:
                     state[rid] = imports[str(rid)]
@@ -691,70 +820,88 @@ class RenderGraph:
             ctx = LambdaNodeExecutionContext(self, node, state, dynamics, device)
             node.job(ctx)
             # A lambda write replaces the resolved surface: per-sample planes
-            # must not shadow it.
+            # of any sub-surface of the resource must not shadow it.
             for a in node.outputs:
-                msaa_state.pop(a.resource_id, None)
+                for k in [k for k in msaa_state if k[0] == a.resource_id]:
+                    del msaa_state[k]
             return overflow, nan_pixels
         pipeline = pipelines[node.index]
         samples = pipeline.desc.state.multisample.samples
-        atts = list(node.color_attachments)
-        if node.depth_attachment is not None:
-            atts.append(node.depth_attachment)
-        if any(mip != 0 or layer is not None for _, _, mip, layer in atts):
-            raise NotImplementedError(
-                "render-to-mip/-layer attachments are not ported yet "
-                "(ROADMAP item 21)"
-            )
-        first_rid = atts[0][0] if atts else node.stencil_attachment
+        if node.color_attachments:
+            first_rid, _, first_mip, _ = node.color_attachments[0]
+        elif node.depth_attachment is not None:
+            first_rid, _, first_mip, _ = node.depth_attachment
+        else:
+            first_rid, first_mip = node.stencil_attachment, 0
         tdesc = resources[first_rid].texture_desc()
+        # A render-to-mip surface is one level (graph.py:1163-1180).
         grid = TileGrid(
-            width=tdesc.width,
-            height=tdesc.height,
+            width=max(1, tdesc.width >> first_mip),
+            height=max(1, tdesc.height >> first_mip),
             tile_h=options.tile_h,
             tile_w=options.tile_w,
         )
+
+        def att_load(rid, mip, layer):
+            """Current contents of an attachment sub-surface (None when
+            untouched); a LOAD of level k reads level k."""
+            cur = state.get(rid)
+            if cur is None:
+                return None
+            if isinstance(cur, tuple):
+                cur = cur[mip]
+            return cur if layer is None else cur[layer]
+
+        def att_store(rid, mip, layer, arr):
+            self._store(state, rid, mip, layer, None, arr, device)
 
         def to_samples(arr):
             if samples == 1:
                 return arr
             return arr.unsqueeze(0).expand((samples,) + tuple(arr.shape))
 
-        def loaded(rid, resolve):
+        def loaded(rid, mip, layer, cur, resolve):
             """A LOADed attachment: the per-sample planes an earlier node of
-            this sample count kept, else the resolved surface broadcast."""
+            this sample count kept for the same sub-surface, else the
+            resolved surface broadcast."""
             if samples > 1:
-                kept = msaa_state.get(rid)
+                kept = msaa_state.get((rid, mip, layer))
                 if kept is not None and kept[0] == samples:
                     return kept[1]
-            return to_samples(resolve(state[rid]))
+            return to_samples(resolve(cur))
 
         colors = []
-        for rid, cdesc, _, _ in node.color_attachments:
-            if cdesc.load_op == LoadOp.CLEAR or state.get(rid) is None:
+        for rid, cdesc, mip, layer in node.color_attachments:
+            cur = att_load(rid, mip, layer)
+            if cdesc.load_op == LoadOp.CLEAR or cur is None:
                 colors.append(to_samples(blend_ops.clear_color(
                     grid.height, grid.width, cdesc.clear_value, device)))
             else:
-                colors.append(loaded(rid, lambda cur: cur))
+                colors.append(loaded(rid, mip, layer, cur, lambda c: c))
 
         depth = None
         if node.depth_attachment is not None:
-            rid, ddesc, _, _ = node.depth_attachment
-            if ddesc.depth_load_op == LoadOp.CLEAR or state.get(rid) is None:
+            rid, ddesc, mip, layer = node.depth_attachment
+            cur = att_load(rid, mip, layer)
+            if ddesc.depth_load_op == LoadOp.CLEAR or cur is None:
                 depth = to_samples(blend_ops.clear_depth(
                     grid.height, grid.width, ddesc.depth_clear_value, device))
             else:
-                depth = loaded(rid, lambda cur: cur[..., 0] if cur.ndim == 3 else cur)
+                depth = loaded(rid, mip, layer, cur,
+                               lambda c: c[..., 0] if c.ndim == 3 else c)
 
         stencil = None
         if node.stencil_attachment is not None:
+            srid = node.stencil_attachment
             sdesc = pipeline.desc.state.depth_stencil
-            if sdesc.stencil_load_op == LoadOp.CLEAR or state.get(node.stencil_attachment) is None:
+            cur = state.get(srid)
+            if sdesc.stencil_load_op == LoadOp.CLEAR or cur is None:
                 stencil = to_samples(torch.full(
                     (grid.height, grid.width), sdesc.stencil_clear_value & 0xFF,
                     dtype=torch.int32, device=device,
                 ))
             else:
-                stencil = loaded(node.stencil_attachment, lambda cur: cur)
+                stencil = loaded(srid, 0, None, cur, lambda c: c)
 
         ctx = GraphicNodeExecutionContext(
             self, node, state, dynamics, device, pipeline, grid,
@@ -765,21 +912,29 @@ class RenderGraph:
 
         # Epilogue: store attachments back (store-op STORE semantics), the
         # MSAA planes resolved (colour: mean; depth and stencil: sample 0)
-        # and kept per sample for a later LOAD.
-        def store(rid, arr, resolve):
+        # and kept per sample for a later LOAD of the same sub-surface.
+        def keep_samples(rid, mip, layer, arr):
             if samples > 1:
-                msaa_state[rid] = (samples, arr)
-                arr = resolve(arr)
+                msaa_state[(rid, mip, layer)] = (samples, arr)
+            elif layer is None:
+                # A whole-level single-sample write covers every layer's
+                # kept planes of that level.
+                for k in [k for k in msaa_state if k[0] == rid and k[1] == mip]:
+                    del msaa_state[k]
             else:
-                msaa_state.pop(rid, None)
-            state[rid] = arr
+                msaa_state.pop((rid, mip, layer), None)
 
-        for (rid, _, _, _), arr in zip(node.color_attachments, ctx._colors):
-            store(rid, arr, lambda a: a.mean(dim=0))
+        for (rid, _, mip, layer), arr in zip(node.color_attachments, ctx._colors):
+            att_store(rid, mip, layer, arr.mean(dim=0) if samples > 1 else arr)
+            keep_samples(rid, mip, layer, arr)
         if node.depth_attachment is not None and ctx._depth is not None:
-            store(node.depth_attachment[0], ctx._depth, lambda a: a[0])
+            rid, _, mip, layer = node.depth_attachment
+            att_store(rid, mip, layer, ctx._depth[0] if samples > 1 else ctx._depth)
+            keep_samples(rid, mip, layer, ctx._depth)
         if node.stencil_attachment is not None and ctx._stencil is not None:
-            store(node.stencil_attachment, ctx._stencil, lambda a: a[0])
+            srid = node.stencil_attachment
+            keep_samples(srid, 0, None, ctx._stencil)
+            state[srid] = ctx._stencil[0] if samples > 1 else ctx._stencil
         for ov in ctx.stats:
             overflow = overflow + ov
         if validate:
@@ -801,6 +956,10 @@ _FRAME_PROGRAM_CACHE_MAX = 256
 # identity defeats the cache — warn once per streak.
 _MISS_STREAK = 0
 _MISS_STREAK_WARN_AT = 4
+
+# Validate-mode capture self-check state (see RenderGraph._capture_self_check).
+_SELFCHECK_TICK = 0
+_DEEP_FP_CACHE: dict = {}
 
 
 def set_frame_program_cache_limit(n: int) -> None:

@@ -95,6 +95,7 @@ class Swapchain:
         self._frame_counter = 0
         self._last_present_time: Optional[float] = None
         self.suboptimal = False
+        self._warned_stale = False
         self._textures = self._make_textures(config.width, config.height)
 
     def _make_textures(self, width: int, height: int) -> "list[Texture]":
@@ -132,9 +133,25 @@ class Swapchain:
 
         ``pre_encoded=True`` marks ``rendered`` as ALREADY encoded to the
         swapchain format; the default infers it from the dtype (uint8 ⇒
-        pre-encoded)."""
+        pre-encoded).
+
+        Trap (warned once under validation, swapchain.py:152-164): a
+        pre-encoded present leaves the swapchain slot holding the PREVIOUS
+        frame's linear contents, so a LOAD-op graph reading the swapchain
+        image afterwards sees a stale frame. Keep the linear surface as a
+        graph-managed resource in that case."""
         if pre_encoded is None:
             pre_encoded = rendered.dtype == torch.uint8
+        if pre_encoded:
+            from zenith_tpu_torch.core import validate
+
+            if validate.enabled() and not self._warned_stale:
+                self._warned_stale = True
+                logger.warning(
+                    "[validate] pre-encoded present: swapchain slot %d keeps its previous "
+                    "LINEAR contents — a LOAD-op graph reading the swapchain image next "
+                    "frame sees a stale frame. Use a graph-managed linear resource for "
+                    "feedback loops.", self._image_index)
         if not pre_encoded:
             # Keep the device-resident rendered image bound to the slot so
             # LOAD-op graphs can read last frame's contents.

@@ -15,8 +15,9 @@ reference's tests/test_renderers.py::build_test_scene with a sky cube).
 ``SceneApp`` is the reference's scene app in forward mode (config #3: the
 sun's shadow pass and the forward lit pass, with ``--msaa``,
 ``--wireframe``, ``--instances`` and ``--gun-instances``) and deferred mode
-(config #5, with the glass, textured, wireframe and screen-space options),
-auto-retained.
+(config #5, with the glass, textured, wireframe and screen-space options,
+instancing, ``--cascades N``, ``--point-shadows``, ``--soft-shadows`` and
+``--bloom-mips N``), auto-retained.
 Its other flags name the ROADMAP item that ports them and raise before
 anything is built. Run it on the card:
 
@@ -616,9 +617,6 @@ _UNPORTED_FLAGS = {
     "dof": (21, "dof"),
     "hud": (21, "hud"),
     "particles": (21, "particles"),
-    "soft_shadows": (21, "csm, omni, vsm"),
-    "cascades": (21, "csm, omni, vsm"),
-    "point_shadows": (21, "csm, omni, vsm"),
     "skinned": (21, "animation (skin, morph)"),
     "morph": (21, "animation (skin, morph)"),
     "pick": (21, "picking"),
@@ -670,12 +668,17 @@ def _scene_app_parser():
                    help="lens flare on the HDR frame (drops the sun toward the horizon)")
     p.add_argument("--decals", type=int, default=0,
                    help="N projected decals stamped in a ring on the ground (deferred mode)")
+    p.add_argument("--cascades", type=int, default=1,
+                   help="N > 1: cascaded shadow maps for the sun (deferred mode)")
+    p.add_argument("--soft-shadows", action="store_true",
+                   help="variance shadow maps (soft penumbrae) for the sun (deferred mode, "
+                        "one cascade)")
+    p.add_argument("--point-shadows", action="store_true",
+                   help="one shadow-casting point light with a cube shadow map (deferred mode)")
     for flag in ("ibl", "probe", "fxaa", "grade", "film", "auto-exposure", "taa",
-                 "velocity", "motion-blur", "dof", "hud", "soft-shadows", "point-shadows",
-                 "skinned", "morph", "pick"):
+                 "velocity", "motion-blur", "dof", "hud", "skinned", "morph", "pick"):
         p.add_argument(f"--{flag}", action="store_true", help="not ported yet")
-    for flag, default in (("particles", 0), ("cascades", 1)):
-        p.add_argument(f"--{flag}", type=int, default=default, help="not ported yet")
+    p.add_argument("--particles", type=int, default=0, help="not ported yet")
     return p
 
 
@@ -685,29 +688,21 @@ class SceneApp(RenderableApp):
     ``--instances``, ``--gun-instances``) or deferred mode (config #5:
     DeferredRenderer with ``--lights``, ``--spots``, ``--textured``,
     ``--glass``, ``--wireframe``, ``--ssao``, ``--contact-shadows``,
-    ``--decals N``, ``--sky``, then the ``--ssr`` and ``--fog`` passes) over
-    build_scene's cerberus scene, ``--flare`` on the HDR frame, bloom + ACES
-    post unless ``--no-post``, an orbit camera that the first input event
-    hands to fly controls, and auto-retained execution."""
+    ``--decals N``, ``--sky``, ``--instances``, ``--gun-instances``,
+    ``--cascades N``, ``--point-shadows``, ``--soft-shadows``, then the
+    ``--ssr`` and ``--fog`` passes) over build_scene's cerberus scene,
+    ``--flare`` on the HDR frame, bloom + ACES post (over a mip chain with
+    ``--bloom-mips N``) unless ``--no-post``, an orbit camera that the
+    first input event hands to fly controls, and auto-retained execution."""
 
     def __init__(self, args: Args):
         super().__init__(args)
         ns, _ = _scene_app_parser().parse_known_args(args.app_args)
         for name, (item, what) in _UNPORTED_FLAGS.items():
-            value = getattr(ns, name)
-            if (value > 1) if name == "cascades" else value:
+            if getattr(ns, name):
                 raise NotImplementedError(
                     f"SceneApp --{name.replace('_', '-')} is not ported yet "
                     f"(ROADMAP item {item}: {what})")
-        if ns.mode == "deferred" and (ns.instances or ns.gun_instances):
-            raise NotImplementedError(
-                "SceneApp --instances / --gun-instances in deferred mode: instanced opaque "
-                "objects in the deferred renderer are not ported yet (ROADMAP item 21: "
-                "screen-space and lighting features)")
-        if ns.bloom_mips >= 2:
-            raise NotImplementedError(
-                "SceneApp --bloom-mips >= 2 (the render-to-mip bloom chain) is not ported "
-                "yet (ROADMAP item 21: post extras)")
         self.mode = ns.mode
         deferred = ns.mode == "deferred"
         self.textured = ns.textured and deferred
@@ -729,6 +724,9 @@ class SceneApp(RenderableApp):
         self.use_flare = ns.flare
         self.use_ssr = ns.ssr and deferred
         self.use_fog = ns.fog and deferred
+        self.cascades = ns.cascades
+        self.soft_shadows = ns.soft_shadows and deferred
+        self.point_shadows = ns.point_shadows and deferred
         self.flare = None
         self.ssr = None
         self.fog = None
@@ -770,6 +768,7 @@ class SceneApp(RenderableApp):
             DeferredRenderer,
             ForwardShadowRenderer,
             LensFlare,
+            PointLight,
             PostProcess,
             ScreenSpaceReflections,
             SpotLight,
@@ -797,6 +796,14 @@ class SceneApp(RenderableApp):
                 direction=(0.25 * math.cos(a + 2), 0.25 * math.sin(a + 2), -1.0),
                 color=hue, intensity=1800.0, radius=130.0, inner_deg=14.0, outer_deg=22.0,
             ))
+        if self.point_shadows:
+            scene.point_lights.append(PointLight(
+                position=(-35.0, -25.0, 30.0), color=(1.0, 0.8, 0.55), intensity=2500.0,
+                radius=160.0, cast_shadows=True, shadow_map_size=256))
+        if self.cascades > 1 and scene.sun is not None:
+            scene.sun = dataclasses.replace(scene.sun, cascades=self.cascades)
+        if self.soft_shadows and scene.sun is not None:
+            scene.sun = dataclasses.replace(scene.sun, soft_shadows=True)
         if self.contact_shadows and scene.sun is not None:
             scene.sun = dataclasses.replace(scene.sun, contact_shadows=True)
         if self.mode == "deferred":
