@@ -208,6 +208,22 @@ other than 0, no result line) on the first phase that fails:
     sub-resource graphs (a cube face rendered and sampled, a layer of a
     depth array, render-to-mip, buffer ranges, a layered mip chain, the
     bloom chain) on the card against the same code on the CPU.
+18. the image-based light, the rest of the post chain and the temporal
+    passes, through SceneApp --mode deferred at 1920x1080 over the baked
+    cerberus with 100 point lights: (18a) --ibl --fxaa --grade --film
+    --auto-exposure, 30 frames, K1 2 and K2 1 a frame, the adapted exposure
+    fed back on the device every frame and printed at frames 1, 10 and 30;
+    (18b) --taa --velocity --motion-blur --instances 64, 30 frames, K1 4
+    and K2 1 a frame, K1 on one jittered frame's G-buffer passes bit-equal
+    to its unculled walk, then the rocks' offsets as a CUDA tensor replaced
+    every frame (the velocity plane on by default) through retained frames
+    without host sync; (18c) --probe: the capture timed, K1 on a 64² probe
+    face (8x64 tiles, mirrored winding) bit-equal to its unculled walk, 30
+    frames; each with one frame function for all frames, the kernel and
+    the plain path from reset through the same 8 frames (one Halton cycle;
+    the temporal state makes the next frame differ) or the last frame
+    against the plain path, a retained frame without host sync and a
+    profile; (18d) the film golden on the card.
 
 Every kernel and its plain version are timed with CUDA events (median; a
 plain version that runs for seconds twice, not warmed up) and set beside
@@ -216,7 +232,7 @@ rows of the bins, not their padding; each plane read or written once) over
 3.35 TB/s and the fp32 operations these inputs need over 67 TFLOP/s.
 
 The line before the last is a JSON object listing each kernel (K1-K8) with
-its launches on the main paths (phases 4, 7, 11, 12, 13, 14a, 15, 16 and 17), its largest
+its launches on the main paths (phases 4, 7, 11, 12, 13, 14a, 15, 16, 17 and 18), its largest
 difference from the plain version, its time, the plain version's, its bound
 and what bounds it, and the inputs these were taken at; the last line is the
 device record.
@@ -1140,6 +1156,37 @@ def plain_versions(plain_k1):
         yield
 
 
+def resolve_k1(b, g, z, acc, compare, write, clamp, off):
+    """K1's plain version as it runs for bins with rectangles (the per-pixel
+    resolve, bit-equal to the rank walk): fast enough for whole 1080p frames
+    of a million triangles. Phases 15-18 hold K1 itself against the
+    unculled walk on their own passes."""
+    from zenith_tpu_torch.ops import raster as raster_mod
+
+    raster_mod._raster_segmented_torch(b, g, z, acc, compare, write, clamp, off)
+
+
+def resolved_plain_path():
+    """``plain_versions`` with ``resolve_k1`` as K1's: the plain path of the
+    whole frames in phases 15-18."""
+    return plain_versions(resolve_k1)
+
+
+def sync_free(engine, app, tag, what="a retained frame"):
+    """Run ``engine``'s retained frame once more with host syncs made errors."""
+    import torch
+
+    compiled = engine._retained[0]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        compiled.execute(engine.render_device, dynamics=app.update_dynamics())
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    print(f"{tag}: {what} made no host sync")
+
+
 def translucency_phases(dev, card: str, stress, plain_k1) -> "tuple[list, dict]":
     """Phases 8-12: K3-K6 against their plain versions at 1920x1080, the
     deferred main path with glass in both modes, and a stencil-attachment
@@ -1151,7 +1198,6 @@ def translucency_phases(dev, card: str, stress, plain_k1) -> "tuple[list, dict]"
     from zenith_tpu_torch.core.camera import Camera
     from zenith_tpu_torch.core.mathtypes import Degree
     from zenith_tpu_torch.ops import draw as draw_mod
-    from zenith_tpu_torch.ops import raster as raster_mod
     from zenith_tpu_torch.ops import runtime
     from zenith_tpu_torch.ops.binning import TileGrid, bin_segmented, tile_overlap
     from zenith_tpu_torch.ops.geometry import setup_with_attrs
@@ -2671,7 +2717,6 @@ def forward_phases(dev, card: str, plain_k1, cull) -> dict:
         ColorAttachmentDesc,
         Format,
         GraphicShaderInput,
-        PipelineCache,
         RhiCore,
         Shader,
         uniform,
@@ -2700,12 +2745,6 @@ def forward_phases(dev, card: str, plain_k1, cull) -> dict:
     from zenith_tpu_torch.window import Window
 
     launches = {"K1": 0, "K3": 0, "K4": 0, "K5": 0}
-
-    def resolve_k1(b, g, z, acc, compare, write, clamp, off):
-        # The plain version as it runs for bins with rectangles (the
-        # per-pixel resolve, bit-equal to the rank walk on the CPU): fast
-        # enough for whole frames; 15b holds K1 against the unculled walk.
-        raster_mod._raster_segmented_torch(b, g, z, acc, compare, write, clamp, off)
 
     def counters():
         return (raster_segmented.launches, raster_segmented.stencil_launches,
@@ -3002,7 +3041,7 @@ def forward_phases(dev, card: str, plain_k1, cull) -> dict:
     add_launches()
     n = raster_segmented.launches
     check(int(retired.bin_overflow) == 0, "15c deferred wireframe: bin overflow")
-    with plain_path(), mock.patch.object(raster_mod, "_raster_segmented_cuda", resolve_k1):
+    with resolved_plain_path():
         pc, pout, _, _ = deferred_frame(device, renderer, camera, W, H, CompileOptions(),
                                         present_format=Format.BGRA8_SRGB)
         ref = pc.value(pout).cpu().numpy()
@@ -3093,7 +3132,7 @@ def frame_line(tag, label, frames, wall, frame_ms, counts, card, overflow_ok=Fal
           f"{'bin overflow per pass below' if overflow_ok else 'bin overflow 0'} [{card}]")
 
 
-def plain_frame_check(app, window, dev, plain_path, tag, label):
+def plain_frame_check(app, window, dev, tag, label):
     """The app's last frame again (no tick: the same camera) on a fresh
     engine's rebuild path through the plain versions, against the frame the
     run presented: <= 1 LSB, < 1% of values. Returns the plain path's
@@ -3105,7 +3144,7 @@ def plain_frame_check(app, window, dev, plain_path, tag, label):
 
     pwindow = Window(width=window.width, height=window.height, title="plain")
     t0 = time.perf_counter()
-    with plain_path():
+    with resolved_plain_path():
         engine = Engine(pwindow, device=dev)
         engine.render(app)
         engine.shutdown()
@@ -3142,32 +3181,9 @@ def terrain_phases(dev, card: str, plain_k1) -> dict:
 
     launches = {"K1": 0, "K2": 0}
 
-    def resolve_k1(b, g, z, acc, compare, write, clamp, off):
-        # The plain K1 as it runs for bins with rectangles (the per-pixel
-        # resolve, bit-equal to the rank walk): whole frames of a million
-        # triangles; 16a holds K1 against the unculled walk on the terrain's
-        # own passes.
-        raster_mod._raster_segmented_torch(b, g, z, acc, compare, write, clamp, off)
-
-    @contextlib.contextmanager
-    def plain_path():
-        with plain_versions(resolve_k1):
-            yield
-
     def add(counts):
         launches["K1"] += counts[0]
         launches["K2"] += counts[1]
-
-    def sync_free(engine, app, tag):
-        compiled = engine._retained[0]
-        torch.cuda.synchronize()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            compiled.execute(engine.render_device, dynamics=app.update_dynamics())
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-        torch.cuda.synchronize()
-        print(f"{tag}: a retained frame made no host sync")
 
     def profile_app(app, engine, tag, nodes, frame_ms, expect):
         def frame(_t):
@@ -3227,7 +3243,7 @@ def terrain_phases(dev, card: str, plain_k1) -> dict:
                       f"{ms:.4f} ms (CUDA events round the bare launch), bound {b_ms:.4f} ms "
                       f"({b_by}) [{card}]")
             raster_segmented.launches = 0  # the checks above are not the path's launches
-        plain_frame_check(app, window, dev, plain_path, tag, "TerrainApp")
+        plain_frame_check(app, window, dev, tag, "TerrainApp")
         engine = Engine(Window(width=W, height=H, title="profile"), device=dev)
         app.tick(0.004)
         engine.render(app)
@@ -3267,7 +3283,7 @@ def terrain_phases(dev, card: str, plain_k1) -> dict:
           f"{tag}: a flag did not reach the renderer")
     frame_line(tag, f"SceneApp --mode deferred {' '.join(FEATURE_FLAGS)} at {W}x{H}",
                SCENE_FEATURE_FRAMES, wall, frame_ms, counts, card)
-    plain_frame_check(app, window, dev, plain_path, tag, "SceneApp")
+    plain_frame_check(app, window, dev, tag, "SceneApp")
     engine = Engine(Window(width=W, height=H, title="profile"), device=dev)
     app.tick(0.004)
     engine.render(app)
@@ -3291,7 +3307,7 @@ def terrain_phases(dev, card: str, plain_k1) -> dict:
         if label == "FlyApp":
             print(f"{tag}: camera at {np.round(np.asarray(loop.app.camera.location), 3)} "
                   f"after the scripted flight")
-        plain_frame_check(loop.app, window, dev, plain_path, tag, label)
+        plain_frame_check(loop.app, window, dev, tag, label)
     return launches
 
 
@@ -3311,13 +3327,24 @@ def recorded_frame(engine_dev, app, calls_of):
     """One frame of ``app`` on a fresh engine with K1's and K2's wrappers
     recorded: returns [(render-graph node, wrapper, args, kwargs)] in call
     order, the inputs cloned before the call."""
+    from zenith_tpu_torch.engine import Engine
+    from zenith_tpu_torch.window import Window
+
+    engine = Engine(Window(width=W, height=H, title="calls"), device=engine_dev)
+    calls = recorded_calls(lambda: engine.render(app), calls_of)
+    engine.shutdown()
+    return calls
+
+
+def recorded_calls(run, calls_of):
+    """``run()`` with K1's and K2's wrappers recorded: [(render-graph node,
+    wrapper, args, kwargs)] in call order, the inputs cloned before the
+    call."""
     import torch
 
     from zenith_tpu_torch.core import profile
-    from zenith_tpu_torch.engine import Engine
     from zenith_tpu_torch.ops import draw as draw_mod
     from zenith_tpu_torch.renderer import deferred as deferred_mod
-    from zenith_tpu_torch.window import Window
 
     node = ["?"]
     calls = []
@@ -3338,12 +3365,10 @@ def recorded_frame(engine_dev, app, calls_of):
             return fn(*args, **kw)
         return call
 
-    engine = Engine(Window(width=W, height=H, title="calls"), device=engine_dev)
     with mock.patch.object(profile, "scope", scope), \
             mock.patch.object(draw_mod, "raster_segmented", rec("K1", real_raster)), \
             mock.patch.object(deferred_mod, "accumulate_point_lights", rec("K2", real_lights)):
-        engine.render(app)
-    engine.shutdown()
+        run()
     torch.cuda.synchronize()
     return calls
 
@@ -3552,25 +3577,6 @@ def layered_phases(dev, card: str, plain_k1) -> dict:
 
     launches = {"K1": 0, "K2": 0}
 
-    def resolve_k1(b, g, z, acc, compare, write, clamp, off):
-        raster_mod._raster_segmented_torch(b, g, z, acc, compare, write, clamp, off)
-
-    @contextlib.contextmanager
-    def plain_path():
-        with plain_versions(resolve_k1):
-            yield
-
-    def sync_free(engine, app, tag):
-        compiled = engine._retained[0]
-        torch.cuda.synchronize()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            compiled.execute(engine.render_device, dynamics=app.update_dynamics())
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-        torch.cuda.synchronize()
-        print(f"{tag}: a retained frame made no host sync")
-
     def run(tag, flags, per_frame, nodes, overflow_ok=False):
         window = Window(width=W, height=H, title="scene")
         loop, frame_ms, wall, counts = app_run(SceneApp, flags, window, LAYERED_FRAMES, dev,
@@ -3585,7 +3591,7 @@ def layered_phases(dev, card: str, plain_k1) -> dict:
                    frame_ms, counts, card, overflow_ok)
         print(f"{tag}: K1 {per_frame[0]}, K2 {per_frame[1]} launches a frame, as predicted "
               f"from the node structure; render-graph nodes {', '.join(nodes)}")
-        plain_frame_check(app, window, dev, plain_path, tag, "SceneApp")
+        plain_frame_check(app, window, dev, tag, "SceneApp")
         engine = Engine(Window(width=W, height=H, title="profile"), device=dev)
         app.tick(0.004)
         engine.render(app)
@@ -3694,6 +3700,256 @@ def layered_phases(dev, card: str, plain_k1) -> dict:
         print(f"phase 17d: {name}: the card equals the CPU"
               + (f" (atol {atol})" if atol else " exactly"))
     raster_mod.raster_segmented.launches = 0
+    lighting_mod.accumulate_point_lights.launches = 0
+    return launches
+
+
+EXTRAS_FRAMES = 30
+REPLAY_FRAMES = 8  # one Halton cycle of TAA's jitter
+IBL_POST_FLAGS = ["--mode", "deferred", "--ibl", "--fxaa", "--grade", "--film",
+                  "--auto-exposure"]
+TEMPORAL_FLAGS = ["--mode", "deferred", "--taa", "--velocity", "--motion-blur",
+                  "--instances", "64"]
+PROBE_FLAGS = ["--mode", "deferred", "--probe"]
+
+
+def extras_phases(dev, card: str, plain_k1, parts: str = "abcd") -> dict:
+    """Phase 18: the image-based light, the rest of the post chain and the
+    temporal passes through SceneApp at 1920x1080. (18a) --ibl --fxaa
+    --grade --film --auto-exposure; (18b) --taa --velocity --motion-blur
+    --instances 64, then device-resident offsets; (18c) --probe; each with
+    one frame function for every frame, its last frame against the plain
+    path, a retained frame without host sync and a profile; (18d) the film
+    golden. ``parts`` picks sub-phases (all by default). Returns K1's and
+    K2's launches on these paths."""
+    import torch
+
+    import zenith_tpu_torch.renderer as renderer_pkg
+    from zenith_tpu_torch.engine import Engine
+    from zenith_tpu_torch.ops import raster as raster_mod
+    from zenith_tpu_torch.rendergraph import graph as graph_mod
+    from zenith_tpu_torch.renderer import DeferredRenderer, capture_reflection_probe
+    from zenith_tpu_torch.rhi import RhiCore
+    from zenith_tpu_torch.sandbox.scene import SceneApp, feature_golden_frame
+    from zenith_tpu_torch.window import Window
+
+    launches = {"K1": 0, "K2": 0}
+    exposures = []
+    builds = []
+
+    class ExtrasApp(SceneApp):
+        def on_frame_outputs(self, outputs):
+            if "post.ae" in outputs:
+                exposures.append(outputs["post.ae"])
+            super().on_frame_outputs(outputs)
+
+    real_build = graph_mod.RenderGraph._build_frame_fn
+
+    def counting_build(graph, *args):
+        builds.append(1)
+        return real_build(graph, *args)
+
+    def reset(app, snapshot):
+        """Back to ``snapshot`` (orbit, TAA's jitter index, the grain's
+        seed) with no temporal state: no history, exposure or motion."""
+        app.orbit, taa_frame, seed = snapshot
+        app._update_camera()
+        if app.taa is not None:
+            app.taa.reset()
+            app.taa._frame = taa_frame
+        if app.mblur is not None:
+            app.mblur.reset()
+        if app.post is not None:
+            app.post._ae_state = None
+            if app.post.film is not None:
+                app.post.film._seed = seed
+        app.renderer.reset_motion()
+
+    def replay_check(app, tag, label):
+        """The kernel path and the plain path each from reset through the
+        same REPLAY_FRAMES frames (built, then retained) on fresh engines:
+        their last frames <= 1 LSB, < 1% of values."""
+        snapshot = (app.orbit, app.taa._frame if app.taa is not None else 0,
+                    app.post.film._seed if app.post is not None and app.post.film else 0)
+        frames = []
+        for ctx in (contextlib.nullcontext, resolved_plain_path):
+            reset(app, snapshot)
+            window = Window(width=W, height=H, title="replay")
+            t0 = time.perf_counter()
+            with ctx():
+                engine = Engine(window, device=dev)
+                for _ in range(REPLAY_FRAMES):
+                    app.tick(0.016)
+                    engine.render(app)
+                engine.shutdown()
+            torch.cuda.synchronize()
+            frames.append((window.last_frame, time.perf_counter() - t0))
+        mx, frac = lsb_diff(frames[0][0], frames[1][0])
+        print(f"{tag}: {label}: from reset through {REPLAY_FRAMES} frames, the kernel path's "
+              f"last frame vs the plain path's: max LSB diff {mx}, {frac * 100:.4f}% values "
+              f"differ (kernel path {frames[0][1]:.1f} s, plain path {frames[1][1]:.1f} s)")
+        check(mx <= 1 and frac < 0.01, f"{tag} {label}: the last frame differs from the "
+              "plain-path frame")
+
+    def run(tag, flags, per_frame, nodes, prepare_builds=0):
+        """``prepare_builds``: the frame functions prepare() builds (the
+        probe's faces), beside the one the frames share."""
+        window = Window(width=W, height=H, title="scene")
+        builds.clear()
+        with mock.patch.object(graph_mod.RenderGraph, "_build_frame_fn", counting_build):
+            loop, frame_ms, wall, counts = app_run(ExtrasApp, flags, window, EXTRAS_FRAMES,
+                                                   dev, per_frame, tag)
+        launches["K1"] += counts[0]
+        launches["K2"] += counts[1]
+        check(len(builds) == 1 + prepare_builds, f"{tag}: {len(builds)} frame-function "
+              f"builds in {EXTRAS_FRAMES} frames and the preparation")
+        app = loop.app
+        frame_line(tag, f"SceneApp {' '.join(flags)} at {W}x{H}", EXTRAS_FRAMES, wall,
+                   frame_ms, counts, card)
+        print(f"{tag}: K1 {per_frame[0]}, K2 {per_frame[1]} launches a frame; one frame "
+              f"function built for all {EXTRAS_FRAMES} frames; render-graph nodes "
+              f"{', '.join(nodes)}")
+        return app, frame_ms
+
+    def finish(app, tag, nodes, frame_ms, per_frame):
+        engine = Engine(Window(width=W, height=H, title="profile"), device=dev)
+        app.tick(0.004)
+        engine.render(app)
+        sync_free(engine, app, tag)
+
+        def frame(_t):
+            app.tick(0.004)
+            engine.render(app)
+
+        frame(0.0)
+        profile_frames(frame, nodes, tag, card, frame_ms,
+                       watch=("raster_segmented_kernel", "tiled_lights_kernel", "gather",
+                              "gemm"),
+                       expect={"raster_segmented_kernel": per_frame[0],
+                               "tiled_lights_kernel": per_frame[1]})
+        return engine
+
+    # -- 18a. the image-based light and the post extras -------------------------
+    def phase_a():
+        t0 = time.perf_counter()
+        tag = "phase 18a"
+        nodes = ("shadow", "gbuffer", "lighting", "post")
+        exposures.clear()
+        app, frame_ms = run(tag, IBL_POST_FLAGS, (2, 1), nodes)
+        env = app.renderer.scene.environment
+        check(env is not None and app.renderer.scene.skybox is None and app.post.auto_exposure
+              and app.post.fxaa and app.post.grade is not None and app.post.film is not None,
+              f"{tag}: a flag did not reach the renderer")
+        check(len(exposures) == EXTRAS_FRAMES and all(
+            isinstance(e, torch.Tensor) and e.is_cuda for e in exposures),
+            f"{tag}: {len(exposures)} exposures fed back on the device")
+        values = [float(exposures[i - 1][0]) for i in (1, 10, EXTRAS_FRAMES)]
+        check(all(np.isfinite(v) and 0.05 <= v <= 16.0 for v in values),
+              f"{tag}: exposures {values}")
+        print(f"{tag}: adapted exposure, fed back on the device every frame (read after the "
+              f"run): frame 1 {values[0]:.6f}, frame 10 {values[1]:.6f}, frame "
+              f"{EXTRAS_FRAMES} {values[2]:.6f}; environment {env.texture.desc.width}² x "
+              f"{env.num_mips} mips, SH on the host [{card}]")
+        replay_check(app, tag, "SceneApp")
+        finish(app, tag, nodes, frame_ms, (2, 1)).shutdown()
+        print(f"phase 18a took {time.perf_counter() - t0:.1f} s")
+
+    # -- 18b. TAA, the velocity plane and motion blur over 64 rocks -------------
+    def phase_b():
+        t0 = time.perf_counter()
+        tag = "phase 18b"
+        nodes = ("shadow", "shadow.inst", "gbuffer", "gbuffer.inst", "lighting", "taa",
+                 "motion_blur", "post")
+        app, frame_ms = run(tag, TEMPORAL_FLAGS, (4, 1), nodes)
+        check(app.renderer.velocity and app.taa is not None and app.mblur is not None
+              and app.taa._history is not None and app.taa._history.is_cuda,
+              f"{tag}: the temporal passes did not run")
+        replay_check(app, tag, "SceneApp")
+        app.tick(0.016)  # a jittered camera
+        calls = recorded_frame(dev, app, ("K1",))
+        check([c[0] for c in calls] == ["shadow", "shadow.inst", "gbuffer", "gbuffer.inst"],
+              f"{tag}: K1 ran on nodes {[c[0] for c in calls]}")
+        k1_against_unculled(calls, plain_k1, tag + " (jittered)", card,
+                            lambda n: n.startswith("gbuffer"))
+        engine = finish(app, tag, nodes, frame_ms, (4, 1))
+        # The rocks' offsets as a CUDA tensor, replaced every frame: the default
+        # renderer turns the velocity plane on, and retained frames stay free of
+        # host syncs.
+        scene = app.renderer.scene
+        rocks = next(o for o in scene.objects if o.name == "rocks")
+        offs = torch.as_tensor(np.asarray(rocks.instance_offsets, np.float32), device=dev)
+        rocks.instance_offsets = offs
+        app.renderer = DeferredRenderer(scene)
+        check(app.renderer.velocity, f"{tag}: device offsets did not turn the velocity plane on")
+        step = torch.tensor([0.0, 0.0, 0.5], device=dev)
+        builds.clear()
+        engine.shutdown()
+        engine = Engine(Window(width=W, height=H, title="device offsets"), device=dev)
+        with mock.patch.object(graph_mod.RenderGraph, "_build_frame_fn", counting_build):
+            app.tick(0.016)
+            engine.render(app)
+            for _ in range(3):
+                rocks.instance_offsets = rocks.instance_offsets + step
+                app.tick(0.016)
+                sync_free(engine, app, tag, "a retained frame with new device offsets")
+        engine.shutdown()
+        check(len(builds) == 1, f"{tag}: device offsets built {len(builds)} frame functions")
+        print(f"phase 18b took {time.perf_counter() - t0:.1f} s")
+
+    # -- 18c. a reflection probe -------------------------------------------------
+    def phase_c():
+        t0 = time.perf_counter()
+        tag = "phase 18c"
+        nodes = ("shadow", "gbuffer", "lighting", "post")
+        captured = []
+
+        def recording_capture(device, scene, *args, **kw):
+            # The scene as prepare() hands it over (skybox kept, lists
+            # copied): prepare() changes it once the probe is taken.
+            captured.append((dataclasses.replace(scene, **{
+                f.name: list(getattr(scene, f.name)) for f in dataclasses.fields(scene)
+                if isinstance(getattr(scene, f.name), list)}), args, kw))
+            return capture_reflection_probe(device, scene, *args, **kw)
+
+        with mock.patch.object(renderer_pkg, "capture_reflection_probe", recording_capture):
+            app, frame_ms = run(tag, PROBE_FLAGS, (2, 1), nodes, prepare_builds=1)
+        check(len(captured) == 1, f"{tag}: prepare() captured {len(captured)} probes")
+        scene, args, kw = captured[0]
+        sh9 = app.renderer.scene.environment.sh9
+        check(isinstance(sh9, torch.Tensor) and sh9.is_cuda, f"{tag}: the probe's SH left the card")
+        device = RhiCore(dev).create_render_device()
+        capture_reflection_probe(device, scene, *args, **kw)  # warm
+        torch.cuda.synchronize()
+        c0 = time.perf_counter()
+        probe = capture_reflection_probe(device, scene, *args, **kw)
+        torch.cuda.synchronize()
+        cap_ms = (time.perf_counter() - c0) * 1e3
+        check(bool(torch.isfinite(probe.texture.mips[-1]).all()), f"{tag}: non-finite probe")
+        print(f"{tag}: the probe capture of SceneApp.prepare's scene (six 64² faces through the "
+              f"deferred renderer, the SH projection, a 5-level GGX prefilter of 64 samples) "
+              f"took {cap_ms:.1f} ms, host clock [{card}]")
+        calls = recorded_calls(lambda: capture_reflection_probe(
+            device, scene, *args, **dict(kw, num_mips=2, samples=4)), ("K1",))
+        check(len(calls) == 6, f"{tag}: K1 ran {len(calls)} times for six faces")
+        k1_against_unculled(calls[:1], plain_k1, tag + " (probe face +X)", card, lambda n: True)
+        plain_frame_check(app, app._window, dev, tag, "SceneApp")
+        finish(app, tag, nodes, frame_ms, (2, 1)).shutdown()
+        print(f"phase 18c took {time.perf_counter() - t0:.1f} s")
+
+    # -- 18d. the film golden on the card ----------------------------------------
+    def phase_d():
+        img = feature_golden_frame(RhiCore(dev).create_render_device(), "film").cpu().numpy()
+        golden = np.load(REPO / "tests" / "golden" / "feat_film_128x64.npy")
+        mx, frac = lsb_diff(img, golden)
+        print(f"phase 18d: feat_film_128x64 on the card: max LSB diff {mx}, "
+              f"{frac * 100:.3f}% values differ")
+        check(mx <= 1 and frac < 0.01, "phase 18d: the film golden drifted")
+
+    for letter in parts:
+        {"a": phase_a, "b": phase_b, "c": phase_c, "d": phase_d}[letter]()
+    raster_mod.raster_segmented.launches = 0
+    from zenith_tpu_torch.ops import lighting as lighting_mod
+
     lighting_mod.accumulate_point_lights.launches = 0
     return launches
 
@@ -4015,16 +4271,18 @@ def main() -> int:
                     (c_bins, init, compare_exact, both))
     terrain = timed("phase 16", terrain_phases, dev, card, plain)
     layered = timed("phase 17", layered_phases, dev, card, plain)
+    extras = timed("phase 18", extras_phases, dev, card, plain)
     k1_def = deferred["k1"]
     deferred["k2"]["launches"] += (glass_launches["K2"] + textured["K2"] + terrain["K2"]
-                                   + layered["K2"])
+                                   + layered["K2"] + extras["K2"])
     kernels = [{
         "name": "K1 segmented raster (_segmented_kernel)",
         "route": "cuda",
         "source": "zenith_tpu_torch/csrc/raster.cu",
         "replaces": "zenith_tpu/ops/raster.py:311",
         "launches": (main_launches + deferred["k1_launches"] + glass_launches["K1"]
-                     + textured["K1"] + forward["K1"] + terrain["K1"] + layered["K1"]),
+                     + textured["K1"] + forward["K1"] + terrain["K1"] + layered["K1"]
+                     + extras["K1"]),
         "max_abs_err": max(max_err, k1_def["max_abs_err"]),
         "ms": k1_def["ms"],
         "plain_ms": k1_def["plain_ms"],
@@ -4040,8 +4298,9 @@ def main() -> int:
           f"stencil frames, phases 11-12) + {textured['K1']} (textured, phase 14a) + "
           f"{forward['K1']} (forward SceneApp, MSAA, lines and points, phase 15) + "
           f"{terrain['K1']} (terrain, feature SceneApp, fly and mesh, phase 16) + "
-          f"{layered['K1']} (instancing, cascades, cube faces and VSM, phase 17); K2 "
-          f"{deferred['k2']['launches']} (phases 7, 11, 14a, 16c and 17); "
+          f"{layered['K1']} (instancing, cascades, cube faces and VSM, phase 17) + "
+          f"{extras['K1']} (IBL, post extras, temporal passes and the probe, phase 18); K2 "
+          f"{deferred['k2']['launches']} (phases 7, 11, 14a, 16c, 17 and 18); "
           + "; ".join(f"{r['name'][:2]} {r['launches']}" for r in translucent)
           + f" (phases 11-12; K3 {forward['K3']}, K4 {forward['K4']} and K5 {forward['K5']} "
           f"of them under 4x MSAA, phase 15b); "

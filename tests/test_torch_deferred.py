@@ -193,16 +193,16 @@ def test_unported_branches_name_their_roadmap_item():
     cases = [
         (dict(objects=[dataclasses.replace(quad, base_color_texture=None, translucent=True,
                                            morph_deltas=quad.vertex_buffer)]), {}, 21),
-        # Host instance offsets render (item 21.1, tests/test_torch_instancing.py);
-        # device-resident ones turn on the unported velocity plane.
-        (dict(objects=[dataclasses.replace(quad, base_color_texture=None,
-                                           instance_offsets=torch.zeros((2, 3)))]), {}, 21),
         ({}, dict(id_buffer=True), 21),
-        ({}, dict(velocity=True), 21),
     ]
     for scene_kw, ctor_kw, item in cases:
         with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
             TDeferred(dataclasses.replace(scene, **scene_kw), **ctor_kw)
+    # The velocity plane is ported (item 21.6): explicit, and automatic for
+    # device-resident instance offsets (tests/test_torch_temporal.py).
+    assert TDeferred(scene, velocity=True).velocity
+    assert TDeferred(dataclasses.replace(scene, objects=[dataclasses.replace(
+        quad, base_color_texture=None, instance_offsets=torch.zeros((2, 3)))])).velocity
     # SSAO is ported (item 21's single-target passes): True takes the
     # default options.
     from zenith_tpu_torch.renderer import SSAOOptions
@@ -226,14 +226,16 @@ def test_unported_branches_name_their_roadmap_item():
 
     # Ported since (item 21.3): shadow-casting point lights, cascades and
     # variance shadows build their nodes (their frames: tests/test_torch_
-    # omni.py, test_torch_csm.py, test_torch_vsm.py); the image-based light
-    # still raises at render time.
+    # omni.py, test_torch_csm.py, test_torch_vsm.py); so does the image-based
+    # light (item 21.4, tests/test_torch_ibl.py).
     assert "omni0.f5" in nodes(point_lights=[PointLight((0, 0, 5), cast_shadows=True)])
     assert "shadow.c2" in nodes(sun=dataclasses.replace(scene.sun, cascades=3))
     assert "shadow" in nodes(sun=dataclasses.replace(scene.sun, soft_shadows=True))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 21"):
-        nodes(environment=object())
-    # The bloom mip chain is ported (item 21.5); FXAA still raises.
+    from zenith_tpu_torch.renderer import EnvironmentLight
+
+    env = EnvironmentLight.from_cube_pixels("e", np.ones((6, 8, 8, 4), np.float32), num_mips=2,
+                                            samples=4, device=CPU)
+    assert "lighting" in nodes(environment=env)
+    # The bloom mip chain and FXAA are ported (item 21.5).
     assert PostProcess(bloom_mips=3).bloom_mips == 3
-    with pytest.raises(NotImplementedError, match="ROADMAP item 21"):
-        PostProcess(fxaa=True)
+    assert PostProcess(fxaa=True).fxaa

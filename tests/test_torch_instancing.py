@@ -169,9 +169,10 @@ def test_retained_frame_with_moved_instances_equals_a_rebuild():
 
 def test_device_resident_offsets_need_the_unported_velocity_plane():
     """velocity=None turns the velocity plane on for device-resident offsets
-    (reference deferred.py:598-604): the port raises naming item 21; host
-    offsets render with it off."""
+    (reference deferred.py:598-604), ported since item 21.6; host offsets
+    render with it off."""
     scene = interop.scene_from(_jax_scenes()["instanced"], CPU)
+    assert not TDeferred(scene).velocity
     scene.objects[0].instance_offsets = torch.from_numpy(OFFSETS)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP item 21: taa \+ velocity"):
-        TDeferred(scene)
+    renderer = TDeferred(scene)
+    assert renderer.velocity and renderer.scene_animated

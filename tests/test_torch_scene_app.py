@@ -140,7 +140,13 @@ SCENE_FLAGS = ("ibl", "probe", "ssao", "contact_shadows", "fxaa", "grade", "film
 PORTED = {"ssao": "ssao", "contact_shadows": "contact_shadows", "ssr": "use_ssr",
           "fog": "use_fog", "sky": "use_sky", "flare": "use_flare", "decals": "n_decals",
           "soft_shadows": "soft_shadows", "cascades": "cascades",
-          "point_shadows": "point_shadows"}
+          "point_shadows": "point_shadows",
+          # item 21 steps 4-6: the image-based light, the probe, the post
+          # extras and the temporal passes (their frames: tests/test_torch_
+          # extras_frames.py).
+          "ibl": "ibl", "probe": "use_probe", "fxaa": "fxaa", "grade": "use_grade",
+          "film": "use_film", "auto_exposure": "auto_exposure", "taa": "use_taa",
+          "velocity": "use_velocity", "motion_blur": "use_mblur"}
 # Flags that raised in deferred mode until deferred instancing and the
 # render-to-mip bloom chain were ported (items 21.1, 21.5), with the app
 # attribute each reaches.
@@ -178,3 +184,26 @@ def test_launch_passes_app_flags_and_defaults_to_the_card(monkeypatch):
     with pytest.raises(RuntimeError):
         launch(SceneApp, argv=["--mode", "forward", "--msaa", "4"],
                window=Window(width=W, height=H, title="t"), max_frames=1)
+
+
+@pytest.mark.parametrize("flags", [
+    ("--ibl", "--fxaa", "--grade", "--film", "--auto-exposure"),
+    ("--taa", "--velocity", "--motion-blur", "--instances", "4", "--ssr"),
+], ids=["ibl-post", "temporal"])
+def test_slice_flags_render_retained_and_feed_back(flags):
+    """Item 21 steps 4-6 through SceneApp: three frames (built, then
+    retained), TAA's history and the exposure fed back as tensors, one
+    render call."""
+    engine, app = _port_app("--mode", "deferred", "--lights", "2", *flags)
+    if "--ibl" in flags:
+        assert app.renderer.scene.environment is not None and app.renderer.scene.skybox is None
+        assert app.post.fxaa and app.post.grade is not None and app.post.film is not None
+    else:
+        assert app.renderer.velocity and app.taa is not None and app.mblur is not None
+    frame = _run(engine, app, 3)
+    assert app.calls == 1 and frame[..., :3].std() > 1.0
+    if "--ibl" in flags:
+        assert isinstance(app.post._ae_state, torch.Tensor)
+    else:
+        assert isinstance(app.taa._history, torch.Tensor)
+        assert tuple(app.taa._history.shape) == (H, W, 4)

@@ -316,7 +316,7 @@ def test_build_scene_loads_content_and_raises_without_it(tmp_path, monkeypatch):
     assert gun.name == "cerberus" and gun.base_color_texture is not None
     assert scene.skybox is None and len(scene.point_lights) == 4
     with pytest.raises(NotImplementedError, match="ROADMAP item 21"):
-        tscene.build_scene(dev, 4, np.random.default_rng(0), ibl=True)
+        tscene.build_scene(dev, 4, np.random.default_rng(0), skinned=True)
     # The instanced rocks are ported.
     rocks = tscene.build_scene(dev, 4, np.random.default_rng(0), instances=3).objects[-1]
     assert rocks.name == "rocks" and rocks.instance_count == 3

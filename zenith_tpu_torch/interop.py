@@ -3,7 +3,8 @@
 The reference package's results reach the port as numpy arrays (buffer
 contents, ``TriangleRecords``, ``SegmentedBins``, ``TileBins``, stencil
 planes and face states, scene objects, light tables, 2D and cube textures,
-materials, the sky, decals and the screen-space passes' settings);
+materials, the sky, decals, environments, the screen-space passes'
+settings and the post and temporal passes' settings and state);
 these helpers turn them into the port's tensors and objects on a given
 device, field for field, so the same inputs can be fed to both
 implementations. They read the reference's objects by attribute name
@@ -200,12 +201,82 @@ def flare_from(flare: Any):
     return _copy_dataclass(LensFlare, flare)
 
 
+def environment_from(env: Any, device: "torch.device | str"):
+    """An environment light (a mipped cube texture and its (9, 3) SH) →
+    the port's ``EnvironmentLight`` with the same mips on ``device`` and the
+    same coefficients as a host array."""
+    from zenith_tpu_torch.renderer.environment import EnvironmentLight, _cube_texture
+
+    mips = [to_tensor(np.asarray(m, np.float32), device) for m in env.texture.mips]
+    host = getattr(env.texture, "host_pixels", None)
+    tex = _cube_texture(env.texture.desc.name, mips,
+                        None if host is None else np.asarray(host, np.float32))
+    return EnvironmentLight(tex, np.asarray(env.sh9, np.float32))
+
+
+def color_grade_from(grade: Any):
+    """A colour grade → the port's ``ColorGrade`` with the same knobs."""
+    from zenith_tpu_torch.renderer.post import ColorGrade
+
+    return ColorGrade(exposure_ev=grade.exposure_ev, contrast=grade.contrast,
+                      saturation=grade.saturation, temperature=grade.temperature,
+                      tint=grade.tint, vignette=grade.vignette)
+
+
+def film_from(film: Any):
+    """Film effects → the port's ``FilmEffects``, its grain seed included."""
+    from zenith_tpu_torch.renderer.post import FilmEffects
+
+    out = FilmEffects(chromatic_aberration=film.chromatic_aberration, sharpen=film.sharpen,
+                      grain=film.grain, grain_response=film.grain_response)
+    out._seed = int(film._seed)
+    return out
+
+
+def post_process_from(post: Any):
+    """A post chain's settings (bloom, tonemap, FXAA, auto-exposure, grade,
+    film) → the port's ``PostProcess``; the adapted-exposure state and the
+    frame delta cross as well (the state as a host array)."""
+    from zenith_tpu_torch.renderer.post import PostProcess
+
+    out = PostProcess(
+        bloom_threshold=post.bloom_threshold, bloom_strength=post.bloom_strength,
+        tonemap=post.tonemap, bloom_mips=post.bloom_mips, fxaa=post.fxaa,
+        auto_exposure=post.auto_exposure, exposure_key=post.exposure_key,
+        adapt_speed=post.adapt_speed, exposure_min=post.exposure_min,
+        exposure_max=post.exposure_max,
+        grade=None if post.grade is None else color_grade_from(post.grade),
+        film=None if post.film is None else film_from(post.film))
+    out._dt = float(post._dt)
+    if post._ae_state is not None:
+        out._ae_state = np.asarray(post._ae_state, np.float32)
+    return out
+
+
+def temporal_aa_from(taa: Any):
+    """TAA's settings and jitter position → the port's ``TemporalAA``."""
+    from zenith_tpu_torch.renderer.taa import TemporalAA
+
+    out = TemporalAA(alpha=taa.alpha, sequence_length=len(taa._seq))
+    out._frame = int(taa._frame)
+    return out
+
+
+def motion_blur_from(blur: Any):
+    """Motion-blur settings → the port's ``MotionBlur``."""
+    from zenith_tpu_torch.renderer.motion_blur import MotionBlur
+
+    return MotionBlur(strength=blur.strength, max_radius=blur.max_radius,
+                      samples=blur.samples, jitter=blur.jitter, dilate=blur.dilate)
+
+
 def scene_from(scene: Any, device: "torch.device | str"):
     """A scene (objects with their instance offsets, the sun with its
     contact-shadow, cascade and soft-shadow fields, point lights with their
-    cube-shadow fields, spot lights, ambient, skybox, atmosphere, decals) →
-    the port's Scene on ``device`` with the same numbers. The lights are
-    copied field for field, so every shadow setting crosses."""
+    cube-shadow fields, spot lights, ambient, skybox, environment,
+    atmosphere, decals) → the port's Scene on ``device`` with the same
+    numbers. The lights are copied field for field, so every shadow setting
+    crosses."""
     from zenith_tpu_torch.renderer.scene import DirectionalLight, PointLight, Scene, SpotLight
 
     return Scene(
@@ -216,5 +287,7 @@ def scene_from(scene: Any, device: "torch.device | str"):
         ambient=tuple(scene.ambient),
         skybox=None if scene.skybox is None else cube_texture_from(scene.skybox, device),
         decals=[decal_from(d, device) for d in scene.decals],
+        environment=(None if scene.environment is None
+                      else environment_from(scene.environment, device)),
         atmosphere=None if scene.atmosphere is None else atmosphere_from(scene.atmosphere),
     )

@@ -2,17 +2,22 @@
 zenith_tpu/renderer). Ported so far: the triangle, the textured forward mesh
 renderer, the forward shadow renderer (MSAA and wireframe included), the
 deferred PBR renderer (textured materials, the wireframe view, decals, SSAO,
-contact shadows and the atmosphere sky included), the single-target
-screen-space passes (reflections, volumetric fog, lens flare), and the post
-chain's bloom + ACES and present encode; ROADMAP lists the rest."""
+contact shadows, the atmosphere sky, the image-based light and the velocity
+plane included), reflection probes, the single-target screen-space passes
+(reflections, volumetric fog, lens flare), the temporal passes (TAA, motion
+blur), and the post chain (bloom + ACES, auto-exposure, grade, FXAA, film)
+and present encode; ROADMAP lists the rest."""
 
 from zenith_tpu_torch.ops.atmosphere import Atmosphere
 from zenith_tpu_torch.renderer.decal import Decal
 from zenith_tpu_torch.renderer.deferred import DeferredRenderer, SSAOOptions
+from zenith_tpu_torch.renderer.environment import EnvironmentLight
 from zenith_tpu_torch.renderer.flare import LensFlare
 from zenith_tpu_torch.renderer.forward import ForwardShadowRenderer
 from zenith_tpu_torch.renderer.mesh import MeshRenderer
-from zenith_tpu_torch.renderer.post import PostProcess, PresentEncode
+from zenith_tpu_torch.renderer.motion_blur import MotionBlur
+from zenith_tpu_torch.renderer.post import ColorGrade, FilmEffects, PostProcess, PresentEncode
+from zenith_tpu_torch.renderer.probe import capture_reflection_probe
 from zenith_tpu_torch.renderer.scene import (
     DirectionalLight,
     PointLight,
@@ -21,17 +26,22 @@ from zenith_tpu_torch.renderer.scene import (
     SpotLight,
 )
 from zenith_tpu_torch.renderer.ssr import ScreenSpaceReflections
+from zenith_tpu_torch.renderer.taa import TemporalAA
 from zenith_tpu_torch.renderer.triangle import TriangleRenderer
 from zenith_tpu_torch.renderer.volumetric import VolumetricFog
 
 __all__ = [
     "Atmosphere",
+    "ColorGrade",
     "Decal",
     "DeferredRenderer",
     "DirectionalLight",
+    "EnvironmentLight",
+    "FilmEffects",
     "ForwardShadowRenderer",
     "LensFlare",
     "MeshRenderer",
+    "MotionBlur",
     "PointLight",
     "PostProcess",
     "PresentEncode",
@@ -40,6 +50,8 @@ __all__ = [
     "SceneObject",
     "ScreenSpaceReflections",
     "SpotLight",
+    "TemporalAA",
     "TriangleRenderer",
     "VolumetricFog",
+    "capture_reflection_probe",
 ]

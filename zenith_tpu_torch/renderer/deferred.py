@@ -18,6 +18,7 @@ Node ``gbuffer`` (graphic, MRT, one batched draw over K1):
   - albedo+metallic   (RGBA32F: rgb albedo, a metallic)
   - normal+roughness  (RGBA32F: xyz world normal, w roughness)
   - world-pos+emissive-luma (RGBA32F)
+  - with the velocity plane, the previous frame's world position (``g.prev``)
   plus reverse-Z depth. ``gbuffer.inst`` LOADs the planes and adds each
   instanced object (the per-instance ``inst_offset`` attribute). Textured
   materials are sampled from one atlas per map type (base colour, normal,
@@ -30,14 +31,16 @@ rewrite the G-buffer albedo before lighting (renderer.decal).
 Node ``ssao`` (lambda, with ``ssao=``): the ambient-occlusion factor from the
 G-buffer (ops.ssao), blurred, into an R32F plane.
 
-Node ``lighting`` (lambda): full-screen PBR resolve — flat ambient (times the
-AO factor), the sun with 2×2 PCF shadows (per pixel from its cascade's
-layer under CSM; variance soft shadows, ops.vsm, with ``soft_shadows`` and
-one cascade) and optional screen-space contact shadows (ops.contact), the
+Node ``lighting`` (lambda): full-screen PBR resolve — flat ambient, or with
+``scene.environment`` the split-sum image-based light (SH diffuse and the
+prefiltered cube's specular, ops.ibl), times the AO factor; the sun with
+2×2 PCF shadows (per pixel from its cascade's layer under CSM; variance
+soft shadows, ops.vsm, with ``soft_shadows`` and one cascade) and optional screen-space contact shadows (ops.contact), the
 point/spot-light sum over the tiled kernel K2 (ops.lighting), each
 shadow-casting point light densely with cube PCF visibility, and, where no
 surface was drawn, the cube-map skybox, the procedural atmosphere
-(ops.atmosphere) or a constant background.
+(ops.atmosphere) or a constant background; the environment cube is the
+skybox when the scene sets none.
 
 Node ``glass`` (graphic, after lighting, when the scene holds translucent
 objects): one batched blended draw over the lit HDR frame, depth-tested
@@ -50,10 +53,14 @@ textured glass.
 ``wireframe=True`` draws the G-buffer pass in LINE polygon mode (the
 shadow pass stays FILL): the edges get the full deferred lighting.
 
+``velocity`` adds the per-draw velocity plane: every G-buffer draw also
+transforms its vertices by the previous frame's model matrix and instance
+offsets, and the fourth MRT plane keeps the previous world position, which
+TAA and motion blur reproject with. ``None`` turns it on for
+device-resident instance offsets.
+
 Not ported yet; each raises NotImplementedError naming its ROADMAP item:
-skinned and morphed objects, the image-based light, the velocity plane
-(and with it device-resident instance offsets, which turn it on by
-default) and the id buffer (item 21).
+skinned and morphed objects and the id buffer (item 21).
 """
 
 from __future__ import annotations
@@ -69,6 +76,7 @@ from zenith_tpu_torch.core import mathtypes as m
 from zenith_tpu_torch.core.camera import Camera
 from zenith_tpu_torch.ops.atmosphere import sky_radiance
 from zenith_tpu_torch.ops.contact import contact_shadow_factor
+from zenith_tpu_torch.ops.ibl import env_brdf_approx, eval_irradiance_sh9
 from zenith_tpu_torch.ops.lighting import accumulate_point_lights
 from zenith_tpu_torch.ops.ssao import hemisphere_kernel, ssao_blur, ssao_occlusion
 from zenith_tpu_torch.ops.shade import perturb_normal
@@ -78,6 +86,7 @@ from zenith_tpu_torch.ops.sampling import (
     cube_direction_to_face_uv,
     sample_2d,
     sample_cube,
+    sample_cube_lod,
     sample_shadow_pcf,
     sample_shadow_pcf_layered,
     sample_texture,
@@ -134,40 +143,72 @@ class GBufferHandles(dict):
     animated_without_velocity: bool = False
 
 
+def _offsets_value(offsets):
+    """Instance offsets as a dynamic: a tensor passes through (no read of
+    the device), host values become a float32 array."""
+    if isinstance(offsets, torch.Tensor):
+        return offsets
+    return np.asarray(offsets, np.float32)
+
+
 def _unported(what: str, item: int, name: str) -> NotImplementedError:
     return NotImplementedError(
         f"DeferredRenderer: {what} is not ported yet (ROADMAP item {item}: {name})"
     )
 
 
-def _gbuffer_vs(attrs, res):
-    """Plain G-buffer vertex stage (deferred.py:86-99, velocity off)."""
-    pos = attrs["position"]
-    hom = torch.cat([pos, torch.ones_like(pos[:, :1])], dim=1)
-    world = hom @ res["Model"].T
-    return {
-        "position": world @ res["ViewProj"].T,
-        "world_pos": world[:, :3],
-        "normal": attrs["normal"] @ res["Model"][:3, :3].T,
-        "uv": attrs["tex_coord"],
-    }
+def _make_gbuffer_vs(velocity: bool):
+    """Plain G-buffer vertex stage (deferred.py:79-100). ``velocity`` adds
+    the ``prev_pos`` varying: the same vertex transformed by the previous
+    frame's model matrix (the per-draw ``PrevModel``)."""
+
+    def _gbuffer_vs(attrs, res):
+        pos = attrs["position"]
+        hom = torch.cat([pos, torch.ones_like(pos[:, :1])], dim=1)
+        world = hom @ res["Model"].T
+        out = {
+            "position": world @ res["ViewProj"].T,
+            "world_pos": world[:, :3],
+            "normal": attrs["normal"] @ res["Model"][:3, :3].T,
+            "uv": attrs["tex_coord"],
+        }
+        if velocity:
+            out["prev_pos"] = (hom @ res["PrevModel"].T)[:, :3]
+        return out
+
+    return _gbuffer_vs
 
 
-def _gbuffer_inst_vs(attrs, res):
-    """Instanced G-buffer vertex stage (deferred.py:104-130, velocity off):
-    the per-instance world-space offset ``inst_offset``, an instance-rate
-    vertex attribute (ops.draw instance_data)."""
-    pos = attrs["position"]
-    hom = torch.cat([pos, torch.ones_like(pos[:, :1])], dim=1)
-    world = hom @ res["Model"].T
-    world_pos = world[:, :3] + attrs["inst_offset"]
-    clip_hom = torch.cat([world_pos, world[:, 3:4]], dim=1)
-    return {
-        "position": clip_hom @ res["ViewProj"].T,
-        "world_pos": world_pos,
-        "normal": attrs["normal"] @ res["Model"][:3, :3].T,
-        "uv": attrs["tex_coord"],
-    }
+def _make_gbuffer_inst_vs(velocity: bool):
+    """Instanced G-buffer vertex stage (deferred.py:103-130): the
+    per-instance world-space offset ``inst_offset``, an instance-rate
+    vertex attribute (ops.draw instance_data). ``velocity`` adds the
+    instance-rate ``prev_inst_offset`` and the ``prev_pos`` varying."""
+
+    def _gbuffer_inst_vs(attrs, res):
+        pos = attrs["position"]
+        hom = torch.cat([pos, torch.ones_like(pos[:, :1])], dim=1)
+        world = hom @ res["Model"].T
+        world_pos = world[:, :3] + attrs["inst_offset"]
+        clip_hom = torch.cat([world_pos, world[:, 3:4]], dim=1)
+        out = {
+            "position": clip_hom @ res["ViewProj"].T,
+            "world_pos": world_pos,
+            "normal": attrs["normal"] @ res["Model"][:3, :3].T,
+            "uv": attrs["tex_coord"],
+        }
+        if velocity:
+            pw = hom @ res["PrevModel"].T
+            out["prev_pos"] = pw[:, :3] + attrs["prev_inst_offset"]
+        return out
+
+    return _gbuffer_inst_vs
+
+
+# Frame-invariant instances: the constructor picks by mode, so the
+# structure key sees the same function objects every frame.
+_gbuffer_vs = _make_gbuffer_vs(False)
+_gbuffer_inst_vs = _make_gbuffer_inst_vs(False)
 
 
 # Atlas binding name -> its per-draw UV-transform uniform name (each map
@@ -181,10 +222,12 @@ _UVX_NAME = {
 
 
 def _make_gbuffer_fs(textured: bool, use_normal: bool = False,
-                     use_mra: bool = False, use_emissive: bool = False):
-    """G-buffer fragment stage (deferred.py:276-374), without the velocity
-    and id planes (item 21). Textured mode samples one atlas per map type
-    with a per-draw UV transform: base colour; glTF metallic-roughness
+                     use_mra: bool = False, use_emissive: bool = False,
+                     prev_out: bool = False):
+    """G-buffer fragment stage (deferred.py:276-374), without the id plane
+    (item 21). ``prev_out`` adds the fourth plane, the interpolated
+    ``prev_pos`` varying (the velocity plane). Textured mode samples one
+    atlas per map type with a per-draw UV transform: base colour; glTF metallic-roughness
     (B=metallic, G=roughness); the tangent-space normal map through the
     derivative-built frame (no vertex tangents); emissive as luma."""
 
@@ -224,11 +267,15 @@ def _make_gbuffer_fs(textured: bool, use_normal: bool = False,
                 emissive = emissive * (em[..., 0:1] * 0.2126 + em[..., 1:2] * 0.7152
                                        + em[..., 2:3] * 0.0722)
         # MRT outputs in attachment order (draw maps dict keys sorted).
-        return {
+        out = {
             "0_albedo": torch.cat([albedo, metallic], dim=-1),
             "1_normal": torch.cat([n, roughness], dim=-1),
             "2_pos": torch.cat([varyings["world_pos"], emissive], dim=-1),
         }
+        if prev_out:
+            prev = varyings["prev_pos"]
+            out["3_prev"] = torch.cat([prev, torch.ones_like(prev[..., :1])], dim=-1)
+        return out
 
     return _gbuffer_fs
 
@@ -422,18 +469,21 @@ class DeferredRenderer:
         objs = scene.objects
         self.wireframe = wireframe
         self._check_objects(objs)
-        # velocity=None is the reference's automatic choice (deferred.py:
-        # 598-604): on when the scene holds motion the camera-only
-        # reprojection cannot represent, here device-resident instance
-        # offsets (skins and morphs raise above). Host offsets render with
-        # it off, as in the reference.
-        if velocity is None and any(isinstance(o.instance_offsets, torch.Tensor) for o in objs):
-            raise _unported("the velocity plane, on by default for device-resident instance "
-                            "offsets,", 21, "taa + velocity")
-        for what, on in (("the velocity plane", velocity),
-                         ("the object-id buffer", id_buffer)):
-            if on:
-                raise _unported(what, 21, "screen-space and lighting features")
+        if id_buffer:
+            raise _unported("the object-id buffer", 21, "picking")
+        # Per-draw velocity (deferred.py:580-605): every G-buffer draw also
+        # transforms its vertices by the previous frame's model matrix and
+        # instance offsets and writes the previous world position into a
+        # fourth plane (g.prev). velocity=None is automatic: on when the
+        # scene holds motion the camera-only reprojection cannot represent,
+        # here device-resident instance offsets (skins and morphs raise
+        # above). The renderer rolls the previous transforms itself.
+        self.scene_animated = any(isinstance(o.instance_offsets, torch.Tensor) for o in objs)
+        if velocity is None:
+            velocity = self.scene_animated
+        self.velocity = bool(velocity)
+        self._prev_motion: "dict | None" = None  # rolled previous transforms
+        self._last_motion: "dict | None" = None  # the latest observed values
         if ssao is True:
             ssao = SSAOOptions()
         self.ssao: "SSAOOptions | None" = ssao or None
@@ -441,14 +491,18 @@ class DeferredRenderer:
         self._static_cache = StaticGeometryCache()
 
         self._init_atlases(objs)
+        vel = self.velocity
+        prev_u = [uniform("PrevModel")] if vel else []
         self.gbuffer_vs = Shader.vertex(
-            "gbuffer.vs", _gbuffer_vs,
-            bindings=[uniform("Model"), uniform("ViewProj")],
+            "gbuffer.vel.vs" if vel else "gbuffer.vs",
+            _make_gbuffer_vs(True) if vel else _gbuffer_vs,
+            bindings=[uniform("Model"), uniform("ViewProj")] + prev_u,
             inputs=[attr("position", 3), attr("normal", 3), attr("tex_coord", 2)],
         )
         self.gbuffer_fs = Shader.fragment(
-            "gbuffer.fs",
-            _make_gbuffer_fs(self.textured, self.use_normal, self.use_mra, self.use_emissive),
+            "gbuffer.vel.fs" if vel else "gbuffer.fs",
+            _make_gbuffer_fs(self.textured, self.use_normal, self.use_mra, self.use_emissive,
+                             prev_out=vel),
             bindings=[uniform("BaseColor"), uniform("MatParams")]
             + [texture2d(name) for name in self._atlases]
             + [uniform(_UVX_NAME[name]) for name in self._atlases],
@@ -461,10 +515,12 @@ class DeferredRenderer:
         # Instanced variants (deferred.py:703-717): the same stages plus the
         # per-instance inst_offset attribute.
         self.gbuffer_inst_vs = Shader.vertex(
-            "gbuffer.inst.vs", _gbuffer_inst_vs,
-            bindings=[uniform("Model"), uniform("ViewProj")],
+            "gbuffer.inst.vel.vs" if vel else "gbuffer.inst.vs",
+            _make_gbuffer_inst_vs(True) if vel else _gbuffer_inst_vs,
+            bindings=[uniform("Model"), uniform("ViewProj")] + prev_u,
             inputs=[attr("position", 3), attr("normal", 3), attr("tex_coord", 2),
-                    attr("inst_offset", 3, per_instance=True)],
+                    attr("inst_offset", 3, per_instance=True)]
+            + ([attr("prev_inst_offset", 3, per_instance=True)] if vel else []),
         )
         self.shadow_inst_vs = Shader.vertex(
             "shadow.inst.vs", _shadow_inst_vs,
@@ -657,13 +713,73 @@ class DeferredRenderer:
             return scene.atmosphere
         return None
 
+    @staticmethod
+    def _motion_same(a, b) -> bool:
+        """Value equality of one motion entry (deferred.py:987-995). Tensors
+        compare by identity: comparing a CUDA tensor's values would read
+        the device every frame, and a caller that moves device-resident
+        offsets replaces the tensor each step, so identity is the change
+        signal."""
+        if a is b:
+            return True
+        if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
+            return False
+        return a.shape == b.shape and np.array_equal(a, b)
+
+    def _observe_motion(self) -> dict:
+        """Roll prev ← last ← current per-draw transforms (velocity mode,
+        deferred.py:997-1036): the stacked model matrices and each
+        instanced object's offsets. Value-keyed and idempotent within a
+        frame, so update_dynamics followed by a rebuild cannot roll twice.
+        Returns {key: previous value}; a key whose shape changed falls
+        back to its current value (zero velocity for one frame)."""
+        objs = self.scene.objects
+        cur = {"models": stacked_models(objs)}
+        for o in objs:
+            if o.instance_offsets is not None:
+                cur[f"inst.{o.name}"] = o.instance_offsets
+        last = self._last_motion
+        if last is None:
+            self._last_motion = cur
+            self._prev_motion = cur
+        elif set(cur) != set(last) or any(not self._motion_same(cur[k], last[k]) for k in cur):
+            self._prev_motion = last
+            self._last_motion = cur
+        prev = self._prev_motion
+        out = {}
+        for k, v in cur.items():
+            pv = prev.get(k, v)
+            if tuple(getattr(pv, "shape", ())) != tuple(getattr(v, "shape", ())):
+                pv = v
+            out[k] = pv
+        return out
+
+    def _motion_dynamics(self) -> dict:
+        """The velocity mode's dynamics ({name: previous value}), shared by
+        render_to and frame_dynamics."""
+        mo = self._observe_motion()
+        d = {"def.prev_models": mo["models"]}
+        for k, v in mo.items():
+            if k != "models":
+                kind, name = k.split(".", 1)
+                d[f"def.prev_{kind}.{name}"] = _offsets_value(v)
+        return d
+
+    def reset_motion(self) -> None:
+        """Drop the previous-transform history (a scene cut, a teleport):
+        the next frame renders with zero per-draw velocity."""
+        self._prev_motion = None
+        self._last_motion = None
+
     def frame_dynamics(self, camera: Camera, include_models: bool = False) -> dict:
         """Per-frame dynamic values for RETAINED execution
         (deferred.py:1061-1130). Pass ``include_models=True`` when objects
         move or toggle ``SceneObject.visible`` between retained frames."""
         atmo = self._atmosphere()
         d = _camera_dynamics("def", camera,
-                             want_inv_vp=self.scene.skybox is not None or atmo is not None)
+                             want_inv_vp=(self.scene.skybox is not None
+                                          or self.scene.environment is not None
+                                          or atmo is not None))
         if atmo is not None:
             d["def.atmo"] = atmo.packed(float(camera.location[2]))
         sun = self.scene.sun
@@ -678,11 +794,14 @@ class DeferredRenderer:
         d.update(self._omni_dynamics())
         if include_models:
             d["def.models"] = stacked_models(self.scene.objects)
+        if self.velocity:
+            d.update(self._motion_dynamics())
+        if include_models or self.velocity:
             # Instanced objects may move their instances too (the reference
-            # refreshes them only with its velocity plane, not ported).
+            # refreshes them only with its velocity plane).
             for o in self.scene.objects:
                 if o.instance_offsets is not None:
-                    d[f"def.inst.{o.name}"] = np.asarray(o.instance_offsets, np.float32)
+                    d[f"def.inst.{o.name}"] = _offsets_value(o.instance_offsets)
         return d
 
     def _omni_dynamics(self) -> dict:
@@ -707,8 +826,7 @@ class DeferredRenderer:
     ) -> None:
         scene = self.scene
         sun = scene.sun
-        if scene.environment is not None:
-            raise _unported("the image-based light (environment)", 21, "ibl/environment/probe")
+        env = scene.environment
         # Shadow-casting point lights leave K2's table and shade densely with
         # cube-PCF visibility (renderer.omni).
         pl_pos, pl_col, pl_rad, omni_lights = scene.light_partition()
@@ -728,14 +846,19 @@ class DeferredRenderer:
         atmo = self._atmosphere()
         builder.set_dynamic("def.view_proj", camera.render_view_projection)
         builder.set_dynamic("def.camera_pos", camera.location)
-        if scene.skybox is not None or atmo is not None:
+        if scene.skybox is not None or env is not None or atmo is not None:
             builder.set_dynamic("def.inv_vp", camera.render_inv_view_projection)
         if atmo is not None:
             builder.set_dynamic("def.atmo", atmo.packed(float(camera.location[2])))
             if sun is None:
                 # The sky still needs a sun direction to scatter from.
                 builder.set_dynamic("def.sun_dir", np.asarray([0.0, 0.0, 1.0], np.float32))
-        builder.set_dynamic("def.ambient", np.asarray(scene.ambient, np.float32))
+        if env is not None:
+            # A host environment's SH is a host array, a probe's a device
+            # tensor: neither is read back.
+            builder.set_dynamic("def.env_sh", env.sh9)
+        else:
+            builder.set_dynamic("def.ambient", np.asarray(scene.ambient, np.float32))
         builder.set_dynamic("def.background", np.asarray(background, np.float32))
         if pl_pos.shape[0]:
             builder.set_dynamic("def.pl_pos", pl_pos)
@@ -769,6 +892,9 @@ class DeferredRenderer:
         # One dynamic per FIELD, not per object×field; record closures take
         # their draw's row.
         builder.set_dynamic("def.models", stacked_models(scene.objects))
+        if self.velocity:
+            for k, v in self._motion_dynamics().items():
+                builder.set_dynamic(k, v)
         builder.set_dynamic("def.base_colors", np.stack(
             [o.base_color_array() for o in scene.objects]
         ))
@@ -784,9 +910,6 @@ class DeferredRenderer:
         # G-buffer) and draw in the glass node after lighting.
         self._check_objects(scene.objects)
         objects = scene.objects
-        if any(isinstance(o.instance_offsets, torch.Tensor) for o in objects):
-            raise _unported("the velocity plane, on by default for device-resident instance "
-                            "offsets,", 21, "taa + velocity")
         plain_ix = [i for i, o in enumerate(objects)
                     if not o.translucent and o.instance_offsets is None]
         inst_ix = [i for i, o in enumerate(objects)
@@ -797,8 +920,7 @@ class DeferredRenderer:
                              "was built: rebuild the DeferredRenderer")
         for o in objects:
             if o.instance_offsets is not None:
-                builder.set_dynamic(f"def.inst.{o.name}",
-                                    np.asarray(o.instance_offsets, np.float32))
+                builder.set_dynamic(f"def.inst.{o.name}", _offsets_value(o.instance_offsets))
         if trans_ix:
             if self.glass_peel:
                 builder.set_dynamic("def.uvx.glass", self._glass_atlas.transforms)
@@ -831,6 +953,8 @@ class DeferredRenderer:
         g_albedo = builder.create(TextureDesc.color("g.albedo", width, height))
         g_normal = builder.create(TextureDesc.color("g.normal", width, height))
         g_pos = builder.create(TextureDesc.color("g.pos", width, height))
+        g_prev = (builder.create(TextureDesc.color("g.prev", width, height))
+                  if self.velocity else None)
         g_depth = builder.create(TextureDesc.depth("g.depth", width, height))
 
         def plain_draws(ctx, accesses, s_acc, extra):
@@ -852,15 +976,18 @@ class DeferredRenderer:
                         for i in plain_ix}, None
             return None, (node.read(s_vb_h), node.read(s_ib_h))
 
-        def instanced_draws(ctx, accesses, extra):
-            """One instanced draw_indexed per instanced object."""
+        def instanced_draws(ctx, accesses, extra, prev=False):
+            """One instanced draw_indexed per instanced object; ``prev``
+            adds the previous offsets (the velocity plane)."""
             models = ctx.dynamic("def.models")
             for i in inst_ix:
                 obj = objects[i]
+                idata = {"inst_offset": ctx.dynamic(f"def.inst.{obj.name}")}
+                if prev:
+                    idata["prev_inst_offset"] = ctx.dynamic(f"def.prev_inst.{obj.name}")
                 ctx.draw_indexed(
                     accesses[i][0], accesses[i][1], {"Model": models[i], **extra(i)},
-                    instance_count=obj.instance_count,
-                    instance_data={"inst_offset": ctx.dynamic(f"def.inst.{obj.name}")},
+                    instance_count=obj.instance_count, instance_data=idata,
                 )
 
         def shadow_node(name, depth_handle, layer, matrix):
@@ -935,25 +1062,34 @@ class DeferredRenderer:
         a_rt = node.write(g_albedo)
         n_rt = node.write(g_normal)
         p_rt = node.write(g_pos)
+        v_rt = node.write(g_prev) if g_prev is not None else None
         ds = node.write(g_depth)
         with node.pipeline(self._gbuffer_si, self._gbuffer_state) as binder:
             binder.push_color(a_rt, self._ca_clear0)
             binder.push_color(n_rt, self._ca_clear01)
             binder.push_color(p_rt, self._ca_clear0)
+            if v_rt is not None:
+                binder.push_color(v_rt, self._ca_clear0)
             binder.set_depth(ds, self._gbuffer_depth)
 
         per_draw = ("BaseColor", "MatParams") + tuple(_UVX_NAME[a] for a in atlas_accesses)
 
+        velocity = self.velocity
+
         def materials(ctx, atlases):
-            """``material(i)``: the per-draw uniforms of object i."""
+            """``material(i)``: the per-draw uniforms of object i (with the
+            velocity plane, its previous model matrix too)."""
             for name, acc in atlases.items():
                 ctx.bind(name, ctx.get(acc))
             bcs = ctx.dynamic("def.base_colors")
             mats = ctx.dynamic("def.mats")
+            prevs = ctx.dynamic("def.prev_models") if velocity else None
             uvx = {name: ctx.dynamic(f"def.uvx.{name}") for name in atlases}
 
             def material(i):
                 res = {"BaseColor": bcs[i], "MatParams": mats[i]}
+                if prevs is not None:
+                    res["PrevModel"] = prevs[i]
                 for name, table in uvx.items():
                     res[_UVX_NAME[name]] = table[i]
                 return res
@@ -979,16 +1115,21 @@ class DeferredRenderer:
             a2 = node.write(g_albedo)
             n2 = node.write(g_normal)
             p2 = node.write(g_pos)
+            if g_prev is not None:
+                node.read(g_prev)
+                v2 = node.write(g_prev)
             d2 = node.write(g_depth)
             with node.pipeline(self._gbuffer_inst_si, self._gbuffer_state) as binder:
                 binder.push_color(a2, self._ca_load)
                 binder.push_color(n2, self._ca_load)
                 binder.push_color(p2, self._ca_load)
+                if g_prev is not None:
+                    binder.push_color(v2, self._ca_load)
                 binder.set_depth(d2, self._gbuffer_depth_load)
 
             def record_gbuffer_inst(ctx):
                 ctx.bind("ViewProj", ctx.dynamic("def.view_proj"))
-                instanced_draws(ctx, inst_acc, materials(ctx, inst_atlas))
+                instanced_draws(ctx, inst_acc, materials(ctx, inst_atlas), prev=velocity)
 
             node.execute(record_gbuffer_inst)
 
@@ -1046,9 +1187,13 @@ class DeferredRenderer:
             anode.execute(record_ssao)
 
         # -- node: lighting resolve (lambda, full-screen) ----------------------
-        sky_handle = (
-            builder.import_resource(scene.skybox) if scene.skybox is not None else None
-        )
+        # The environment's prefiltered cube doubles as the skybox unless the
+        # scene sets one: one import, one read (deferred.py:2006-2015).
+        env_handle = builder.import_resource(env.texture) if env is not None else None
+        if scene.skybox is not None:
+            sky_handle = builder.import_resource(scene.skybox)
+        else:
+            sky_handle = env_handle
         node = builder.add_lambda_node("lighting")
         a_in = node.read(g_albedo)
         n_in = node.read(g_normal)
@@ -1058,8 +1203,14 @@ class DeferredRenderer:
         omni_in = [node.read(h) for h in omni_handles]
         omni_params = [(float(pl.shadow_near), float(pl.radius), float(pl.shadow_bias))
                        for pl in omni_lights]
-        sky_in = node.read(sky_handle) if sky_handle is not None else None
         ao_in = node.read(ao_handle) if ao_handle is not None else None
+        env_in = node.read(env_handle) if env_handle is not None else None
+        if sky_handle is None:
+            sky_in = None
+        elif sky_handle is env_handle:
+            sky_in = env_in  # the shared texture, read once
+        else:
+            sky_in = node.read(sky_handle)
         out_w = node.write(output)
         num_lights = pl_pos.shape[0]
         shadows = self.shadows
@@ -1090,12 +1241,27 @@ class DeferredRenderer:
 
             cam_pos = ctx.dynamic("def.camera_pos")
             v = _normalize(cam_pos - world)
-            # SSAO attenuates the ambient term only; direct light keeps its
-            # shadow-map visibility.
-            if ao_in is not None:
-                ambient = ctx.dynamic("def.ambient") * albedo * ctx.get(ao_in)[..., 0:1]
+            # SSAO attenuates the ambient term (flat or image-based) only;
+            # direct light keeps its shadow-map visibility.
+            ao = ctx.get(ao_in)[..., 0:1] if ao_in is not None else None
+            if env_in is not None:
+                # Split-sum IBL (ops.ibl, deferred.py:2075-2100): SH diffuse
+                # and the prefiltered GGX specular with the analytic env
+                # BRDF replace the flat ambient term.
+                levels = ctx.get(env_in)
+                if not isinstance(levels, (tuple, list)):
+                    levels = (levels,)
+                irr = eval_irradiance_sh9(ctx.dynamic("def.env_sh"), n)
+                f0 = 0.04 * (1.0 - metallic) + albedo * metallic
+                ndv = torch.clamp(torch.sum(n * v, dim=-1, keepdim=True), min=1e-4)
+                refl = 2.0 * ndv * n - v
+                pre = sample_cube_lod(levels, refl, roughness[..., 0] * (len(levels) - 1))[..., :3]
+                scale, bias = env_brdf_approx(ndv, roughness)
+                ambient = albedo * (1.0 - metallic) * irr + pre * (f0 * scale + bias)
             else:
                 ambient = ctx.dynamic("def.ambient") * albedo
+            if ao is not None:
+                ambient = ambient * ao
             color = ambient + emissive * albedo
 
             if has_sun:
@@ -1204,7 +1370,10 @@ class DeferredRenderer:
                 hh, ww = depth.shape
                 dirs = view_rays(ctx.dynamic("def.inv_vp"), cam_pos, hh, ww)
                 if sky_in is not None:
-                    bg = sample_cube(ctx.get(sky_in), dirs)[..., :3]
+                    sky = ctx.get(sky_in)
+                    if isinstance(sky, (tuple, list)):
+                        sky = sky[0]  # the environment's level 0
+                    bg = sample_cube(sky, dirs)[..., :3]
                 else:
                     rays = dirs / torch.sqrt(torch.sum(dirs * dirs, dim=-1, keepdim=True))
                     bg = sky_radiance(rays, ctx.dynamic("def.sun_dir"), ctx.dynamic("def.atmo"),
@@ -1296,5 +1465,9 @@ class DeferredRenderer:
             "pos": g_pos,
             "depth": g_depth,
         })
+        self.gbuffer_handles.animated_without_velocity = self.scene_animated and not self.velocity
+        if g_prev is not None:
+            # The velocity plane: TAA and motion blur reproject with it.
+            self.gbuffer_handles["prev_pos"] = g_prev
         if self.shadows:
             self.gbuffer_handles["sun_shadow"] = sm_handle

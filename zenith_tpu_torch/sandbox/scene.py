@@ -223,7 +223,7 @@ def golden_scene(render_device, num_lights: int = 8, sky_size: int = 16):
 
 # The screen-space feature frames of tests/test_golden_features.py that the
 # port renders, each pinned by tests/golden/feat_<name>_128x64.npy.
-FEATURE_GOLDENS = ("ssr", "fog", "sky", "flare", "contact", "decals")
+FEATURE_GOLDENS = ("ssr", "fog", "sky", "flare", "contact", "decals", "film")
 
 
 def feature_golden_scene(render_device, cfg: str):
@@ -233,7 +233,8 @@ def feature_golden_scene(render_device, cfg: str):
     and a 16² sky cube; "ssr" swaps the ground for a glossy mirror quad,
     "sky" replaces the sky cube with the procedural atmosphere and "sky" and
     "flare" drop the sun toward the horizon, "contact" turns on the sun's
-    contact shadows, "decals" adds two solid decals. Returns (scene, camera,
+    contact shadows, "decals" adds two solid decals, "film" runs the post
+    with the film effects (aberration, sharpen, grain). Returns (scene, camera,
     declare), where ``declare(builder, width, height)`` declares the frame
     (the deferred renderer, SSR, fog or flare, PostProcess into an RGBA32F
     target) on ``builder`` and returns the target's handle."""
@@ -241,6 +242,7 @@ def feature_golden_scene(render_device, cfg: str):
         Atmosphere,
         Decal,
         DeferredRenderer,
+        FilmEffects,
         LensFlare,
         PostProcess,
         SceneObject,
@@ -294,7 +296,9 @@ def feature_golden_scene(render_device, cfg: str):
             for k, v in flare.sun_dynamics(cam, scene.sun.direction).items():
                 builder.set_dynamic(k, v)
             flare.render_to(builder, post_in, sun_color=(1.0, 0.92, 0.8))
-        PostProcess().render_to(builder, post_in, out)
+        post = PostProcess(film=FilmEffects(chromatic_aberration=2.5, sharpen=0.4, grain=0.035)
+                           if cfg == "film" else None)
+        post.render_to(builder, post_in, out)
         return out
 
     return scene, cam, declare
@@ -438,12 +442,14 @@ def build_scene(render_device, num_lights: int, rng: np.random.Generator,
     around its first mesh. Raises where neither the content nor its baked
     cache is found, as the reference does. ``instances`` adds the ring of
     instanced rocks, ``gun_instances`` draws the cerberus as one instanced
-    draw of that many copies; the image-based light and the skinned and
-    morphed objects are ROADMAP item 21. Returns the Scene."""
+    draw of that many copies; ``ibl`` lights the scene with the sky cube's
+    split-sum environment (SH diffuse and the prefiltered specular, which
+    also serves as the background) in place of the flat ambient and the
+    skybox; the skinned and morphed objects are ROADMAP item 21. Returns the
+    Scene."""
     from zenith_tpu_torch.asset import AssetManager, registry
 
-    for what, on in (("the image-based light", ibl), ("a skinned object", skinned),
-                     ("a morphed object", morph)):
+    for what, on in (("a skinned object", skinned), ("a morphed object", morph)):
         if on:
             raise NotImplementedError(f"build_scene: {what} is not ported yet "
                                       "(ROADMAP item 21: screen-space and lighting features)")
@@ -451,8 +457,14 @@ def build_scene(render_device, num_lights: int, rng: np.random.Generator,
                        cache_dir=os.environ.get("ZENITH_CACHE", "cache"))
     collection = mgr.request_load("mesh/cerberus/scene.gltf").get()
     mesh = registry().get(AssetUrl(collection.mesh_urls[0]), Mesh)
-    return _sandbox_scene(render_device, mesh, num_lights, rng, textured, skybox, glass,
-                          glass_textured, instances, gun_instances)
+    scene = _sandbox_scene(render_device, mesh, num_lights, rng, textured, skybox and not ibl,
+                           glass, glass_textured, instances, gun_instances)
+    if ibl:
+        from zenith_tpu_torch.renderer import EnvironmentLight
+
+        scene.environment = EnvironmentLight.from_cube_pixels(
+            "sky.env", sky_cube_pixels(), num_mips=5, samples=64, device=render_device.device)
+    return scene
 
 
 def build_standin_scene(render_device, num_lights: int, rng: np.random.Generator,
@@ -605,15 +617,6 @@ def deferred_frame(render_device, renderer, camera, width: int, height: int, opt
 # SceneApp flags that are not ported yet, with the ROADMAP item that ports
 # each; giving one raises before anything is built.
 _UNPORTED_FLAGS = {
-    "ibl": (21, "ibl/environment/probe"),
-    "probe": (21, "ibl/environment/probe"),
-    "fxaa": (21, "post extras"),
-    "grade": (21, "post extras"),
-    "film": (21, "post extras"),
-    "auto_exposure": (21, "post extras"),
-    "taa": (21, "taa + velocity"),
-    "velocity": (21, "taa + velocity"),
-    "motion_blur": (21, "motion_blur"),
     "dof": (21, "dof"),
     "hud": (21, "hud"),
     "particles": (21, "particles"),
@@ -675,8 +678,28 @@ def _scene_app_parser():
                         "one cascade)")
     p.add_argument("--point-shadows", action="store_true",
                    help="one shadow-casting point light with a cube shadow map (deferred mode)")
-    for flag in ("ibl", "probe", "fxaa", "grade", "film", "auto-exposure", "taa",
-                 "velocity", "motion-blur", "dof", "hud", "skinned", "morph", "pick"):
+    p.add_argument("--ibl", action="store_true",
+                   help="image-based light from the procedural sky (SH diffuse + prefiltered "
+                        "GGX specular; deferred mode)")
+    p.add_argument("--probe", action="store_true",
+                   help="reflection probe: capture the scene into a cube map on the device, "
+                        "preintegrate it and light with it (deferred mode)")
+    p.add_argument("--fxaa", action="store_true",
+                   help="FXAA-class post AA on the tonemapped output")
+    p.add_argument("--grade", action="store_true",
+                   help="colour grade (white balance, contrast, saturation, vignette)")
+    p.add_argument("--film", action="store_true",
+                   help="film effects: chromatic aberration, sharpen, grain")
+    p.add_argument("--auto-exposure", action="store_true",
+                   help="eye adaptation fed back on the device across frames")
+    p.add_argument("--taa", action="store_true",
+                   help="temporal AA: jittered projection + reprojected history (deferred mode)")
+    p.add_argument("--velocity", action="store_true",
+                   help="the per-draw velocity G-buffer plane (automatic for device-resident "
+                        "instance offsets)")
+    p.add_argument("--motion-blur", action="store_true",
+                   help="camera and object motion blur (deferred mode)")
+    for flag in ("dof", "hud", "skinned", "morph", "pick"):
         p.add_argument(f"--{flag}", action="store_true", help="not ported yet")
     p.add_argument("--particles", type=int, default=0, help="not ported yet")
     return p
@@ -689,11 +712,14 @@ class SceneApp(RenderableApp):
     DeferredRenderer with ``--lights``, ``--spots``, ``--textured``,
     ``--glass``, ``--wireframe``, ``--ssao``, ``--contact-shadows``,
     ``--decals N``, ``--sky``, ``--instances``, ``--gun-instances``,
-    ``--cascades N``, ``--point-shadows``, ``--soft-shadows``, then the
-    ``--ssr`` and ``--fog`` passes) over build_scene's cerberus scene,
-    ``--flare`` on the HDR frame, bloom + ACES post (over a mip chain with
-    ``--bloom-mips N``) unless ``--no-post``, an orbit camera that the
-    first input event hands to fly controls, and auto-retained execution."""
+    ``--cascades N``, ``--point-shadows``, ``--soft-shadows``, ``--ibl``,
+    ``--probe``, ``--velocity``, then the ``--ssr`` and ``--fog`` passes)
+    over build_scene's cerberus scene, ``--flare`` on the HDR frame, then
+    ``--taa`` and ``--motion-blur``, bloom + ACES post (over a mip chain
+    with ``--bloom-mips N``; ``--auto-exposure``, ``--grade``, ``--fxaa``,
+    ``--film``) unless ``--no-post``, an orbit camera that the first input
+    event hands to fly controls, and auto-retained execution. TAA's history
+    and the adapted exposure return through ``on_frame_outputs``."""
 
     def __init__(self, args: Args):
         super().__init__(args)
@@ -727,6 +753,19 @@ class SceneApp(RenderableApp):
         self.cascades = ns.cascades
         self.soft_shadows = ns.soft_shadows and deferred
         self.point_shadows = ns.point_shadows and deferred
+        self.ibl = ns.ibl and deferred
+        self.use_probe = ns.probe and deferred
+        self.fxaa = ns.fxaa
+        self.auto_exposure = ns.auto_exposure
+        self.use_grade = ns.grade
+        self.use_film = ns.film
+        self.use_taa = ns.taa and deferred
+        self.use_mblur = ns.motion_blur and deferred
+        # --velocity forces the plane on; otherwise the renderer decides
+        # (on for device-resident instance offsets).
+        self.use_velocity = True if (ns.velocity and deferred) else None
+        self.taa = None
+        self.mblur = None
         self.flare = None
         self.ssr = None
         self.fog = None
@@ -764,22 +803,26 @@ class SceneApp(RenderableApp):
         from zenith_tpu_torch.core.mathtypes import Degree
         from zenith_tpu_torch.renderer import (
             Atmosphere,
+            ColorGrade,
             Decal,
             DeferredRenderer,
+            FilmEffects,
             ForwardShadowRenderer,
             LensFlare,
+            MotionBlur,
             PointLight,
             PostProcess,
             ScreenSpaceReflections,
             SpotLight,
             SSAOOptions,
+            TemporalAA,
             VolumetricFog,
         )
 
         rng = np.random.default_rng(42)
         scene = build_scene(render_device, self.num_lights, rng, textured=self.textured,
                             instances=self.instances, gun_instances=self.gun_instances,
-                            glass=self.glass, glass_textured=self.glass_textured)
+                            glass=self.glass, glass_textured=self.glass_textured, ibl=self.ibl)
         palette = [(1.0, 0.2, 0.15, 0.85), (0.2, 0.9, 1.0, 0.85),
                    (1.0, 0.8, 0.2, 0.85), (0.6, 0.3, 1.0, 0.85)]
         for k in range(self.n_decals):
@@ -788,6 +831,15 @@ class SceneApp(RenderableApp):
             scene.decals.append(Decal(f"mark{k}", position=(85.0 * math.cos(a),
                                                             85.0 * math.sin(a), 0.0),
                                       size=(26.0, 26.0, 120.0), color=palette[k % len(palette)]))
+        if self.use_probe:
+            from zenith_tpu_torch.renderer import capture_reflection_probe
+
+            # Captured above the ground near the gun before the probe
+            # becomes the scene's own environment (after the decals, before
+            # the extra lights, as the reference); its level 0 is the sky.
+            scene.environment = capture_reflection_probe(render_device, scene,
+                                                         (0.0, -30.0, 25.0), size=64)
+            scene.skybox = None
         for i in range(self.spots):
             a = 2 * math.pi * i / self.spots + 0.8
             hue = [(3.0, 0.6, 0.5), (0.5, 3.0, 0.8), (0.6, 0.9, 3.0)][i % 3]
@@ -810,16 +862,22 @@ class SceneApp(RenderableApp):
             self.renderer = DeferredRenderer(
                 scene, wireframe=self.wireframe,
                 ssao=SSAOOptions(radius=6.0) if self.ssao else False,
-                glass_mode=self.glass_mode)
+                velocity=self.use_velocity, glass_mode=self.glass_mode)
         else:
             self.renderer = ForwardShadowRenderer(scene, wireframe=self.wireframe, msaa=self.msaa)
-        self.post = PostProcess(bloom_mips=self.bloom_mips) if self.post_enabled else None
+        grade = (ColorGrade(exposure_ev=0.15, contrast=1.08, saturation=1.12, temperature=0.35,
+                            tint=-0.05, vignette=0.45) if self.use_grade else None)
+        film = (FilmEffects(chromatic_aberration=2.5, sharpen=0.4, grain=0.035)
+                if self.use_film else None)
+        self.post = (PostProcess(bloom_mips=self.bloom_mips, fxaa=self.fxaa,
+                                 auto_exposure=self.auto_exposure, grade=grade, film=film)
+                     if self.post_enabled else None)
         if (self.use_sky or self.use_flare) and scene.sun is not None:
             # Sunset: the sun drops toward the horizon so that it enters the
             # orbit camera's 35-degree frame.
             scene.sun = dataclasses.replace(scene.sun, direction=(0.8, -0.55, 0.1))
             self._sun_dir = scene.sun.direction
-        if self.use_sky:
+        if self.use_sky and scene.environment is None:
             # The procedural sky replaces the demo cube skybox.
             scene.skybox = None
             scene.atmosphere = Atmosphere()
@@ -830,6 +888,10 @@ class SceneApp(RenderableApp):
         if self.use_fog:
             self.fog = VolumetricFog()
         self.camera = Camera(fov_y=Degree(35.0), aspect_ratio=window.width / max(window.height, 1))
+        if self.use_taa:
+            self.taa = TemporalAA()
+        if self.use_mblur:
+            self.mblur = MotionBlur(strength=1.0, max_radius=32.0)
         self._extent = (window.width, window.height)
         self._window = window
         self._radius = 170.0
@@ -847,6 +909,10 @@ class SceneApp(RenderableApp):
 
     def resize(self, width: int, height: int) -> None:
         self._extent = (width, height)
+        if self.taa is not None:
+            self.taa.reset()  # the history's shape changes; the jitter scale follows
+        if self.mblur is not None:
+            self.mblur.reset()
 
     def tick(self, delta_time: float) -> None:
         if self._interactive:
@@ -859,6 +925,10 @@ class SceneApp(RenderableApp):
         else:
             self.orbit += delta_time * float(os.environ.get("ZENITH_ORBIT_SPEED", "0.4"))
             self._update_camera()
+        if self.taa is not None:
+            self.taa.jitter_camera(self.camera, *self._extent)
+        if self.post is not None and self.post.auto_exposure:
+            self.post.set_delta_time(delta_time)
 
     def _update_camera(self) -> None:
         from zenith_tpu_torch.core.mathtypes import Radians
@@ -888,6 +958,12 @@ class SceneApp(RenderableApp):
             return None
         d = (self.renderer.frame_dynamics(self.camera, include_models=True)
              if self.mode == "deferred" else self.renderer.frame_dynamics(self.camera))
+        if self.taa is not None:
+            d.update(self.taa.frame_dynamics(self.camera))
+        if self.post is not None:
+            d.update(self.post.frame_dynamics())
+        if self.mblur is not None:
+            d.update(self.mblur.frame_dynamics(self.camera))
         if self.ssr is not None:
             d.update(self.ssr.frame_dynamics(self.camera))
         if self.fog is not None:
@@ -895,6 +971,14 @@ class SceneApp(RenderableApp):
         if self.flare is not None:
             d.update(self.flare.sun_dynamics(self.camera, self._sun_dir))
         return d
+
+    def on_frame_outputs(self, outputs) -> None:
+        """Engine feedback (request_output): TAA's history and the adapted
+        exposure for the next frame, device tensors both."""
+        if self.taa is not None and "taa.history" in outputs:
+            self.taa.feedback(outputs["taa.history"])
+        if self.post is not None and "post.ae" in outputs:
+            self.post.feedback(outputs["post.ae"])
 
     def render(self, context: RenderContext) -> None:
         from zenith_tpu_torch.rhi import TextureDesc
@@ -904,9 +988,9 @@ class SceneApp(RenderableApp):
             return
         builder = context.builder()
         out = builder.import_resource(context.swapchain_texture())
-        # The ordered chain of screen-space passes after the scene render
-        # (scene.py:1058-1160): SSR, then fog; the flare adds in place after
-        # them, before post.
+        # The ordered chain of passes after the scene render (scene.py:
+        # 1058-1160): SSR, fog, TAA, motion blur; the flare adds in place
+        # after SSR and fog, before TAA, then post.
         chain = []
         if self.ssr is not None:
             chain.append(("ssr", lambda src, dst: self.ssr.render_to(
@@ -915,6 +999,15 @@ class SceneApp(RenderableApp):
             chain.append(("fog", lambda src, dst: self.fog.render_to(
                 builder, src, dst, self.camera, self.renderer.gbuffer_handles,
                 sun=self.renderer.scene.sun)))
+        if self.taa is not None:
+            def taa_stage(src, dst):
+                self.taa.render_to(builder, src, dst, self.camera, width, height,
+                                   self.renderer.gbuffer_handles)
+                context.request_output("taa.history", dst)
+            chain.append(("taa", taa_stage))
+        if self.mblur is not None:
+            chain.append(("mblur", lambda src, dst: self.mblur.render_to(
+                builder, src, dst, self.camera, self.renderer.gbuffer_handles)))
         target = out
         if chain or self.post is not None:
             target = builder.create(TextureDesc.color("scene.hdr", width, height, Format.RGBA32F))
@@ -923,18 +1016,29 @@ class SceneApp(RenderableApp):
         else:
             depth = builder.create(TextureDesc.depth("scene.depth", width, height))
             self.renderer.render_to(builder, target, depth, self.camera)
+        flare_after = sum(1 for name, _ in chain if name in ("ssr", "fog"))
         for i, (name, render_stage) in enumerate(chain):
+            if i == flare_after:
+                self._flare(builder, target)
             last_writer = i == len(chain) - 1 and self.post is None
             dst = out if last_writer else builder.create(
                 TextureDesc.color(f"scene.{name}", width, height, Format.RGBA32F))
             render_stage(target, dst)
             target = dst
-        if self.flare is not None:
-            for k, v in self.flare.sun_dynamics(self.camera, self._sun_dir).items():
-                builder.set_dynamic(k, v)
-            self.flare.render_to(builder, target, sun_color=(1.0, 0.92, 0.8))
+        if flare_after == len(chain):
+            self._flare(builder, target)
         if self.post is not None:
             self.post.render_to(builder, target, out)
+            if self.post.exposure_out is not None:
+                context.request_output("post.ae", self.post.exposure_out)
+
+    def _flare(self, builder, target) -> None:
+        """The lens flare, in place on the HDR ``target``."""
+        if self.flare is None:
+            return
+        for k, v in self.flare.sun_dynamics(self.camera, self._sun_dir).items():
+            builder.set_dynamic(k, v)
+        self.flare.render_to(builder, target, sun_color=(1.0, 0.92, 0.8))
 
 
 def main() -> None:
