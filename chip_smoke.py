@@ -224,6 +224,19 @@ other than 0, no result line) on the first phase that fails:
     the temporal state makes the next frame differ) or the last frame
     against the plain path, a retained frame without host sync and a
     profile; (18d) the film golden on the card.
+19. depth of field, the HUD, particles, skinning, morph targets and
+    picking, through SceneApp --mode deferred at 1920x1080 with 100 point
+    lights: (19a) --dof --hud --pick, the focus racked and the HUD text
+    changed every frame, K1 2 and K2 1 a frame, the object under the screen
+    centre printed; (19b) --skinned --morph --particles 128 --velocity
+    --taa, K1 8 and K2 1 a frame, K1 on the skinned and the sparks'
+    G-buffer passes bit-equal to its unculled walk, the fed-back particle
+    state equal to a plain-path replay's; (19c) README.md's "everything at
+    once" (--taa --cascades 3 --auto-exposure --skinned --morph --spots 3
+    --particles 128 --grade --dof --soft-shadows) + --hud --pick, K1 16 and
+    K2 1 a frame; 30 frames each with one frame function, the last frame
+    against the plain path (19b-c from a reset through 4 frames), a
+    retained frame without host sync and a profile.
 
 Every kernel and its plain version are timed with CUDA events (median; a
 plain version that runs for seconds twice, not warmed up) and set beside
@@ -232,7 +245,7 @@ rows of the bins, not their padding; each plane read or written once) over
 3.35 TB/s and the fp32 operations these inputs need over 67 TFLOP/s.
 
 The line before the last is a JSON object listing each kernel (K1-K8) with
-its launches on the main paths (phases 4, 7, 11, 12, 13, 14a, 15, 16, 17 and 18), its largest
+its launches on the main paths (phases 4, 7, 11-19), its largest
 difference from the plain version, its time, the plain version's, its bound
 and what bounds it, and the inputs these were taken at; the last line is the
 device record.
@@ -1036,7 +1049,8 @@ def launches_under(event) -> int:
     return n
 
 
-def profile_frames(frame, nodes, tag: str, card: str, frame_ms, watch, expect) -> None:
+def profile_frames(frame, nodes, tag: str, card: str, frame_ms, watch, expect,
+                   frames: int = PROFILED_FRAMES) -> None:
     """Where the time goes. Kernels only (little host slow-down): device
     time, launches, the busy share, the heaviest kernels per frame and the
     device time of each kernel named in ``watch`` (a part of its name). Then
@@ -1044,7 +1058,8 @@ def profile_frames(frame, nodes, tag: str, card: str, frame_ms, watch, expect) -
     time. A one-frame session first keeps the profiler's start-up out of
     both. ``expect`` maps a part of a kernel's name to its launches a frame:
     where the profiler recorded another count (late in this process it has
-    lost launches), the session's numbers are not printed."""
+    lost launches), the session's numbers are not printed. ``frames``
+    frames are profiled a session."""
     import torch
 
     from zenith_tpu_torch.core import profile
@@ -1056,27 +1071,27 @@ def profile_frames(frame, nodes, tag: str, card: str, frame_ms, watch, expect) -
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with profile.session(cpu=cpu) as prof:
-            for i in range(PROFILED_FRAMES):
+            for i in range(frames):
                 frame(0.3 + i * 0.004)
             torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / PROFILED_FRAMES
+        wall_ms = (time.perf_counter() - t0) * 1e3 / frames
         events = prof.events()
         kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
         spans = {(e.time_range.start, e.time_range.end, e.name) for e in kernels}
         seen = {part: sum(part in name for _, _, name in spans) for part in expect}
-        lost = {part: n for part, n in seen.items() if n != expect[part] * PROFILED_FRAMES}
+        lost = {part: n for part, n in seen.items() if n != expect[part] * frames}
         if lost:
             print(f"{tag}: the profiler recorded "
-                  + ", ".join(f"{n} {part} launches (not {expect[part] * PROFILED_FRAMES})"
+                  + ", ".join(f"{n} {part} launches (not {expect[part] * frames})"
                               for part, n in lost.items())
-                  + f" in {PROFILED_FRAMES} frames: its device times are not measured "
+                  + f" in {frames} frames: its device times are not measured "
                   f"({'host operators + kernels' if cpu else 'kernels only'}) [{card}]")
             continue
-        kernel_ms = sum(b - a for a, b, _ in spans) / 1e3 / PROFILED_FRAMES
-        busy_ms = union_us([(a, b) for a, b, _ in spans]) / 1e3 / PROFILED_FRAMES
+        kernel_ms = sum(b - a for a, b, _ in spans) / 1e3 / frames
+        busy_ms = union_us([(a, b) for a, b, _ in spans]) / 1e3 / frames
         p50 = np.percentile(frame_ms, 50)
         line = (f"{tag}: profile ({'host operators + kernels' if cpu else 'kernels only'}) "
-                f"of {PROFILED_FRAMES} frames: {len(spans) / PROFILED_FRAMES:.0f} kernel "
+                f"of {frames} frames: {len(spans) / frames:.0f} kernel "
                 f"launches, {kernel_ms:.3f} ms kernel time, device busy {busy_ms:.3f} ms = "
                 f"{busy_ms / wall_ms * 100:.1f}% of {wall_ms:.2f} ms wall per frame; "
                 f"unprofiled frame time p50 {p50:.3f} ms")
@@ -1088,12 +1103,12 @@ def profile_frames(frame, nodes, tag: str, card: str, frame_ms, watch, expect) -
                      f"{'host-bound' if idle > 0.2 else 'device-bound'}")
         if cpu:
             node_ms = {n: sum(e.device_time_total for e in events if e.name == n) / 1e3
-                       / PROFILED_FRAMES for n in nodes}
+                       / frames for n in nodes}
             total = sum(node_ms.values()) or 1.0
             line += "; kernel time by node " + ", ".join(
                 f"{n} {v:.3f} ms ({v / total * 100:.1f}%)" for n, v in node_ms.items())
             node_launches = {n: sum(launches_under(e) for e in events if e.name == n)
-                             / PROFILED_FRAMES for n in nodes}
+                             / frames for n in nodes}
             line += "; kernel launches by node " + ", ".join(
                 f"{n} {v:.0f}" for n, v in node_launches.items())
         else:
@@ -1103,11 +1118,11 @@ def profile_frames(frame, nodes, tag: str, card: str, frame_ms, watch, expect) -
                 by_name[name] = (t + (b - a), c + 1)
             top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
             line += "; heaviest kernels per frame: " + "; ".join(
-                f"{name[:60]} {t / 1e3 / PROFILED_FRAMES:.3f} ms x{c / PROFILED_FRAMES:.0f}"
+                f"{name[:60]} {t / 1e3 / frames:.3f} ms x{c / frames:.0f}"
                 for name, (t, c) in top)
             for part in watch:
-                t = sum(b - a for a, b, name in spans if part in name) / 1e3 / PROFILED_FRAMES
-                c = sum(part in name for _, _, name in spans) / PROFILED_FRAMES
+                t = sum(b - a for a, b, name in spans if part in name) / 1e3 / frames
+                c = sum(part in name for _, _, name in spans) / frames
                 line += f"; {part} {t:.4f} ms x{c:.0f} per frame"
         print(line + f" [{card}]")
 
@@ -3954,6 +3969,202 @@ def extras_phases(dev, card: str, plain_k1, parts: str = "abcd") -> dict:
     return launches
 
 
+ANIM_FRAMES = 30
+ANIM_REPLAY_FRAMES = 4
+# Two profiled frames a session: processing the events of ~9,600 launches a
+# frame is most of a profile's cost.
+ANIM_PROFILED_FRAMES = 2
+DOF_HUD_FLAGS = ["--mode", "deferred", "--dof", "--hud", "--pick"]
+ANIM_FLAGS = ["--mode", "deferred", "--skinned", "--morph", "--particles", "128", "--velocity",
+              "--taa"]
+# README.md's "everything at once" SceneApp run, with the HUD and picking.
+EVERYTHING_FLAGS = ["--mode", "deferred", "--taa", "--cascades", "3", "--auto-exposure",
+                    "--skinned", "--morph", "--spots", "3", "--particles", "128", "--grade",
+                    "--dof", "--soft-shadows", "--hud", "--pick"]
+
+
+def anim_phases(dev, card: str, plain_k1, parts: str = "abc") -> dict:
+    """Phase 19: depth of field, the HUD, particles, skinning, morph targets
+    and picking through SceneApp at 1920x1080. (19a) --dof --hud --pick,
+    the focus racked and the HUD text changed every frame; (19b) --skinned
+    --morph --particles 128 --velocity --taa, K1 on the skinned and the
+    sparks' G-buffer passes bit-equal to its unculled walk; (19c) README's
+    "everything at once" + --hud --pick; each with one frame function for
+    every frame, its last frame against the plain path (the temporal runs
+    replayed from a reset, the particle state compared too), a retained
+    frame without host sync and a profile. ``parts`` picks sub-phases.
+    Returns K1's and K2's launches on these paths."""
+    import torch
+
+    from zenith_tpu_torch.engine import Engine
+    from zenith_tpu_torch.ops import lighting as lighting_mod
+    from zenith_tpu_torch.ops import raster as raster_mod
+    from zenith_tpu_torch.rendergraph import graph as graph_mod
+    from zenith_tpu_torch.sandbox.scene import SceneApp
+    from zenith_tpu_torch.window import Window
+
+    launches = {"K1": 0, "K2": 0}
+    builds = []
+    real_build = graph_mod.RenderGraph._build_frame_fn
+
+    def counting_build(graph, *args):
+        builds.append(1)
+        return real_build(graph, *args)
+
+    class RackApp(SceneApp):
+        """Racks the depth of field's focus every frame."""
+
+        racked = 0
+
+        def tick(self, delta_time):
+            super().tick(delta_time)
+            self.racked += 1
+            self.dof.focus_at(60.0 + 8.0 * (self.racked % ANIM_FRAMES))
+
+    def run(tag, flags, per_frame, app_cls=SceneApp, overflow_ok=False):
+        window = Window(width=W, height=H, title="scene")
+        builds.clear()
+        with mock.patch.object(graph_mod.RenderGraph, "_build_frame_fn", counting_build):
+            loop, frame_ms, wall, counts = app_run(app_cls, flags, window, ANIM_FRAMES, dev,
+                                                   per_frame, tag, overflow_ok=overflow_ok)
+        launches["K1"] += counts[0]
+        launches["K2"] += counts[1]
+        check(len(builds) == 1, f"{tag}: {len(builds)} frame-function builds in {ANIM_FRAMES} "
+              "frames")
+        app = loop.app
+        frame_line(tag, f"SceneApp {' '.join(flags)} at {W}x{H}", ANIM_FRAMES, wall, frame_ms,
+                   counts, card, overflow_ok)
+        print(f"{tag}: K1 {per_frame[0]}, K2 {per_frame[1]} launches a frame; one frame "
+              f"function built for all {ANIM_FRAMES} frames; objects "
+              f"{[o.name for o in app.renderer.scene.objects]}; the screen centre is over "
+              f"{app._picked_name if app.use_pick else '(no --pick)'}")
+        return app, frame_ms
+
+    def snapshot(app):
+        ps = app.psys
+        return (app.orbit, app.taa._frame if app.taa is not None else 0, app._anim_t,
+                app._hud_fps, None if ps is None else (ps._state, ps._positions, ps._tick))
+
+    def reset(app, snap):
+        """Back to ``snap``: the camera, TAA's jitter index, the animation
+        clock, the HUD's FPS and the particle state, with no history,
+        exposure or motion."""
+        app.orbit, taa_frame, app._anim_t, app._hud_fps, ps = snap
+        app._update_camera()
+        if app.taa is not None:
+            app.taa.reset()
+            app.taa._frame = taa_frame
+        if app.post is not None:
+            app.post._ae_state = None
+        if ps is not None:
+            app.psys._state, app.psys._positions, app.psys._tick = ps
+        app.renderer.reset_motion()
+
+    def replay_check(app, tag):
+        """The kernel path and the plain path each from the same reset
+        through ANIM_REPLAY_FRAMES frames on fresh engines: last frames
+        <= 1 LSB, < 1% of values; the fed-back particle states equal."""
+        snap = snapshot(app)
+        frames, states = [], []
+        for ctx in (contextlib.nullcontext, resolved_plain_path):
+            reset(app, snap)
+            window = Window(width=W, height=H, title="replay")
+            t0 = time.perf_counter()
+            with ctx():
+                engine = Engine(window, device=dev)
+                for _ in range(ANIM_REPLAY_FRAMES):
+                    app.tick(0.016)
+                    engine.render(app)
+                engine.shutdown()
+            torch.cuda.synchronize()
+            frames.append((window.last_frame, time.perf_counter() - t0))
+            states.append(None if app.psys is None else app.psys._state)
+        mx, frac = lsb_diff(frames[0][0], frames[1][0])
+        print(f"{tag}: from reset through {ANIM_REPLAY_FRAMES} frames, the kernel path's last "
+              f"frame vs the plain path's: max LSB diff {mx}, {frac * 100:.4f}% values differ "
+              f"(kernel path {frames[0][1]:.1f} s, plain path {frames[1][1]:.1f} s)")
+        check(mx <= 1 and frac < 0.01, f"{tag}: the last frame differs from the plain path's")
+        if states[0] is not None:
+            check(torch.equal(states[0], states[1]), f"{tag}: the particle states differ")
+            alive = int((states[0][:, 2] > -1e3).sum())
+            print(f"{tag}: the fed-back particle state ({tuple(states[0].shape)}, {alive} "
+                  f"respawned) equals the plain-path replay's")
+
+    def finish(app, tag, nodes, frame_ms, per_frame):
+        engine = Engine(Window(width=W, height=H, title="profile"), device=dev)
+        app.tick(0.004)
+        engine.render(app)
+        sync_free(engine, app, tag)
+
+        def frame(_t):
+            app.tick(0.004)
+            engine.render(app)
+
+        frame(0.0)
+        profile_frames(frame, nodes, tag, card, frame_ms,
+                       watch=("raster_segmented_kernel", "tiled_lights_kernel", "gather"),
+                       expect={"raster_segmented_kernel": per_frame[0],
+                               "tiled_lights_kernel": per_frame[1]}, frames=ANIM_PROFILED_FRAMES)
+        engine.shutdown()
+
+    # -- 19a. depth of field, the HUD and picking -------------------------------
+    def phase_a():
+        t0 = time.perf_counter()
+        tag = "phase 19a"
+        app, frame_ms = run(tag, DOF_HUD_FLAGS, (2, 1), app_cls=RackApp)
+        check(app.dof is not None and app.hud is not None and app.renderer.id_buffer,
+              f"{tag}: a flag did not reach the app")
+        check(app._picked_name is not None, f"{tag}: nothing picked at the screen centre")
+        print(f"{tag}: focus racked to {app.dof.focus_distance:.1f} and the HUD text "
+              f"{app.hud._text!r} on the last frame")
+        plain_frame_check(app, app._window, dev, tag, "SceneApp")
+        finish(app, tag, ("shadow", "gbuffer", "lighting", "dof", "post", "hud"), frame_ms,
+               (2, 1))
+        print(f"phase 19a took {time.perf_counter() - t0:.1f} s")
+
+    # -- 19b. skins, morphs and particles with velocity and TAA ----------------
+    def phase_b():
+        t0 = time.perf_counter()
+        tag = "phase 19b"
+        per_frame = (8, 1)
+        app, frame_ms = run(tag, ANIM_FLAGS, per_frame)
+        check(app.renderer.velocity and app.psys is not None and app._players
+              and app._morphers and app.psys._state.is_cuda,
+              f"{tag}: the animated objects did not run")
+        replay_check(app, tag)
+        calls = recorded_frame(dev, app, ("K1",))
+        names = [c[0] for c in calls]
+        check(names == ["shadow", "shadow.inst", "shadow.skin", "shadow.morph", "gbuffer",
+                        "gbuffer.inst", "gbuffer.skin", "gbuffer.morph"],
+              f"{tag}: K1 ran on nodes {names}")
+        k1_against_unculled(calls, plain_k1, tag, card,
+                            lambda n: n in ("gbuffer.skin", "gbuffer.inst"))
+        finish(app, tag, ("shadow", "shadow.inst", "shadow.skin", "shadow.morph", "gbuffer",
+                          "gbuffer.inst", "gbuffer.skin", "gbuffer.morph", "lighting",
+                          "psys.step", "taa", "post"), frame_ms, per_frame)
+        print(f"phase 19b took {time.perf_counter() - t0:.1f} s")
+
+    # -- 19c. everything at once ------------------------------------------------
+    def phase_c():
+        t0 = time.perf_counter()
+        tag = "phase 19c"
+        per_frame = (16, 1)
+        app, frame_ms = run(tag, EVERYTHING_FLAGS, per_frame, overflow_ok=True)
+        check(app.renderer.scene.sun.cascades == 3 and len(app.renderer.scene.spot_lights) == 3,
+              f"{tag}: a flag did not reach the scene")
+        replay_check(app, tag)
+        finish(app, tag, ("shadow.c0", "shadow.c1", "shadow.c2", "gbuffer", "gbuffer.inst",
+                          "gbuffer.skin", "gbuffer.morph", "lighting", "psys.step", "taa",
+                          "dof", "post", "hud"), frame_ms, per_frame)
+        print(f"phase 19c took {time.perf_counter() - t0:.1f} s")
+
+    for letter in parts:
+        {"a": phase_a, "b": phase_b, "c": phase_c}[letter]()
+    raster_mod.raster_segmented.launches = 0
+    lighting_mod.accumulate_point_lights.launches = 0
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -4272,9 +4483,10 @@ def main() -> int:
     terrain = timed("phase 16", terrain_phases, dev, card, plain)
     layered = timed("phase 17", layered_phases, dev, card, plain)
     extras = timed("phase 18", extras_phases, dev, card, plain)
+    anim = timed("phase 19", anim_phases, dev, card, plain)
     k1_def = deferred["k1"]
     deferred["k2"]["launches"] += (glass_launches["K2"] + textured["K2"] + terrain["K2"]
-                                   + layered["K2"] + extras["K2"])
+                                   + layered["K2"] + extras["K2"] + anim["K2"])
     kernels = [{
         "name": "K1 segmented raster (_segmented_kernel)",
         "route": "cuda",
@@ -4282,7 +4494,7 @@ def main() -> int:
         "replaces": "zenith_tpu/ops/raster.py:311",
         "launches": (main_launches + deferred["k1_launches"] + glass_launches["K1"]
                      + textured["K1"] + forward["K1"] + terrain["K1"] + layered["K1"]
-                     + extras["K1"]),
+                     + extras["K1"] + anim["K1"]),
         "max_abs_err": max(max_err, k1_def["max_abs_err"]),
         "ms": k1_def["ms"],
         "plain_ms": k1_def["plain_ms"],
@@ -4299,12 +4511,14 @@ def main() -> int:
           f"{forward['K1']} (forward SceneApp, MSAA, lines and points, phase 15) + "
           f"{terrain['K1']} (terrain, feature SceneApp, fly and mesh, phase 16) + "
           f"{layered['K1']} (instancing, cascades, cube faces and VSM, phase 17) + "
-          f"{extras['K1']} (IBL, post extras, temporal passes and the probe, phase 18); K2 "
-          f"{deferred['k2']['launches']} (phases 7, 11, 14a, 16c, 17 and 18); "
+          f"{extras['K1']} (IBL, post extras, temporal passes and the probe, phase 18) + "
+          f"{anim['K1']} (DoF, HUD, particles, skins, morphs and picking, phase 19); K2 "
+          f"{deferred['k2']['launches']} (phases 7, 11, 14a, 16c, 17, 18 and 19); "
           + "; ".join(f"{r['name'][:2]} {r['launches']}" for r in translucent)
           + f" (phases 11-12; K3 {forward['K3']}, K4 {forward['K4']} and K5 {forward['K5']} "
           f"of them under 4x MSAA, phase 15b); "
           + "; ".join(f"{r['name'][:2]} {r['launches']}" for r in capped) + " (phase 13)")
+    print(f"the whole script took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -190,14 +190,13 @@ def test_unported_branches_name_their_roadmap_item():
     # base atlas on the scene's device.
     textured = TDeferred(dataclasses.replace(scene, objects=[quad]))
     assert textured.textured and textured._atlases["BaseAtlas"].texture.array.device == CPU
-    cases = [
-        (dict(objects=[dataclasses.replace(quad, base_color_texture=None, translucent=True,
-                                           morph_deltas=quad.vertex_buffer)]), {}, 21),
-        ({}, dict(id_buffer=True), 21),
-    ]
-    for scene_kw, ctor_kw, item in cases:
-        with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
-            TDeferred(dataclasses.replace(scene, **scene_kw), **ctor_kw)
+    # The id buffer, skins and morphs are ported (item 21.9): they build,
+    # and a morphed (or skinned) object must be opaque and untextured, as
+    # the reference asserts (deferred.py:727-735, 771-780).
+    with pytest.raises(ValueError, match="plain opaque untextured"):
+        TDeferred(dataclasses.replace(scene, objects=[dataclasses.replace(
+            quad, base_color_texture=None, translucent=True, morph_deltas=quad.vertex_buffer)]))
+    assert TDeferred(scene, id_buffer=True).id_buffer
     # The velocity plane is ported (item 21.6): explicit, and automatic for
     # device-resident instance offsets (tests/test_torch_temporal.py).
     assert TDeferred(scene, velocity=True).velocity
@@ -236,6 +235,13 @@ def test_unported_branches_name_their_roadmap_item():
     env = EnvironmentLight.from_cube_pixels("e", np.ones((6, 8, 8, 4), np.float32), num_mips=2,
                                             samples=4, device=CPU)
     assert "lighting" in nodes(environment=env)
+    from zenith_tpu_torch.renderer import SceneObject as TObject
+    from zenith_tpu_torch.sandbox.scene import morphing_blob, skinned_tube
+
+    animated = [TObject.from_mesh(device, skinned_tube(bones=3, rings=4, sides=6), "tube"),
+                TObject.from_mesh(device, morphing_blob(rings=4, sides=6), "blob")]
+    names = nodes(objects=list(scene.objects) + animated)
+    assert {"shadow.skin", "shadow.morph", "gbuffer.skin", "gbuffer.morph"} <= set(names)
     # The bloom mip chain and FXAA are ported (item 21.5).
     assert PostProcess(bloom_mips=3).bloom_mips == 3
     assert PostProcess(fxaa=True).fxaa

@@ -63,9 +63,10 @@ def test_feature_golden_and_frame_differ_from_the_base(device, base, cfg):
 
 def test_film_has_no_port_yet(device):
     """Film was the last unported feature golden; it is ported (item 21.5)
-    and pinned with the others above, and a feature with no golden raises."""
+    and pinned with the others above, and a name with no golden (the
+    reference has none for depth of field) raises."""
     assert "film" in FEATURE_GOLDENS
-    with pytest.raises(NotImplementedError, match="ROADMAP item 21"):
+    with pytest.raises(ValueError, match="no feature golden 'dof'"):
         feature_golden_frame(device, "dof")
 
 

@@ -3,8 +3,9 @@ two SceneApp tests, in forward and in deferred mode): build_scene's cerberus
 from the repository's baked cache at 128×64 with two point lights, auto-
 retained execution, the rebuild fallback of ``mark_structure_dirty`` and
 ``--no-retained``. The last frame of the retained run equals the reference
-app's after the same ticks. Every flag whose machinery is not ported raises
-before anything is built and names its ROADMAP item.
+app's after the same ticks. Every flag of the reference reaches the app
+(the last six, --dof, --hud, --particles, --skinned, --morph and --pick,
+since item 21 steps 7-9).
 
 Tolerance: the presented frame (BGRA8 sRGB) ≤ 1 LSB with < 1% of values
 differing (the reference's own golden tolerance) on all but 0.5% of the
@@ -24,7 +25,8 @@ import torch
 
 from zenith_tpu_torch.core.cli import EngineArgs
 from zenith_tpu_torch.engine import Engine
-from zenith_tpu_torch.sandbox.scene import _UNPORTED_FLAGS, SceneApp
+from zenith_tpu_torch.sandbox import scene as scene_mod
+from zenith_tpu_torch.sandbox.scene import SceneApp
 from zenith_tpu_torch.window import Window
 
 torch.set_num_threads(1)
@@ -146,7 +148,11 @@ PORTED = {"ssao": "ssao", "contact_shadows": "contact_shadows", "ssr": "use_ssr"
           # extras_frames.py).
           "ibl": "ibl", "probe": "use_probe", "fxaa": "fxaa", "grade": "use_grade",
           "film": "use_film", "auto_exposure": "auto_exposure", "taa": "use_taa",
-          "velocity": "use_velocity", "motion_blur": "use_mblur"}
+          "velocity": "use_velocity", "motion_blur": "use_mblur",
+          # item 21 steps 7-9 (their frames: tests/test_torch_dof_hud_frame.py
+          # and test_torch_animated_frame.py).
+          "dof": "use_dof", "hud": "use_hud", "particles": "n_particles", "skinned": "skinned",
+          "morph": "morph", "pick": "use_pick"}
 # Flags that raised in deferred mode until deferred instancing and the
 # render-to-mip bloom chain were ported (items 21.1, 21.5), with the app
 # attribute each reaches.
@@ -158,7 +164,9 @@ UNPORTED = [[f"--{name.replace('_', '-')}"] + (["2"] if name in ("decals", "part
 
 
 def test_the_flag_lists_cover_the_unported_flags():
-    assert set(_UNPORTED_FLAGS) == set(SCENE_FLAGS) - set(PORTED)
+    """No flag is left unported: the list of unported flags is gone."""
+    assert set(PORTED) == set(SCENE_FLAGS)
+    assert not hasattr(scene_mod, "_UNPORTED_FLAGS")
 
 
 @pytest.mark.parametrize("flags", UNPORTED + [
@@ -169,12 +177,8 @@ def test_unported_flags_raise_before_anything_is_built(flags):
     if " ".join(flags) in LIFTED:
         assert getattr(SceneApp(EngineArgs(app_args=flags)), LIFTED[" ".join(flags)])
         return
-    if name in PORTED:
-        # Ported: the flag reaches the app (deferred is the default mode).
-        assert getattr(SceneApp(EngineArgs(app_args=flags)), PORTED[name])
-        return
-    with pytest.raises(NotImplementedError, match=r"ROADMAP item 21"):
-        SceneApp(EngineArgs(app_args=flags))
+    # Ported: the flag reaches the app (deferred is the default mode).
+    assert getattr(SceneApp(EngineArgs(app_args=flags)), PORTED[name])
 
 
 def test_launch_passes_app_flags_and_defaults_to_the_card(monkeypatch):

@@ -315,8 +315,11 @@ def test_build_scene_loads_content_and_raises_without_it(tmp_path, monkeypatch):
     gun = scene.objects[0]
     assert gun.name == "cerberus" and gun.base_color_texture is not None
     assert scene.skybox is None and len(scene.point_lights) == 4
-    with pytest.raises(NotImplementedError, match="ROADMAP item 21"):
-        tscene.build_scene(dev, 4, np.random.default_rng(0), skinned=True)
+    # The skinned tentacle and the morphed blob are ported (item 21.9).
+    animated = tscene.build_scene(dev, 4, np.random.default_rng(0), skinned=True,
+                                  morph=True).objects
+    assert [o.name for o in animated[-2:]] == ["tentacle", "blob"]
+    assert animated[-2].skin is not None and animated[-1].morph_deltas is not None
     # The instanced rocks are ported.
     rocks = tscene.build_scene(dev, 4, np.random.default_rng(0), instances=3).objects[-1]
     assert rocks.name == "rocks" and rocks.instance_count == 3

@@ -1,11 +1,14 @@
 """The deferred renderer's velocity plane in the port (``g.prev``, the
 previous transforms and instance offsets, velocity on by default for
 device-resident offsets) against the reference package on the same scene
-(tests/test_velocity.py).
+(tests/test_velocity.py), and twins of its skinned, morphed and automatic
+cases (test_velocity.py:131, :160, :392) on the port.
 
 Tolerance: the ``g.prev`` and ``g.pos`` planes at the port's position
 tolerance, atol 0.05 (tests/test_torch_deferred.py:99: the near-clipped
-ground's positions differ by the FMA rounding of its clip).
+ground's positions differ by the FMA rounding of its clip); the skinned and
+morphed position deltas atol 1e-3 against the analytic motion (the
+reference test's tolerance).
 """
 
 import numpy as np
@@ -124,3 +127,85 @@ def test_device_offsets_turn_the_velocity_plane_on():
     b = RenderGraphBuilder()
     off.render_to(b, b.create(TextureDesc.color("o", W, H)), cam, W, H)
     assert off.gbuffer_handles.animated_without_velocity and "prev_pos" not in off.gbuffer_handles
+
+
+def _animated_planes(obj, cam, move):
+    """Two frames of ``obj`` alone with the velocity plane: ``move(obj)``
+    between them. Returns the second frame's (pos, prev) planes."""
+    from zenith_tpu_torch.renderer import DirectionalLight, Scene
+
+    device = RhiCore(CPU).create_render_device()
+    r = DeferredRenderer(Scene(objects=[obj], sun=DirectionalLight(cast_shadows=False)),
+                         shadows=False, velocity=True)
+    _prev_planes(r, cam, device, "port")
+    move(obj)
+    return _prev_planes(r, cam, device, "port")[:2]
+
+
+def _tube_camera():
+    from zenith_tpu_torch.core.camera import Camera
+    from zenith_tpu_torch.core.mathtypes import Degree, Radians
+
+    cam = Camera(fov_y=Degree(35.0), aspect_ratio=W / H)
+    cam.set_position(np.array([0.0, -120.0, 25.0], np.float32))
+    cam.set_yaw_pitch(Radians(0.0), Radians(-0.1))
+    return cam
+
+
+def _tube():
+    from zenith_tpu_torch.renderer import SceneObject
+    from zenith_tpu_torch.sandbox.scene import skinned_tube
+
+    return SceneObject.from_mesh(RhiCore(CPU).create_render_device(),
+                                 skinned_tube(bones=3, rings=8, sides=8), "tube")
+
+
+def test_skinned_prev_tracks_palette():
+    """The joint palette moves between frames: the prev plane holds the
+    previous palette's skinned positions."""
+    def move(obj):
+        pal = np.broadcast_to(np.eye(4, dtype=np.float32), (obj.skin.num_joints, 4, 4)).copy()
+        pal[:, 2, 3] = 3.0  # every joint up 3 in z (the weights sum to 1)
+        obj.joint_matrices = pal
+
+    pos, prev = _animated_planes(_tube(), _tube_camera(), move)
+    cov = pos[..., 2] != 0
+    assert cov.sum() > 50
+    delta = pos[..., :3][cov] - prev[..., :3][cov]
+    np.testing.assert_allclose(delta, np.tile([0.0, 0.0, 3.0], (delta.shape[0], 1)), atol=1e-3)
+
+
+def test_morph_prev_tracks_weights():
+    """One constant-direction target, weight 0 then 1: the prev delta is
+    exactly w·(2, 0, 0)."""
+    from zenith_tpu_torch.core.camera import Camera
+    from zenith_tpu_torch.core.mathtypes import Degree
+    from zenith_tpu_torch.renderer import SceneObject
+    from zenith_tpu_torch.sandbox.scene import morphing_blob
+
+    blob = morphing_blob(rings=8, sides=10)
+    blob.morph_deltas = np.tile(np.array([2.0, 0.0, 0.0], np.float32),
+                                (1, blob.vertices.shape[0], 1))
+    obj = SceneObject.from_mesh(RhiCore(CPU).create_render_device(), blob, "blob")
+    obj.morph_weights = np.zeros((1,), np.float32)
+    cam = Camera(fov_y=Degree(45.0), aspect_ratio=W / H)
+    cam.set_position(np.array([0.0, -30.0, 5.0], np.float32))
+    pos, prev = _animated_planes(obj, cam,
+                                 lambda o: setattr(o, "morph_weights", np.ones((1,), np.float32)))
+    cov = pos[..., 2] != 0
+    assert cov.sum() > 50
+    delta = pos[..., :3][cov] - prev[..., :3][cov]
+    np.testing.assert_allclose(delta, np.tile([2.0, 0.0, 0.0], (delta.shape[0], 1)), atol=1e-3)
+
+
+def test_skinned_scene_auto_on():
+    """velocity=None turns the plane on for a skinned scene and publishes
+    it; frame 0's prev plane is the current positions."""
+    from zenith_tpu_torch.renderer import DirectionalLight, Scene
+
+    r = DeferredRenderer(Scene(objects=[_tube()], sun=DirectionalLight(cast_shadows=False)),
+                         shadows=False)
+    assert r.velocity is True and r.scene_animated
+    pos, prev, _ = _prev_planes(r, _tube_camera(), RhiCore(CPU).create_render_device(), "port")
+    assert "prev_pos" in r.gbuffer_handles and not r.gbuffer_handles.animated_without_velocity
+    np.testing.assert_allclose(pos[..., :3], prev[..., :3], atol=1e-5)

@@ -3,8 +3,9 @@
 The reference package's results reach the port as numpy arrays (buffer
 contents, ``TriangleRecords``, ``SegmentedBins``, ``TileBins``, stencil
 planes and face states, scene objects, light tables, 2D and cube textures,
-materials, the sky, decals, environments, the screen-space passes'
-settings and the post and temporal passes' settings and state);
+materials, the sky, decals, environments, skins and animation clips, the
+screen-space passes' settings, the post and temporal passes' settings and
+state, depth of field, the HUD and the particle system's state);
 these helpers turn them into the port's tensors and objects on a given
 device, field for field, so the same inputs can be fed to both
 implementations. They read the reference's objects by attribute name
@@ -113,11 +114,35 @@ _OBJECT_FIELDS = ("base_color", "metallic", "roughness", "emissive", "bin_capaci
 _TEXTURE_FIELDS = ("base_color_texture", "normal_texture", "mra_texture", "emissive_texture")
 
 
+def skin_from(skin: Any):
+    """A joint hierarchy (inverse binds, parents, rest pose, pre-matrices)
+    → the port's ``Skin`` with the same arrays."""
+    from zenith_tpu_torch.asset.render_types import Skin
+
+    return Skin(*(np.asarray(getattr(skin, k)) for k in (
+        "inverse_bind", "parents", "rest_t", "rest_r", "rest_s", "pre")))
+
+
+def clip_from(clip: Any):
+    """An animation clip → the port's ``AnimationClip``, channel for channel."""
+    from zenith_tpu_torch.asset.render_types import AnimationChannel, AnimationClip
+
+    return AnimationClip(clip.name, [
+        AnimationChannel(ch.joint, ch.path, np.asarray(ch.times), np.asarray(ch.values),
+                         getattr(ch, "interpolation", "LINEAR")) for ch in clip.channels],
+        clip.duration)
+
+
+def _host_or_none(value: Any):
+    return None if value is None else np.asarray(value, np.float32)
+
+
 def scene_object_from(obj: Any, device: "torch.device | str"):
-    """A scene object (buffers, model matrix, material factors) → the port's
-    SceneObject with the same numbers and its four material textures (mips
-    included). Skins and morph targets are not carried (the renderer raises
-    for them)."""
+    """A scene object (buffers, model matrix, material factors, instance
+    offsets, skin, palette and clips, morph deltas and weights) → the
+    port's SceneObject with the same numbers and its four material
+    textures (mips included); per-frame values (offsets, palette, weights)
+    cross as host arrays."""
     from zenith_tpu_torch.renderer.scene import SceneObject
 
     kwargs = {k: getattr(obj, k) for k in _OBJECT_FIELDS}
@@ -132,8 +157,13 @@ def scene_object_from(obj: Any, device: "torch.device | str"):
         index_buffer=buffer_from(obj.index_buffer, device),
         model_matrix=np.asarray(obj.model_matrix, np.float32),
         translucent=bool(obj.translucent),
-        instance_offsets=(None if obj.instance_offsets is None
-                          else np.asarray(obj.instance_offsets, np.float32)),
+        instance_offsets=_host_or_none(obj.instance_offsets),
+        skin=None if obj.skin is None else skin_from(obj.skin),
+        joint_matrices=_host_or_none(obj.joint_matrices),
+        clips=None if not obj.clips else [clip_from(c) for c in obj.clips],
+        morph_deltas=(None if obj.morph_deltas is None
+                      else buffer_from(obj.morph_deltas, device)),
+        morph_weights=_host_or_none(obj.morph_weights),
         **kwargs,
     )
 
@@ -268,6 +298,39 @@ def motion_blur_from(blur: Any):
 
     return MotionBlur(strength=blur.strength, max_radius=blur.max_radius,
                       samples=blur.samples, jitter=blur.jitter, dilate=blur.dilate)
+
+
+def depth_of_field_from(dof: Any):
+    """Depth-of-field settings → the port's ``DepthOfField``."""
+    from zenith_tpu_torch.renderer.dof import DepthOfField
+
+    return DepthOfField(focus_distance=dof.focus_distance, focal_range=dof.focal_range,
+                        strength=dof.strength, levels=dof.levels)
+
+
+def hud_from(hud: Any):
+    """A HUD overlay (settings and text) → the port's ``HudOverlay`` with
+    the same bitmap."""
+    from zenith_tpu_torch.renderer.hud import HudOverlay
+
+    out = HudOverlay(max_chars=hud.max_chars, scale=hud.scale, color=hud.color,
+                     background=hud.background, margin=hud.margin,
+                     overflow_indicator=hud.overflow_indicator)
+    out.set_text(hud._text)
+    return out
+
+
+def particle_system_from(psys: Any, device: "torch.device | str"):
+    """A particle system (count, emitter, sim settings, state, positions and
+    tick) → the port's ``ParticleSystem`` with its state on ``device``."""
+    from zenith_tpu_torch.renderer.particles import ParticleSystem
+
+    out = ParticleSystem(psys.count, emitter=np.asarray(psys.emitter, np.float32),
+                         device=device, **psys.sim_kwargs)
+    out._state = to_tensor(np.asarray(psys._state, np.float32), device)
+    out._positions = to_tensor(np.asarray(psys.positions, np.float32), device)
+    out._tick = int(psys._tick)
+    return out
 
 
 def scene_from(scene: Any, device: "torch.device | str"):

@@ -14,13 +14,22 @@ Nodes ``omni{i}.f{k}`` (graphic, depth only): the six cube faces of each
 shadow-casting point light (renderer.omni), the plain opaque objects drawn
 into one layer of a cube depth texture each.
 
+Nodes ``shadow.skin`` and ``shadow.morph`` (and ``.c{k}`` per cascade):
+the skinned and morphed objects' own depth passes, LOADing the map.
+
 Node ``gbuffer`` (graphic, MRT, one batched draw over K1):
   - albedo+metallic   (RGBA32F: rgb albedo, a metallic)
   - normal+roughness  (RGBA32F: xyz world normal, w roughness)
   - world-pos+emissive-luma (RGBA32F)
   - with the velocity plane, the previous frame's world position (``g.prev``)
+  - with ``id_buffer``, the 1-based object index (``g.id``, R32F; 0 where
+    nothing opaque was drawn), the picking plane that ``pick`` reads
   plus reverse-Z depth. ``gbuffer.inst`` LOADs the planes and adds each
-  instanced object (the per-instance ``inst_offset`` attribute). Textured
+  instanced object (the per-instance ``inst_offset`` attribute; every copy
+  writes its object's id); ``gbuffer.skin`` adds the skinned objects
+  (linear-blend skinning by the per-frame joint palette, a dynamic, in the
+  vertex stage over the SkinnedVertex layout) and ``gbuffer.morph`` the
+  morphed ones (the base position plus the weighted POSITION deltas). Textured
   materials are sampled from one atlas per map type (base colour, normal,
   metallic-roughness, emissive; rhi.atlas) with a per-draw UV transform; the normal map bends the normal through the
   derivative-built tangent frame (ops.shade.perturb_normal).
@@ -54,13 +63,11 @@ textured glass.
 shadow pass stays FILL): the edges get the full deferred lighting.
 
 ``velocity`` adds the per-draw velocity plane: every G-buffer draw also
-transforms its vertices by the previous frame's model matrix and instance
-offsets, and the fourth MRT plane keeps the previous world position, which
-TAA and motion blur reproject with. ``None`` turns it on for
-device-resident instance offsets.
-
-Not ported yet; each raises NotImplementedError naming its ROADMAP item:
-skinned and morphed objects and the id buffer (item 21).
+transforms its vertices by the previous frame's model matrix, joint
+palette, morph weights and instance offsets, and the fourth MRT plane
+keeps the previous world position, which TAA and motion blur reproject
+with. ``None`` turns it on for skins, morphs and device-resident instance
+offsets.
 """
 
 from __future__ import annotations
@@ -71,6 +78,7 @@ import math
 import numpy as np
 import torch
 
+from zenith_tpu_torch.asset.render_types import SkinnedVertex as SKINNED_LAYOUT
 from zenith_tpu_torch.asset.render_types import Vertex as VERTEX_LAYOUT
 from zenith_tpu_torch.core import mathtypes as m
 from zenith_tpu_torch.core.camera import Camera
@@ -122,6 +130,7 @@ from zenith_tpu_torch.rhi import (
     Texture,
     TextureDesc,
     attr,
+    storage,
     texture2d,
     uniform,
 )
@@ -149,12 +158,6 @@ def _offsets_value(offsets):
     if isinstance(offsets, torch.Tensor):
         return offsets
     return np.asarray(offsets, np.float32)
-
-
-def _unported(what: str, item: int, name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"DeferredRenderer: {what} is not ported yet (ROADMAP item {item}: {name})"
-    )
 
 
 def _make_gbuffer_vs(velocity: bool):
@@ -211,6 +214,113 @@ _gbuffer_vs = _make_gbuffer_vs(False)
 _gbuffer_inst_vs = _make_gbuffer_inst_vs(False)
 
 
+def _skin_blend(attrs, res):
+    """Linear-blend skinning (deferred.py:138-161): each vertex's 4 joint
+    matrices gathered from the (J, 4, 4) ``Joints`` palette (the joint
+    indices ride as float32) and blended by weight over the whole vertex
+    buffer. Returns (skinned homogeneous positions (N, 4), skinned normals
+    (N, 3))."""
+    pos = attrs["position"]
+    n = pos.shape[0]
+    jidx = attrs["joints"].to(torch.int64)
+    w = attrs["weights"]
+    flat = res["Joints"].reshape(-1, 16)
+    hom = torch.cat([pos, torch.ones_like(pos[:, :1])], dim=1)
+    nrm = attrs["normal"]
+    p_acc = torch.zeros_like(hom)
+    n_acc = torch.zeros_like(nrm)
+    for k in range(4):
+        mk = flat[jidx[:, k]].reshape(n, 4, 4)
+        p_acc = p_acc + w[:, k:k + 1] * torch.einsum("nj,nij->ni", hom, mk)
+        n_acc = n_acc + w[:, k:k + 1] * torch.einsum("nj,nij->ni", nrm, mk[:, :3, :3])
+    return p_acc, n_acc
+
+
+def _morph_weights(obj) -> np.ndarray:
+    """(T,) weights for the MorphWeights uniform (zeros: the base shape)."""
+    if obj.morph_weights is not None:
+        return np.ascontiguousarray(obj.morph_weights, np.float32)
+    return np.zeros((obj.morph_deltas.shape[0],), np.float32)
+
+
+def _joint_palette(obj) -> np.ndarray:
+    """(J, 4, 4) palette for the Joints uniform: the object's animated
+    matrices, or identities (the bind pose) before any is sampled."""
+    if obj.joint_matrices is not None:
+        return np.ascontiguousarray(obj.joint_matrices, np.float32)
+    return np.broadcast_to(np.eye(4, dtype=np.float32), (obj.skin.num_joints, 4, 4)).copy()
+
+
+def _make_gbuffer_skin_vs(velocity: bool):
+    """Skinned G-buffer vertex stage (deferred.py:188-212). ``velocity``
+    also skins the vertex by the previous frame's palette (``PrevJoints``)
+    and model matrix."""
+
+    def _gbuffer_skin_vs(attrs, res):
+        skinned, snrm = _skin_blend(attrs, res)
+        world = skinned @ res["Model"].T
+        out = {
+            "position": world @ res["ViewProj"].T,
+            "world_pos": world[:, :3],
+            "normal": snrm @ res["Model"][:3, :3].T,
+            "uv": attrs["tex_coord"],
+        }
+        if velocity:
+            prev_skinned, _ = _skin_blend(attrs, {"Joints": res["PrevJoints"]})
+            out["prev_pos"] = (prev_skinned @ res["PrevModel"].T)[:, :3]
+        return out
+
+    return _gbuffer_skin_vs
+
+
+def _shadow_skin_vs(attrs, res):
+    skinned, _ = _skin_blend(attrs, res)
+    return {"position": (skinned @ res["Model"].T) @ res["LightViewProj"].T}
+
+
+def _morphed_position(attrs, res):
+    """The base position plus Σ wₜ·deltaₜ (deferred.py:225-232): one
+    (T) × (T, N, 3) contraction; the base normals are kept (a
+    small-deformation approximation)."""
+    return attrs["position"] + torch.einsum("t,tnc->nc", res["MorphWeights"],
+                                            res["MorphDeltas"])
+
+
+def _make_gbuffer_morph_vs(velocity: bool):
+    """Morph-target G-buffer vertex stage (deferred.py:235-265).
+    ``velocity`` also blends the base position by the previous frame's
+    weights (``PrevMorphWeights``) and model matrix."""
+
+    def _gbuffer_morph_vs(attrs, res):
+        pos = _morphed_position(attrs, res)
+        hom = torch.cat([pos, torch.ones_like(pos[:, :1])], dim=1)
+        world = hom @ res["Model"].T
+        out = {
+            "position": world @ res["ViewProj"].T,
+            "world_pos": world[:, :3],
+            "normal": attrs["normal"] @ res["Model"][:3, :3].T,
+            "uv": attrs["tex_coord"],
+        }
+        if velocity:
+            ppos = _morphed_position(attrs, {"MorphWeights": res["PrevMorphWeights"],
+                                             "MorphDeltas": res["MorphDeltas"]})
+            phom = torch.cat([ppos, torch.ones_like(ppos[:, :1])], dim=1)
+            out["prev_pos"] = (phom @ res["PrevModel"].T)[:, :3]
+        return out
+
+    return _gbuffer_morph_vs
+
+
+def _shadow_morph_vs(attrs, res):
+    pos = _morphed_position(attrs, res)
+    hom = torch.cat([pos, torch.ones_like(pos[:, :1])], dim=1)
+    return {"position": (hom @ res["Model"].T) @ res["LightViewProj"].T}
+
+
+_gbuffer_skin_vs = _make_gbuffer_skin_vs(False)
+_gbuffer_morph_vs = _make_gbuffer_morph_vs(False)
+
+
 # Atlas binding name -> its per-draw UV-transform uniform name (each map
 # type has its own atlas cell layout, hence its own transform).
 _UVX_NAME = {
@@ -223,10 +333,10 @@ _UVX_NAME = {
 
 def _make_gbuffer_fs(textured: bool, use_normal: bool = False,
                      use_mra: bool = False, use_emissive: bool = False,
-                     prev_out: bool = False):
-    """G-buffer fragment stage (deferred.py:276-374), without the id plane
-    (item 21). ``prev_out`` adds the fourth plane, the interpolated
-    ``prev_pos`` varying (the velocity plane). Textured mode samples one
+                     id_out: bool = False, prev_out: bool = False):
+    """G-buffer fragment stage (deferred.py:276-374). ``prev_out`` adds the
+    fourth plane, the interpolated ``prev_pos`` varying (the velocity
+    plane); ``id_out`` the id plane, the per-draw ``ObjectId`` uniform. Textured mode samples one
     atlas per map type with a per-draw UV transform: base colour; glTF metallic-roughness
     (B=metallic, G=roughness); the tangent-space normal map through the
     derivative-built frame (no vertex tangents); emissive as luma."""
@@ -275,6 +385,10 @@ def _make_gbuffer_fs(textured: bool, use_normal: bool = False,
         if prev_out:
             prev = varyings["prev_pos"]
             out["3_prev"] = torch.cat([prev, torch.ones_like(prev[..., :1])], dim=-1)
+        if id_out:
+            # A (1,) vector drawn alone, an (H, W, 1) plane under
+            # draw_indexed_batch.
+            out["4_id"] = res["ObjectId"][..., 0:1].expand(n[..., :1].shape)
         return out
 
     return _gbuffer_fs
@@ -469,21 +583,28 @@ class DeferredRenderer:
         objs = scene.objects
         self.wireframe = wireframe
         self._check_objects(objs)
-        if id_buffer:
-            raise _unported("the object-id buffer", 21, "picking")
         # Per-draw velocity (deferred.py:580-605): every G-buffer draw also
-        # transforms its vertices by the previous frame's model matrix and
-        # instance offsets and writes the previous world position into a
-        # fourth plane (g.prev). velocity=None is automatic: on when the
-        # scene holds motion the camera-only reprojection cannot represent,
-        # here device-resident instance offsets (skins and morphs raise
-        # above). The renderer rolls the previous transforms itself.
-        self.scene_animated = any(isinstance(o.instance_offsets, torch.Tensor) for o in objs)
+        # transforms its vertices by the previous frame's model matrix, joint
+        # palette, morph weights and instance offsets and writes the previous
+        # world position into a fourth plane (g.prev). velocity=None is
+        # automatic: on when the scene holds motion the camera-only
+        # reprojection cannot represent (skins, morphs, device-resident
+        # instance offsets). The renderer rolls the previous transforms itself.
+        self.scene_animated = any(
+            o.skin is not None or o.morph_deltas is not None
+            or isinstance(o.instance_offsets, torch.Tensor) for o in objs)
         if velocity is None:
             velocity = self.scene_animated
         self.velocity = bool(velocity)
         self._prev_motion: "dict | None" = None  # rolled previous transforms
         self._last_motion: "dict | None" = None  # the latest observed values
+        # The object-id plane (deferred.py:606-616): every opaque G-buffer
+        # draw writes its 1-based object index into an R32F plane, which
+        # render_to exports and publishes as ``id_resource``; ``pick`` maps a
+        # pixel back to its object. Glass draws after lighting and never
+        # writes it.
+        self.id_buffer = bool(id_buffer)
+        self.id_resource: "RenderGraphResource | None" = None
         if ssao is True:
             ssao = SSAOOptions()
         self.ssao: "SSAOOptions | None" = ssao or None
@@ -499,11 +620,12 @@ class DeferredRenderer:
             bindings=[uniform("Model"), uniform("ViewProj")] + prev_u,
             inputs=[attr("position", 3), attr("normal", 3), attr("tex_coord", 2)],
         )
+        oid_u = [uniform("ObjectId")] if self.id_buffer else []
         self.gbuffer_fs = Shader.fragment(
             "gbuffer.vel.fs" if vel else "gbuffer.fs",
             _make_gbuffer_fs(self.textured, self.use_normal, self.use_mra, self.use_emissive,
-                             prev_out=vel),
-            bindings=[uniform("BaseColor"), uniform("MatParams")]
+                             id_out=self.id_buffer, prev_out=vel),
+            bindings=[uniform("BaseColor"), uniform("MatParams")] + oid_u
             + [texture2d(name) for name in self._atlases]
             + [uniform(_UVX_NAME[name]) for name in self._atlases],
         )
@@ -527,6 +649,7 @@ class DeferredRenderer:
             bindings=[uniform("Model"), uniform("LightViewProj")],
             inputs=[attr("position", 3), attr("inst_offset", 3, per_instance=True)],
         )
+        self._init_animated(objs, vel, prev_u, oid_u)
         # Frame-invariant pipeline inputs, built ONCE: render_to runs every
         # frame, and reusing the same desc objects keeps the structure key
         # and the pipeline cache on their identity fast paths.
@@ -565,6 +688,55 @@ class DeferredRenderer:
         self._ca_clear01 = ColorAttachmentDesc(clear_value=(0, 0, 0, 1))
         self._ca_load = ColorAttachmentDesc(load_op=LoadOp.LOAD)
         self._init_glass(objs, glass_mode, glass_peel_layers)
+
+    def _init_animated(self, objs, vel: bool, prev_u: list, oid_u: list) -> None:
+        """The skinned and morphed objects' stages and pipeline inputs
+        (deferred.py:719-820): skins over the SkinnedVertex layout with a
+        (J, 4, 4) ``Joints`` palette, morphs over the plain layout with the
+        (T, N, 3) ``MorphDeltas`` buffer and the (T,) ``MorphWeights``; both
+        shade with the untextured G-buffer fragment stage."""
+        self.has_skinned = any(o.skin is not None for o in objs)
+        self.has_morphs = any(o.morph_deltas is not None for o in objs)
+        fs = _make_gbuffer_fs(False, id_out=self.id_buffer, prev_out=vel)
+        fs_bindings = [uniform("BaseColor"), uniform("MatParams")] + oid_u
+        if self.has_skinned:
+            skin_vs = Shader.vertex(
+                "gbuffer.skin.vel.vs" if vel else "gbuffer.skin.vs",
+                _make_gbuffer_skin_vs(True) if vel else _gbuffer_skin_vs,
+                bindings=[uniform("Model"), uniform("ViewProj"), uniform("Joints")]
+                + (prev_u + [uniform("PrevJoints")] if vel else []),
+                inputs=[attr("position", 3), attr("normal", 3), attr("tex_coord", 2),
+                        attr("joints", 4), attr("weights", 4)],
+            )
+            shadow_vs = Shader.vertex(
+                "shadow.skin.vs", _shadow_skin_vs,
+                bindings=[uniform("Model"), uniform("LightViewProj"), uniform("Joints")],
+                inputs=[attr("position", 3), attr("normal", 3), attr("joints", 4),
+                        attr("weights", 4)],
+            )
+            skin_fs = Shader.fragment("gbuffer.skin.vel.fs" if vel else "gbuffer.skin.fs", fs,
+                                      bindings=fs_bindings)
+            self._shadow_skin_si = GraphicShaderInput(shadow_vs, None, SKINNED_LAYOUT)
+            self._gbuffer_skin_si = GraphicShaderInput(skin_vs, skin_fs, SKINNED_LAYOUT)
+        if self.has_morphs:
+            morph_vs = Shader.vertex(
+                "gbuffer.morph.vel.vs" if vel else "gbuffer.morph.vs",
+                _make_gbuffer_morph_vs(True) if vel else _gbuffer_morph_vs,
+                bindings=[uniform("Model"), uniform("ViewProj"), uniform("MorphWeights"),
+                          storage("MorphDeltas")]
+                + (prev_u + [uniform("PrevMorphWeights")] if vel else []),
+                inputs=[attr("position", 3), attr("normal", 3), attr("tex_coord", 2)],
+            )
+            shadow_vs = Shader.vertex(
+                "shadow.morph.vs", _shadow_morph_vs,
+                bindings=[uniform("Model"), uniform("LightViewProj"), uniform("MorphWeights"),
+                          storage("MorphDeltas")],
+                inputs=[attr("position", 3)],
+            )
+            morph_fs = Shader.fragment("gbuffer.morph.vel.fs" if vel else "gbuffer.morph.fs",
+                                       fs, bindings=fs_bindings)
+            self._shadow_morph_si = GraphicShaderInput(shadow_vs, None, VERTEX_LAYOUT)
+            self._gbuffer_morph_si = GraphicShaderInput(morph_vs, morph_fs, VERTEX_LAYOUT)
 
     def _init_atlases(self, objs) -> None:
         """Textured mode (deferred.py:623-667): the material textures are
@@ -698,12 +870,16 @@ class DeferredRenderer:
 
     @staticmethod
     def _check_objects(objs) -> None:
+        """Skinned and morphed objects draw through their own untextured
+        opaque pipelines (deferred.py:727-735, 771-780): neither instanced,
+        translucent nor textured, and not both."""
         for o in objs:
-            for what, on in (("skinned", o.skin is not None),
-                             ("morphed", o.morph_deltas is not None)):
-                if on:
-                    raise _unported(f"{what} object {o.name!r}", 21,
-                                    "screen-space and lighting features")
+            if (o.skin is not None or o.morph_deltas is not None) and (
+                    o.instance_offsets is not None or o.translucent
+                    or o.base_color_texture is not None
+                    or (o.skin is not None and o.morph_deltas is not None)):
+                raise ValueError(f"DeferredRenderer: {o.name!r}: skinned and morphed objects "
+                                 "are plain opaque untextured objects, one or the other")
 
     def _atmosphere(self):
         """The scene's procedural sky, where no skybox or environment cube
@@ -728,14 +904,19 @@ class DeferredRenderer:
 
     def _observe_motion(self) -> dict:
         """Roll prev ← last ← current per-draw transforms (velocity mode,
-        deferred.py:997-1036): the stacked model matrices and each
-        instanced object's offsets. Value-keyed and idempotent within a
-        frame, so update_dynamics followed by a rebuild cannot roll twice.
-        Returns {key: previous value}; a key whose shape changed falls
-        back to its current value (zero velocity for one frame)."""
+        deferred.py:997-1036): the stacked model matrices, each skinned
+        object's palette, each morphed object's weights and each instanced
+        object's offsets. Value-keyed and idempotent within a frame, so
+        update_dynamics followed by a rebuild cannot roll twice. Returns
+        {key: previous value}; a key whose shape changed falls back to its
+        current value (zero velocity for one frame)."""
         objs = self.scene.objects
         cur = {"models": stacked_models(objs)}
         for o in objs:
+            if o.skin is not None:
+                cur[f"joints.{o.name}"] = _joint_palette(o)
+            if o.morph_deltas is not None:
+                cur[f"mweights.{o.name}"] = _morph_weights(o)
             if o.instance_offsets is not None:
                 cur[f"inst.{o.name}"] = o.instance_offsets
         last = self._last_motion
@@ -792,6 +973,7 @@ class DeferredRenderer:
             d["def.shadow_noffs"] = noffs
         # Shadow-casting point lights may move between retained frames.
         d.update(self._omni_dynamics())
+        d.update(self._animation_dynamics())
         if include_models:
             d["def.models"] = stacked_models(self.scene.objects)
         if self.velocity:
@@ -803,6 +985,30 @@ class DeferredRenderer:
                 if o.instance_offsets is not None:
                     d[f"def.inst.{o.name}"] = _offsets_value(o.instance_offsets)
         return d
+
+    def _animation_dynamics(self) -> dict:
+        """Each skinned object's joint palette and each morphed object's
+        weights (deferred.py:1093-1098): animation is a change of values."""
+        d = {}
+        for o in self.scene.objects:
+            if o.skin is not None:
+                d[f"def.joints.{o.name}"] = _joint_palette(o)
+            if o.morph_deltas is not None:
+                d[f"def.mweights.{o.name}"] = _morph_weights(o)
+        return d
+
+    def pick(self, id_plane, x: int, y: int):
+        """The SceneObject at framebuffer pixel (x, y) (y = 0 at the top) of
+        an id plane (a readback of ``id_resource``, (H, W, 1) or (H, W), a
+        numpy array or a tensor: only that pixel is read), or None for the
+        background and for ids outside the scene (deferred.py:1132-1150).
+        Needs ``id_buffer=True``."""
+        if not self.id_buffer:
+            raise ValueError("pick() needs DeferredRenderer(id_buffer=True)")
+        v = int(round(float(id_plane[int(y), int(x)].reshape(-1)[0])))
+        if 1 <= v <= len(self.scene.objects):
+            return self.scene.objects[v - 1]
+        return None
 
     def _omni_dynamics(self) -> dict:
         """The face matrices, position and colour of each shadow-casting
@@ -903,18 +1109,27 @@ class DeferredRenderer:
         ))
         for aname, a in self._atlases.items():
             builder.set_dynamic(f"def.uvx.{aname}", a.transforms)
-        # Of the reference's draw classes (deferred.py:1292-1310) the plain
-        # opaque, the instanced opaque and the translucent one are ported.
-        # Instanced objects draw through their own nodes (their vertex stage
-        # differs); translucent objects skip the opaque passes (shadow +
+        for name, value in self._animation_dynamics().items():
+            builder.set_dynamic(name, value)
+        if self.id_buffer:
+            # The 1-based object ids, one row a draw (a dynamic: no host
+            # constant reaches the device inside the frame).
+            builder.set_dynamic("def.oids", np.arange(
+                1, len(scene.objects) + 1, dtype=np.float32)[:, None])
+        # The reference's draw classes (deferred.py:1292-1310): plain opaque
+        # objects share the batched passes; instanced, skinned and morphed
+        # objects draw through their own nodes (their vertex stages
+        # differ); translucent objects skip the opaque passes (shadow +
         # G-buffer) and draw in the glass node after lighting.
-        self._check_objects(scene.objects)
         objects = scene.objects
         plain_ix = [i for i, o in enumerate(objects)
-                    if not o.translucent and o.instance_offsets is None]
+                    if not o.translucent and o.instance_offsets is None and o.skin is None
+                    and o.morph_deltas is None]
         inst_ix = [i for i, o in enumerate(objects)
                    if not o.translucent and o.instance_offsets is not None]
         trans_ix = [i for i, o in enumerate(objects) if o.translucent]
+        skin_ix = [i for i, o in enumerate(objects) if o.skin is not None]
+        morph_ix = [i for i, o in enumerate(objects) if o.morph_deltas is not None]
         if trans_ix and not getattr(self, "has_translucents", False):
             raise ValueError("the scene gained translucent objects after the renderer "
                              "was built: rebuild the DeferredRenderer")
@@ -933,7 +1148,7 @@ class DeferredRenderer:
         # vertex/index buffer pair, imported once per frame. Translucent
         # objects keep per-object buffers.
         static_geo = self._static_cache.get(scene.objects, plain_ix)
-        per_obj_ix = inst_ix + trans_ix
+        per_obj_ix = inst_ix + trans_ix + skin_ix + morph_ix
         if static_geo is None:
             per_obj_ix = plain_ix + per_obj_ix
         handles = {
@@ -943,6 +1158,7 @@ class DeferredRenderer:
             )
             for i in per_obj_ix
         }
+        morph_handles = {i: builder.import_resource(objects[i].morph_deltas) for i in morph_ix}
         if static_geo is not None:
             s_vb_h = builder.import_resource(static_geo.vb)
             s_ib_h = builder.import_resource(static_geo.ib)
@@ -950,6 +1166,13 @@ class DeferredRenderer:
         atlas_handles = {name: builder.import_resource(a.texture)
                          for name, a in self._atlases.items()}
 
+        g_id = None
+        if self.id_buffer:
+            # Exported: an app pulls it back with context.request_output (or
+            # reads compiled.value) and maps pixels with ``pick``.
+            g_id = builder.create(TextureDesc.color("g.id", width, height, Format.R32F))
+            builder.export(g_id)
+            self.id_resource = g_id
         g_albedo = builder.create(TextureDesc.color("g.albedo", width, height))
         g_normal = builder.create(TextureDesc.color("g.normal", width, height))
         g_pos = builder.create(TextureDesc.color("g.pos", width, height))
@@ -975,6 +1198,33 @@ class DeferredRenderer:
                 return {i: (node.read(handles[i][0]), node.read(handles[i][1]))
                         for i in plain_ix}, None
             return None, (node.read(s_vb_h), node.read(s_ib_h))
+
+        def animated_draws(ctx, accesses, ixs, extra, prev=False):
+            """One batched draw of the skinned (``Joints``) or morphed
+            (``MorphWeights``, ``MorphDeltas``) objects ``ixs``; ``prev``
+            adds the previous palette or weights (the velocity plane)."""
+            models = ctx.dynamic("def.models")
+            draws = []
+            for i in ixs:
+                obj = objects[i]
+                res = {"Model": models[i], **extra(i)}
+                if obj.skin is not None:
+                    res["Joints"] = ctx.dynamic(f"def.joints.{obj.name}")
+                    if prev:
+                        res["PrevJoints"] = ctx.dynamic(f"def.prev_joints.{obj.name}")
+                else:
+                    res["MorphWeights"] = ctx.dynamic(f"def.mweights.{obj.name}")
+                    res["MorphDeltas"] = ctx.get(accesses[i][2])
+                    if prev:
+                        res["PrevMorphWeights"] = ctx.dynamic(f"def.prev_mweights.{obj.name}")
+                draws.append((accesses[i][0], accesses[i][1], res))
+            return draws
+
+        def object_reads(node, ixs):
+            """(vb, ib[, morph deltas]) reads of per-object buffers."""
+            return {i: (node.read(handles[i][0]), node.read(handles[i][1]))
+                    + ((node.read(morph_handles[i]),) if i in morph_handles else ())
+                    for i in ixs}
 
         def instanced_draws(ctx, accesses, extra, prev=False):
             """One instanced draw_indexed per instanced object; ``prev``
@@ -1042,6 +1292,24 @@ class DeferredRenderer:
                         instanced_draws(ctx, inst_acc, lambda i: {})
 
                     node.execute(record_shadow_inst)
+                # The skinned and the morphed objects' own depth passes
+                # (deferred.py:1480-1560).
+                for kind, ixs in (("skin", skin_ix), ("morph", morph_ix)):
+                    if not ixs:
+                        continue
+                    node = builder.add_graphic_node(f"shadow.{kind}{suffix}")
+                    anim_acc = object_reads(node, ixs)
+                    node.read(sm_handle)
+                    sm = node.write(sm_handle, layer=layer)
+                    with node.pipeline(getattr(self, f"_shadow_{kind}_si"),
+                                       self._shadow_state) as binder:
+                        binder.set_depth(sm, self._shadow_depth_load)
+
+                    def record_shadow_anim(ctx, light_vp=light_vp, anim_acc=anim_acc, ixs=ixs):
+                        ctx.bind("LightViewProj", light_vp(ctx))
+                        ctx.draw_indexed_batch(animated_draws(ctx, anim_acc, ixs, lambda i: {}))
+
+                    node.execute(record_shadow_anim)
 
         # -- nodes: the cube faces of each shadow-casting point light ---------
         # Six render-to-layer depth passes of the plain opaque objects per
@@ -1063,6 +1331,7 @@ class DeferredRenderer:
         n_rt = node.write(g_normal)
         p_rt = node.write(g_pos)
         v_rt = node.write(g_prev) if g_prev is not None else None
+        i_rt = node.write(g_id) if g_id is not None else None
         ds = node.write(g_depth)
         with node.pipeline(self._gbuffer_si, self._gbuffer_state) as binder:
             binder.push_color(a_rt, self._ca_clear0)
@@ -1070,26 +1339,34 @@ class DeferredRenderer:
             binder.push_color(p_rt, self._ca_clear0)
             if v_rt is not None:
                 binder.push_color(v_rt, self._ca_clear0)
+            if i_rt is not None:
+                binder.push_color(i_rt, self._ca_clear0)
             binder.set_depth(ds, self._gbuffer_depth)
 
-        per_draw = ("BaseColor", "MatParams") + tuple(_UVX_NAME[a] for a in atlas_accesses)
+        id_u = ("ObjectId",) if g_id is not None else ()
+        per_draw = ("BaseColor", "MatParams") + id_u + tuple(
+            _UVX_NAME[a] for a in atlas_accesses)
 
         velocity = self.velocity
 
         def materials(ctx, atlases):
             """``material(i)``: the per-draw uniforms of object i (with the
-            velocity plane, its previous model matrix too)."""
+            velocity plane its previous model matrix, with the id plane its
+            id too)."""
             for name, acc in atlases.items():
                 ctx.bind(name, ctx.get(acc))
             bcs = ctx.dynamic("def.base_colors")
             mats = ctx.dynamic("def.mats")
             prevs = ctx.dynamic("def.prev_models") if velocity else None
+            oids = ctx.dynamic("def.oids") if id_u else None
             uvx = {name: ctx.dynamic(f"def.uvx.{name}") for name in atlases}
 
             def material(i):
                 res = {"BaseColor": bcs[i], "MatParams": mats[i]}
                 if prevs is not None:
                     res["PrevModel"] = prevs[i]
+                if oids is not None:
+                    res["ObjectId"] = oids[i]
                 for name, table in uvx.items():
                     res[_UVX_NAME[name]] = table[i]
                 return res
@@ -1105,33 +1382,46 @@ class DeferredRenderer:
 
         node.execute(record_gbuffer)
 
+        def gbuffer_load_node(name, si):
+            """A G-buffer node that LOADs every plane and adds to it."""
+            node = builder.add_graphic_node(name)
+            planes = [h for h in (g_albedo, g_normal, g_pos, g_prev, g_id) if h is not None]
+            for h in planes + [g_depth]:
+                node.read(h)
+            writes = [node.write(h) for h in planes]
+            dw = node.write(g_depth)
+            with node.pipeline(si, self._gbuffer_state) as binder:
+                for w_ in writes:
+                    binder.push_color(w_, self._ca_load)
+                binder.set_depth(dw, self._gbuffer_depth_load)
+            return node
+
         if inst_ix:
-            node = builder.add_graphic_node("gbuffer.inst")
+            node = gbuffer_load_node("gbuffer.inst", self._gbuffer_inst_si)
             inst_acc = {i: (node.read(handles[i][0]), node.read(handles[i][1]))
                         for i in inst_ix}
             inst_atlas = {name: node.read(h) for name, h in atlas_handles.items()}
-            for h in (g_albedo, g_normal, g_pos, g_depth):
-                node.read(h)
-            a2 = node.write(g_albedo)
-            n2 = node.write(g_normal)
-            p2 = node.write(g_pos)
-            if g_prev is not None:
-                node.read(g_prev)
-                v2 = node.write(g_prev)
-            d2 = node.write(g_depth)
-            with node.pipeline(self._gbuffer_inst_si, self._gbuffer_state) as binder:
-                binder.push_color(a2, self._ca_load)
-                binder.push_color(n2, self._ca_load)
-                binder.push_color(p2, self._ca_load)
-                if g_prev is not None:
-                    binder.push_color(v2, self._ca_load)
-                binder.set_depth(d2, self._gbuffer_depth_load)
 
             def record_gbuffer_inst(ctx):
                 ctx.bind("ViewProj", ctx.dynamic("def.view_proj"))
                 instanced_draws(ctx, inst_acc, materials(ctx, inst_atlas), prev=velocity)
 
             node.execute(record_gbuffer_inst)
+
+        # The skinned and the morphed objects (deferred.py:1780-1890).
+        for kind, ixs in (("skin", skin_ix), ("morph", morph_ix)):
+            if not ixs:
+                continue
+            node = gbuffer_load_node(f"gbuffer.{kind}", getattr(self, f"_gbuffer_{kind}_si"))
+            anim_acc = object_reads(node, ixs)
+
+            def record_gbuffer_anim(ctx, anim_acc=anim_acc, ixs=ixs):
+                ctx.bind("ViewProj", ctx.dynamic("def.view_proj"))
+                ctx.draw_indexed_batch(
+                    animated_draws(ctx, anim_acc, ixs, materials(ctx, {}), prev=velocity),
+                    per_draw_uniforms=("BaseColor", "MatParams") + id_u)
+
+            node.execute(record_gbuffer_anim)
 
         # -- node: decals (lambda; renderer.decal) -----------------------------
         # Projected decals rewrite the G-buffer albedo before SSAO and

@@ -164,11 +164,14 @@ def _ndc_ramp(n: int, device, first: int = 0, full: "int | None" = None) -> torc
     return (first + torch.arange(n, dtype=torch.float32, device=device) + 0.5) * inv * 2.0 - 1.0
 
 
-def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+def _fma(a, b, c) -> torch.Tensor:
     """a·b + c rounded once to float32 (a fused multiply-add, emulated in
-    float64), where XLA's CPU ``jit`` contracts the reference's
-    expression."""
-    return (a.double() * b.double() + c.double()).to(torch.float32)
+    float64; a Python number enters as a float32 constant), where XLA's CPU
+    ``jit`` contracts the reference's expression."""
+    def f64(x):
+        return x.double() if isinstance(x, torch.Tensor) else float(np.float32(x))
+
+    return (f64(a) * f64(b) + f64(c)).to(torch.float32)
 
 
 def _bilinear_plane(plane: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor) -> torch.Tensor:

@@ -68,12 +68,19 @@ class SceneObject:
     # Skeletal skinning: a Skin (asset.render_types) marks the vertex
     # buffer as SkinnedVertex layout (16 floats: +joints/weights); the
     # deferred renderer draws the object through its skinned pipelines.
-    # (Skinning and morph targets, with their animated palettes and
-    # weights, are ROADMAP item 21; the renderers raise for them.)
+    # ``joint_matrices`` is the per-frame (J,4,4) palette (world @
+    # inverse_bind, renderer/animation.AnimationPlayer), a dynamic value:
+    # animating it never builds a new frame function.
     skin: "Optional[object]" = None
-    # Morph targets: a (T, N, 3) POSITION-delta rhi Buffer;
+    joint_matrices: "Optional[np.ndarray]" = None
+    # AnimationClips carried from the mesh asset (renderer/animation.py
+    # samples one into joint_matrices or morph_weights each frame).
+    clips: "Optional[list]" = None
+    # Morph targets: a (T, N, 3) POSITION-delta rhi Buffer (imported once)
+    # and the per-frame (T,) weights (a dynamic);
     # pos' = pos + Σ w_t · delta_t in the vertex stage.
     morph_deltas: "Optional[Buffer]" = None
+    morph_weights: "Optional[np.ndarray]" = None
     # Object-space AABB ((2, 3) min/max) + triangle count: performance
     # metadata for the SPMD auto-decomposition (parallel="auto" band
     # hints — renderers project these per frame). from_mesh/quad populate
@@ -147,12 +154,20 @@ class SceneObject:
         kwargs.setdefault(
             "tri_count", int(np.asarray(mesh.indices).size) // 3
         )
+        skinned = mesh.is_skinned
         return SceneObject(
             name=name,
-            vertex_buffer=device.upload_buffer(f"{name}.vb", mesh.vertices, BufferUsage.VERTEX),
+            vertex_buffer=device.upload_buffer(
+                f"{name}.vb", mesh.skinned_vertices() if skinned else mesh.vertices,
+                BufferUsage.VERTEX),
             index_buffer=device.upload_buffer(f"{name}.ib", mesh.indices, BufferUsage.INDEX),
             model_matrix=(np.asarray(model_matrix, np.float32)
                           if model_matrix is not None else np.eye(4, dtype=np.float32)),
+            skin=mesh.skin if skinned else None,
+            clips=list(mesh.clips) or None,
+            morph_deltas=(
+                device.upload_buffer(f"{name}.morph", mesh.morph_deltas, BufferUsage.STORAGE)
+                if mesh.morph_deltas is not None else None),
             **kwargs,
         )
 

@@ -386,6 +386,17 @@ class _NodeContextBase:
 class LambdaNodeExecutionContext(_NodeContextBase):
     """(graph.rs:635-654) Arbitrary tensor compute over declared resources."""
 
+    def __init__(self, graph: "RenderGraph", node: GraphNode, state: Dict[int, Any],
+                 dynamics: Dict[str, Any], device: torch.device, overflow: torch.Tensor):
+        super().__init__(graph, node, state, dynamics, device)
+        self._overflow = overflow
+
+    def frame_overflow(self) -> torch.Tensor:
+        """The frame's running bin-overflow count at this node (graph.py:
+        452-463): the int32 device counter of the draws declared before it,
+        never read back to the host."""
+        return self._overflow
+
     def set(self, access: RenderGraphResourceAccess, value) -> None:
         rid = access.id
         if not any(a.resource_id == rid for a in self._node.outputs):
@@ -817,7 +828,7 @@ class RenderGraph:
         """Run one node of the frame function; returns the running
         (overflow, nan_pixels) counters."""
         if node.kind == "lambda":
-            ctx = LambdaNodeExecutionContext(self, node, state, dynamics, device)
+            ctx = LambdaNodeExecutionContext(self, node, state, dynamics, device, overflow)
             node.job(ctx)
             # A lambda write replaces the resolved surface: per-sample planes
             # of any sub-surface of the resource must not shadow it.

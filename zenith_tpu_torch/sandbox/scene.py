@@ -16,10 +16,11 @@ reference's tests/test_renderers.py::build_test_scene with a sky cube).
 sun's shadow pass and the forward lit pass, with ``--msaa``,
 ``--wireframe``, ``--instances`` and ``--gun-instances``) and deferred mode
 (config #5, with the glass, textured, wireframe and screen-space options,
-instancing, ``--cascades N``, ``--point-shadows``, ``--soft-shadows`` and
-``--bloom-mips N``), auto-retained.
-Its other flags name the ROADMAP item that ports them and raise before
-anything is built. Run it on the card:
+instancing, ``--cascades N``, ``--point-shadows``, ``--soft-shadows``,
+``--bloom-mips N``, the image-based light, the probe, the post extras, the
+temporal passes, ``--dof``, ``--hud``, ``--particles N``, ``--skinned``,
+``--morph`` and ``--pick``), auto-retained; ``skinned_tube`` and
+``morphing_blob`` are its procedural animated meshes. Run it on the card:
 
     python -m zenith_tpu_torch.sandbox.scene --frames 60 --out scene.png -- --mode forward --msaa 4
 
@@ -40,6 +41,7 @@ import numpy as np
 import torch
 
 from zenith_tpu_torch.app import Args, RenderableApp, RenderContext
+from zenith_tpu_torch.core import log
 from zenith_tpu_torch.asset import AssetUrl, Mesh
 from zenith_tpu_torch.core.events import (
     DeviceEvent,
@@ -50,10 +52,148 @@ from zenith_tpu_torch.core.events import (
 )
 from zenith_tpu_torch.rhi import Format, Texture
 
+logger = log.get(__name__)
+
 GOLDEN_W, GOLDEN_H = 128, 64
 YUP_TO_ZUP = np.array(
     [[1, 0, 0, 0], [0, 0, -1, 0], [0, 1, 0, 0], [0, 0, 0, 1]], np.float32
 )
+
+
+def skinned_tube(bones: int = 5, rings: int = 24, sides: int = 16,
+                 radius: float = 4.0, height: float = 42.0):
+    """Procedural skinned cylinder ("tentacle"): a bone chain along +Z,
+    each vertex weighted between its two nearest joints, plus a waving
+    AnimationClip (per-joint X-axis rotation keyframes with a phase
+    offset), as scene.py:108-182 builds it: the skinning pipeline with no
+    content dependency."""
+    from zenith_tpu_torch.asset import AssetUrl
+    from zenith_tpu_torch.asset.render_types import (
+        AnimationChannel,
+        AnimationClip,
+        Mesh as MeshAsset,
+        Skin,
+    )
+
+    # Geometry: rings+1 circles of `sides` vertices.
+    verts = []
+    jw = []
+    seg = height / (bones - 1)
+    for r in range(rings + 1):
+        z = height * r / rings
+        v = r / rings
+        for s in range(sides):
+            a = 2 * math.pi * s / sides
+            nx, ny = math.cos(a), math.sin(a)
+            verts.append([radius * nx, radius * ny, z, nx, ny, 0.0,
+                          s / sides, v])
+            f = min(z / seg, bones - 1 - 1e-4)
+            j0 = int(f)
+            w1 = f - j0
+            jw.append([j0, min(j0 + 1, bones - 1), 0, 0,
+                       1.0 - w1, w1, 0.0, 0.0])
+    tris = []
+    for r in range(rings):
+        for s in range(sides):
+            a0 = r * sides + s
+            a1 = r * sides + (s + 1) % sides
+            b0 = a0 + sides
+            b1 = a1 + sides
+            tris += [[a0, a1, b0], [a1, b1, b0]]
+
+    # Bone chain: joint k at world z = k·seg; locals are pure +Z offsets.
+    rest_t = np.zeros((bones, 3), np.float32)
+    rest_t[1:, 2] = seg
+    rest_r = np.tile(np.asarray([0, 0, 0, 1], np.float32), (bones, 1))
+    rest_s = np.ones((bones, 3), np.float32)
+    inv_bind = np.stack([np.eye(4, dtype=np.float32) for _ in range(bones)])
+    for k in range(bones):
+        inv_bind[k, 2, 3] = -k * seg
+    skin = Skin(inv_bind, np.arange(-1, bones - 1, dtype=np.int32),
+                rest_t, rest_r, rest_s)
+
+    # Wave clip: X-axis rotation keyframes, phase-shifted down the chain.
+    duration = 2.0
+    keys = np.linspace(0.0, duration, 17).astype(np.float32)
+    channels = []
+    for k in range(1, bones):
+        amp = 0.35
+        ang = amp * np.sin(2 * np.pi * keys / duration + 0.8 * k)
+        quats = np.stack([
+            np.sin(ang / 2), np.zeros_like(ang), np.zeros_like(ang),
+            np.cos(ang / 2),
+        ], axis=1).astype(np.float32)
+        channels.append(AnimationChannel(k, "rotation", keys, quats))
+    clip = AnimationClip("wave", channels, duration)
+
+    return MeshAsset(
+        AssetUrl("procedural/tentacle"),
+        np.asarray(verts, np.float32),
+        np.asarray(tris, np.int32),
+        skin_vertex_data=np.asarray(jw, np.float32),
+        skin=skin,
+        clips=[clip],
+    )
+
+
+def morphing_blob(rings: int = 24, sides: int = 32, radius: float = 9.0):
+    """Procedural morph-target demo: a UV sphere with two POSITION-delta
+    targets (a polar spike and an equatorial bulge) and a looping
+    "pulse" weights clip, as scene.py:185-242 builds it: the morph pipeline
+    with no content dependency."""
+    from zenith_tpu_torch.asset import AssetUrl
+    from zenith_tpu_torch.asset.render_types import (
+        AnimationChannel,
+        AnimationClip,
+        Mesh as MeshAsset,
+    )
+
+    verts = []
+    for r in range(rings + 1):
+        theta = math.pi * r / rings  # 0 at +Z pole
+        for s in range(sides):
+            phi = 2 * math.pi * s / sides
+            nx = math.sin(theta) * math.cos(phi)
+            ny = math.sin(theta) * math.sin(phi)
+            nz = math.cos(theta)
+            verts.append([radius * nx, radius * ny, radius * nz,
+                          nx, ny, nz, s / sides, r / rings])
+    v = np.asarray(verts, np.float32)
+    tris = []
+    for r in range(rings):
+        for s in range(sides):
+            a0 = r * sides + s
+            a1 = r * sides + (s + 1) % sides
+            b0 = a0 + sides
+            b1 = a1 + sides
+            if r > 0:
+                tris.append([a0, a1, b0])
+            if r < rings - 1:
+                tris.append([a1, b1, b0])
+    n_verts = v.shape[0]
+    nrm = v[:, 3:6]
+    z = v[:, 2] / radius
+    # Target 0: polar spike (outward push, concentrated at the +Z pole).
+    spike = nrm * (radius * 0.9 * np.clip(z, 0.0, 1.0) ** 4)[:, None]
+    # Target 1: equatorial bulge (radial push where |z| is small).
+    radial = np.concatenate([v[:, :2], np.zeros((n_verts, 1), np.float32)], 1)
+    rn = np.linalg.norm(radial, axis=1, keepdims=True)
+    radial = radial / np.where(rn > 1e-6, rn, 1.0)
+    bulge = radial * (radius * 0.45 * np.exp(-(z * 2.2) ** 2))[:, None]
+    deltas = np.stack([spike, bulge]).astype(np.float32)
+
+    times = np.array([0.0, 0.75, 1.5, 2.25, 3.0], np.float32)
+    weights = np.array(
+        [[0, 0], [1, 0], [0, 0], [0, 1], [0, 0]], np.float32
+    )
+    clip = AnimationClip("pulse", [
+        AnimationChannel(-1, "weights", times, weights)
+    ], 3.0)
+    return MeshAsset(
+        AssetUrl("procedural/blob"),
+        v, np.asarray(tris, np.int32),
+        morph_deltas=deltas, clips=[clip],
+    )
 
 
 def sky_cube_pixels(size: int = 64) -> np.ndarray:
@@ -252,8 +392,7 @@ def feature_golden_scene(render_device, cfg: str):
     from zenith_tpu_torch.rhi import TextureDesc
 
     if cfg not in FEATURE_GOLDENS + ("base",):
-        raise NotImplementedError(
-            f"feature golden {cfg!r} is not ported yet (ROADMAP item 21: post extras)")
+        raise ValueError(f"no feature golden {cfg!r}: the goldens are {FEATURE_GOLDENS}")
     scene, cam = golden_scene(render_device)
     if cfg == "ssr":
         # A smooth receiver whose reflection rays hit on-screen geometry.
@@ -445,20 +584,17 @@ def build_scene(render_device, num_lights: int, rng: np.random.Generator,
     draw of that many copies; ``ibl`` lights the scene with the sky cube's
     split-sum environment (SH diffuse and the prefiltered specular, which
     also serves as the background) in place of the flat ambient and the
-    skybox; the skinned and morphed objects are ROADMAP item 21. Returns the
+    skybox; ``skinned`` adds the waving ``skinned_tube`` beside the gun and
+    ``morph`` the pulsing ``morphing_blob`` on its other side. Returns the
     Scene."""
     from zenith_tpu_torch.asset import AssetManager, registry
 
-    for what, on in (("a skinned object", skinned), ("a morphed object", morph)):
-        if on:
-            raise NotImplementedError(f"build_scene: {what} is not ported yet "
-                                      "(ROADMAP item 21: screen-space and lighting features)")
     mgr = AssetManager(root=default_content_root(),
                        cache_dir=os.environ.get("ZENITH_CACHE", "cache"))
     collection = mgr.request_load("mesh/cerberus/scene.gltf").get()
     mesh = registry().get(AssetUrl(collection.mesh_urls[0]), Mesh)
     scene = _sandbox_scene(render_device, mesh, num_lights, rng, textured, skybox and not ibl,
-                           glass, glass_textured, instances, gun_instances)
+                           glass, glass_textured, instances, gun_instances, skinned, morph)
     if ibl:
         from zenith_tpu_torch.renderer import EnvironmentLight
 
@@ -479,7 +615,8 @@ def build_standin_scene(render_device, num_lights: int, rng: np.random.Generator
 
 def _sandbox_scene(render_device, mesh: Mesh, num_lights: int, rng: np.random.Generator,
                    textured: bool, skybox: bool, glass: bool, glass_textured: bool,
-                   instances: int = 0, gun_instances: int = 0):
+                   instances: int = 0, gun_instances: int = 0, skinned: bool = False,
+                   morph: bool = False):
     """build_scene's scene around ``mesh``: the same material and model
     centring, the 400-unit ground quad, ``num_lights`` point lights placed as
     build_scene places them, the sun with a 1024² shadow map over a 90-unit
@@ -492,7 +629,9 @@ def _sandbox_scene(render_device, mesh: Mesh, num_lights: int, rng: np.random.Ge
     ``gun_instances`` > 0 draws the mesh as that many instanced copies on a
     ring (the geometry-scaling configuration: 30 copies of cerberus are ~1M
     submitted triangles); ``instances`` > 0 adds one instanced draw of that
-    many 9-unit rocks around it, placed from ``rng`` after the lights."""
+    many 9-unit rocks around it, placed from ``rng`` after the lights;
+    ``skinned`` and ``morph`` add the tentacle and the blob after them
+    (scene.py:422-445)."""
     from zenith_tpu_torch.core import mathtypes as m
     from zenith_tpu_torch.renderer import DirectionalLight, PointLight, Scene, SceneObject
 
@@ -567,6 +706,22 @@ def _sandbox_scene(render_device, mesh: Mesh, num_lights: int, rng: np.random.Ge
         objects.append(SceneObject.cube(
             render_device, "rocks", size=9.0, z0=0.0, base_color=(0.35, 0.33, 0.3, 1.0),
             roughness=0.85, instance_offsets=np.asarray(offs, np.float32)))
+    span = float(np.linalg.norm(bmax - bmin))
+    if skinned:
+        # A waving skinned tentacle beside the gun (AnimationPlayer drives
+        # its palette).
+        objects.append(SceneObject.from_mesh(
+            render_device, skinned_tube(), "tentacle",
+            model_matrix=m.mat4_translation(np.array([-0.75 * span, 0.25 * span, z_min],
+                                                     np.float32)),
+            base_color=(0.45, 0.75, 0.5, 1.0), metallic=0.1, roughness=0.5))
+    if morph:
+        # A pulsing morph-target blob on the other side.
+        objects.append(SceneObject.from_mesh(
+            render_device, morphing_blob(), "blob",
+            model_matrix=m.mat4_translation(np.array([0.8 * span, 0.3 * span, z_min + 10.0],
+                                                     np.float32)),
+            base_color=(0.8, 0.55, 0.3, 1.0), metallic=0.2, roughness=0.35))
     return Scene(
         objects=objects,
         sun=DirectionalLight(direction=(0.35, -0.3, 0.88), intensity=2.5,
@@ -612,18 +767,6 @@ def deferred_frame(render_device, renderer, camera, width: int, height: int, opt
     compiled = builder.build().compile(render_device, pipeline_cache or PipelineCache(), options)
     retired = compiled.execute(render_device)
     return compiled, final, hdr, retired
-
-
-# SceneApp flags that are not ported yet, with the ROADMAP item that ports
-# each; giving one raises before anything is built.
-_UNPORTED_FLAGS = {
-    "dof": (21, "dof"),
-    "hud": (21, "hud"),
-    "particles": (21, "particles"),
-    "skinned": (21, "animation (skin, morph)"),
-    "morph": (21, "animation (skin, morph)"),
-    "pick": (21, "picking"),
-}
 
 
 def _scene_app_parser():
@@ -699,9 +842,21 @@ def _scene_app_parser():
                         "instance offsets)")
     p.add_argument("--motion-blur", action="store_true",
                    help="camera and object motion blur (deferred mode)")
-    for flag in ("dof", "hud", "skinned", "morph", "pick"):
-        p.add_argument(f"--{flag}", action="store_true", help="not ported yet")
-    p.add_argument("--particles", type=int, default=0, help="not ported yet")
+    p.add_argument("--dof", action="store_true",
+                   help="depth of field (mip-blend bokeh; the focus rides a dynamic)")
+    p.add_argument("--hud", action="store_true",
+                   help="on-screen FPS and object count, a host-rasterized bitfont riding a "
+                        "dynamic, with the bin-overflow bar")
+    p.add_argument("--particles", type=int, default=0,
+                   help="N sparks simulated on the device (a compute node and an instanced "
+                        "draw; deferred mode)")
+    p.add_argument("--skinned", action="store_true",
+                   help="a waving skinned tentacle (joint palettes ride dynamics; deferred mode)")
+    p.add_argument("--morph", action="store_true",
+                   help="a pulsing morph-target blob (weights ride dynamics; deferred mode)")
+    p.add_argument("--pick", action="store_true",
+                   help="object picking: export the G-buffer id plane and log the object under "
+                        "the screen centre when it changes (deferred mode)")
     return p
 
 
@@ -713,22 +868,20 @@ class SceneApp(RenderableApp):
     ``--glass``, ``--wireframe``, ``--ssao``, ``--contact-shadows``,
     ``--decals N``, ``--sky``, ``--instances``, ``--gun-instances``,
     ``--cascades N``, ``--point-shadows``, ``--soft-shadows``, ``--ibl``,
-    ``--probe``, ``--velocity``, then the ``--ssr`` and ``--fog`` passes)
-    over build_scene's cerberus scene, ``--flare`` on the HDR frame, then
-    ``--taa`` and ``--motion-blur``, bloom + ACES post (over a mip chain
-    with ``--bloom-mips N``; ``--auto-exposure``, ``--grade``, ``--fxaa``,
-    ``--film``) unless ``--no-post``, an orbit camera that the first input
-    event hands to fly controls, and auto-retained execution. TAA's history
-    and the adapted exposure return through ``on_frame_outputs``."""
+    ``--probe``, ``--velocity``, ``--skinned``, ``--morph``,
+    ``--particles N``, ``--pick``, then the ``--ssr`` and ``--fog``
+    passes) over build_scene's cerberus scene, ``--flare`` on the HDR
+    frame, then ``--taa``, ``--motion-blur`` and ``--dof``, bloom + ACES
+    post (over a mip chain with ``--bloom-mips N``; ``--auto-exposure``,
+    ``--grade``, ``--fxaa``, ``--film``) unless ``--no-post``, the
+    ``--hud`` last, an orbit camera that the first input event hands to fly
+    controls, and auto-retained execution. TAA's history, the adapted
+    exposure and the particle state return through ``on_frame_outputs``,
+    as does the id plane, of which ``--pick`` reads the centre pixel."""
 
     def __init__(self, args: Args):
         super().__init__(args)
         ns, _ = _scene_app_parser().parse_known_args(args.app_args)
-        for name, (item, what) in _UNPORTED_FLAGS.items():
-            if getattr(ns, name):
-                raise NotImplementedError(
-                    f"SceneApp --{name.replace('_', '-')} is not ported yet "
-                    f"(ROADMAP item {item}: {what})")
         self.mode = ns.mode
         deferred = ns.mode == "deferred"
         self.textured = ns.textured and deferred
@@ -764,6 +917,21 @@ class SceneApp(RenderableApp):
         # --velocity forces the plane on; otherwise the renderer decides
         # (on for device-resident instance offsets).
         self.use_velocity = True if (ns.velocity and deferred) else None
+        self.skinned = ns.skinned and deferred
+        self.morph = ns.morph and deferred
+        self.n_particles = ns.particles if deferred else 0
+        self.use_hud = ns.hud
+        self.use_pick = ns.pick and deferred
+        self.use_dof = ns.dof and deferred
+        self.hud = None
+        self._hud_fps = 0.0
+        self._picked_name: "str | None" = None
+        self.dof = None
+        self.psys = None
+        self._dt = 1.0 / 60.0
+        self._players = []  # (AnimationPlayer, SceneObject)
+        self._morphers = []  # (AnimationClip, SceneObject)
+        self._anim_t = 0.0
         self.taa = None
         self.mblur = None
         self.flare = None
@@ -806,12 +974,15 @@ class SceneApp(RenderableApp):
             ColorGrade,
             Decal,
             DeferredRenderer,
+            DepthOfField,
             FilmEffects,
             ForwardShadowRenderer,
             LensFlare,
             MotionBlur,
+            ParticleSystem,
             PointLight,
             PostProcess,
+            SceneObject,
             ScreenSpaceReflections,
             SpotLight,
             SSAOOptions,
@@ -822,7 +993,8 @@ class SceneApp(RenderableApp):
         rng = np.random.default_rng(42)
         scene = build_scene(render_device, self.num_lights, rng, textured=self.textured,
                             instances=self.instances, gun_instances=self.gun_instances,
-                            glass=self.glass, glass_textured=self.glass_textured, ibl=self.ibl)
+                            glass=self.glass, glass_textured=self.glass_textured, ibl=self.ibl,
+                            skinned=self.skinned, morph=self.morph)
         palette = [(1.0, 0.2, 0.15, 0.85), (0.2, 0.9, 1.0, 0.85),
                    (1.0, 0.8, 0.2, 0.85), (0.6, 0.3, 1.0, 0.85)]
         for k in range(self.n_decals):
@@ -852,6 +1024,24 @@ class SceneApp(RenderableApp):
             scene.point_lights.append(PointLight(
                 position=(-35.0, -25.0, 30.0), color=(1.0, 0.8, 0.55), intensity=2500.0,
                 radius=160.0, cast_shadows=True, shadow_map_size=256))
+        if self.n_particles > 0:
+            # Sparks: the sim's positions, device tensors, are the instanced
+            # draw's offsets (the previous frame's step).
+            self.psys = ParticleSystem(self.n_particles, emitter=(40.0, 30.0, 3.0),
+                                       device=render_device.device)
+            scene.objects.append(SceneObject.cube(
+                render_device, "sparks", size=1.0, z0=-0.5, base_color=(1.0, 0.75, 0.3, 1.0),
+                roughness=0.4, emissive=(4.0, 2.4, 0.8), instance_offsets=self.psys.positions))
+        if self.skinned or self.morph:
+            from zenith_tpu_torch.renderer.animation import AnimationPlayer
+
+            for obj in scene.objects:
+                if self.skinned and obj.skin is not None and obj.clips:
+                    player = AnimationPlayer(obj.skin, obj.clips[0])
+                    obj.joint_matrices = player.joint_matrices(0.0)
+                    self._players.append((player, obj))
+                if self.morph and obj.morph_deltas is not None and obj.clips:
+                    self._morphers.append((obj.clips[0], obj))
         if self.cascades > 1 and scene.sun is not None:
             scene.sun = dataclasses.replace(scene.sun, cascades=self.cascades)
         if self.soft_shadows and scene.sun is not None:
@@ -862,7 +1052,7 @@ class SceneApp(RenderableApp):
             self.renderer = DeferredRenderer(
                 scene, wireframe=self.wireframe,
                 ssao=SSAOOptions(radius=6.0) if self.ssao else False,
-                velocity=self.use_velocity, glass_mode=self.glass_mode)
+                id_buffer=self.use_pick, velocity=self.use_velocity, glass_mode=self.glass_mode)
         else:
             self.renderer = ForwardShadowRenderer(scene, wireframe=self.wireframe, msaa=self.msaa)
         grade = (ColorGrade(exposure_ev=0.15, contrast=1.08, saturation=1.12, temperature=0.35,
@@ -887,6 +1077,13 @@ class SceneApp(RenderableApp):
             self.ssr = ScreenSpaceReflections()
         if self.use_fog:
             self.fog = VolumetricFog()
+        if self.use_hud:
+            from zenith_tpu_torch.renderer.hud import HudOverlay
+
+            self.hud = HudOverlay(max_chars=24, scale=2, overflow_indicator=True)
+            self.hud.set_text("FPS ----")
+        if self.use_dof:
+            self.dof = DepthOfField(focus_distance=170.0, focal_range=30.0, strength=1.4)
         self.camera = Camera(fov_y=Degree(35.0), aspect_ratio=window.width / max(window.height, 1))
         if self.use_taa:
             self.taa = TemporalAA()
@@ -929,6 +1126,28 @@ class SceneApp(RenderableApp):
             self.taa.jitter_camera(self.camera, *self._extent)
         if self.post is not None and self.post.auto_exposure:
             self.post.set_delta_time(delta_time)
+        self._anim_t += delta_time
+        self._dt = delta_time
+        if self.hud is not None and delta_time > 0.0:
+            # Exponentially smoothed FPS; set_text caches, so the bitmap is
+            # rasterized again only when the string changes.
+            inst = 1.0 / delta_time
+            self._hud_fps = (inst if self._hud_fps == 0.0
+                             else self._hud_fps + 0.05 * (inst - self._hud_fps))
+            n_obj = len(self.renderer.scene.objects) if self.renderer is not None else 0
+            self.hud.set_text(f"FPS {self._hud_fps:5.0f}  OBJ {n_obj}")
+        if self.psys is not None:
+            for obj in self.renderer.scene.objects:
+                if obj.name == "sparks":
+                    obj.instance_offsets = self.psys.positions
+        for player, obj in self._players:
+            obj.joint_matrices = player.joint_matrices(self._anim_t)
+        if self._morphers:
+            from zenith_tpu_torch.renderer.animation import sample_morph_weights
+
+            for clip, obj in self._morphers:
+                obj.morph_weights = sample_morph_weights(clip, self._anim_t,
+                                                         obj.morph_deltas.shape[0])
 
     def _update_camera(self) -> None:
         from zenith_tpu_torch.core.mathtypes import Radians
@@ -968,13 +1187,30 @@ class SceneApp(RenderableApp):
             d.update(self.ssr.frame_dynamics(self.camera))
         if self.fog is not None:
             d.update(self.fog.frame_dynamics(self.camera))
+        if self.dof is not None:
+            d.update(self.dof.frame_dynamics())
         if self.flare is not None:
             d.update(self.flare.sun_dynamics(self.camera, self._sun_dir))
+        if self.hud is not None:
+            d.update(self.hud.frame_dynamics())
+        if self.psys is not None:
+            d.update(self.psys.frame_dynamics(self._dt))
         return d
 
     def on_frame_outputs(self, outputs) -> None:
-        """Engine feedback (request_output): TAA's history and the adapted
-        exposure for the next frame, device tensors both."""
+        """Engine feedback (request_output): the particle state, TAA's
+        history and the adapted exposure for the next frame, device tensors
+        all; with ``--pick``, the object under the screen centre, read from
+        the id plane's one pixel after the frame."""
+        if self.psys is not None and "psys.state" in outputs:
+            self.psys.feedback(outputs["psys.state"], outputs["psys.pos"])
+        if self.use_pick and "object_id" in outputs:
+            ids = outputs["object_id"]
+            obj = self.renderer.pick(ids, ids.shape[1] // 2, ids.shape[0] // 2)
+            name = obj.name if obj is not None else None
+            if name != self._picked_name:
+                self._picked_name = name
+                logger.info("pick: the screen centre is over %s", name or "<background>")
         if self.taa is not None and "taa.history" in outputs:
             self.taa.feedback(outputs["taa.history"])
         if self.post is not None and "post.ae" in outputs:
@@ -989,38 +1225,51 @@ class SceneApp(RenderableApp):
         builder = context.builder()
         out = builder.import_resource(context.swapchain_texture())
         # The ordered chain of passes after the scene render (scene.py:
-        # 1058-1160): SSR, fog, TAA, motion blur; the flare adds in place
-        # after SSR and fog, before TAA, then post.
+        # 1058-1173): SSR, fog, TAA, motion blur, DoF, each (name, stage,
+        # exports its output); the flare adds in place after SSR and fog,
+        # before TAA, then post, then the HUD over the LDR frame.
         chain = []
         if self.ssr is not None:
             chain.append(("ssr", lambda src, dst: self.ssr.render_to(
-                builder, src, dst, self.camera, self.renderer.gbuffer_handles)))
+                builder, src, dst, self.camera, self.renderer.gbuffer_handles), False))
         if self.fog is not None:
             chain.append(("fog", lambda src, dst: self.fog.render_to(
                 builder, src, dst, self.camera, self.renderer.gbuffer_handles,
-                sun=self.renderer.scene.sun)))
+                sun=self.renderer.scene.sun), False))
         if self.taa is not None:
             def taa_stage(src, dst):
                 self.taa.render_to(builder, src, dst, self.camera, width, height,
                                    self.renderer.gbuffer_handles)
                 context.request_output("taa.history", dst)
-            chain.append(("taa", taa_stage))
+            chain.append(("taa", taa_stage, True))
         if self.mblur is not None:
             chain.append(("mblur", lambda src, dst: self.mblur.render_to(
-                builder, src, dst, self.camera, self.renderer.gbuffer_handles)))
+                builder, src, dst, self.camera, self.renderer.gbuffer_handles), False))
+        if self.dof is not None:
+            chain.append(("dof", lambda src, dst: self.dof.render_to(
+                builder, src, dst, self.renderer.gbuffer_handles), False))
         target = out
         if chain or self.post is not None:
             target = builder.create(TextureDesc.color("scene.hdr", width, height, Format.RGBA32F))
         if self.mode == "deferred":
             self.renderer.render_to(builder, target, self.camera, width, height)
+            if self.use_pick:
+                context.request_output("object_id", self.renderer.id_resource)
         else:
             depth = builder.create(TextureDesc.depth("scene.depth", width, height))
             self.renderer.render_to(builder, target, depth, self.camera)
-        flare_after = sum(1 for name, _ in chain if name in ("ssr", "fog"))
-        for i, (name, render_stage) in enumerate(chain):
+        if self.psys is not None:
+            state_h, pos_h = self.psys.sim_to(builder, self._dt)
+            context.request_output("psys.state", state_h)
+            context.request_output("psys.pos", pos_h)
+        flare_after = sum(1 for name, _, _ in chain if name in ("ssr", "fog"))
+        for i, (name, render_stage, exports) in enumerate(chain):
             if i == flare_after:
                 self._flare(builder, target)
-            last_writer = i == len(chain) - 1 and self.post is None
+            # A stage that exports its output writes the swapchain only when
+            # nothing composites onto it afterwards.
+            last_writer = (i == len(chain) - 1 and self.post is None
+                           and not (exports and self.hud is not None))
             dst = out if last_writer else builder.create(
                 TextureDesc.color(f"scene.{name}", width, height, Format.RGBA32F))
             render_stage(target, dst)
@@ -1029,8 +1278,13 @@ class SceneApp(RenderableApp):
             self._flare(builder, target)
         if self.post is not None:
             self.post.render_to(builder, target, out)
+            target = out
             if self.post.exposure_out is not None:
                 context.request_output("post.ae", self.post.exposure_out)
+        if self.hud is not None:
+            # Over the final LDR image; it bridges a stage's private output
+            # to the swapchain.
+            self.hud.render_to(builder, out, source=target if target is not out else None)
 
     def _flare(self, builder, target) -> None:
         """The lens flare, in place on the HDR ``target``."""
