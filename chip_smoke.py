@@ -237,6 +237,31 @@ other than 0, no result line) on the first phase that fails:
     K2 1 a frame; 30 frames each with one frame function, the last frame
     against the plain path (19b-c from a reset through 4 frames), a
     retained frame without host sync and a profile.
+20. the interactive viewer and sort-first SPMD on one card. (20a) FlyApp at
+    1280x720 served (zenith_tpu_torch.viewer) to a client thread over
+    loopback: (i) the fixed resolution, the delivered FPS of the /stream
+    parts with their bytes and encoder, /frame the encode of a presented
+    frame; (ii) launch(FlyApp, serve=0) with the adaptive stream at a 30 FPS
+    target, its transport probe per rung and the rung it settles on; (iii)
+    KeyW held 1 s moves the camera forward and a close event ends the loop;
+    every part parses and no thread is left. (20b) SceneApp --mode deferred
+    at 1920x1088 through an Engine given CompileOptions(mesh=
+    default_mesh(4, device="cuda:0")) (4 bands of 272 rows, one thread a
+    shard), 20 frames beside the same app single-device: K1 8 and K2 4 a
+    frame, each band's K1 bit-equal to its unculled walk, each band's K2
+    within atol 2e-4 / rtol 2e-3, the HDR and the presented frames against
+    single-device within the reference's band-offset tolerance; then 5
+    frames with every screen-space, temporal and post flag within
+    FEATURE_LIMIT, the runtime's collectives counted, beside the same app
+    with its row offset stuck at rank 0, which the check must refuse, and
+    with its halo short by 2 rows, which no frame-level check sees. (20c)
+    make_row_sharded_frame and make_sort_last_frame on phase 7's stand-in
+    mesh at 1920x1088 against the single-device draw (sort-last
+    bit-equal), composite_depth bit-equal to composite_depth_all_gather
+    with forced ties, halo_exchange_rows equal to torch.roll, and the
+    banded bloom bit-equal to the whole-surface one on shared inputs,
+    refused with a halo short by 2 rows. (20d) the glass frame in bands,
+    K5 once per band, each band's call against its plain version.
 
 Every kernel and its plain version are timed with CUDA events (median; a
 plain version that runs for seconds twice, not warmed up) and set beside
@@ -245,7 +270,7 @@ rows of the bins, not their padding; each plane read or written once) over
 3.35 TB/s and the fp32 operations these inputs need over 67 TFLOP/s.
 
 The line before the last is a JSON object listing each kernel (K1-K8) with
-its launches on the main paths (phases 4, 7, 11-19), its largest
+its launches on the main paths (phases 4, 7, 11-20), its largest
 difference from the plain version, its time, the plain version's, its bound
 and what bounds it, and the inputs these were taken at; the last line is the
 device record.
@@ -3352,23 +3377,27 @@ def recorded_frame(engine_dev, app, calls_of):
 
 
 def recorded_calls(run, calls_of):
-    """``run()`` with K1's and K2's wrappers recorded: [(render-graph node,
-    wrapper, args, kwargs)] in call order, the inputs cloned before the
-    call."""
+    """``run()`` with the wrappers that ``calls_of`` names ("K1", "K2",
+    "K5") recorded: [(render-graph node, wrapper, args, kwargs)] in call
+    order, the inputs cloned before the call. The node is each thread's
+    own: the shards of a banded frame run their nodes at once."""
+    import threading
+
     import torch
 
     from zenith_tpu_torch.core import profile
     from zenith_tpu_torch.ops import draw as draw_mod
     from zenith_tpu_torch.renderer import deferred as deferred_mod
 
-    node = ["?"]
+    node = threading.local()
     calls = []
     real_scope, real_raster = profile.scope, draw_mod.raster_segmented
+    real_blend = draw_mod.raster_segmented_blend
     real_lights = deferred_mod.accumulate_point_lights
 
     @contextlib.contextmanager
     def scope(name):
-        node[0] = name
+        node.name = name
         with real_scope(name):
             yield
 
@@ -3376,12 +3405,13 @@ def recorded_calls(run, calls_of):
         def call(*args, **kw):
             if kind in calls_of:
                 cloned = [a.clone() if isinstance(a, torch.Tensor) else a for a in args]
-                calls.append((node[0], kind, cloned, dict(kw)))
+                calls.append((getattr(node, "name", "?"), kind, cloned, dict(kw)))
             return fn(*args, **kw)
         return call
 
     with mock.patch.object(profile, "scope", scope), \
             mock.patch.object(draw_mod, "raster_segmented", rec("K1", real_raster)), \
+            mock.patch.object(draw_mod, "raster_segmented_blend", rec("K5", real_blend)), \
             mock.patch.object(deferred_mod, "accumulate_point_lights", rec("K2", real_lights)):
         run()
     torch.cuda.synchronize()
@@ -4165,6 +4195,866 @@ def anim_phases(dev, card: str, plain_k1, parts: str = "abc") -> dict:
     return launches
 
 
+# Phase 20: the interactive viewer (20a) and sort-first SPMD (20b-20d).
+VIEW_W, VIEW_H = 1280, 720
+VIEW_FIXED_S = 8.0  # (20a i) the fixed-resolution stream
+VIEW_ADAPTIVE_S = 20.0  # (20a ii) long enough for several 1 s evaluations and 2.5 s holds
+VIEW_FUSE = 4000  # frames: a served loop ends here even if the client never closes it
+SPMD_W, SPMD_H = 1920, 1088  # 1088 = 4 x 272: bands of 34 8-row tiles; the 1024^2 sun map's 256
+SPMD_SHARDS = 4
+SPMD_FRAMES = 20
+SPMD_TWIN_FRAMES = 3  # single-device and banded apps side by side, frame by frame
+SPMD_FEATURE_FRAMES = 5
+BLOOM_HALO_ROWS = 16  # renderer.post.BLOOM_HALO, the widest halo of a banded branch
+# The feature frames' band-offset limit (band_offset_ok): above the sound
+# banded frames' 0.13-0.61% and below a stuck row offset's 55-65% (phase
+# 20b's negative control; PERF.md section 6).
+FEATURE_LIMIT = 0.01
+SPMD_FEATURE_FLAGS = ["--mode", "deferred", "--ssao", "--contact-shadows", "--ssr", "--fog",
+                      "--sky", "--flare", "--taa", "--velocity", "--motion-blur", "--dof",
+                      "--hud", "--auto-exposure", "--fxaa"]
+
+
+def part_ok(head: str, body: bytes) -> bool:
+    """A multipart part of /stream parses: its length, and the start and
+    end markers of its MIME type's encoding (PNG signature + IEND, JPEG SOI
+    + EOI)."""
+    mime = head.split("Content-Type: ")[1].split("\r\n")[0]
+    if int(head.split("Content-Length: ")[1].split("\r\n")[0]) != len(body):
+        return False
+    if mime == "image/png":
+        return body[:8] == b"\x89PNG\r\n\x1a\n" and body[-12:-4] == b"\x00\x00\x00\x00IEND"
+    return body[:2] == b"\xff\xd8" and body[-2:] == b"\xff\xd9"
+
+
+class StreamReader:
+    """Reads the viewer's /stream over loopback into parts: (arrival time,
+    header, body)."""
+
+    def __init__(self, url: str):
+        import urllib.request
+
+        self.resp = urllib.request.urlopen(url + "stream", timeout=30)
+        self.buf = b""
+        self.parts = []
+
+    def pump(self) -> None:
+        chunk = self.resp.read1(1 << 20)
+        if not chunk:
+            raise EOFError("the stream ended")
+        self.buf += chunk
+        while True:
+            i = self.buf.find(b"--zenithframe\r\n")
+            end = self.buf.find(b"\r\n\r\n", i) if i >= 0 else -1
+            if end < 0:
+                return
+            head = self.buf[i:end].decode()
+            n = int(head.split("Content-Length: ")[1].split("\r\n")[0])
+            if len(self.buf) < end + 4 + n + 2:
+                return
+            self.parts.append((time.perf_counter(), head, self.buf[end + 4:end + 4 + n]))
+            self.buf = self.buf[end + 4 + n + 2:]
+
+    def close(self) -> None:
+        self.resp.close()
+
+
+def http_json(url: str, path: str, payload=None):
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(url + path.lstrip("/"), data=data,
+                                 method="GET" if payload is None else "POST")
+    with urllib.request.urlopen(req, timeout=30) as resp:
+        return json.loads(resp.read())
+
+
+def stream_stats(parts, t_from: float):
+    """(parts, delivered FPS, mean bytes, MIME types) of the parts that
+    arrived after ``t_from``."""
+    recent = [p for p in parts if p[0] >= t_from]
+    if len(recent) < 2:
+        return len(recent), 0.0, 0.0, set()
+    fps = (len(recent) - 1) / (recent[-1][0] - recent[0][0])
+    mimes = {p[1].split("Content-Type: ")[1].split("\r\n")[0] for p in recent}
+    return len(recent), fps, float(np.mean([len(p[2]) for p in recent])), mimes
+
+
+def viewer_phase(dev, card: str) -> dict:
+    """Phase 20a: FlyApp at 1280x720 served on the card, driven by a client
+    thread over loopback (no browser, no network). (i) the fixed resolution
+    (serve_loop adaptive=False, as fly --serve --no-adaptive): the delivered
+    FPS of the multipart parts with their bytes and encoder, /frame against
+    an encode of a presented frame; (ii) launch(FlyApp, serve=0): the
+    adaptive stream at a 30 FPS target, its transport probe per rung, the
+    rung it settles on and the FPS there; (iii) KeyW held for 1 s moves the
+    camera along its forward axis, and a close event ends the loop. Every
+    part parses, the loop exits by itself and no HTTP thread is left.
+    Returns K1's launches."""
+    import threading
+    from collections import deque
+
+    import torch
+
+    from zenith_tpu_torch import asset, viewer as viewer_mod
+    from zenith_tpu_torch.core.cli import EngineArgs
+    from zenith_tpu_torch.launch import launch
+    from zenith_tpu_torch.main_loop import EngineLoop
+    from zenith_tpu_torch.ops.raster import raster_segmented
+    from zenith_tpu_torch.sandbox.fly import FlyApp
+    from zenith_tpu_torch.window import Window
+
+    before_threads = set(threading.enumerate())
+    served = {}
+    real_start = viewer_mod.ViewerServer.start
+
+    def serving(client):
+        """ViewerServer.start, and the client thread behind it."""
+        def start(self):
+            out = real_start(self)
+            served["viewer"] = self
+            t = threading.Thread(target=guarded, args=(client, self), name="smoke-client",
+                                 daemon=True)
+            served["client"] = t
+            t.start()
+            return out
+        return mock.patch.object(viewer_mod.ViewerServer, "start", start)
+
+    def guarded(client, viewer):
+        """Run the client; whatever happens, close the window (the loop
+        then ends by itself)."""
+        try:
+            client(viewer)
+        except BaseException as e:  # noqa: BLE001 - reported by the phase
+            served["error"] = e
+        finally:
+            try:
+                http_json(viewer.url, "/events", [{"type": "close"}])
+            except Exception:  # noqa: BLE001 - the window may be closed already
+                viewer.window.request_close()
+
+    def wait_presented(url, n=5, timeout=120.0):
+        t0 = time.perf_counter()
+        while http_json(url, "/stats")["presented_frames"] < n:
+            check(time.perf_counter() - t0 < timeout, "phase 20a: no frame presented")
+            time.sleep(0.2)
+
+    # -- (i) the fixed resolution -------------------------------------------
+    tag = "phase 20a (i)"
+    recent = deque(maxlen=64)
+    window = Window(width=VIEW_W, height=VIEW_H, title="fly",
+                    on_present=lambda img, i: recent.append(img.copy()))
+    asset.initialize()
+    fixed = {}
+
+    def fixed_client(viewer):
+        url = viewer.url
+        wait_presented(url)
+        reader = StreamReader(url)
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < VIEW_FIXED_S:
+            reader.pump()
+        reader.close()
+        fixed["parts"] = reader.parts
+        fixed["t_from"] = t0 + 1.0
+        import urllib.request
+
+        with urllib.request.urlopen(url + "frame", timeout=30) as resp:
+            fixed["frame"] = (resp.read(), resp.headers["Content-Type"])
+        fixed["recent"] = list(recent)
+        fixed["stats"] = http_json(url, "/stats")
+
+    raster_segmented.launches = 0
+    loop = EngineLoop(FlyApp(EngineArgs.parse_args(["--log-level", "warn"])), window=window,
+                      device=dev)
+    t0 = time.perf_counter()
+    with serving(fixed_client):
+        viewer_mod.serve_loop(loop, port=0, fps_cap=60.0, adaptive=False, max_frames=VIEW_FUSE)
+    wall = time.perf_counter() - t0
+    served["client"].join(timeout=30)
+    check("error" not in served, f"{tag}: the client failed: {served.get('error')!r}")
+    check(window.closed and loop.frames_rendered < VIEW_FUSE,
+          f"{tag}: the loop did not end on the close event")
+    k1 = raster_segmented.launches
+    check(k1 >= 2 * loop.frames_rendered, f"{tag}: K1 launched {k1} times in "
+          f"{loop.frames_rendered} frames")
+    parts = fixed["parts"]
+    bad = [i for i, (_, head, body) in enumerate(parts) if not part_ok(head, body)]
+    check(parts and not bad, f"{tag}: {len(bad)} of {len(parts)} parts do not parse")
+    n, fps, nbytes, mimes = stream_stats(parts, fixed["t_from"])
+    body, mime = fixed["frame"]
+    check(any((body, mime) == viewer_mod.encode_jpeg(f, 85) for f in fixed["recent"]),
+          f"{tag}: /frame is not the encode of a presented frame")
+    t1 = time.perf_counter()
+    for _ in range(5):
+        viewer_mod.encode_jpeg(fixed["recent"][-1], 85)
+    enc_ms = (time.perf_counter() - t1) / 5 * 1e3
+    print(f"{tag}: FlyApp served at {VIEW_W}x{VIEW_H} (no adaptation), {loop.frames_rendered} "
+          f"frames in {wall:.1f} s; the client read {len(parts)} parts in {VIEW_FIXED_S:.0f} s, "
+          f"all parse; delivered {fps:.2f} FPS over the last {n} parts (after 1 s), "
+          f"{nbytes / 1e3:.1f} kB a part, encoder {sorted(mimes)} ({enc_ms:.2f} ms an encode "
+          f"on the host); /frame ({mime}, {len(body)} bytes) is the encode of a presented "
+          f"frame; /stats {fixed['stats']} [{card}]")
+
+    # -- (ii) the adaptive stream through launch, then (iii) input ---------------
+    tag = "phase 20a (ii)"
+    probes = []
+    real_probe = viewer_mod.probe_transport
+
+    def probe(*a, **kw):
+        out = real_probe(*a, **kw)
+        probes.append(out)
+        return out
+
+    apps = []
+
+    class ServedFly(FlyApp):
+        def __init__(self, args):
+            super().__init__(args)
+            apps.append(self)
+
+    adaptive = {}
+
+    def adaptive_client(viewer):
+        url = viewer.url
+        wait_presented(url)
+        reader = StreamReader(url)
+        trail = []
+        t0 = time.perf_counter()
+        next_poll = t0
+        while time.perf_counter() - t0 < VIEW_ADAPTIVE_S:
+            reader.pump()
+            if time.perf_counter() >= next_poll:
+                trail.append((time.perf_counter(), http_json(url, "/stats")))
+                next_poll += 1.0
+        reader.close()
+        adaptive["parts"], adaptive["trail"] = reader.parts, trail
+        # (iii) KeyW held for 1 s.
+        app = apps[0]
+        p0 = np.asarray(app.camera.location, np.float64).copy()
+        fwd = np.asarray(app.camera.forward, np.float64).copy()
+        http_json(url, "/events", [{"type": "key", "code": "KeyW", "state": "down"}])
+        time.sleep(1.0)
+        http_json(url, "/events", [{"type": "key", "code": "KeyW", "state": "up"}])
+        time.sleep(0.5)
+        adaptive["move"] = (p0, fwd, np.asarray(app.camera.location, np.float64).copy())
+
+    raster_segmented.launches = 0
+    window = Window(width=VIEW_W, height=VIEW_H, title="fly")
+    t0 = time.perf_counter()
+    served.clear()
+    with serving(adaptive_client), mock.patch.object(viewer_mod, "probe_transport", probe):
+        loop = launch(ServedFly, argv=["--log-level", "warn"], window=window, serve=0,
+                      fps_cap=60.0, max_frames=VIEW_FUSE, device=dev)
+    wall = time.perf_counter() - t0
+    served["client"].join(timeout=30)
+    check("error" not in served, f"{tag}: the client failed: {served.get('error')!r}")
+    check(window.closed and loop.frames_rendered < VIEW_FUSE,
+          f"{tag}: the loop did not end on the close event")
+    k1 += raster_segmented.launches
+    check(len(probes) == 1, f"{tag}: {len(probes)} transport probes")
+    for (w, h), row in probes[0].items():
+        print(f"{tag}: transport probe {w}x{h}: readback {row['readback_ms']:.2f} ms (pinned "
+              f"ring of 3, CUDA events) + encode {row['jpeg_ms']:.2f} ms = {row['ms']:.2f} ms "
+              f"[{card}]")
+    parts = adaptive["parts"]
+    bad = [i for i, (_, head, body) in enumerate(parts) if not part_ok(head, body)]
+    check(parts and not bad, f"{tag}: {len(bad)} of {len(parts)} parts do not parse")
+    trail = adaptive["trail"]
+    rungs = [(round(t - trail[0][0], 1), s["rung"], s["width"], s["height"], s["fps"])
+             for t, s in trail]
+    last_change = max([t for (t, s), (_, s0) in zip(trail[1:], trail) if s["rung"] != s0["rung"]],
+                      default=trail[0][0])
+    held = trail[-1][0] - last_change
+    final = trail[-1][1]
+    # The last 5 s of parts (one rung when it settled).
+    n, fps, nbytes, mimes = stream_stats(parts, parts[-1][0] - 5.0)
+    print(f"{tag}: launch(FlyApp, serve=0) adaptive at a 30 FPS target, {loop.frames_rendered} "
+          f"frames in {wall:.1f} s; /stats each second (t, rung, width, height, fps): {rungs}")
+    print(f"{tag}: {'settled' if held >= 5.0 else 'still stepping'} on rung {final['rung']} "
+          f"({final['width']}x{final['height']} of view {final['view_width']}x"
+          f"{final['view_height']}, quality {final['quality']}; {held:.1f} s since the last "
+          f"rung change): delivered {fps:.2f} FPS over the last 5 s ({n} parts), "
+          f"{nbytes / 1e3:.1f} kB a part, encoder {sorted(mimes)}; the controller measured "
+          f"{final['fps']} FPS presented [{card}]")
+    p0, fwd, p1 = adaptive["move"]
+    delta = p1 - p0
+    dist = float(np.linalg.norm(delta))
+    along = float(delta @ fwd) / max(dist, 1e-9)
+    print(f"phase 20a (iii): KeyW held 1 s: the camera moved {dist:.3f} units, cos to its "
+          f"forward axis {along:.4f}; a close event ended the loop")
+    check(dist > 1.0 and along > 0.99, "phase 20a (iii): KeyW did not move the camera forward")
+    time.sleep(0.5)
+    left = [t.name for t in set(threading.enumerate()) - before_threads if t.is_alive()]
+    check(not left, f"phase 20a: threads left alive: {left}")
+    print("phase 20a: no HTTP or client thread left alive")
+    return {"K1": k1}
+
+
+@contextlib.contextmanager
+def engine_options(options):
+    """Every Engine made inside the block compiles with ``options``."""
+    from zenith_tpu_torch.engine import Engine
+
+    real_init = Engine.__init__
+
+    def init(self, *args, **kw):
+        kw["compile_options"] = options
+        real_init(self, *args, **kw)
+
+    with mock.patch.object(Engine, "__init__", init):
+        yield
+
+
+@contextlib.contextmanager
+def counting_collectives():
+    """Counts of each collective of the SPMD runtime called in the block."""
+    import threading
+
+    from zenith_tpu_torch.parallel import spmd
+
+    counts = {name: 0 for name in ("all_gather", "ppermute", "psum", "pmean")}
+    lock = threading.Lock()
+    with contextlib.ExitStack() as stack:
+        for name in counts:
+            def wrap(*a, _real=getattr(spmd, name), _name=name, **kw):
+                with lock:
+                    counts[_name] += 1
+                return _real(*a, **kw)
+            stack.enter_context(mock.patch.object(spmd, name, wrap))
+        yield counts
+
+
+def band_offset(single, banded) -> dict:
+    """How far a banded frame sits from its single-device twin, in the
+    terms of the reference's band-offset tolerance (test_parallel.py:171-
+    176): the share of pixels whose colour differs by more than 1e-3 (HDR
+    (H, W, C) float) or of values that differ by more than 1 LSB (encoded
+    uint8), and the largest difference; then the same share in the seam
+    rows (within BLOOM_HALO_ROWS of a band edge, where a halo fault
+    lands) and in the rest. A band's edge equations are set up in
+    band-local coordinates (the viewport shift), so far off-screen corners
+    of near-clipped triangles round apart from the single-device setup:
+    interpolated positions differ, and shading that thresholds on them
+    (shadow tests) flips at a few pixels anywhere in the frame."""
+    a, b = np.asarray(single), np.asarray(banded)
+    if a.dtype == np.uint8:
+        d = np.abs(a.astype(np.int16) - b.astype(np.int16))
+        off, out = d > 1, {"max": int(d.max()), "any": float((d > 0).mean())}
+    else:
+        d = np.abs(a - b)[..., :3].max(-1)
+        off, out = d > 1e-3, {"max": float(d.max()), "any": float((d > 2e-4).mean())}
+    h = a.shape[0]
+    seam = np.zeros(h, bool)
+    for k in range(1, SPMD_SHARDS):
+        y = k * h // SPMD_SHARDS
+        seam[y - BLOOM_HALO_ROWS:y + BLOOM_HALO_ROWS] = True
+    out.update(off=float(off.mean()), seam=float(off[seam].mean()),
+               inner=float(off[~seam].mean()))
+    return out
+
+
+def band_offset_ok(stats: dict, limit: float = 0.005) -> bool:
+    """The reference's band-offset tolerance: under 0.5% off. The feature
+    frames take FEATURE_LIMIT (their marches, blurs and temporal feedback
+    spread a flipped position test over more pixels), set between phase
+    20b's two readings: the sound banded frames and those of a
+    deliberately broken row offset. The seam rows' share is reported, not
+    held: it follows where the content lies (20d's glass covers the upper
+    seams and not the lowest band)."""
+    return stats["off"] < limit
+
+
+def fmt_offset(o: dict) -> str:
+    return (f"max {o['max']} LSB, {o['off'] * 100:.4f}% of values off by > 1 LSB (seam rows "
+            f"{o['seam'] * 100:.4f}%, the rest {o['inner'] * 100:.4f}%), "
+            f"{o['any'] * 100:.4f}% differ")
+
+
+@contextlib.contextmanager
+def broken_halo(short: int):
+    """A deliberately broken ring halo, for the negative control of phase
+    20b: the ``short`` outermost rows of each side of the halo repeat the
+    nearest row that was exchanged (``short`` = the halo: no exchange, the
+    band's own edge repeated)."""
+    from zenith_tpu_torch.parallel import sharding
+    from zenith_tpu_torch.renderer import deferred as deferred_mod
+
+    real = sharding.halo_exchange_rows
+
+    def halo_exchange_rows(band, axis_name, halo):
+        ext = real(band, axis_name, halo).clone()
+        k, n = min(short, halo), ext.shape[0]
+        ext[:k] = ext[k:k + 1]
+        ext[n - k:] = ext[n - k - 1:n - k]
+        return ext
+
+    with mock.patch.object(sharding, "halo_exchange_rows", halo_exchange_rows), \
+            mock.patch.object(deferred_mod, "halo_exchange_rows", halo_exchange_rows):
+        yield
+
+
+@contextlib.contextmanager
+def broken_row0():
+    """A deliberately broken row offset, for the negative control of phase
+    20b: the deferred renderer's banded branches (SSAO's taps, the contact
+    march, the sky's view rays) read rank 0 on every band, so each band
+    takes the top band's global rows."""
+    from zenith_tpu_torch.parallel import spmd
+    from zenith_tpu_torch.renderer import deferred as deferred_mod
+
+    class RankZero:
+        def __getattr__(self, name):
+            return getattr(spmd, name)
+
+        @staticmethod
+        def axis_index(axis_name):
+            return 0
+
+    with mock.patch.object(deferred_mod, "spmd", RankZero()):
+        yield
+
+
+def twin_apps(dev, flags, options_seq, frames: int, around=()):
+    """SceneApps built alike, one on an engine of its own for each entry of
+    ``options_seq`` (single-device, banded, ...), ticked with the same 1/60
+    s steps: the presented frames of each, frame by frame, then the second
+    engine's collectives. ``around[k]``, where given, is a context manager
+    factory that wraps engine k's renders."""
+    import torch
+
+    from zenith_tpu_torch import asset
+    from zenith_tpu_torch.core.cli import EngineArgs
+    from zenith_tpu_torch.engine import Engine
+    from zenith_tpu_torch.sandbox.scene import SceneApp
+    from zenith_tpu_torch.window import Window
+
+    asset.initialize()
+    runs = []
+    for k, options in enumerate(options_seq):
+        shown = []
+        window = Window(width=SPMD_W, height=SPMD_H, title="twin",
+                        on_present=lambda img, i, shown=shown: shown.append(img.copy()))
+        app = SceneApp(EngineArgs.parse_args(["--log-level", "warn", *flags]))
+        engine = Engine(window, device=dev, compile_options=options)
+        app.prepare(engine.render_device, window)
+        wrap = around[k] if k < len(around) and around[k] else contextlib.nullcontext
+        runs.append((app, engine, shown, wrap))
+    counts = None
+    for _ in range(frames):
+        for k, (app, engine, _, wrap) in enumerate(runs):
+            app.tick(1.0 / 60.0)
+            with wrap():
+                if k == 1:
+                    with counting_collectives() as c:
+                        engine.render(app)
+                    counts = c if counts is None else {n: counts[n] + c[n] for n in c}
+                else:
+                    engine.render(app)
+    for _, engine, _, _ in runs:
+        engine.shutdown()
+    torch.cuda.synchronize()
+    return (*(shown for _, _, shown, _ in runs), counts)
+
+
+def spmd_phases(dev, card: str, plain_k1, parts: str = "bcd") -> dict:
+    """Phases 20b-20d: sort-first SPMD on one card, 4 shards on cuda:0 (one
+    thread each). (20b) SceneApp --mode deferred over the baked cerberus
+    (100 lights, the 1024^2 sun map) at 1920x1088 through an Engine given
+    CompileOptions(mesh=default_mesh(4, device="cuda:0")), beside the same
+    app single-device: FPS, launches, per-band K1 bit-equal to its unculled
+    walk and K2 within atol 2e-4 / rtol 2e-3 of its plain version, the HDR
+    and the presented frames within the reference's band-offset tolerance
+    of single-device (under 0.5% of values off; band_offset says why not
+    bit-equal); then 5 frames with
+    every screen-space, temporal and post flag, each under FEATURE_LIMIT
+    off single-device, every banded branch's collectives counted, beside
+    two deliberately broken copies of the app (a short halo, a stuck row
+    offset), the second of which the same check must refuse. (20c)
+    the stand-alone functions on phase 7's stand-in mesh (33,884
+    triangles): make_row_sharded_frame and make_sort_last_frame at
+    1920x1088 against the single-device draw, composite_depth bit-equal to
+    composite_depth_all_gather with forced ties, halo_exchange_rows equal
+    to torch.roll, tone_and_bloom_banded bit-equal to tone_and_bloom and
+    refused with a broken halo. (20d) the glass frame (K5) in bands, each band's K5
+    call held against its plain version (z bit-equal, colour within atol
+    1e-5 + rtol 1e-5), the frame within the band-offset tolerance of
+    single-device. Returns K1's, K2's
+    and K5's launches on these paths. ``parts`` picks sub-phases."""
+    import torch
+
+    from zenith_tpu_torch.core.camera import Camera
+    from zenith_tpu_torch.core.mathtypes import Degree
+    from zenith_tpu_torch.ops import lighting as lighting_mod
+    from zenith_tpu_torch.ops import raster as raster_mod
+    from zenith_tpu_torch.ops.raster import raster_segmented, raster_segmented_blend
+    from zenith_tpu_torch.parallel import default_mesh, spmd
+    from zenith_tpu_torch.rendergraph import CompileOptions
+    from zenith_tpu_torch.renderer import DeferredRenderer
+    from zenith_tpu_torch.rhi import Format, RhiCore, encode_present
+    from zenith_tpu_torch.sandbox.scene import SceneApp, build_standin_scene, deferred_frame
+    from zenith_tpu_torch.sandbox.scene import orbit_camera
+    from zenith_tpu_torch.window import Window
+
+    mesh = default_mesh(SPMD_SHARDS, device=dev)
+    # 16-row tiles: a 272-row band is 17 of them, a 256-row band of the
+    # 1024^2 sun map 16. (With 8-row tiles more than the huge-span tier's 256
+    # records of the sun map's pass span over 32 tiles, and the binning
+    # drops them: bin overflow.)
+    single = CompileOptions(tile_h=16, tile_w=128)
+    banded = CompileOptions(tile_h=16, tile_w=128, mesh=mesh)
+    launches = {"K1": 0, "K2": 0, "K5": 0}
+    flags = ["--mode", "deferred"]
+    band_h = SPMD_H // SPMD_SHARDS
+    camera = Camera(fov_y=Degree(35.0), aspect_ratio=SPMD_W / SPMD_H)
+    orbit_camera(camera, 0.3)
+    device = RhiCore(dev).create_render_device()
+
+    if "b" in parts:
+        # -- 20b. the banded deferred frame through the engine -------------------
+        tag = "phase 20b"
+        t0 = time.perf_counter()
+        fps = {}
+        for label, options, per_frame in (("single-device", single, (2, 1)),
+                                          (f"{SPMD_SHARDS} bands", banded,
+                                           (2 * SPMD_SHARDS, SPMD_SHARDS))):
+            window = Window(width=SPMD_W, height=SPMD_H, title="scene")
+            with engine_options(options):
+                loop, frame_ms, wall, counts = app_run(SceneApp, flags, window, SPMD_FRAMES, dev,
+                                                       per_frame, f"{tag} {label}")
+            launches["K1"] += counts[0]
+            launches["K2"] += counts[1]
+            fps[label] = 1e3 / np.mean(frame_ms[4:])
+            banded_ms = frame_ms
+            frame_line(f"{tag} {label}", f"SceneApp {' '.join(flags)} at {SPMD_W}x{SPMD_H}",
+                       SPMD_FRAMES, wall, frame_ms, counts, card)
+            app = loop.app
+        check(app.renderer.scene.sun.shadow_map_size == 1024, f"{tag}: the sun map is not 1024^2")
+        print(f"{tag}: banded {fps[f'{SPMD_SHARDS} bands']:.2f} FPS against single-device "
+              f"{fps['single-device']:.2f} FPS [{card}]")
+
+        # One banded frame with K1's and K2's calls recorded: each band's.
+        from zenith_tpu_torch.engine import Engine
+
+        engine = Engine(Window(width=SPMD_W, height=SPMD_H, title="calls"), device=dev,
+                        compile_options=banded)
+        calls = recorded_calls(lambda: engine.render(app), ("K1", "K2"))
+        sync_free(engine, app, f"{tag} banded")
+
+        def frame(_t):
+            app.tick(0.004)
+            engine.render(app)
+
+        frame(0.0)
+        # No kernel time by node: the profiler records host operators of the
+        # threads it starts on, not of the persistent shard workers.
+        profile_frames(frame, (), f"{tag} banded", card, banded_ms,
+                       watch=("raster_segmented_kernel", "tiled_lights_kernel", "gather"),
+                       expect={"raster_segmented_kernel": 2 * SPMD_SHARDS,
+                               "tiled_lights_kernel": SPMD_SHARDS},
+                       frames=ANIM_PROFILED_FRAMES)
+        engine.shutdown()
+        k1_calls = [c for c in calls if c[1] == "K1"]
+        k2_calls = [c for c in calls if c[1] == "K2"]
+        check(sorted(c[0] for c in k1_calls) == sorted(["shadow", "gbuffer"] * SPMD_SHARDS),
+              f"{tag}: K1 ran on {[c[0] for c in k1_calls]}")
+        for node, _, (bins, grid, init_z), _kw in k1_calls:
+            want_h = 1024 // SPMD_SHARDS if node == "shadow" else band_h
+            check(grid.height == want_h and tuple(init_z.shape)[0] == want_h,
+                  f"{tag}: K1 on {node} ran on {grid.height} rows, not a band of {want_h}")
+        k1_against_unculled(k1_calls, plain_k1, f"{tag} band", card, lambda n: True)
+        check(len(k2_calls) == SPMD_SHARDS, f"{tag}: K2 ran {len(k2_calls)} times")
+        k2_err = 0.0
+        for _, _, args, kw in k2_calls:
+            check(tuple(args[3].shape) == (band_h, SPMD_W), f"{tag}: K2 on {tuple(args[3].shape)}")
+            k = lighting_mod.accumulate_point_lights(*args, **kw)
+            with mock.patch.object(lighting_mod, "_accumulate_point_lights_cuda", plain_k2):
+                p = lighting_mod.accumulate_point_lights(*args, **kw)
+            k2_err = max(k2_err, float((k - p).abs().max()))
+            check(torch.allclose(k, p, atol=2e-4, rtol=2e-3), f"{tag}: a band's K2 beyond atol "
+                  f"2e-4 / rtol 2e-3 of its plain version (max {k2_err})")
+        k2_ms = kernel_ms(lambda: lighting_mod.accumulate_point_lights(*k2_calls[-1][2],
+                                                                       **k2_calls[-1][3]),
+                          lambda: None)
+        print(f"{tag}: K2 on each {band_h}x{SPMD_W} band ({-(-band_h // 16)} rows of 16x16 "
+              f"regions, the last {band_h - 16 * (band_h // 16) or 16} rows high): max |kernel - "
+              f"plain| {k2_err:.3e}, within atol 2e-4 / rtol 2e-3; device time {k2_ms:.4f} ms a "
+              f"band [{card}]")
+        raster_segmented.launches = 0
+        lighting_mod.accumulate_point_lights.launches = 0
+
+        # The HDR and the presented frames against single-device.
+        hdrs = []
+        for options in (single, banded):
+            compiled, _, hdr, _ = deferred_frame(device, app.renderer, camera, SPMD_W, SPMD_H,
+                                                 options, exports=("hdr",))
+            hdrs.append(compiled.value(hdr))
+        torch.cuda.synchronize()
+        hdr_off = band_offset(hdrs[0].cpu().numpy(), hdrs[1].cpu().numpy())
+        check(band_offset_ok(hdr_off), f"{tag}: the banded HDR differs from single-device "
+              f"beyond the band-offset tolerance: {hdr_off}")
+        shown1, shown4, _ = twin_apps(dev, flags, (single, banded), SPMD_TWIN_FRAMES)
+        check(len(shown1) == len(shown4) == SPMD_TWIN_FRAMES, f"{tag}: frames not presented")
+        offs = [band_offset(a, b) for a, b in zip(shown1, shown4)]
+        check(all(band_offset_ok(o) for o in offs), f"{tag}: a banded frame differs from "
+              f"single-device beyond the band-offset tolerance: {offs}")
+        print(f"{tag}: the banded HDR against single-device: {hdr_off['off'] * 100:.4f}% of "
+              f"pixels off by > 1e-3, {hdr_off['any'] * 100:.4f}% by > 2e-4, max "
+              f"{hdr_off['max']:.3e} (seam rows {hdr_off['seam'] * 100:.4f}%); "
+              f"{SPMD_TWIN_FRAMES} presented frames of twin apps: "
+              + "; ".join(fmt_offset(o) for o in offs))
+
+        # Every banded branch once on the card, beside two negative controls
+        # (deliberately broken copies of the banded app): its ring halo short
+        # by 2 rows (broken_halo), and the deferred renderer's row offset
+        # stuck at rank 0 (broken_row0). The sound frames must pass
+        # FEATURE_LIMIT and the broken row offset fail it. The short halo
+        # moves the presented frame too little for any frame-level limit
+        # (its reading says how little): 20c holds the halo'd bloom on
+        # shared inputs instead.
+        shown1, shown4, short2, row0, coll = twin_apps(
+            dev, SPMD_FEATURE_FLAGS, (single, banded, banded, banded), SPMD_FEATURE_FRAMES,
+            around=(None, None, lambda: broken_halo(2), broken_row0))
+        launches["K1"] += raster_segmented.launches
+        launches["K2"] += lighting_mod.accumulate_point_lights.launches
+        check(len(shown1) == len(shown4) == SPMD_FEATURE_FRAMES, f"{tag}: frames not presented")
+        offs = [band_offset(a, b) for a, b in zip(shown1, shown4)]
+        broken = {name: [band_offset(a, b) for a, b in zip(shown1, frames_)]
+                  for name, frames_ in (("ring halo short by 2 rows", short2),
+                                        ("row offset stuck at rank 0", row0))}
+        check(all(n > 0 for n in coll.values()), f"{tag}: a collective never ran: {coll}")
+        print(f"{tag}: SceneApp {' '.join(SPMD_FEATURE_FLAGS)}: {SPMD_FEATURE_FRAMES} frames, each "
+              f"against single-device: " + "; ".join(fmt_offset(o) for o in offs)
+              + f"; the banded frames' collectives {coll} [{card}]")
+        for name, os_ in broken.items():
+            print(f"{tag}: negative control, the banded app with its {name}: "
+                  + "; ".join(fmt_offset(o) for o in os_) + f" [{card}]")
+        check(all(band_offset_ok(o, FEATURE_LIMIT) for o in offs), f"{tag}: a banded feature "
+              f"frame differs from single-device beyond {FEATURE_LIMIT * 100:g}% of values off "
+              f"by > 1 LSB: {offs}")
+        check(not all(band_offset_ok(o, FEATURE_LIMIT) for o in broken["row offset stuck at "
+                                                                         "rank 0"]),
+              f"{tag}: the feature frames' check passes the banded app with its row offset "
+              f"stuck at rank 0: {broken}")
+        print(f"phase 20b took {time.perf_counter() - t0:.1f} s")
+
+    if "c" in parts:
+        # -- 20c. the stand-alone functions ---------------------------------------------
+        t0 = time.perf_counter()
+        tag = "phase 20c"
+        from zenith_tpu_torch.ops import TileGrid, clear_color, clear_depth
+        from zenith_tpu_torch.ops.draw import draw_indexed
+        from zenith_tpu_torch.ops.geometry import transform_vertices
+        from zenith_tpu_torch.parallel import (
+            halo_exchange_rows,
+            make_row_sharded_frame,
+            make_sort_last_frame,
+        )
+        from zenith_tpu_torch.parallel.sharding import composite_depth, composite_depth_all_gather
+        from zenith_tpu_torch.rhi import (
+            ColorAttachmentDesc,
+            CullMode,
+            GraphicPipelineAttachments,
+            GraphicPipelineDesc,
+            GraphicShaderInput,
+            PipelineCache,
+            RasterizationState,
+            Shader,
+            VertexLayout,
+        )
+        from zenith_tpu_torch.rhi.state import DepthStencilDesc, GraphicPipelineState
+
+        scene, _ = build_standin_scene(device, 100, np.random.default_rng(42))
+        obj = scene.objects[0]
+        vb8 = obj.vertex_buffer.array.reshape(-1, 8)
+        model = torch.from_numpy(np.asarray(obj.model_matrix, np.float32)).to(dev)
+        vp = torch.from_numpy(np.asarray(camera.render_view_projection, np.float32)).to(dev)
+        clip = transform_vertices(vb8[:, :3], vp @ model)
+        vb = torch.cat([clip, vb8[:, 3:6] * 0.5 + 0.5], 1).contiguous()
+        ib = obj.index_buffer.array.reshape(-1, 3).to(torch.int32)
+        check(ib.shape[0] % SPMD_SHARDS == 0, f"{tag}: {ib.shape[0]} triangles")
+        pipe = PipelineCache().get_or_create(GraphicPipelineDesc(
+            shader_input=GraphicShaderInput(
+                Shader.vertex("c20.vs", lambda a, r: {"position": a["position"],
+                                                      "color": a["color"]}),
+                Shader.fragment("c20.fs", lambda v, r, b: torch.cat(
+                    [v["color"], torch.ones_like(v["color"][..., :1])], -1)),
+                VertexLayout.from_fields(("position", 4), ("color", 3))),
+            state=GraphicPipelineState(rasterization=RasterizationState(cull_mode=CullMode.NONE),
+                                       depth_stencil=DepthStencilDesc().reverse_z()),
+            attachments=GraphicPipelineAttachments(color_formats=(Format.RGBA32F,),
+                                                   depth_format=Format.D32F),
+            color_attachment_descs=(ColorAttachmentDesc(),),
+        ))
+        grid = TileGrid(width=SPMD_W, height=SPMD_H, tile_h=8, tile_w=128)
+        budget = 1 << 22
+        colors, depth, stats = draw_indexed([clear_color(SPMD_H, SPMD_W, (0, 0, 0, 1), dev)],
+                                            clear_depth(SPMD_H, SPMD_W, 0.0, dev), pipe, vb, ib, {},
+                                            grid, bin_capacity=4096, entry_budget=budget)
+        check(int(stats.bin_overflow) == 0, f"{tag}: the single-device draw overflowed its bins")
+        c1, z1 = colors[0], depth
+        covered = int((z1 > 0).sum())
+        check(covered > SPMD_W * SPMD_H // 20, f"{tag}: the mesh covers only {covered} px")
+        k1_before = raster_segmented.launches
+        step = make_row_sharded_frame(mesh, pipe, SPMD_W, SPMD_H, tile_h=8, tile_w=128,
+                                      bin_capacity=4096)
+        cs, zs = step(vb, ib, {})
+        check(len(cs.shards) == SPMD_SHARDS and all(s.shape == (band_h, SPMD_W, 4)
+                                                    and s.device == mesh.devices[0]
+                                                    for s in cs.shards),
+              f"{tag}: the row-sharded colour is not {SPMD_SHARDS} bands on the card")
+        c4, z4 = cs.full(), zs.full()
+        off = ((c4 - c1).abs().amax(-1) > 1e-4) | ((z4 - z1).abs() > 1e-5)
+        print(f"{tag}: make_row_sharded_frame {SPMD_W}x{SPMD_H} over {SPMD_SHARDS} bands on "
+              f"cuda:0, {ib.shape[0]} triangles, {covered} px covered: "
+              f"{off.float().mean().item() * 100:.4f}% of pixels off the single-device draw by "
+              f"more than 1e-4 (colour) / 1e-5 (depth), max colour diff "
+              f"{(c4 - c1).abs().max().item():.3e}, depth {(z4 - z1).abs().max().item():.3e}; "
+              f"K1 launched {raster_segmented.launches - k1_before} times")
+        check(off.float().mean().item() < 0.005, f"{tag}: the row-sharded frame differs from "
+              "the single-device draw beyond the band-offset tolerance")
+        sort_last = make_sort_last_frame(mesh, pipe, SPMD_W, SPMD_H, tile_h=8, tile_w=128)
+        cl, zl = sort_last(vb, ib, {})
+        check(torch.equal(zl, z1) and torch.equal(cl, c1), f"{tag}: the sort-last frame is not "
+              "bit-equal to the single-device draw")
+        print(f"{tag}: make_sort_last_frame {SPMD_W}x{SPMD_H}, {ib.shape[0] // SPMD_SHARDS} "
+              f"triangles a shard, binary-swap composite: colour and depth bit-equal to the "
+              f"single-device draw")
+        rng = np.random.default_rng(20)
+        z_np = np.round(rng.uniform(0, 1, (SPMD_SHARDS, SPMD_H, SPMD_W)) * 4) / 4
+        z_np = z_np.astype(np.float32)
+        c_np = rng.uniform(0, 1, (SPMD_SHARDS, SPMD_H, SPMD_W, 4)).astype(np.float32)
+        zt, ct = torch.from_numpy(z_np).to(dev), torch.from_numpy(c_np).to(dev)
+
+        def composite(fn):
+            return spmd.shard_map(lambda z, c: fn(c[0], z[0], "rows"), mesh,
+                                  in_specs=(spmd.P("rows"), spmd.P("rows")),
+                                  out_specs=(spmd.P(), spmd.P()))(zt, ct)
+
+        ca, za = composite(composite_depth_all_gather)
+        cb, zb = composite(composite_depth)
+        ties = int(((z_np == z_np.max(0)[None]).sum(0) > 1).sum())
+        check(ties > 0 and torch.equal(za, zb) and torch.equal(ca, cb),
+              f"{tag}: composite_depth differs from composite_depth_all_gather")
+        full = torch.from_numpy(rng.uniform(0, 1, (SPMD_H, SPMD_W, 4)).astype(np.float32)).to(dev)
+        halo = 16
+        ext = spmd.shard_map(lambda b: halo_exchange_rows(b, "rows", halo), mesh,
+                             in_specs=spmd.P("rows"), out_specs=None)(full)
+        for r, band in enumerate(ext):
+            check(torch.equal(band, torch.roll(full, halo - r * band_h, 0)[:band_h + 2 * halo]),
+                  f"{tag}: halo_exchange_rows of band {r} is not the rolled surface")
+        torch.cuda.synchronize()
+        print(f"{tag}: composite_depth bit-equal to composite_depth_all_gather on {SPMD_SHARDS} "
+              f"{SPMD_W}x{SPMD_H} planes with {ties} equal-z ties; halo_exchange_rows ({halo} "
+              f"rows) equal to torch.roll of the full surface for every band")
+        # The halo'd bloom on shared inputs: tone_and_bloom_banded over the
+        # 4 bands against tone_and_bloom on the whole surface, at the CPU
+        # twins' atol 1e-6 (test_torch_parallel.py), then the same bands
+        # with a ring halo short by 2 rows and with none, which must fail it.
+        from zenith_tpu_torch.renderer.post import (
+            BLOOM_HALO,
+            tone_and_bloom,
+            tone_and_bloom_banded,
+        )
+
+        check(BLOOM_HALO == BLOOM_HALO_ROWS, f"{tag}: BLOOM_HALO is {BLOOM_HALO}, not "
+              f"{BLOOM_HALO_ROWS}")
+        hdr = torch.from_numpy(rng.exponential(0.5, (SPMD_H, SPMD_W, 4)).astype(np.float32))
+        hdr = hdr.to(dev)
+        bloom1 = tone_and_bloom(hdr)
+
+        def bloom_bands():
+            return spmd.shard_map(lambda b: tone_and_bloom_banded(b, "rows"), mesh,
+                                  in_specs=spmd.P("rows"), out_specs=spmd.P("rows"))(hdr).full()
+
+        bloom_err = {"sound": (bloom_bands() - bloom1).abs().max().item()}
+        for name, short in (("short by 2 rows", 2), ("none", BLOOM_HALO_ROWS)):
+            with broken_halo(short):
+                bloom_err[name] = (bloom_bands() - bloom1).abs().max().item()
+        print(f"{tag}: tone_and_bloom_banded over {SPMD_SHARDS} bands against tone_and_bloom "
+              f"on the whole {SPMD_W}x{SPMD_H} surface (exponential HDR, mean 0.5): max |banded "
+              f"- single| {bloom_err['sound']:.3e}; with the ring halo short by 2 rows "
+              f"{bloom_err['short by 2 rows']:.3e}, with none {bloom_err['none']:.3e} [{card}]")
+        check(bloom_err["sound"] <= 1e-6, f"{tag}: the banded bloom differs from single-device "
+              f"beyond atol 1e-6: {bloom_err}")
+        check(bloom_err["short by 2 rows"] > 1e-6 and bloom_err["none"] > 1e-6,
+              f"{tag}: the banded bloom's check passes a broken halo: {bloom_err}")
+        launches["K1"] += raster_segmented.launches - k1_before
+        print(f"phase 20c took {time.perf_counter() - t0:.1f} s")
+
+    if "d" in parts:
+        # -- 20d. the glass frame (K5) in bands ------------------------------------------
+        t0 = time.perf_counter()
+        tag = "phase 20d"
+        scene, _ = build_standin_scene(device, 100, np.random.default_rng(42), glass=True)
+        renderer = DeferredRenderer(scene, glass_mode="kernel")
+        outs = []
+
+        def glass_frame(options):
+            raster_segmented_blend.launches = 0
+            compiled, enc, hdr, retired = deferred_frame(
+                device, renderer, camera, SPMD_W, SPMD_H, options,
+                present_format=Format.BGRA8_SRGB, exports=("hdr",))
+            outs.append((compiled.value(hdr), compiled.value(enc).cpu().numpy(),
+                         raster_segmented_blend.launches, int(retired.bin_overflow)))
+
+        glass_frame(single)
+        # The banded frame with each band's K5 call recorded.
+        k5_calls = recorded_calls(lambda: glass_frame(banded), ("K5",))
+        launches["K5"] += outs[1][2]
+        check(outs[0][2] == 1 and outs[1][2] == SPMD_SHARDS,
+              f"{tag}: K5 launched {outs[0][2]} / {outs[1][2]} times, not 1 / {SPMD_SHARDS}")
+        check(outs[0][3] == 0 and outs[1][3] == 0, f"{tag}: bin overflow")
+        # Each band's K5 call against its plain version on the same inputs
+        # (records offset by the band viewport, y0 = rank x band_h): z
+        # bit-equal, colour within atol 1e-5 + rtol 1e-5, as phase 11 holds
+        # K5 on the whole frame.
+        check(len(k5_calls) == SPMD_SHARDS, f"{tag}: {len(k5_calls)} K5 calls recorded")
+        k5_err = 0.0
+        for band, (node, _, args, kw) in enumerate(k5_calls):
+            b, g, z = args[:3]
+            check(g.height == band_h and tuple(z.shape) == (band_h, SPMD_W),
+                  f"{tag}: K5 on {node} ran on {tuple(z.shape)}, not a {band_h}-row band")
+            k = raster_segmented_blend(*args, **kw)
+            with mock.patch.object(raster_mod, "_raster_blend_cuda", plain_k56):
+                p = raster_segmented_blend(*args, **kw)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(k[1]).all()), f"{tag}: K5 band {band}: non-finite colour")
+            check(torch.equal(k[0], p[0]), f"{tag}: K5 band {band}: z differs from the plain "
+                  "version")
+            err = (k[1] - p[1]).abs()
+            bad = int((err > 1e-5 + 1e-5 * p[1].abs()).sum())
+            k5_err = max(k5_err, err.max().item())
+            check(bad == 0, f"{tag}: K5 band {band}: {bad} colour values beyond atol 1e-5 + "
+                  f"rtol 1e-5 of the plain version (max {err.max().item():.3e})")
+            n_frag, n_shaded = count_fragments(b, g, lambda rows, zpx, py, px, z=z:
+                                               zpx > z[py, px])
+            ms = kernel_ms(lambda c=(args, kw): raster_segmented_blend(*c[0], **c[1]),
+                           lambda: None)
+            b_ms, b_by = blend_bound(b, g, n_shaded, n_frag, GLASS_SHADER_OPS, False)
+            print(f"{tag}: K5 {node} band {band} ({g.width}x{g.height}): "
+                  f"{int(b.blk_count.sum())} entries, {n_frag} fragments, {n_shaded} shaded; z "
+                  f"bit-equal to the plain version, colour max |kernel - plain| "
+                  f"{err.max().item():.3e}; device time {ms:.4f} ms (CUDA events round the "
+                  f"wrapper call), bound {b_ms:.4f} ms ({b_by}) [{card}]")
+        hdr_off = band_offset(outs[0][0].cpu().numpy(), outs[1][0].cpu().numpy())
+        enc_off = band_offset(outs[0][1], outs[1][1])
+        check(band_offset_ok(hdr_off) and band_offset_ok(enc_off), f"{tag}: the banded glass "
+              f"frame differs from single-device beyond the band-offset tolerance: {hdr_off}, "
+              f"{enc_off}")
+        print(f"{tag}: the glass frame (kernel mode) at {SPMD_W}x{SPMD_H}: K5 once per band "
+              f"({SPMD_SHARDS}), each band's call within atol 1e-5 + rtol 1e-5 of its plain "
+              f"version (max {k5_err:.3e}), z bit-equal; HDR against single-device "
+              f"{hdr_off['off'] * 100:.4f}% of pixels off by > 1e-3 (seam rows "
+              f"{hdr_off['seam'] * 100:.4f}%; {hdr_off['any'] * 100:.4f}% by > 2e-4, max "
+              f"{hdr_off['max']:.3e}); encoded {fmt_offset(enc_off)}")
+        raster_segmented.launches = 0
+        lighting_mod.accumulate_point_lights.launches = 0
+        raster_segmented_blend.launches = 0
+        print(f"phase 20d took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -4484,9 +5374,11 @@ def main() -> int:
     layered = timed("phase 17", layered_phases, dev, card, plain)
     extras = timed("phase 18", extras_phases, dev, card, plain)
     anim = timed("phase 19", anim_phases, dev, card, plain)
+    viewer = timed("phase 20a", viewer_phase, dev, card)
+    spmd = timed("phases 20b-20d", spmd_phases, dev, card, plain)
     k1_def = deferred["k1"]
     deferred["k2"]["launches"] += (glass_launches["K2"] + textured["K2"] + terrain["K2"]
-                                   + layered["K2"] + extras["K2"] + anim["K2"])
+                                   + layered["K2"] + extras["K2"] + anim["K2"] + spmd["K2"])
     kernels = [{
         "name": "K1 segmented raster (_segmented_kernel)",
         "route": "cuda",
@@ -4494,7 +5386,7 @@ def main() -> int:
         "replaces": "zenith_tpu/ops/raster.py:311",
         "launches": (main_launches + deferred["k1_launches"] + glass_launches["K1"]
                      + textured["K1"] + forward["K1"] + terrain["K1"] + layered["K1"]
-                     + extras["K1"] + anim["K1"]),
+                     + extras["K1"] + anim["K1"] + viewer["K1"] + spmd["K1"]),
         "max_abs_err": max(max_err, k1_def["max_abs_err"]),
         "ms": k1_def["ms"],
         "plain_ms": k1_def["plain_ms"],
@@ -4504,7 +5396,7 @@ def main() -> int:
         "shape": "deferred G-buffer pass 1080p",
     }, dict(deferred["k2"], shape="1080p G-buffer, 100 point lights"), *translucent, *capped]
     for row in translucent:
-        row["launches"] += forward.get(row["name"][:2], 0)
+        row["launches"] += forward.get(row["name"][:2], 0) + spmd.get(row["name"][:2], 0)
     print(f"  launches on the main paths: K1 {main_launches} (triangle, phase 4) + "
           f"{deferred['k1_launches']} (deferred, phase 7) + {glass_launches['K1']} (glass and "
           f"stencil frames, phases 11-12) + {textured['K1']} (textured, phase 14a) + "
@@ -4512,11 +5404,13 @@ def main() -> int:
           f"{terrain['K1']} (terrain, feature SceneApp, fly and mesh, phase 16) + "
           f"{layered['K1']} (instancing, cascades, cube faces and VSM, phase 17) + "
           f"{extras['K1']} (IBL, post extras, temporal passes and the probe, phase 18) + "
-          f"{anim['K1']} (DoF, HUD, particles, skins, morphs and picking, phase 19); K2 "
-          f"{deferred['k2']['launches']} (phases 7, 11, 14a, 16c, 17, 18 and 19); "
+          f"{anim['K1']} (DoF, HUD, particles, skins, morphs and picking, phase 19) + "
+          f"{viewer['K1']} (FlyApp served, phase 20a) + {spmd['K1']} (SceneApp and the "
+          f"stand-alone steps in bands, phases 20b-20c); K2 "
+          f"{deferred['k2']['launches']} (phases 7, 11, 14a, 16c, 17, 18, 19 and 20b); "
           + "; ".join(f"{r['name'][:2]} {r['launches']}" for r in translucent)
           + f" (phases 11-12; K3 {forward['K3']}, K4 {forward['K4']} and K5 {forward['K5']} "
-          f"of them under 4x MSAA, phase 15b); "
+          f"of them under 4x MSAA, phase 15b, K5 {spmd['K5']} in bands, phase 20d); "
           + "; ".join(f"{r['name'][:2]} {r['launches']}" for r in capped) + " (phase 13)")
     print(f"the whole script took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

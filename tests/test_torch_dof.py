@@ -1,11 +1,12 @@
 """Depth of field in the port (renderer/dof.py) against the reference
 package: twins of tests/test_dof.py's four TestBlend cases, each on the same
 numpy inputs through the jitted reference and the port, plus the
-reference's own assertions on the port's result. The SPMD case waits for
-ROADMAP item 24.
+reference's own assertions on the port's result, and the SPMD case (the
+DoF node over 8 row bands, tests/test_torch_spmd_twins.py).
 
 Tolerance: the blended frame atol 1e-6 against the jitted reference (the
-rolls, means and tent weights round the same float32 operations).
+rolls, means and tent weights round the same float32 operations); the
+banded frame the reference's atol 1e-5 against single-device.
 """
 
 import jax
@@ -68,3 +69,31 @@ def test_tent_weights_partition_energy(focus):
     np.testing.assert_allclose(out[..., :3], 0.6, atol=1e-4)
     dist = np.random.default_rng(int(focus)).uniform(0.0, 300.0, (H, W)).astype(np.float32)
     _both(_pattern(), dist, [focus, 10.0, 1.5, 0.0])
+
+
+def test_spmd_banded_matches_single(cpu_devices):
+    """tests/test_dof.py::TestSPMD: the DoF node over 8 row bands gathers,
+    blurs and slices back, equal to single-device at the reference's atol
+    1e-5, and to the JAX 8-device frame at 1e-6 (as the blend above)."""
+    from test_torch_spmd_twins import grid, triplet
+
+    h2, w2 = 256, 128
+    rows, cols = grid(h2, w2)
+    base = 0.5 + 0.5 * np.sin(cols * 0.8) * np.cos(rows * 0.3)
+    dd = 5.0 + rows * 0.4  # the distance ramps with the global row
+    z = np.zeros_like(dd)
+    planes = {"hdr": np.stack([base, 1.0 - base, base, np.ones_like(base)], -1),
+              "gpos": np.stack([dd, z, z, z], -1), "gdep": np.full((h2, w2), 0.5, np.float32)}
+
+    def add(pkg, builder, h):
+        dof = pkg.mod("renderer.dof").DepthOfField(focus_distance=20.0, focal_range=5.0,
+                                                    strength=1.5)
+        out = builder.create(pkg.mod("rhi").TextureDesc.color("out", w2, h2))
+        dof.render_to(builder, h["hdr"], out, {"pos": h["gpos"], "depth": h["gdep"]})
+        return [out]
+
+    (img1,), (img8,), (jimg,) = triplet(planes, add,
+                                        dynamics={"def.camera_pos": np.zeros(3, np.float32)})
+    assert img1[..., :3].std() > 0.01
+    np.testing.assert_allclose(img8, img1, atol=1e-5)
+    np.testing.assert_allclose(img8, jimg, atol=1e-6)

@@ -236,13 +236,23 @@ def test_kernel_build_is_keyed_by_the_sources_and_needs_nvcc(monkeypatch, tmp_pa
 
 
 def test_unported_graph_modes_raise():
+    """The triangle-sharded graph modes still raise naming ROADMAP item 24;
+    ``serve=`` (once a raise naming item 23) now serves and stops: port 0
+    picks a free port, the loop renders its frames behind the viewer and
+    the viewer's thread is gone afterwards."""
+    import threading
+
     device = RhiCore(CPU).create_render_device()
     vb = Buffer.from_numpy("tri.vb", TRI_VB, device=CPU)
     ib = Buffer.from_numpy("tri.ib", TRI_IB, device=CPU)
     tex = Texture(TextureDesc.color("swap", W, H), device=CPU)
     graph, _ = build_triangle_graph(vb, ib, tex, 0.5)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 24"):
-        graph.compile(device, PipelineCache(), CompileOptions(parallel="sort_last"))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 23"):
-        launch(RenderableApp, argv=[], window=Window(width=W, height=H), max_frames=1,
-               serve=8089, device=CPU)
+    for mode in ("sort_last", "auto"):
+        with pytest.raises(NotImplementedError, match="ROADMAP item 24"):
+            graph.compile(device, PipelineCache(), CompileOptions(parallel=mode))
+    from zenith_tpu_torch.sandbox.simple import SimpleApp
+
+    loop = launch(SimpleApp, argv=[], window=Window(width=W, height=H), max_frames=2,
+                  serve=0, device=CPU)
+    assert loop.frames_rendered == 2
+    assert not any(t.name == "zenith-viewer" and t.is_alive() for t in threading.enumerate())

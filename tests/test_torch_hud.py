@@ -1,11 +1,14 @@
 """The HUD overlay in the port (renderer/hud.py) against the reference
 package: twins of tests/test_hud.py's nine non-SPMD cases (the host bitfont,
 the composite node, text changes without a new frame function, SceneApp
---hud, and the bin-overflow bar read from the device counter).
+--hud, and the bin-overflow bar read from the device counter) and its two
+SPMD cases (the overlay over 8 row bands; the bar on a mesh, from the
+overflow summed over the bands).
 
 Tolerances: the bitmaps equal; the composited frames atol 1e-6 against the
 reference's graph on the same fill (the same float32 operations); the
-overflow bar's pixels equal.
+overflow bar's pixels equal; the banded overlay the reference's atol 1e-6
+against single-device and the JAX 8-device frame.
 """
 
 from pathlib import Path
@@ -61,8 +64,10 @@ def test_set_text_caches():
     assert hud._bitmap is not a
 
 
-def _port_run(hud, draw=None):
-    """A 0.25 fill (or ``draw``'s node), then the overlay; the LDR frame."""
+def _port_run(hud, draw=None, mesh_n=None):
+    """A 0.25 fill (or ``draw``'s node), then the overlay; the LDR frame
+    (over ``mesh_n`` row bands when given)."""
+    from zenith_tpu_torch.parallel import default_mesh
     from zenith_tpu_torch.rendergraph import CompileOptions, RenderGraphBuilder
     from zenith_tpu_torch.rhi import PipelineCache, RhiCore, TextureDesc
 
@@ -72,21 +77,25 @@ def _port_run(hud, draw=None):
     if draw is None:
         gen = builder.add_lambda_node("fill")
         dst = gen.write(ldr)
-        gen.execute(lambda ctx: ctx.set(dst, torch.full((H, W, 4), 0.25)))
+        gen.execute(lambda ctx: ctx.set(dst, torch.full((H // ctx.num_shards, W, 4), 0.25)))
     else:
         draw(builder, ldr)
     hud.render_to(builder, ldr)
     builder.export(ldr)
-    compiled = builder.build().compile(device, PipelineCache(), CompileOptions(tile_h=8,
-                                                                                tile_w=128))
+    mesh = None if mesh_n is None else default_mesh(mesh_n, device="cpu")
+    compiled = builder.build().compile(device, PipelineCache(),
+                                       CompileOptions(tile_h=8, tile_w=128, mesh=mesh))
     compiled.execute(device)
     return compiled.value(ldr).numpy()
 
 
-def _jax_run(hud, overflow_budget=None):
+def _jax_run(hud, overflow_budget=None, mesh_n=None):
     """The reference's graph: the 0.25 fill, or the overflow test's spam
-    draw at ``overflow_budget``, then its overlay with the same settings."""
+    draw at ``overflow_budget``, then its overlay with the same settings
+    (over ``mesh_n`` row bands of the virtual CPU devices when given)."""
     import jax.numpy as jnp
+
+    from zenith_tpu.parallel import default_mesh
 
     from zenith_tpu.renderer.hud import HudOverlay as JHud
     from zenith_tpu.rendergraph import RenderGraphBuilder
@@ -99,7 +108,8 @@ def _jax_run(hud, overflow_budget=None):
     if overflow_budget is None:
         gen = builder.add_lambda_node("fill")
         dst = gen.write(ldr)
-        gen.execute(lambda ctx: ctx.set(dst, jnp.full((H, W, 4), 0.25, jnp.float32)))
+        gen.execute(lambda ctx: ctx.set(dst, jnp.full((H // ctx.num_shards, W, 4), 0.25,
+                                                      jnp.float32)))
     else:
         _spam_draw(builder, ldr, overflow_budget, port=False)
     jhud = JHud(max_chars=hud.max_chars, scale=hud.scale, margin=hud.margin,
@@ -107,8 +117,9 @@ def _jax_run(hud, overflow_budget=None):
     jhud.set_text(hud._text)
     jhud.render_to(builder, ldr)
     builder.export(ldr)
-    compiled = builder.build().compile(device, PipelineCache(), CompileOptions(tile_h=8,
-                                                                                tile_w=128))
+    mesh = None if mesh_n is None else default_mesh(mesh_n, backend="cpu")
+    compiled = builder.build().compile(device, PipelineCache(),
+                                       CompileOptions(tile_h=8, tile_w=128, mesh=mesh))
     compiled.execute(device)
     return np.asarray(compiled.value(ldr))
 
@@ -233,10 +244,10 @@ def _spam_draw(builder, ldr, budget, port=True):
     node.execute(lambda ctx: ctx.draw_indexed(vba, iba, entry_budget=budget))
 
 
-def _overflow_run(overflow, indicator=True):
+def _overflow_run(overflow, indicator=True, mesh_n=None):
     hud = HudOverlay(max_chars=8, scale=1, margin=8, overflow_indicator=indicator)
     hud.set_text("FPS 1")
-    img = _port_run(hud, lambda b, ldr: _spam_draw(b, ldr, 8 if overflow else 65536))
+    img = _port_run(hud, lambda b, ldr: _spam_draw(b, ldr, 8 if overflow else 65536), mesh_n)
     bh, _ = hud.bitmap_shape
     return hud, img, img[8 + bh + 2:8 + bh + 2 + max(2, bh // 4), 8:, :3]
 
@@ -256,3 +267,27 @@ def test_no_overflow_no_bar():
 def test_indicator_off_untouched_even_on_overflow():
     _, _, bar = _overflow_run(overflow=True, indicator=False)
     np.testing.assert_allclose(bar, 0.25, atol=1e-6)
+
+
+def test_spmd_matches_single_device(cpu_devices):
+    """The overlay spans several 8-row bands (margin 8, height 16): the
+    padded window composite tiles exactly."""
+    def hud():
+        h = HudOverlay(max_chars=10, scale=2, margin=8)
+        h.set_text("SPMD 8X")
+        return h
+
+    img1 = _port_run(hud())
+    img8 = _port_run(hud(), mesh_n=8)
+    np.testing.assert_allclose(img8, img1, atol=1e-6)
+    np.testing.assert_allclose(img8, _jax_run(hud(), mesh_n=8), atol=1e-6)
+
+
+def test_spmd_bar_shows_on_mesh(cpu_devices):
+    """Under a row-band mesh the indicator reads the overflow total summed
+    over the bands, so every band composites the bar. (No frame equality:
+    an overflowing draw drops records, and which ones depends on each
+    band's binning.)"""
+    _hud, _img, bar = _overflow_run(overflow=True, mesh_n=8)
+    red = (bar[..., 0] > 0.9) & (bar[..., 1] < 0.3)
+    assert red.any()

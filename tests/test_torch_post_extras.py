@@ -8,7 +8,11 @@ reference (the frame compiles them); the film grain's hash bits equal;
 the adapted exposure over three fed-back frames rtol 1e-5 (2M-pixel
 log-average reductions sum in another order in torch; rtol 1e-5 holds at
 these 128×64 frames too) and its LDR frames atol 1e-5; the film golden
-≤ 1 LSB with < 1% of values differing (the golden tolerance).
+≤ 1 LSB with < 1% of values differing (the golden tolerance). The SPMD
+cases (test_aa.py:80, test_autoexposure.py:139, test_film.py:156 and :174,
+test_grade.py:78; tests/test_torch_spmd_twins.py): the banded chain or post
+node over 8 row bands at the reference's tolerance against single-device
+(each case states it) and against the JAX 8-device result.
 """
 
 from pathlib import Path
@@ -231,3 +235,128 @@ def test_film_golden_through_the_port():
     assert img.shape == golden.shape == (64, 128, 4) and img.dtype == np.uint8
     d = np.abs(img.astype(np.int16) - golden.astype(np.int16))
     assert int(d.max()) <= 1 and float((d > 0).mean()) < 0.01, (int(d.max()), (d > 0).mean())
+
+
+# -- the SPMD cases (tests/test_torch_spmd_twins.py) -----------------------------------
+
+
+def _banded_chain(x, pkg_ref, **kw):
+    """tone_and_bloom_banded of an (H', W, 4) frame over 8 row bands in the
+    port (spmd.shard_map) or the reference (jax.shard_map)."""
+    if pkg_ref:
+        import jax.numpy as jnp
+        from jax.sharding import PartitionSpec as JP
+
+        from zenith_tpu.parallel import default_mesh as ref_mesh
+        from zenith_tpu.renderer.post import tone_and_bloom_banded as ref_banded
+
+        kw = {k: jnp.asarray(v) if isinstance(v, np.ndarray) else v for k, v in kw.items()}
+        return np.asarray(jax.jit(jax.shard_map(
+            lambda v: ref_banded(v, "rows", **kw), mesh=ref_mesh(8, backend="cpu"),
+            in_specs=JP("rows"), out_specs=JP("rows")))(jnp.asarray(x)))
+    from zenith_tpu_torch.parallel import default_mesh, spmd
+    from zenith_tpu_torch.renderer.post import tone_and_bloom_banded
+
+    kw = {k: torch.from_numpy(v) if isinstance(v, np.ndarray) else v for k, v in kw.items()}
+    return spmd.shard_map(lambda v: tone_and_bloom_banded(v, "rows", **kw),
+                          default_mesh(8, device="cpu"), in_specs=spmd.P("rows"),
+                          out_specs=spmd.P("rows"))(torch.from_numpy(x)).full().numpy()
+
+
+def test_spmd_banded_fxaa_bit_equal(cpu_devices):
+    """test_aa.py:80: FXAA through the banded chain (its 1-row reach sits
+    inside the halo) equals the single-device chain, at the reference's
+    atol 2e-5 + rtol 1e-6, and the JAX banded chain at atol 1e-6."""
+    from zenith_tpu_torch.renderer.post import tone_and_bloom
+
+    hdr = np.random.default_rng(1).uniform(0.0, 3.0, (128, 64, 4)).astype(np.float32)
+    single = tone_and_bloom(torch.from_numpy(hdr), fxaa=True).numpy()
+    banded = _banded_chain(hdr, False, fxaa=True)
+    np.testing.assert_allclose(banded, single, atol=2e-5, rtol=1e-6)
+    np.testing.assert_allclose(banded, _banded_chain(hdr, True, fxaa=True), atol=1e-6)
+
+
+def test_spmd_banded_vignette_matches_single(cpu_devices):
+    """test_grade.py:78: the vignette uses global rows under a mesh, so the
+    bands concatenate to the single-device image (the reference's atol
+    1e-5); the JAX banded chain at atol 1e-6."""
+    from zenith_tpu_torch.renderer.post import tone_and_bloom
+
+    hdr = np.random.default_rng(7).uniform(0.0, 2.0, size=(256, 128, 4)).astype(np.float32)
+    grade = ColorGrade(exposure_ev=0.3, contrast=1.1, saturation=1.2, temperature=0.4,
+                       vignette=0.6).pack()
+    single = tone_and_bloom(torch.from_numpy(hdr), grade=torch.from_numpy(grade)).numpy()
+    banded = _banded_chain(hdr, False, grade=grade)
+    np.testing.assert_allclose(banded, single, atol=1e-5)
+    np.testing.assert_allclose(banded, _banded_chain(hdr, True, grade=grade), atol=1e-6)
+
+
+def _post_graph(h2, w2, fn, **post_kw):
+    """(planes, add) of a generated HDR frame through PostProcess(**post_kw)
+    (``film`` a factory: FilmEffects advances its seed as it packs)."""
+    from test_torch_spmd_twins import grid
+
+    rows, cols = grid(h2, w2)
+    planes = {"hdr": fn(rows, cols)}
+
+    def add(pkg, builder, h):
+        post_mod = pkg.mod("renderer.post")
+        kw = dict(post_kw)
+        if "film" in kw:
+            kw["film"] = kw["film"](post_mod.FilmEffects)
+        post = post_mod.PostProcess(**kw)
+        out = builder.create(pkg.mod("rhi").TextureDesc.color("ldr", w2, h2))
+        post.render_to(builder, h["hdr"], out)
+        outs = [out]
+        if post.exposure_out is not None:
+            outs.append(post.exposure_out)
+        return outs
+
+    return planes, add
+
+
+def test_spmd_sharded_metering_matches_single(cpu_devices):
+    """test_autoexposure.py:139: the banded post node averages the
+    log-luminance over the bands, so every band adapts identically: the
+    exposure rtol 1e-5 and the frame atol 1e-5 against single-device (the
+    reference's tolerances) and against the JAX 8-device frame."""
+    from test_torch_spmd_twins import triplet
+
+    def hdr(rows, cols):
+        base = 0.05 + 2.0 * np.exp(-((rows - 97.0) ** 2 + (cols - 41.0) ** 2) / 900.0)
+        return np.stack([base, base * 0.6, base * 0.3, np.ones_like(base)], -1)
+
+    planes, add = _post_graph(256, 128, hdr, auto_exposure=True)
+    (img1, e1), (img8, e8), (jimg, je) = triplet(planes, add)
+    np.testing.assert_allclose(e8, e1, rtol=1e-5)
+    np.testing.assert_allclose(img8, img1, atol=1e-5)
+    np.testing.assert_allclose(e8, je, rtol=1e-5)
+    np.testing.assert_allclose(img8, jimg, atol=1e-5)
+
+
+def _film_hdr(rows, cols):
+    c = np.maximum(0.3 + 0.5 * np.sin(rows * 0.4) * np.cos(cols * 0.1), 0.0)
+    return np.stack([c, c * 0.8, 1.0 - c * 0.5, np.ones_like(c)], -1)
+
+
+@pytest.mark.parametrize("path", ["ca_gather", "halo"])
+def test_spmd_film_matches_single_device(cpu_devices, path):
+    """test_film.py:156 and :174: chromatic aberration takes the gather-full
+    path under a mesh; without it the halo path carries the sharpen and the
+    grain (the grain hash over global rows). Both equal single-device at
+    the reference's atol 1e-5, and the JAX 8-device frame at atol 1e-5."""
+    from test_torch_spmd_twins import triplet
+
+    def film(cls):
+        if path == "ca_gather":
+            f = cls(chromatic_aberration=3.0, sharpen=0.4, grain=0.03)
+            f._seed = 100  # the same seed every run (pack advances it)
+        else:
+            f = cls(sharpen=0.5, grain=0.05)
+            f._seed = 7
+        return f
+
+    planes, add = _post_graph(H, W, _film_hdr, film=film)
+    (img1,), (img8,), (jimg,) = triplet(planes, add)
+    np.testing.assert_allclose(img8, img1, atol=1e-5)
+    np.testing.assert_allclose(img8, jimg, atol=1e-5)

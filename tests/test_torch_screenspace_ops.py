@@ -20,6 +20,8 @@ miss by up to 370%);
 the marches within atol 1e-6 (SSR and fog + rtol 1e-6), contact shadows
 equal: on these inputs no tap index or step verdict flips between the two
 roundings.
+
+The SPMD cases of these passes are test_torch_screenspace_spmd.py's.
 """
 
 import numpy as np

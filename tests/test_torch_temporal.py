@@ -5,7 +5,10 @@ test_torch_velocity.py's).
 
 Tolerances: the Halton sequence, the jittered camera matrix and the
 velocity dilation equal the reference's; the TAA and motion-blur resolves
-atol 1e-5 (tests/test_taa.py:105, :139, :168).
+atol 1e-5 (tests/test_taa.py:105, :139, :168). The SPMD cases
+(test_taa.py:273, test_motion_blur.py:197; tests/test_torch_spmd_twins.py): each node
+over 8 row bands, the reference's atol 1e-5 against single-device and
+against the JAX 8-device frame.
 """
 
 import jax
@@ -197,3 +200,71 @@ def test_request_output_round_trips_with_one_compile(monkeypatch, retained):
                          "post.ae": (torch.Tensor, (1,))}] * 3
     assert app.taa._history is not None and app.post._ae_state is not None
     assert len({id(h) for h in history}) == 3 and not torch.equal(history[1], history[2])
+
+
+def _temporal_planes(h2, w2):
+    """The SPMD cases' generated inputs: a patterned HDR frame over a world
+    plane at z = 0 spanning the view."""
+    from test_torch_spmd_twins import grid
+
+    rows, cols = grid(h2, w2)
+    base = 0.3 + 0.5 * np.sin(rows * 0.11) * np.cos(cols * 0.07)
+    wx = (cols / w2 - 0.5) * 60.0
+    wy = (rows / h2 - 0.5) * 30.0 + 10.0
+    z = np.zeros_like(wx)
+    return {"hdr": np.stack([base, 1.0 - base, base * 0.5, np.ones_like(base)], -1),
+            "gpos": np.stack([wx, wy, z, z], -1), "gdep": np.full((h2, w2), 0.5, np.float32)}
+
+
+def _spmd_camera(pkg, h2, w2, x=0.0, yaw=0.0):
+    camera, mt = pkg.mod("core.camera"), pkg.mod("core.mathtypes")
+    cam = camera.Camera(fov_y=mt.Degree(40.0), aspect_ratio=w2 / h2)
+    cam.set_position(np.array([x, -40.0, 10.0], np.float32))
+    cam.set_yaw_pitch(mt.Radians(yaw), mt.Radians(-0.2))
+    return cam
+
+
+def test_spmd_taa_node_sharded_matches_single(cpu_devices):
+    """The TAA node over 8 row bands: reprojection gathers run on the
+    gathered full surfaces and the band slices back."""
+    from test_torch_spmd_twins import triplet
+
+    h2, w2 = 256, 128
+    history = np.random.default_rng(5).uniform(0, 1, (h2, w2, 4)).astype(np.float32)
+
+    def add(pkg, builder, h):
+        import jax.numpy as jnp
+
+        taa = pkg.mod("renderer").TemporalAA()
+        taa.feedback(jnp.asarray(history) if pkg.is_ref else torch.from_numpy(history))
+        taa._hw = (h2, w2)  # seed so the feedback survives render_to
+        out = builder.create(pkg.mod("rhi").TextureDesc.color("taa.out", w2, h2))
+        taa.render_to(builder, h["hdr"], out, _spmd_camera(pkg, h2, w2), w2, h2,
+                      {"pos": h["gpos"], "depth": h["gdep"]})
+        return [out]
+
+    (img1,), (img8,), (jimg,) = triplet(_temporal_planes(h2, w2), add)
+    assert img1[..., :3].std() > 0.01
+    np.testing.assert_allclose(img8, img1, atol=1e-5)
+    np.testing.assert_allclose(img8, jimg, atol=1e-5)
+
+
+def test_spmd_motion_blur_node_sharded_matches_single(cpu_devices):
+    """The motion-blur node over 8 row bands, after a one-frame camera move
+    (real velocity): streak taps on the gathered full surfaces."""
+    from test_torch_spmd_twins import triplet
+
+    h2, w2 = 256, 128
+
+    def add(pkg, builder, h):
+        mb = pkg.mod("renderer").MotionBlur(strength=1.0, max_radius=24.0)
+        mb._observe_camera(_spmd_camera(pkg, h2, w2))
+        out = builder.create(pkg.mod("rhi").TextureDesc.color("mb.out", w2, h2))
+        mb.render_to(builder, h["hdr"], out, _spmd_camera(pkg, h2, w2, x=3.0, yaw=0.05),
+                     {"pos": h["gpos"], "depth": h["gdep"]})
+        return [out, h["hdr"]]
+
+    (img1, src1), (img8, _), (jimg, _) = triplet(_temporal_planes(h2, w2), add)
+    assert np.abs(img1[..., :3] - src1[..., :3]).max() > 1e-3  # the blur moved energy
+    np.testing.assert_allclose(img8, img1, atol=1e-5)
+    np.testing.assert_allclose(img8, jimg, atol=1e-5)

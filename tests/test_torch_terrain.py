@@ -117,9 +117,26 @@ def test_terrain_app_renders_the_atmosphere_and_its_options(port_frame):
 
 
 def test_serve_raises_naming_the_viewer_item(monkeypatch):
-    monkeypatch.setattr(sys, "argv", ["terrain", "--serve", "--frames", "1"])
-    with pytest.raises(NotImplementedError, match="ROADMAP item 23"):
-        tterrain.main()
+    """``--serve`` reaches the viewer's serve_loop through launch (which
+    used to raise naming ROADMAP item 23). serve_loop and the engine loop
+    are stubbed: the test checks the wiring, not a served session."""
+    import zenith_tpu_torch.launch as launch_mod
+    from zenith_tpu_torch import viewer
+
+    calls = []
+
+    class _Loop:
+        def __init__(self, app, window=None, device="cuda"):
+            self.app, self.window, self.device = app, window, device
+            self.frames_rendered = 0
+
+    monkeypatch.setattr(launch_mod, "EngineLoop", _Loop)
+    monkeypatch.setattr(viewer, "serve_loop", lambda loop, **kw: calls.append((loop, kw)))
+    monkeypatch.setattr(sys, "argv", ["terrain", "--serve", "--frames", "1", "--fps-cap", "24"])
+    tterrain.main()
+    (loop, kw), = calls
+    assert isinstance(loop.app, tterrain.TerrainApp) and loop.device == "cuda"
+    assert kw == {"port": 8089, "fps_cap": 24.0, "max_frames": None}
 
 
 class _FakeWindow:

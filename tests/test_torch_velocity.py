@@ -8,7 +8,8 @@ Tolerance: the ``g.prev`` and ``g.pos`` planes at the port's position
 tolerance, atol 0.05 (tests/test_torch_deferred.py:99: the near-clipped
 ground's positions differ by the FMA rounding of its clip); the skinned and
 morphed position deltas atol 1e-3 against the analytic motion (the
-reference test's tolerance).
+reference test's tolerance). The SPMD case (test_velocity.py:329) is
+test_torch_gbuffer_spmd.py's.
 """
 
 import numpy as np

@@ -28,7 +28,9 @@ def launch(
     (tests/benches). CUDA is the default and raises where there is none;
     tests pass ``device="cpu"``.
 
-    ``serve`` (the interactive viewer) is not ported yet (ROADMAP item 23)."""
+    ``serve=PORT`` runs the loop interactively behind the HTTP viewer
+    (``viewer.serve_loop``; port 0 picks a free port) instead of running it
+    headless."""
     args = EngineArgs.parse_args(argv)
     profile.initialize()
     log.initialize(args.log_level.to_logging_level())
@@ -50,11 +52,12 @@ def launch(
 
     asset.initialize()
 
-    if serve is not None:
-        raise NotImplementedError(
-            "the interactive viewer is not ported yet (ROADMAP item 23: viewer)"
-        )
     app = app_class(args)
     loop = EngineLoop(app, window=window, device=device)
-    loop.run(max_frames=max_frames)
+    if serve is None:
+        loop.run(max_frames=max_frames)
+        return loop
+    from zenith_tpu_torch.viewer import serve_loop
+
+    serve_loop(loop, port=serve, fps_cap=fps_cap, max_frames=max_frames)
     return loop

@@ -25,7 +25,7 @@ from typing import Optional
 
 import torch
 
-from zenith_tpu_torch.ops.runtime import cdiv, load_kernels, on_cuda
+from zenith_tpu_torch.ops.runtime import cdiv, count_launch, load_kernels, on_cuda
 
 KERNEL_CULL = (16, 16)  # the kernel's cull region, (rows, columns): csrc/lighting.cu kSubH x kSubW
 _BIG = 3.0e38
@@ -153,7 +153,7 @@ def _accumulate_point_lights_cuda(am, nr, pe, depth, cam, lights, tile_h, tile_w
     )
     if err != 0:
         raise RuntimeError(f"K2 launch failed: CUDA error {err}")
-    accumulate_point_lights.launches += 1
+    count_launch(accumulate_point_lights)
     return out
 
 

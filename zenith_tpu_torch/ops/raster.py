@@ -42,7 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from zenith_tpu_torch.ops.binning import ENTRY_CHUNK, SegmentedBins, TileBins, TileGrid
-from zenith_tpu_torch.ops.runtime import load_blend_kernel, load_kernels, on_cuda
+from zenith_tpu_torch.ops.runtime import count_launch, load_blend_kernel, load_kernels, on_cuda
 from zenith_tpu_torch.rhi.state import (
     BlendFactor,
     BlendOp,
@@ -453,7 +453,7 @@ def _raster_stencil_cuda(bins, grid, z, acc, sten, front, back, compare, write, 
     )
     if err != 0:
         raise RuntimeError(f"K3 launch failed: CUDA error {err}")
-    raster_segmented.stencil_launches += 1
+    count_launch(raster_segmented, "stencil_launches")
 
 
 def _raster_peel_cuda(bins, grid, z, acc, bound, bound_op, compare, write, clamp,
@@ -475,7 +475,7 @@ def _raster_peel_cuda(bins, grid, z, acc, bound, bound_op, compare, write, clamp
     )
     if err != 0:
         raise RuntimeError(f"K4 launch failed: CUDA error {err}")
-    raster_segmented.peel_launches += 1
+    count_launch(raster_segmented, "peel_launches")
 
 
 def _raster_blend_cuda(bins, grid, z, color, sten, faces, compare, write, clamp,
@@ -525,9 +525,9 @@ def _raster_blend_cuda(bins, grid, z, color, sten, faces, compare, write, clamp,
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     if sten is None:
-        raster_segmented_blend.launches += 1
+        count_launch(raster_segmented_blend)
     else:
-        raster_segmented_blend.stencil_launches += 1
+        count_launch(raster_segmented_blend, "stencil_launches")
 
 
 def _raster_segmented_cuda(bins, grid, z, acc, compare, write, clamp, sample_offset) -> None:
@@ -548,7 +548,7 @@ def _raster_segmented_cuda(bins, grid, z, acc, compare, write, clamp, sample_off
     )
     if err != 0:
         raise RuntimeError(f"K1 launch failed: CUDA error {err}")
-    raster_segmented.launches += 1
+    count_launch(raster_segmented)
 
 
 def _capped_inputs(bins: TileBins, z: torch.Tensor, what: str, *extra):
@@ -593,7 +593,7 @@ def _visibility_cuda(bins, grid, z, slot, compare, write) -> None:
     )
     if err != 0:
         raise RuntimeError(f"K7 launch failed: CUDA error {err}")
-    visibility_pass.launches += 1
+    count_launch(visibility_pass)
 
 
 def _interp_cuda(bins, binned_attr, grid, z, acc, compare, write) -> None:
@@ -611,7 +611,7 @@ def _interp_cuda(bins, binned_attr, grid, z, acc, compare, write) -> None:
     )
     if err != 0:
         raise RuntimeError(f"K8 launch failed: CUDA error {err}")
-    raster_interp_pass.launches += 1
+    count_launch(raster_interp_pass)
 
 
 class _TileWalk:

@@ -30,6 +30,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Optional, Sequence
 
@@ -48,6 +49,25 @@ BLEND_SOURCE = CSRC / "raster_blend.cu"
 _lib: "Optional[ctypes.CDLL]" = None
 _blend_libs: "dict[tuple, ctypes.CDLL]" = {}  # by (device source, layout)
 shader_builds = 0  # nvcc runs made by load_blend_kernel in this process
+# Guards the process-wide state that the shards of an SPMD frame (threads,
+# parallel.spmd) share: the launch counters, the build counter and the table
+# of build locks. It is held for updates only, never across a build.
+STATE_LOCK = threading.RLock()
+# One lock per lazily built library (the kernel library, each shader's blend
+# kernel): threads that ask for the same one build it once, different ones
+# build in parallel.
+_build_locks: "dict[object, threading.Lock]" = {}
+
+
+def _build_lock(key) -> threading.Lock:
+    with STATE_LOCK:
+        return _build_locks.setdefault(key, threading.Lock())
+
+
+def count_launch(wrapper, attr: str = "launches") -> None:
+    """Add one to a kernel wrapper's launch counter (``wrapper.<attr>``)."""
+    with STATE_LOCK:
+        setattr(wrapper, attr, getattr(wrapper, attr) + 1)
 
 
 def on_cuda(t: torch.Tensor) -> bool:
@@ -129,6 +149,13 @@ def build_kernels() -> Path:
 
 def load_kernels() -> ctypes.CDLL:
     """The kernel library, built on first use and declared for ctypes."""
+    if _lib is not None:
+        return _lib
+    with _build_lock("kernels"):
+        return _load_kernels()
+
+
+def _load_kernels() -> ctypes.CDLL:
     global _lib
     if _lib is not None:
         return _lib
@@ -235,10 +262,20 @@ def load_blend_kernel(device_source: str,
     """K5/K6 compiled for one (shader device source, attribute layout),
     built on first use and cached on disk by a hash of the generated unit and
     the kernel sources, and in this process by (source, layout)."""
-    global shader_builds
     shader_key = (device_source, tuple(attr_layout))
     lib = _blend_libs.get(shader_key)
     if lib is not None:  # loaded before in this process
+        return lib
+    with _build_lock(shader_key):
+        return _load_blend_kernel(device_source, attr_layout)
+
+
+def _load_blend_kernel(device_source: str,
+                       attr_layout: "Sequence[tuple[str, int]]") -> ctypes.CDLL:
+    global shader_builds
+    shader_key = (device_source, tuple(attr_layout))
+    lib = _blend_libs.get(shader_key)
+    if lib is not None:
         return lib
     unit = blend_unit_source(device_source, attr_layout)
     h = hashlib.sha256(unit.encode())
@@ -262,7 +299,8 @@ def load_blend_kernel(device_source: str,
             )
         so.with_suffix(".log").write_text(f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
         os.replace(tmp, so)
-        shader_builds += 1
+        with STATE_LOCK:
+            shader_builds += 1
     lib = ctypes.CDLL(str(so))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     common = [p, p, p, p, p, p]  # routing tables, rows, rects

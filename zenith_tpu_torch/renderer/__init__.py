@@ -8,8 +8,8 @@ probes, the single-target screen-space passes (reflections, volumetric fog,
 lens flare, depth of field), the temporal passes (TAA, motion blur),
 particles simulated on the device, the debug HUD (``renderer.hud``),
 skeletal animation (``renderer.animation``), and the post chain (bloom +
-ACES, auto-exposure, grade, FXAA, film) and present encode. The SPMD
-bands are ROADMAP item 24."""
+ACES, auto-exposure, grade, FXAA, film) and present encode. Every node
+runs in row bands under an SPMD mesh (``CompileOptions(mesh=...)``)."""
 
 from zenith_tpu_torch.ops.atmosphere import Atmosphere
 from zenith_tpu_torch.renderer.decal import Decal

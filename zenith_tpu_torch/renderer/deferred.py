@@ -100,6 +100,8 @@ from zenith_tpu_torch.ops.sampling import (
     sample_texture,
 )
 from zenith_tpu_torch.ops.vsm import depth_to_moments, sample_vsm
+from zenith_tpu_torch.parallel import spmd
+from zenith_tpu_torch.parallel.sharding import halo_exchange_rows
 from zenith_tpu_torch.rendergraph import RenderGraphBuilder
 from zenith_tpu_torch.rendergraph.resource import RenderGraphResource
 from zenith_tpu_torch.renderer.csm import fit_cascades
@@ -1466,13 +1468,32 @@ class DeferredRenderer:
 
             def record_ssao(ctx):
                 dep = ctx.get(ao_d_in)
+                banded = ctx.sharded and ctx.num_shards > 1
+                tap_pos = tap_depth = None
+                row0 = 0
+                if banded:
+                    # Taps land anywhere on screen: read them from the
+                    # gathered full surfaces.
+                    tap_pos = ctx.get_full(ao_p_in)[..., :3]
+                    tap_depth = ctx.get_full(ao_d_in)
+                    row0 = spmd.axis_index(ctx.shard_axis) * dep.shape[0]
                 raw = ssao_occlusion(
                     ctx.get(ao_p_in)[..., :3], ctx.get(ao_n_in)[..., :3], dep,
                     ctx.dynamic("def.view_proj"), kern, radius=opts.radius, bias=opts.bias,
-                    intensity=opts.intensity,
+                    intensity=opts.intensity, tap_pos=tap_pos, tap_depth=tap_depth, row0=row0,
                 )
-                ctx.set(ao_w, ssao_blur(raw, dep, taps=opts.blur_taps,
-                                        depth_tol=opts.depth_tol)[..., None])
+                taps = opts.blur_taps
+                if banded and dep.shape[0] >= taps:
+                    # The vertical blur taps cross band boundaries: ring halo
+                    # exchange (the bloom scheme), then crop: bit-equal to
+                    # the single-device blur.
+                    bh = dep.shape[0]
+                    ao = ssao_blur(halo_exchange_rows(raw, ctx.shard_axis, taps),
+                                   halo_exchange_rows(dep, ctx.shard_axis, taps),
+                                   taps=taps, depth_tol=opts.depth_tol)[taps:taps + bh]
+                else:
+                    ao = ssao_blur(raw, dep, taps=taps, depth_tol=opts.depth_tol)
+                ctx.set(ao_w, ao[..., None])
 
             anode.execute(record_ssao)
 
@@ -1613,9 +1634,18 @@ class DeferredRenderer:
                     # Contact shadows: a short G-buffer march toward the sun
                     # (ops.contact) closes the shadow map's bias leak.
                     c_str, c_dist, c_thick, c_steps = contact_cfg
+                    row0 = 0
+                    tap_p, tap_d = world, depth
+                    if ctx.sharded and ctx.num_shards > 1:
+                        # The march reaches across bands: taps read the
+                        # gathered full surfaces.
+                        row0 = spmd.axis_index(ctx.shard_axis) * depth.shape[0]
+                        tap_p = ctx.get_full(p_in)[..., :3]
+                        tap_d = ctx.get_full(d_in)
                     cvis = contact_shadow_factor(
-                        world, depth, world, depth, l, cam_pos, ctx.dynamic("def.view_proj"),
+                        world, depth, tap_p, tap_d, l, cam_pos, ctx.dynamic("def.view_proj"),
                         strength=c_str, max_dist=c_dist, thickness=c_thick, steps=c_steps,
+                        row0=row0,
                     )
                     contrib = contrib * cvis[..., None]
                 color = color + contrib
@@ -1658,7 +1688,11 @@ class DeferredRenderer:
                 # (texture.rs:94-105) or feed the procedural atmosphere's
                 # march (ops.atmosphere).
                 hh, ww = depth.shape
-                dirs = view_rays(ctx.dynamic("def.inv_vp"), cam_pos, hh, ww)
+                full_h, row0 = hh, 0
+                if ctx.sharded and ctx.num_shards > 1:
+                    full_h = hh * ctx.num_shards
+                    row0 = spmd.axis_index(ctx.shard_axis) * hh
+                dirs = view_rays(ctx.dynamic("def.inv_vp"), cam_pos, hh, ww, row0, full_h)
                 if sky_in is not None:
                     sky = ctx.get(sky_in)
                     if isinstance(sky, (tuple, list)):

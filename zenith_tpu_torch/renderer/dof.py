@@ -9,14 +9,16 @@ formulation.
    non-zero levels, all elementwise.
 
 The focus parameters ride one packed dynamic, so racking focus never builds
-a new frame function. The row-banded path belongs to the SPMD modes
-(ROADMAP item 24).
+a new frame function. Under an SPMD mesh the pyramid's blur crosses band
+rows, so a band gathers the whole surface, computes and slices back.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from zenith_tpu_torch.parallel import spmd
 
 from zenith_tpu_torch.rendergraph import RenderGraphBuilder
 from zenith_tpu_torch.rendergraph.resource import RenderGraphResource
@@ -95,10 +97,26 @@ class DepthOfField:
         levels = self.levels
 
         def record(ctx):
-            pos = ctx.get(p_in)[..., :3]
-            dist = torch.linalg.vector_norm(pos - ctx.dynamic("def.camera_pos"), dim=-1)
-            dist = torch.where(ctx.get(d_in) > 0.0, dist, torch.zeros_like(dist))
-            ctx.set(dst, dof_blend(ctx.get(src), dist, ctx.dynamic("dof.params"), levels))
+            hdr = ctx.get(src)
+            banded = ctx.sharded and ctx.num_shards > 1
+            cam = ctx.dynamic("def.camera_pos")
+            params = ctx.dynamic("dof.params")
+
+            def dist_of(pos_plane, depth_plane):
+                dist = torch.linalg.vector_norm(pos_plane[..., :3] - cam, dim=-1)
+                return torch.where(depth_plane > 0.0, dist, torch.zeros_like(dist))
+
+            if banded:
+                # The pyramid's blur crosses band rows: gather, compute,
+                # slice back (the thin-band post pattern).
+                full = dof_blend(ctx.get_full(src),
+                                 dist_of(ctx.get_full(p_in), ctx.get_full(d_in)),
+                                 params, levels)
+                y0 = spmd.axis_index(ctx.shard_axis) * hdr.shape[0]
+                out = full[y0:y0 + hdr.shape[0]]
+            else:
+                out = dof_blend(hdr, dist_of(ctx.get(p_in), ctx.get(d_in)), params, levels)
+            ctx.set(dst, out)
 
         node.execute(record)
         return output

@@ -17,6 +17,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from zenith_tpu_torch.parallel import spmd
 from zenith_tpu_torch.rendergraph import RenderGraphBuilder
 from zenith_tpu_torch.rendergraph.resource import RenderGraphResource
 
@@ -90,20 +91,30 @@ class LensFlare:
             img = ctx.get(src)
             sun_uv = ctx.dynamic("flare.sun_uv")
             vis = ctx.dynamic("flare.vis")
+            row0 = 0
+            full_h = img.shape[0]
+            psum_axis = None
+            if ctx.sharded and ctx.num_shards > 1:
+                full_h = img.shape[0] * ctx.num_shards
+                row0 = spmd.axis_index(ctx.shard_axis) * img.shape[0]
+                psum_axis = ctx.shard_axis
             if cfg.occlusion:
-                vis = vis * _probe_visibility(img[..., :3], sun_uv, cfg)
-            out_rgb = _apply_flare(img[..., :3], sun_uv, vis, col, cfg, 0, img.shape[0])
+                vis = vis * _probe_visibility(img[..., :3], sun_uv, cfg, row0, full_h,
+                                              psum_axis)
+            out_rgb = _apply_flare(img[..., :3], sun_uv, vis, col, cfg, row0, full_h)
             ctx.set(dst, torch.cat([out_rgb, img[..., 3:]], dim=-1))
 
         node.execute(record)
 
 
 def _probe_visibility(rgb: torch.Tensor, sun_uv: torch.Tensor, cfg: LensFlare, row0=0,
-                      full_h: "int | None" = None) -> torch.Tensor:
+                      full_h: "int | None" = None, psum_axis=None) -> torch.Tensor:
     """Mean luminance of a probe_px² window at the sun pixel, smoothstepped
     to [0, 1] (flare.py:140-172). The window's start is clamped as the
     reference clamps it and the window is gathered by index, so any sun
-    position runs the same frame function without a host read."""
+    position runs the same frame function without a host read. Under SPMD
+    each band sums the window rows it owns and one scalar ``psum``
+    combines them."""
     h, w = rgb.shape[0], rgb.shape[1]
     if full_h is None:
         full_h = h
@@ -120,6 +131,8 @@ def _probe_visibility(rgb: torch.Tensor, sun_uv: torch.Tensor, cfg: LensFlare, r
     row_ok = (rows >= 0) & (rows < h)
     win = luma[torch.clamp(rows, 0, h - 1).long()][:, cols.long()]
     total = torch.sum(torch.where(row_ok[:, None], win, torch.zeros_like(win)))
+    if psum_axis is not None:
+        total = spmd.psum(total, psum_axis)
     mean = total / float(k * k)
     t = torch.clamp((mean - cfg.probe_lo) / max(cfg.probe_hi - cfg.probe_lo, 1e-6), 0.0, 1.0)
     return t * t * (3.0 - 2.0 * t)

@@ -15,8 +15,9 @@ Graph nodes:
    (per sample under MSAA) and adds the instanced objects.
 
 The shadow map is read by the forward node directly: the stream orders the
-passes. The reference's SPMD band hint (``scene.band_hint_for``) is not set:
-the SPMD modes are ROADMAP item 24.
+passes. Under an SPMD mesh both forward nodes read it whole
+(``ctx.get_full``). The reference's band hint for the ``auto`` mode
+(``scene.band_hint_for``) is not set: that mode is ROADMAP item 24.
 
 The module also holds the helpers the deferred renderer shares: the sun's
 light camera, the shadow vertex stages, the shadow compare sampler and the

@@ -9,8 +9,9 @@ frame's running bin-overflow count, read from the device counter
 (``LambdaNodeExecutionContext.frame_overflow``) without a host read.
 
 The reference logs its stats line to stderr (zenith/src/main_loop.rs:
-146-162); this puts the same line on screen. The row-banded composite
-belongs to the SPMD modes (ROADMAP item 24).
+146-162); this puts the same line on screen. Under an SPMD mesh each band
+composites its own global rows of the overlay, and the overflow count is
+the frame's total over the bands.
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from zenith_tpu_torch.parallel import spmd
 
 from zenith_tpu_torch.rendergraph import RenderGraphBuilder
 from zenith_tpu_torch.rendergraph.resource import RenderGraphResource
@@ -142,12 +145,17 @@ class HudOverlay:
             img = ctx.get(src)
             bitmap = ctx.dynamic("hud.bitmap")  # (bh, bw) alpha in [0, 1]
             h, w = img.shape[0], img.shape[1]
-            # The overlay covers rows [margin, margin + bh): a window of h
-            # rows of the bitmap padded by h above and below, its start
-            # clamped into range as the reference's dynamic_slice clamps.
+            row0 = 0
+            if ctx.sharded and ctx.num_shards > 1:
+                row0 = spmd.axis_index(ctx.shard_axis) * h
+            # The overlay covers global rows [margin, margin + bh) and this
+            # band rows [row0, row0 + h): a window of h rows of the bitmap
+            # padded by h above and below, its start clamped into range as
+            # the reference's dynamic_slice clamps (a band wholly outside
+            # lands on the zero padding).
             planes = torch.stack([bitmap, torch.ones_like(bitmap)], dim=-1)  # text, box
             padded = F.pad(planes, (0, 0, 0, 0, h, h))
-            start = min(max(h - margin, 0), bh + h)
+            start = min(max(h + row0 - margin, 0), bh + h)
             band = padded[start:start + h]
             if bw >= w:
                 band = band[:, :w]
@@ -166,7 +174,7 @@ class HudOverlay:
                 frac = torch.clamp(torch.log2(1.0 + ovf) / 24.0, 0.0, 1.0)
                 bar_y0 = margin + bh + 2
                 bar_h = max(2, bh // 4)
-                gy = torch.arange(h, dtype=torch.int32, device=img.device)[:, None]
+                gy = row0 + torch.arange(h, dtype=torch.int32, device=img.device)[:, None]
                 gx = torch.arange(w, dtype=torch.int32, device=img.device)[None, :]
                 bar_w = frac * (w - 2 * margin)
                 in_bar = ((gy >= bar_y0) & (gy < bar_y0 + bar_h) & (gx >= margin)

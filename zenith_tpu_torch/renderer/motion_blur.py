@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from zenith_tpu_torch.ops.ssao import _pixel_hash_angle
+from zenith_tpu_torch.parallel import spmd
 from zenith_tpu_torch.rendergraph import RenderGraphBuilder
 from zenith_tpu_torch.rendergraph.resource import RenderGraphResource
 from zenith_tpu_torch.renderer.taa import (
@@ -157,10 +158,22 @@ class MotionBlur:
         dilate = self.dilate if has_vel else 0
 
         def record(ctx):
-            ctx.set(dst, motion_blur_resolve(
-                ctx.get(src), ctx.get(p_in)[..., :3], ctx.get(d_in),
-                ctx.dynamic("mblur.prev_vp"), ctx.dynamic("mblur.params"),
-                samples, jitter, dilate))
+            hdr = ctx.get(src)
+            prev_vp = ctx.dynamic("mblur.prev_vp")
+            params = ctx.dynamic("mblur.params")
+            if ctx.sharded and ctx.num_shards > 1:
+                # Streak taps land anywhere on screen: run on the gathered
+                # full surfaces, slice the band back (the TAA pattern).
+                full = motion_blur_resolve(
+                    ctx.get_full(src), ctx.get_full(p_in)[..., :3], ctx.get_full(d_in),
+                    prev_vp, params, samples, jitter, dilate)
+                y0 = spmd.axis_index(ctx.shard_axis) * hdr.shape[0]
+                out = full[y0:y0 + hdr.shape[0]]
+            else:
+                out = motion_blur_resolve(
+                    hdr, ctx.get(p_in)[..., :3], ctx.get(d_in),
+                    prev_vp, params, samples, jitter, dilate)
+            ctx.set(dst, out)
 
         node.execute(record)
         return output

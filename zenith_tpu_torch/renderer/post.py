@@ -19,8 +19,14 @@ Around the tonemap, in both forms: auto-exposure (a log-average luminance
 adapted across frames, its state a device value fed back through the
 engine's ``request_output`` path), the colour grade (``ColorGrade``),
 FXAA (ops.aa) and the film effects (``FilmEffects``); the grade and film
-values ride packed dynamics. The row-banded ``tone_and_bloom_banded``
-belongs to the SPMD modes (ROADMAP item 24).
+values ride packed dynamics.
+
+Under an SPMD mesh (row bands) the single node takes
+``tone_and_bloom_banded``: a ring halo exchange of ``BLOOM_HALO`` rows, the
+whole chain on the extended band, cropped back; chromatic aberration, whose
+radial resample reaches across bands, gathers the full surface instead.
+Auto-exposure's log-average is averaged over the bands. The mip chain is
+single-device.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ import torch.nn.functional as F
 
 from zenith_tpu_torch.ops.aa import post_aa
 from zenith_tpu_torch.ops.ssao import _pixel_hash_bits
+from zenith_tpu_torch.parallel import spmd
 from zenith_tpu_torch.rendergraph import RenderGraphBuilder
 from zenith_tpu_torch.rendergraph.resource import RenderGraphResource
 from zenith_tpu_torch.rhi.formats import Format, encode_present
@@ -196,9 +203,12 @@ def _bilinear_plane(plane: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor) -> 
     return _fma(top, 1 - fy, bot * fy)
 
 
-def apply_film(mapped: torch.Tensor, f: torch.Tensor, ca_enabled: bool) -> torch.Tensor:
-    """The FilmEffects chain on tonemapped LDR rgb (post.py:172-221); ``f``
-    is the packed (5,) vector."""
+def apply_film(mapped: torch.Tensor, f: torch.Tensor, ca_enabled: bool,
+               row0: int = 0) -> torch.Tensor:
+    """The FilmEffects chain on tonemapped LDR rgb (post.py:163-221); ``f``
+    is the packed (5,) vector. With ``ca_enabled`` the input must be the
+    whole surface (the radial resample reaches across row bands); ``row0``
+    seeds the grain hash with a band's global rows."""
     h, w = mapped.shape[0], mapped.shape[1]
     dev = mapped.device
     if ca_enabled:
@@ -228,7 +238,7 @@ def apply_film(mapped: torch.Tensor, f: torch.Tensor, ca_enabled: bool) -> torch
     # Film grain: the shared screen-dither hash, remixed by the per-frame
     # seed (a device value: no host read), attenuated in highlights by
     # grain_response.
-    bits = _pixel_hash_bits(h, w, seed=f[3], device=dev)
+    bits = _pixel_hash_bits(h, w, row0, seed=f[3], device=dev)
     noise = bits.to(torch.float32) / 65535.0 - 0.5
     luma = _luma(mapped)[..., 0]
     amp = f[2] * (1.0 - f[4] * torch.clamp(luma, 0.0, 1.0))
@@ -282,10 +292,13 @@ def tone_and_bloom(
     grade=None,  # packed (7,) ColorGrade tensor | None
     film=None,  # packed (5,) FilmEffects tensor | None
     film_ca: bool = False,
+    row0: int = 0,
+    full_h: "int | None" = None,
 ) -> torch.Tensor:
-    """Bloom + tonemap of one frame (post.py:270-313): exposure and the
+    """Bloom + tonemap of one frame (post.py:264-301): exposure and the
     grade's first half before the bloom, the grade's second half, FXAA
-    and the film effects after the tonemap."""
+    and the film effects after the tonemap. ``row0``/``full_h`` place a
+    row band in the frame (the vignette and the grain's global rows)."""
     rgb = hdr[..., :3]
     if exposure is not None:
         rgb = rgb * exposure
@@ -298,19 +311,58 @@ def tone_and_bloom(
     bloom = _upsample2(half, h, w)
 
     combined = rgb + bloom * bloom_strength
-    return torch.cat([_finish(_tonemap(combined, tonemap), grade, fxaa, film, film_ca),
+    return torch.cat([_finish(_tonemap(combined, tonemap), grade, fxaa, film, film_ca,
+                              row0, full_h),
                       hdr[..., 3:4]], dim=-1)
 
 
-def _finish(mapped, grade, fxaa, film, film_ca):
+def _finish(mapped, grade, fxaa, film, film_ca, row0=0, full_h=None):
     """The LDR stages after the tonemap: grade, FXAA, film."""
     if grade is not None:
-        mapped = apply_grade_post(mapped, grade)
+        mapped = apply_grade_post(mapped, grade, row0, full_h)
     if fxaa:
         mapped = post_aa(mapped)
     if film is not None:
-        mapped = apply_film(mapped, film, film_ca)
+        mapped = apply_film(mapped, film, film_ca, row0)
     return mapped
+
+
+# Cross-band reach of the bloom chain in full-res rows: one 2x downsample,
+# then two 9-tap passes (radius 4 each) at half res = 8 half-rows.
+BLOOM_HALO = 16
+
+
+def tone_and_bloom_banded(
+    hdr_band: torch.Tensor,  # (bh, W, 4) this shard's row band
+    axis_name: str,
+    bloom_threshold: float = 1.0,
+    bloom_strength: float = 0.35,
+    tonemap: str = "aces",
+    fxaa: bool = False,
+    exposure=None,
+    grade=None,
+    film=None,
+) -> torch.Tensor:
+    """SPMD row-banded tone_and_bloom (post.py:310-351): a ring halo
+    exchange extends the band by BLOOM_HALO rows each side, the whole
+    chain runs on the extended band, and the result crops back, bit-exact
+    with the single-device output (the halo wraps at the frame edges as
+    the rolls do; FXAA and the sharpen reach 1 row, well inside the halo).
+    Requires an even band height >= BLOOM_HALO."""
+    from zenith_tpu_torch.parallel.sharding import halo_exchange_rows
+
+    bh = hdr_band.shape[0]
+    if bh % 2 or bh < BLOOM_HALO:
+        raise ValueError(f"banded bloom needs an even band height >= {BLOOM_HALO}, got {bh}")
+    ext = halo_exchange_rows(hdr_band, axis_name, BLOOM_HALO)
+    n = spmd.psum(1, axis_name)
+    out = tone_and_bloom(
+        ext, bloom_threshold=bloom_threshold, bloom_strength=bloom_strength,
+        tonemap=tonemap, fxaa=fxaa, exposure=exposure, grade=grade,
+        film=film, film_ca=False,  # CA takes the gather path, never this one
+        row0=spmd.axis_index(axis_name) * bh - BLOOM_HALO, full_h=bh * n,
+    )
+    return out[BLOOM_HALO:BLOOM_HALO + bh]
 
 
 def _bright_pass(rgb: torch.Tensor, threshold: float) -> torch.Tensor:
@@ -410,8 +462,12 @@ class PostProcess:
         return ae
 
     def _adapted_exposure(self, ctx, rgb: torch.Tensor) -> torch.Tensor:
-        """0-d tensor: the exposure adapted toward key / average luminance."""
+        """0-d tensor: the exposure adapted toward key / average luminance.
+        ``rgb`` may be a row band under SPMD: the log-average is averaged
+        over the bands, so every band adapts identically."""
         log_avg = torch.mean(torch.log(_luma(rgb)[..., 0] + 1e-4))
+        if ctx.sharded and ctx.num_shards > 1:
+            log_avg = spmd.pmean(log_avg, ctx.shard_axis)
         target = torch.clamp(self.exposure_key / torch.clamp(torch.exp(log_avg), min=1e-4),
                              self.exposure_min, self.exposure_max)
         prev = ctx.dynamic("post.ae_prev")[0]
@@ -463,15 +519,30 @@ class PostProcess:
 
         def record(ctx):
             hdr = ctx.get(src)
+            banded = ctx.sharded and ctx.num_shards > 1
             exposure = None
+            grade_vec = ctx.dynamic("post.grade") if has_grade else None
+            film_vec = ctx.dynamic("post.film") if has_film else None
             if ae_w is not None:
                 exposure = self._adapted_exposure(ctx, hdr[..., :3])
                 ctx.set(ae_w, exposure[None])
-            ctx.set(dst, tone_and_bloom(
-                hdr, exposure=exposure,
-                grade=ctx.dynamic("post.grade") if has_grade else None,
-                film=ctx.dynamic("post.film") if has_film else None,
-                film_ca=film_ca, **kwargs))
+            if banded and not film_ca and hdr.shape[0] >= BLOOM_HALO \
+                    and hdr.shape[0] % 2 == 0:
+                # Row-banded under a mesh: halo exchange (bloom's blur
+                # crosses band boundaries).
+                out = tone_and_bloom_banded(hdr, ctx.shard_axis, exposure=exposure,
+                                            grade=grade_vec, film=film_vec, **kwargs)
+            elif banded:
+                # Bands thinner than the halo (or odd), or chromatic
+                # aberration: gather the whole surface, compute, slice back.
+                full = tone_and_bloom(ctx.get_full(src), exposure=exposure, grade=grade_vec,
+                                      film=film_vec, film_ca=film_ca, **kwargs)
+                y0 = spmd.axis_index(ctx.shard_axis) * hdr.shape[0]
+                out = full[y0:y0 + hdr.shape[0]]
+            else:
+                out = tone_and_bloom(hdr, exposure=exposure, grade=grade_vec, film=film_vec,
+                                     film_ca=film_ca, **kwargs)
+            ctx.set(dst, out)
 
         node.execute(record)
 
@@ -502,6 +573,9 @@ class PostProcess:
         threshold = self.bloom_threshold
 
         def record_bright(ctx):
+            if ctx.sharded and ctx.num_shards > 1:
+                raise ValueError("bloom_mips >= 2 (the render-to-mip chain) is single-device; "
+                                 "use the default single-node bloom under an SPMD mesh")
             rgb = ctx.get(src)[..., :3]
             if ae_w is not None:
                 exposure = self._adapted_exposure(ctx, rgb)

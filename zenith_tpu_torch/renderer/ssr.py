@@ -5,7 +5,8 @@ Sits after the lighting resolve: reads the lit HDR and the G-buffer planes
 (``DeferredRenderer.gbuffer_handles``) and writes HDR with Fresnel-weighted
 reflections added (ops/ssr.py). Stateless across frames; the tuning rides
 one packed (4,) dynamic, while ``steps``/``refine``/``jitter`` shape the
-frame function.
+frame function. Under an SPMD mesh a band resolves on the gathered full
+surfaces and slices its rows back.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 
 from zenith_tpu_torch.ops.ssr import ssr_reflect
+from zenith_tpu_torch.parallel import spmd
 from zenith_tpu_torch.rendergraph import RenderGraphBuilder
 from zenith_tpu_torch.rendergraph.resource import RenderGraphResource
 
@@ -64,11 +66,26 @@ class ScreenSpaceReflections:
         steps, refine, jitter = self.steps, self.refine, self.jitter
 
         def record(ctx):
-            ctx.set(dst, ssr_reflect(
-                ctx.get(src), ctx.get(a_in), ctx.get(n_in), ctx.get(p_in)[..., :3],
-                ctx.get(d_in), ctx.dynamic("ssr.cam_pos"), ctx.dynamic("ssr.view_proj"),
-                ctx.dynamic("ssr.params"), steps, refine, jitter,
-            ))
+            hdr = ctx.get(src)
+            cam = ctx.dynamic("ssr.cam_pos")
+            vp = ctx.dynamic("ssr.view_proj")
+            params = ctx.dynamic("ssr.params")
+            if ctx.sharded and ctx.num_shards > 1:
+                # Reflection rays land anywhere on screen: resolve on the
+                # gathered full surfaces, slice the band back.
+                full = ssr_reflect(
+                    ctx.get_full(src), ctx.get_full(a_in), ctx.get_full(n_in),
+                    ctx.get_full(p_in)[..., :3], ctx.get_full(d_in),
+                    cam, vp, params, steps, refine, jitter,
+                )
+                y0 = spmd.axis_index(ctx.shard_axis) * hdr.shape[0]
+                out = full[y0:y0 + hdr.shape[0]]
+            else:
+                out = ssr_reflect(
+                    hdr, ctx.get(a_in), ctx.get(n_in), ctx.get(p_in)[..., :3],
+                    ctx.get(d_in), cam, vp, params, steps, refine, jitter,
+                )
+            ctx.set(dst, out)
 
         node.execute(record)
         return output

@@ -28,6 +28,7 @@ import torch.nn.functional as F
 
 from zenith_tpu_torch.core import log as _log
 from zenith_tpu_torch.core import validate as _validate
+from zenith_tpu_torch.parallel import spmd
 from zenith_tpu_torch.rendergraph import RenderGraphBuilder
 from zenith_tpu_torch.rendergraph.resource import RenderGraphResource
 from zenith_tpu_torch.renderer.post import _luma
@@ -252,9 +253,22 @@ class TemporalAA:
         alpha = self.alpha
 
         def record(ctx):
-            ctx.set(dst, taa_resolve(
-                ctx.get(src), ctx.dynamic("taa.history"), ctx.get(p_in)[..., :3],
-                ctx.get(d_in), ctx.dynamic("taa.prev_vp"), ctx.dynamic("taa.valid"), alpha))
+            cur = ctx.get(src)
+            if ctx.sharded and ctx.num_shards > 1:
+                # Reprojection gathers land anywhere on screen: run on the
+                # gathered full surfaces, slice the band back (the history
+                # dynamic is replicated already).
+                full = taa_resolve(
+                    ctx.get_full(src), ctx.dynamic("taa.history"),
+                    ctx.get_full(p_in)[..., :3], ctx.get_full(d_in),
+                    ctx.dynamic("taa.prev_vp"), ctx.dynamic("taa.valid"), alpha)
+                y0 = spmd.axis_index(ctx.shard_axis) * cur.shape[0]
+                out = full[y0:y0 + cur.shape[0]]
+            else:
+                out = taa_resolve(
+                    cur, ctx.dynamic("taa.history"), ctx.get(p_in)[..., :3],
+                    ctx.get(d_in), ctx.dynamic("taa.prev_vp"), ctx.dynamic("taa.valid"), alpha)
+            ctx.set(dst, out)
 
         node.execute(record)
         builder.export(output)

@@ -17,17 +17,20 @@ import torch
 
 from zenith_tpu_torch.core import mathtypes as m
 from zenith_tpu_torch.ops.volumetric import volumetric_sun
+from zenith_tpu_torch.parallel import spmd
 from zenith_tpu_torch.rendergraph import RenderGraphBuilder
 from zenith_tpu_torch.rendergraph.resource import RenderGraphResource
 
 
-def view_rays(inv_vp: torch.Tensor, cam: torch.Tensor, h: int, w: int) -> torch.Tensor:
+def view_rays(inv_vp: torch.Tensor, cam: torch.Tensor, h: int, w: int,
+              row0: int = 0, full_h: "int | None" = None) -> torch.Tensor:
     """(H, W, 3) per-pixel view rays from the inverse view-projection (not
     normalized): the NDC point at depth 0.5 of each pixel centre, minus the
-    camera."""
+    camera. ``row0``/``full_h`` place a row band in the frame."""
     dev = inv_vp.device
     ndc_x = (torch.arange(w, dtype=torch.float32, device=dev) + 0.5) / w * 2 - 1
-    ndc_y = (torch.arange(h, dtype=torch.float32, device=dev) + 0.5) / h * 2 - 1
+    ndc_y = ((row0 + torch.arange(h, dtype=torch.float32, device=dev) + 0.5)
+             / (full_h or h) * 2 - 1)
     px = ndc_x[None, :].expand(h, w)
     py = ndc_y[:, None].expand(h, w)
     ndc = torch.stack([px, py, torch.full_like(px, 0.5), torch.ones_like(px)], -1)
@@ -104,10 +107,17 @@ class VolumetricFog:
             dep = ctx.get(d_in)
             cam = ctx.dynamic("fog.cam_pos")
             h, w = dep.shape
-            dirs = view_rays(ctx.dynamic("fog.inv_vp"), cam, h, w)
+            full_h, row0 = h, 0
+            if ctx.sharded and ctx.num_shards > 1:
+                full_h = h * ctx.num_shards
+                row0 = spmd.axis_index(ctx.shard_axis) * h
+            # Per-pixel unit view rays over the band's global rows.
+            dirs = view_rays(ctx.dynamic("fog.inv_vp"), cam, h, w, row0, full_h)
             dirs = dirs / torch.clamp(torch.sqrt(torch.sum(dirs * dirs, dim=-1, keepdim=True)),
                                       min=1e-8)
             if sm_in is not None:
+                # Marched taps land anywhere on the small map: gather it
+                # whole. The screen planes stay on the band.
                 sm = ctx.get_full(sm_in)
                 lvp = ctx.dynamic("def.light_vp")
                 bias = ctx.dynamic("def.shadow_bias")
@@ -117,7 +127,7 @@ class VolumetricFog:
                 ctx.get(src), ctx.get(p_in)[..., :3], dep, cam, dirs,
                 ctx.dynamic("fog.sun_dir"), ctx.dynamic("fog.sun_color"),
                 ctx.dynamic("fog.params"), shadow_map=sm, light_vp=lvp, shadow_bias=bias,
-                steps=steps, jitter=jitter,
+                steps=steps, jitter=jitter, row0=row0,
             ))
 
         node.execute(record)

@@ -41,8 +41,22 @@ and a graphic node may render into one level or layer (the surface is
 layer or range write makes a new tensor, so a value read earlier in the
 frame, or an export the caller still holds, never changes.
 
-Not ported yet: the SPMD ``mesh``/``parallel`` modes (ROADMAP item 24),
-which raise when asked for.
+SPMD (graph.py:97-160, 1091-1535): ``CompileOptions(mesh=...)`` runs the
+frame function once per shard of the mesh (``parallel.spmd.shard_map``,
+one thread a shard) with every graph-managed attachment split into row
+bands (sort-first parallel rendering): geometry is replicated and each
+shard rasterizes its band through a shifted viewport. Imported resources
+and dynamics are replicated and sliced to a band the first time a graphic
+node touches them; a lambda's write stays banded when its value is
+band-shaped. Cross-band reads are explicit: ``ctx.get_full`` gathers a
+banded attachment, and passes that read across bands take the banded
+branches of their nodes (``ctx.sharded``, ``ctx.num_shards``,
+``ctx.shard_axis``). The frame's counters are summed over the shards; a
+banded export comes back as a ``ShardedTensor`` and ``value`` returns it
+whole, on the mesh's first device. Attachment heights must divide by the
+mesh size × ``tile_h``, and render-to-mip or -layer is refused under a
+mesh. The sort-last and ``auto`` modes (triangle sharding) are not ported
+yet (ROADMAP item 24) and raise when asked for.
 """
 
 from __future__ import annotations
@@ -64,6 +78,7 @@ from zenith_tpu_torch.ops.draw import (
     draw_indexed,
     draw_indexed_batch,
 )
+from zenith_tpu_torch.parallel import spmd
 from zenith_tpu_torch.rendergraph.builder import GraphNode, RenderGraphBuilder
 from zenith_tpu_torch.rendergraph.resource import (
     InitialResourceStorage,
@@ -128,8 +143,11 @@ def _validate_graph(resources, nodes, exports) -> None:
 class CompileOptions:
     """Static rasterizer configuration (part of the frame-function key).
 
-    ``mesh``/``shard_axis``/``parallel`` keep the reference's fields for API
-    parity; only the single-device default is ported (ROADMAP item 24)."""
+    ``mesh`` (a ``parallel.spmd.Mesh``, e.g. ``default_mesh(4,
+    device="cuda:0")``) turns on SPMD rendering in row bands over
+    ``mesh[shard_axis]`` (see the module docstring). ``parallel`` keeps the
+    reference's field: "sort_first" is ported; "sort_last" and "auto"
+    raise (ROADMAP item 24)."""
 
     tile_h: int = 32
     tile_w: int = 128
@@ -350,12 +368,29 @@ def _view(val, mip, layer, brange):
 class _NodeContextBase:
     def __init__(self, graph: "RenderGraph", node: GraphNode,
                  state: Dict[int, Any], dynamics: Dict[str, Any],
-                 device: torch.device):
+                 device: torch.device, shard_ctx=None):
         self._graph = graph
         self._node = node
         self._state = state
         self._dynamics = dynamics
         self.device = device
+        # (axis name, shard count, banded resource ids) under an SPMD mesh.
+        self._shard_ctx = shard_ctx
+
+    @property
+    def sharded(self) -> bool:
+        """True when running inside an SPMD mesh (CompileOptions.mesh)."""
+        return self._shard_ctx is not None
+
+    @property
+    def shard_axis(self) -> Optional[str]:
+        """Mesh axis name of the row bands (None when not sharded)."""
+        return self._shard_ctx[0] if self._shard_ctx is not None else None
+
+    @property
+    def num_shards(self) -> int:
+        """Shards along the row-band axis (1 when not sharded)."""
+        return self._shard_ctx[1] if self._shard_ctx is not None else 1
 
     def dynamic(self, name: str):
         """Read a per-frame value declared with builder.set_dynamic."""
@@ -378,23 +413,35 @@ class _NodeContextBase:
         return _view(val, access.mip, access.layer, access.brange)
 
     def get_full(self, access: RenderGraphResourceAccess):
-        """Full (all-rows) value of a resource (graph.py:481-493): on one
-        device it is ``get``; the row-banded SPMD modes are ROADMAP item 24."""
-        return self.get(access)
+        """Full (all-rows) value of a resource (graph.py:481-495): ``get`` on
+        one device; under a mesh a banded attachment is all_gathered. For
+        cross-band reads (a pass sampling the banded shadow map), never for
+        row-local band math."""
+        val = self.get(access)
+        if self._shard_ctx is None:
+            return val
+        axis, _n, banded = self._shard_ctx
+        if access.id in banded:
+            return spmd.all_gather(val, axis, axis=0, tiled=True)
+        return val
 
 
 class LambdaNodeExecutionContext(_NodeContextBase):
     """(graph.rs:635-654) Arbitrary tensor compute over declared resources."""
 
     def __init__(self, graph: "RenderGraph", node: GraphNode, state: Dict[int, Any],
-                 dynamics: Dict[str, Any], device: torch.device, overflow: torch.Tensor):
-        super().__init__(graph, node, state, dynamics, device)
+                 dynamics: Dict[str, Any], device: torch.device, overflow: torch.Tensor,
+                 shard_ctx=None):
+        super().__init__(graph, node, state, dynamics, device, shard_ctx)
         self._overflow = overflow
 
     def frame_overflow(self) -> torch.Tensor:
         """The frame's running bin-overflow count at this node (graph.py:
         452-463): the int32 device counter of the draws declared before it,
-        never read back to the host."""
+        never read back to the host. Under a mesh it is summed over the
+        bands, so every shard sees the same total."""
+        if self._shard_ctx is not None:
+            return spmd.psum(self._overflow, self._shard_ctx[0])
         return self._overflow
 
     def set(self, access: RenderGraphResourceAccess, value) -> None:
@@ -418,9 +465,12 @@ class GraphicNodeExecutionContext(_NodeContextBase):
                  pipeline: GraphicPipeline, grid: TileGrid,
                  colors: List[Any], depth: Optional[Any],
                  bin_capacity: int, stencil: Optional[Any] = None,
-                 budget_scale: int = 1):
-        super().__init__(graph, node, state, dynamics, device)
+                 budget_scale: int = 1, viewport: Optional[tuple] = None,
+                 shard_ctx=None):
+        super().__init__(graph, node, state, dynamics, device, shard_ctx)
         self._budget_scale = budget_scale
+        # (x0, y0, full_w, full_h): the band's place in the full surface.
+        self._viewport = viewport
         self.pipeline = pipeline
         self.grid = grid
         self._colors = colors
@@ -509,6 +559,7 @@ class GraphicNodeExecutionContext(_NodeContextBase):
             merged,
             self.grid,
             bin_capacity=bin_capacity or self._bin_capacity,
+            viewport=self._viewport,
             entry_budget=entry_budget,
             stencil=self._stencil,
             instance_count=instance_count,
@@ -550,6 +601,7 @@ class GraphicNodeExecutionContext(_NodeContextBase):
             resolved,
             self.grid,
             per_draw_uniforms=tuple(per_draw_uniforms),
+            viewport=self._viewport,
             entry_budget=entry_budget,
             stencil=self._stencil,
             budget_scale=self._budget_scale,
@@ -739,10 +791,10 @@ class RenderGraph:
         pipeline_cache: PipelineCache,
         options: CompileOptions = CompileOptions(),
     ) -> "CompiledRenderGraph":
-        if options.mesh is not None or options.parallel != "sort_first":
+        if options.parallel != "sort_first":
             raise NotImplementedError(
-                "SPMD rendering (mesh / parallel modes) is not ported yet "
-                "(ROADMAP item 24: parallel)"
+                f"parallel={options.parallel!r} (triangle-sharded SPMD) is not ported "
+                f"yet (ROADMAP item 24: parallel); the port renders sort_first row bands"
             )
         active_nodes: List[GraphNode] = []
         for node in self.nodes:
@@ -798,9 +850,15 @@ class RenderGraph:
         resources = self.resources
         pipelines = self._pipelines
         output_ids = list(dict.fromkeys(self._written_imports() + self.exports))
+        mesh = options.mesh
+        axis = options.shard_axis
 
-        def frame_fn(imports: Dict[str, Any], dynamics: Dict[str, torch.Tensor]):
-            """Run every node in declaration order; no host reads."""
+        def walk(imports: Dict[str, Any], dynamics: Dict[str, torch.Tensor],
+                 device: torch.device, shard_ctx):
+            """Run every node in declaration order; no host reads. Under a
+            mesh this is one shard's run: graph-managed attachments live as
+            row bands, and ``shard_ctx``'s banded set lets ctx.get_full
+            gather on demand."""
             state: Dict[int, Any] = {}
             # (rid, mip, layer) -> (samples, (S, ...) planes) of the last
             # MSAA node that stored that sub-surface.
@@ -815,26 +873,73 @@ class RenderGraph:
                 with profile.scope(node.name):
                     overflow, nan_pixels = self._run_node(
                         node, state, msaa_state, dynamics, device, pipelines, options,
-                        resources, overflow, nan_pixels, validate,
+                        resources, overflow, nan_pixels, validate, shard_ctx,
                     )
 
             outputs = {str(rid): state[rid] for rid in output_ids if rid in state}
             return outputs, FrameStatsOutput(bin_overflow=overflow, nan_pixels=nan_pixels)
 
+        if mesh is None:
+            def frame_fn(imports: Dict[str, Any], dynamics: Dict[str, torch.Tensor]):
+                return walk(imports, dynamics, device, None)
+
+            return frame_fn
+
+        n_shards = mesh.shape[axis]
+
+        def shard_body(imports, dynamics):
+            banded: set = set()
+            outputs, stats = walk(imports, dynamics, spmd.current_device(),
+                                  (axis, n_shards, banded))
+            return outputs, FrameStatsOutput(
+                bin_overflow=spmd.psum(stats.bin_overflow, axis),
+                nan_pixels=spmd.psum(stats.nan_pixels, axis),
+            ), banded
+
+        run = spmd.shard_map(shard_body, mesh, in_specs=(spmd.P(), spmd.P()), out_specs=None)
+
+        def frame_fn(imports: Dict[str, Any], dynamics: Dict[str, torch.Tensor]):
+            """The walk once per shard. Banded outputs come back as their
+            bands (``ShardedTensor``); everything else (buffers, replicated
+            values) as shard 0's copy, and the counters summed."""
+            results = run(imports, dynamics)
+            outputs0, stats, banded = results[0]
+            outputs = {
+                key: spmd.ShardedTensor([r[0][key] for r in results])
+                if int(key) in banded else val
+                for key, val in outputs0.items()
+            }
+            return outputs, stats
+
         return frame_fn
 
     def _run_node(self, node, state, msaa_state, dynamics, device, pipelines, options,
-                  resources, overflow, nan_pixels, validate):
+                  resources, overflow, nan_pixels, validate, shard_ctx=None):
         """Run one node of the frame function; returns the running
         (overflow, nan_pixels) counters."""
+        n_shards = shard_ctx[1] if shard_ctx is not None else 1
+        banded = shard_ctx[2] if shard_ctx is not None else ()
         if node.kind == "lambda":
-            ctx = LambdaNodeExecutionContext(self, node, state, dynamics, device, overflow)
+            ctx = LambdaNodeExecutionContext(self, node, state, dynamics, device, overflow,
+                                             shard_ctx)
             node.job(ctx)
             # A lambda write replaces the resolved surface: per-sample planes
             # of any sub-surface of the resource must not shadow it.
             for a in node.outputs:
                 for k in [k for k in msaa_state if k[0] == a.resource_id]:
                     del msaa_state[k]
+            if shard_ctx is not None:
+                # Lambda writes stay banded when the value is band-shaped
+                # (the row-local contract, graph.py:1149-1160).
+                for a in node.outputs:
+                    desc = resources[a.resource_id].texture_desc()
+                    v = state.get(a.resource_id)
+                    if desc is None or not isinstance(v, torch.Tensor):
+                        continue
+                    if v.shape[0] * n_shards == desc.height:
+                        banded.add(a.resource_id)
+                    else:
+                        banded.discard(a.resource_id)
             return overflow, nan_pixels
         pipeline = pipelines[node.index]
         samples = pipeline.desc.state.multisample.samples
@@ -845,13 +950,38 @@ class RenderGraph:
         else:
             first_rid, first_mip = node.stencil_attachment, 0
         tdesc = resources[first_rid].texture_desc()
+        att_w = max(1, tdesc.width >> first_mip)
+        full_h = max(1, tdesc.height >> first_mip)
+        viewport = None
+        if shard_ctx is not None:
+            subres = any(m != 0 or l is not None for _, _, m, l in node.color_attachments) or (
+                node.depth_attachment is not None
+                and (node.depth_attachment[2] != 0 or node.depth_attachment[3] is not None))
+            if subres:
+                raise ValueError(
+                    f"node '{node.name}': render-to-mip/-layer attachments are single-device "
+                    f"(no SPMD mesh)")
+            if full_h % (n_shards * options.tile_h):
+                raise ValueError(
+                    f"node '{node.name}': attachment height {full_h} must divide by mesh "
+                    f"size {n_shards} x tile_h {options.tile_h}")
+            # The band viewport (graph.py:1292-1295): rows y0 .. y0 + band.
+            band_h = full_h // n_shards
+            viewport = (0, spmd.axis_index(shard_ctx[0]) * band_h, att_w, full_h)
         # A render-to-mip surface is one level (graph.py:1163-1180).
         grid = TileGrid(
-            width=max(1, tdesc.width >> first_mip),
-            height=max(1, tdesc.height >> first_mip),
+            width=att_w,
+            height=full_h // n_shards,
             tile_h=options.tile_h,
             tile_w=options.tile_w,
         )
+
+        def band_of(rid, arr):
+            """The shard's row band of an attachment (slices a replicated
+            full-height value the first time a graphic node touches it)."""
+            if viewport is None or rid in banded:
+                return arr
+            return arr[viewport[1]:viewport[1] + grid.height]
 
         def att_load(rid, mip, layer):
             """Current contents of an attachment sub-surface (None when
@@ -888,7 +1018,7 @@ class RenderGraph:
                 colors.append(to_samples(blend_ops.clear_color(
                     grid.height, grid.width, cdesc.clear_value, device)))
             else:
-                colors.append(loaded(rid, mip, layer, cur, lambda c: c))
+                colors.append(loaded(rid, mip, layer, cur, lambda c, rid=rid: band_of(rid, c)))
 
         depth = None
         if node.depth_attachment is not None:
@@ -899,7 +1029,7 @@ class RenderGraph:
                     grid.height, grid.width, ddesc.depth_clear_value, device))
             else:
                 depth = loaded(rid, mip, layer, cur,
-                               lambda c: c[..., 0] if c.ndim == 3 else c)
+                               lambda c: band_of(rid, c[..., 0] if c.ndim == 3 else c))
 
         stencil = None
         if node.stencil_attachment is not None:
@@ -912,12 +1042,12 @@ class RenderGraph:
                     dtype=torch.int32, device=device,
                 ))
             else:
-                stencil = loaded(srid, 0, None, cur, lambda c: c)
+                stencil = loaded(srid, 0, None, cur, lambda c: band_of(srid, c))
 
         ctx = GraphicNodeExecutionContext(
             self, node, state, dynamics, device, pipeline, grid,
             colors, depth, options.bin_capacity, stencil,
-            budget_scale=options.budget_scale,
+            budget_scale=options.budget_scale, viewport=viewport, shard_ctx=shard_ctx,
         )
         node.job(ctx)
 
@@ -935,17 +1065,23 @@ class RenderGraph:
             else:
                 msaa_state.pop((rid, mip, layer), None)
 
+        stored = []
         for (rid, _, mip, layer), arr in zip(node.color_attachments, ctx._colors):
             att_store(rid, mip, layer, arr.mean(dim=0) if samples > 1 else arr)
             keep_samples(rid, mip, layer, arr)
+            stored.append(rid)
         if node.depth_attachment is not None and ctx._depth is not None:
             rid, _, mip, layer = node.depth_attachment
             att_store(rid, mip, layer, ctx._depth[0] if samples > 1 else ctx._depth)
             keep_samples(rid, mip, layer, ctx._depth)
+            stored.append(rid)
         if node.stencil_attachment is not None and ctx._stencil is not None:
             srid = node.stencil_attachment
             keep_samples(srid, 0, None, ctx._stencil)
             state[srid] = ctx._stencil[0] if samples > 1 else ctx._stencil
+            stored.append(srid)
+        if shard_ctx is not None:
+            banded.update(stored)
         for ov in ctx.stats:
             overflow = overflow + ov
         if validate:
@@ -1038,7 +1174,8 @@ class CompiledRenderGraph:
         return RetiredRenderGraph(self)
 
     def value(self, resource: RenderGraphResource):
-        """Final value of an exported or imported-written resource."""
+        """Final value of an exported or imported-written resource; a banded
+        (SPMD) output whole, on the mesh's first device."""
         if self._outputs is None:
             raise RuntimeError("execute() first")
         out = self._outputs.get(str(resource.id))
@@ -1047,6 +1184,8 @@ class CompiledRenderGraph:
                 f"resource #{resource.id} is not a frame output "
                 f"(exports: {self._graph.exports})"
             )
+        if isinstance(out, spmd.ShardedTensor):
+            return out.full()
         return out
 
     def present(self, swapchain, swapchain_resource: RenderGraphResource) -> None:

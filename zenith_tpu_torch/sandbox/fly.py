@@ -105,8 +105,9 @@ def scripted_flight(frame: int, window) -> None:
 
 def main() -> None:
     """``python -m zenith_tpu_torch.sandbox.fly [--frames N] [--out PNG]
-    [--width W] [--height H]`` on the card: the scripted flight. ``--serve``
-    (the interactive viewer) is ROADMAP item 23 and raises."""
+    [--width W] [--height H]`` on the card: the scripted flight; ``--serve
+    [PORT] [--target-fps F] [--no-adaptive]`` flies interactively behind the
+    viewer (``viewer.serve_loop``) instead."""
     from zenith_tpu_torch import asset
     from zenith_tpu_torch.core import log, profile
     from zenith_tpu_torch.core.cli import EngineArgs
@@ -119,12 +120,26 @@ def main() -> None:
     parser.add_argument("--width", type=int, default=1280)
     parser.add_argument("--height", type=int, default=720)
     parser.add_argument("--readback-interval", type=int, default=1)
-    parser.add_argument("--serve", type=int, nargs="?", const=8089, default=None,
-                        metavar="PORT", help="interactive browser viewer (not ported yet)")
+    parser.add_argument(
+        "--serve", type=int, nargs="?", const=8089, default=None,
+        metavar="PORT",
+        help="serve an interactive browser viewer on PORT (default 8089) "
+        "instead of replaying the scripted flight",
+    )
+    parser.add_argument(
+        "--fps-cap", type=float, default=60.0,
+        help="frame pacing for --serve (the stream can't use more)",
+    )
+    parser.add_argument(
+        "--target-fps", type=float, default=30.0,
+        help="adaptive-stream FPS target for --serve (dynamic resolution "
+        "holds this through the readback; see viewer.AdaptiveStream)",
+    )
+    parser.add_argument(
+        "--no-adaptive", action="store_true",
+        help="serve at the fixed window resolution (no dynamic resolution)",
+    )
     known, rest = parser.parse_known_args()
-    if known.serve is not None:
-        raise NotImplementedError(
-            "the interactive viewer is not ported yet (ROADMAP item 23: viewer)")
     os.environ.setdefault("ZENITH_READBACK_INTERVAL", str(known.readback_interval))
 
     window = Window(width=known.width, height=known.height, title="fly")
@@ -135,7 +150,15 @@ def main() -> None:
 
     app = FlyApp(args)
     loop = EngineLoop(app, window=window, device="cuda")
-    loop.run(max_frames=known.frames, frame_callback=scripted_flight)
+    if known.serve is not None:
+        from zenith_tpu_torch.viewer import serve_loop
+
+        print("flying — WASD/QE + click-to-look, Esc quits")
+        serve_loop(loop, port=known.serve, fps_cap=known.fps_cap,
+                   adaptive=not known.no_adaptive,
+                   target_fps=known.target_fps)
+    else:
+        loop.run(max_frames=known.frames, frame_callback=scripted_flight)
     if known.out and window.last_frame is not None:
         window.write_png(known.out, window.last_frame)
         print(f"wrote {known.out}")

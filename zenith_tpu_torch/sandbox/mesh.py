@@ -94,8 +94,8 @@ class MeshApp(RenderableApp):
 
 def main() -> None:
     """``python -m zenith_tpu_torch.sandbox.mesh [--frames N] [--out PNG]
-    [--width W] [--height H]`` on the card. ``--serve`` (the interactive
-    viewer) is ROADMAP item 23 and raises."""
+    [--width W] [--height H] [--serve [PORT]]`` on the card; ``--serve``
+    runs the interactive viewer (``viewer.serve_loop``)."""
     from zenith_tpu_torch.launch import launch
     from zenith_tpu_torch.window import Window
 
@@ -105,9 +105,14 @@ def main() -> None:
     parser.add_argument("--width", type=int, default=1920)
     parser.add_argument("--height", type=int, default=1080)
     parser.add_argument("--readback-interval", type=int, default=1)
-    parser.add_argument("--serve", type=int, nargs="?", const=8089, default=None,
-                        metavar="PORT", help="interactive browser viewer (not ported yet)")
-    parser.add_argument("--fps-cap", type=float, default=60.0, help="frame pacing for --serve")
+    parser.add_argument(
+        "--serve", type=int, nargs="?", const=8089, default=None,
+        metavar="PORT",
+        help="interactive browser viewer on PORT (default 8089); "
+        "runs until closed unless --frames is also given",
+    )
+    parser.add_argument("--fps-cap", type=float, default=60.0,
+                        help="frame pacing for --serve")
     known, rest = parser.parse_known_args()
     os.environ.setdefault("ZENITH_READBACK_INTERVAL", str(known.readback_interval))
     window = Window(width=known.width, height=known.height, title="mesh")

@@ -50,13 +50,22 @@ def main() -> None:
     parser.add_argument("--height", type=int, default=1080)
     parser.add_argument("--readback-interval", type=int, default=1,
                         help="deliver every Nth frame to the host sink")
+    parser.add_argument(
+        "--serve", type=int, nargs="?", const=8089, default=None,
+        metavar="PORT",
+        help="interactive browser viewer on PORT (default 8089); "
+        "runs until closed unless --frames is also given",
+    )
+    parser.add_argument("--fps-cap", type=float, default=60.0,
+                        help="frame pacing for --serve")
     known, rest = parser.parse_known_args()
     import os
     os.environ.setdefault("ZENITH_READBACK_INTERVAL", str(known.readback_interval))
 
     window = Window(width=known.width, height=known.height, title="simple")
     loop = launch(SimpleApp, argv=rest, window=window,
-                  max_frames=known.frames, device="cuda")
+                  max_frames=None if known.serve is not None else known.frames,
+                  serve=known.serve, fps_cap=known.fps_cap, device="cuda")
     if known.out and window.last_frame is not None:
         window.write_png(known.out, window.last_frame)
         print(f"wrote {known.out}")
