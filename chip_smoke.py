@@ -261,7 +261,21 @@ other than 0, no result line) on the first phase that fails:
     with forced ties, halo_exchange_rows equal to torch.roll, and the
     banded bloom bit-equal to the whole-surface one on shared inputs,
     refused with a halo short by 2 rows. (20d) the glass frame in bands,
-    K5 once per band, each band's call against its plain version.
+    K5 once per band, each band's call against its plain version. (20e)
+    sort-last and auto SPMD through the render graph, 4 shards on cuda:0
+    at 1920x1088: SceneApp --mode forward over the baked cerberus, 20
+    frames each single-device, sort-first and parallel="sort_last" (K1 2, 8
+    and 8 a frame; FPS, launches, kernel time and idle share from a
+    profile); each node's mode (the shadow pass banded, the lit pass
+    sort-last); each shard's K1 on the lit pass (full-height bins of a
+    quarter of the triangles) bit-equal to its unculled plain walk and to
+    its plain version, timed against its bound; the lit pass's colour and
+    depth against single-device at test_sort_last.py's tolerance (<= 0.2%
+    of pixels off by > 1e-3, depth 1e-5), the presented frames within the
+    band-offset tolerance; then parallel="auto" on three cerberus copies
+    (100,629 triangles, over AUTO_SL_MIN_TRIS): in the top quarter of the
+    rows the lit pass resolves to sort-last, spread over the height to
+    sort-first, the shadow pass to sort-first, each held as before.
 
 Every kernel and its plain version are timed with CUDA events (median; a
 plain version that runs for seconds twice, not warmed up) and set beside
@@ -270,7 +284,7 @@ rows of the bins, not their padding; each plane read or written once) over
 3.35 TB/s and the fp32 operations these inputs need over 67 TFLOP/s.
 
 The line before the last is a JSON object listing each kernel (K1-K8) with
-its launches on the main paths (phases 4, 7, 11-20), its largest
+its launches on the main paths (phases 4, 7, 11-20e), its largest
 difference from the plain version, its time, the plain version's, its bound
 and what bounds it, and the inputs these were taken at; the last line is the
 device record.
@@ -4615,12 +4629,12 @@ def broken_row0():
         yield
 
 
-def twin_apps(dev, flags, options_seq, frames: int, around=()):
-    """SceneApps built alike, one on an engine of its own for each entry of
-    ``options_seq`` (single-device, banded, ...), ticked with the same 1/60
-    s steps: the presented frames of each, frame by frame, then the second
-    engine's collectives. ``around[k]``, where given, is a context manager
-    factory that wraps engine k's renders."""
+def twin_apps(dev, flags, options_seq, frames: int, around=(), app_cls=None):
+    """SceneApps (or ``app_cls``) built alike, one on an engine of its own
+    for each entry of ``options_seq`` (single-device, banded, ...), ticked
+    with the same 1/60 s steps: the presented frames of each, frame by
+    frame, then the second engine's collectives. ``around[k]``, where given,
+    is a context manager factory that wraps engine k's renders."""
     import torch
 
     from zenith_tpu_torch import asset
@@ -4635,7 +4649,7 @@ def twin_apps(dev, flags, options_seq, frames: int, around=()):
         shown = []
         window = Window(width=SPMD_W, height=SPMD_H, title="twin",
                         on_present=lambda img, i, shown=shown: shown.append(img.copy()))
-        app = SceneApp(EngineArgs.parse_args(["--log-level", "warn", *flags]))
+        app = (app_cls or SceneApp)(EngineArgs.parse_args(["--log-level", "warn", *flags]))
         engine = Engine(window, device=dev, compile_options=options)
         app.prepare(engine.render_device, window)
         wrap = around[k] if k < len(around) and around[k] else contextlib.nullcontext
@@ -5055,6 +5069,279 @@ def spmd_phases(dev, card: str, plain_k1, parts: str = "bcd") -> dict:
     return launches
 
 
+SL_FRAMES = 20  # phase 20e: frames per mode of the forward SceneApp
+SL_TWIN_FRAMES = 2
+SL_COLOR_TOL, SL_DEPTH_TOL, SL_SHARE = 1e-3, 1e-5, 0.002  # test_sort_last.py's tolerance
+# Phase 20e-ii: three cerberus copies (33,543 triangles each, together over
+# AUTO_SL_MIN_TRIS) side by side at 0.3 scale, their world heights (z) in
+# the orbit camera's top quarter of the rows, or spread over the height.
+TRIO_X = (-45.0, 0.0, 45.0)
+TRIO_SCALE = 0.3
+TRIO_Z = {"clustered": (43.0, 43.0, 43.0), "spread": (-30.0, 7.0, 44.0)}
+
+
+@contextlib.contextmanager
+def recording_modes():
+    """The ``parallel_modes`` of every render graph compiled in the block,
+    in compile order."""
+    from zenith_tpu_torch.rendergraph.graph import RenderGraph
+
+    modes = []
+    real = RenderGraph.compile
+
+    def compile_(self, *args, **kw):
+        out = real(self, *args, **kw)
+        modes.append(dict(self.parallel_modes))
+        return out
+
+    with mock.patch.object(RenderGraph, "compile", compile_):
+        yield modes
+
+
+def trio_app(placement: str):
+    """SceneApp (forward mode) whose cerberus stands three times at
+    TRIO_SCALE, at TRIO_X across and TRIO_Z[placement] up."""
+    from zenith_tpu_torch.sandbox.scene import SceneApp
+
+    class TrioApp(SceneApp):
+        def prepare(self, render_device, window) -> None:
+            super().prepare(render_device, window)
+            scene = self.renderer.scene
+            gun = next(o for o in scene.objects if o.name == "cerberus")
+            model = np.asarray(gun.model_matrix, np.float32)
+            copies = []
+            for k, (x, z) in enumerate(zip(TRIO_X, TRIO_Z[placement])):
+                place = np.diag([TRIO_SCALE, TRIO_SCALE, TRIO_SCALE, 1.0]).astype(np.float32)
+                place[:3, 3] = (x, 0.0, z)
+                copies.append(dataclasses.replace(gun, name=f"cerberus{k}",
+                                                  model_matrix=place @ model))
+            scene.objects[scene.objects.index(gun):scene.objects.index(gun) + 1] = copies
+            self.mark_structure_dirty()
+
+    return TrioApp
+
+
+def forward_nodes(render_device, renderer, camera, options):
+    """The forward renderer's own nodes (the sun's shadow pass, the lit
+    pass) at SPMD_W x SPMD_H, their colour and depth exported: returns
+    (colour, depth, each node's mode, the frame's bin overflow)."""
+    from zenith_tpu_torch.rendergraph import RenderGraphBuilder
+    from zenith_tpu_torch.rhi import Format, PipelineCache, TextureDesc
+
+    builder = RenderGraphBuilder()
+    color = builder.create(TextureDesc.color("fwd.rt", SPMD_W, SPMD_H, Format.RGBA32F))
+    depth = builder.create(TextureDesc.depth("fwd.ds", SPMD_W, SPMD_H))
+    renderer.render_to(builder, color, depth, camera)
+    builder.export(color)
+    builder.export(depth)
+    graph = builder.build()
+    compiled = graph.compile(render_device, PipelineCache(), options)
+    retired = compiled.execute(render_device)
+    return (compiled.value(color), compiled.value(depth), dict(graph.parallel_modes),
+            int(retired.bin_overflow))
+
+
+def composite_offset(single, other) -> dict:
+    """test_sort_last.py's measure of a sort-last node's colour and depth
+    against single-device: the share of pixels off by more than
+    SL_COLOR_TOL (colour, largest channel) and SL_DEPTH_TOL (depth), the
+    largest differences and the bit-equal shares."""
+    import torch
+
+    dc = (single[0] - other[0]).abs().amax(-1)
+    dz = (single[1] - other[1]).abs()
+    return {"color_off": float((dc > SL_COLOR_TOL).float().mean()),
+            "depth_off": float((dz > SL_DEPTH_TOL).float().mean()),
+            "color_max": float(dc.max()), "depth_max": float(dz.max()),
+            "color_equal": float(torch.eq(single[0], other[0]).all(-1).float().mean()),
+            "depth_equal": float(torch.eq(single[1], other[1]).float().mean())}
+
+
+def fmt_composite(o: dict) -> str:
+    return (f"colour {o['color_off'] * 100:.4f}% of pixels off by > {SL_COLOR_TOL:g} (max "
+            f"{o['color_max']:.3e}), {o['color_equal'] * 100:.4f}% bit-equal; depth "
+            f"{o['depth_off'] * 100:.4f}% off by > {SL_DEPTH_TOL:g} (max {o['depth_max']:.3e}), "
+            f"{o['depth_equal'] * 100:.4f}% bit-equal")
+
+
+def sort_last_phases(dev, card: str, plain_k1) -> dict:
+    """Phase 20e: sort-last and auto SPMD through the render graph on one
+    card, 4 shards on cuda:0 at 1920x1088, through an Engine given
+    CompileOptions(mesh=default_mesh(4, device="cuda:0"), parallel=...).
+    (iii, first) SceneApp --mode forward over the baked cerberus,
+    SL_FRAMES frames each single-device, sort-first and sort-last: FPS,
+    launches a frame (K1 2, 8 and 8), a profile (kernel time, idle share).
+    (i) the sort-last run's nodes' modes (the shadow pass banded, the lit
+    pass sort-last), each shard's K1 on the lit pass recorded: full-height
+    bins of a quarter of the triangles, bit-equal to the unculled plain
+    walk and to the plain version, timed beside its bound; the lit pass's
+    colour and depth against single-device at test_sort_last.py's tolerance
+    (<= 0.2% of pixels off by > 1e-3, depth 1e-5) with the bit-equal
+    share; the presented frames of twin apps within the band-offset
+    tolerance (the banded shadow pass keeps band-local edge setup). (ii)
+    parallel="auto" on three cerberus copies (100,629 triangles): in the
+    top quarter of the rows the lit pass resolves to sort-last and the
+    shadow pass to sort-first; spread over the height both stay
+    sort-first; each held as in (i). Returns K1's and K2's launches."""
+    import torch
+
+    from zenith_tpu_torch.core.cli import EngineArgs
+    from zenith_tpu_torch.engine import Engine
+    from zenith_tpu_torch.ops import raster as raster_mod
+    from zenith_tpu_torch.ops.raster import raster_segmented
+    from zenith_tpu_torch.parallel import default_mesh
+    from zenith_tpu_torch.rendergraph import CompileOptions
+    from zenith_tpu_torch.rendergraph.graph import AUTO_SL_MIN_TRIS, _auto_prefers_sort_last
+    from zenith_tpu_torch.rhi import RhiCore
+    from zenith_tpu_torch.renderer.scene import band_hint_for
+    from zenith_tpu_torch.sandbox.scene import SceneApp
+    from zenith_tpu_torch.window import Window
+
+    mesh = default_mesh(SPMD_SHARDS, device=dev)
+    single = CompileOptions(tile_h=16, tile_w=128)
+    options = {
+        "single-device": single,
+        "sort-first": CompileOptions(tile_h=16, tile_w=128, mesh=mesh),
+        "sort-last": CompileOptions(tile_h=16, tile_w=128, mesh=mesh, parallel="sort_last"),
+    }
+    auto = CompileOptions(tile_h=16, tile_w=128, mesh=mesh, parallel="auto")
+    flags = ["--mode", "forward"]
+    launches = {"K1": 0, "K2": 0}
+    n = SPMD_SHARDS
+
+    # -- 20e-iii. each mode's speed, in one call -----------------------------------
+    tag = "phase 20e"
+    t0 = time.perf_counter()
+    fps, apps = {}, {}
+    for label, per_frame in (("single-device", (2, 0)), ("sort-first", (2 * n, 0)),
+                             ("sort-last", (2 * n, 0))):
+        window = Window(width=SPMD_W, height=SPMD_H, title="scene")
+        with engine_options(options[label]), recording_modes() as modes:
+            loop, frame_ms, wall, counts = app_run(SceneApp, flags, window, SL_FRAMES, dev,
+                                                   per_frame, f"{tag} {label}")
+        launches["K1"] += counts[0]
+        launches["K2"] += counts[1]
+        fps[label] = 1e3 / np.mean(frame_ms[4:])
+        frame_line(f"{tag} {label}", f"SceneApp {' '.join(flags)} at {SPMD_W}x{SPMD_H}",
+                   SL_FRAMES, wall, frame_ms, counts, card)
+        want = {"sort-last": {"shadow": "sort_first", "forward": "sort_last"},
+                "sort-first": {"shadow": "sort_first", "forward": "sort_first"},
+                "single-device": {}}[label]
+        check(modes and all(m == want for m in modes), f"{tag} {label}: node modes {modes}")
+        print(f"{tag}: {label}: each node's mode {want or '(no mesh)'} in all "
+              f"{len(modes)} compiles")
+        app = apps[label] = loop.app
+        engine = Engine(Window(width=SPMD_W, height=SPMD_H, title="profile"), device=dev,
+                        compile_options=options[label])
+
+        def frame(_t, engine=engine, app=app):
+            app.tick(0.004)
+            engine.render(app)
+
+        frame(0.0)
+        k1_frame = per_frame[0]
+        profile_frames(frame, (), f"{tag} {label}", card, frame_ms,
+                       watch=("raster_segmented_kernel", "gather"),
+                       expect={"raster_segmented_kernel": k1_frame},
+                       frames=ANIM_PROFILED_FRAMES)
+        engine.shutdown()
+    print(f"{tag}: FPS single-device {fps['single-device']:.2f}, sort-first "
+          f"{fps['sort-first']:.2f}, sort-last {fps['sort-last']:.2f} [{card}]")
+
+    # -- 20e-i. forced sort-last: each shard's K1, the composite, the frames ------
+    app = apps["sort-last"]
+    engine = Engine(Window(width=SPMD_W, height=SPMD_H, title="calls"), device=dev,
+                    compile_options=options["sort-last"])
+    calls = recorded_calls(lambda: engine.render(app), ("K1",))
+    sync_free(engine, app, f"{tag} sort-last")
+    engine.shutdown()
+    fwd = [c for c in calls if c[0] == "forward"]
+    check(sorted(c[0] for c in calls) == sorted(["shadow", "forward"] * n),
+          f"{tag}: K1 ran on {[c[0] for c in calls]}")
+    records = []
+    for node, _, (bins, grid, init_z), kw in fwd:
+        check(grid.height == SPMD_H and tuple(init_z.shape) == (SPMD_H, SPMD_W),
+              f"{tag}: K1 on {node} ran on {grid.height} rows, not the full {SPMD_H}")
+        records.append(int(bins.blk_count.sum()))
+    k1_against_unculled(fwd, plain_k1, f"{tag} sort-last shard", card, lambda name: True)
+    for shard, (node, _, (bins, grid, init_z), kw) in enumerate(fwd):
+        k = raster_segmented(bins, grid, init_z, **kw)
+        with mock.patch.object(raster_mod, "_raster_segmented_cuda",
+                               raster_mod._raster_segmented_torch):
+            p = raster_segmented(bins, grid, init_z, **kw)
+        torch.cuda.synchronize()
+        for a, b_ in zip(k, p):
+            check(torch.equal(a, b_), f"{tag}: shard {shard}'s K1 differs from its plain version")
+    raster_segmented.launches = 0
+    print(f"{tag}: the lit pass's K1 on each of the {n} shards: full-height bins, "
+          f"{records} entries (the shards' contiguous quarters of the triangles), bit-equal "
+          f"to the unculled plain walk and to the plain version")
+    device = RhiCore(dev).create_render_device()
+    nodes = {label: forward_nodes(device, app.renderer, app.camera, options[label])
+             for label in ("single-device", "sort-last")}
+    torch.cuda.synchronize()
+    check(nodes["sort-last"][2] == {"shadow": "sort_first", "forward": "sort_last"},
+          f"{tag}: node modes {nodes['sort-last'][2]}")
+    check(all(v[3] == 0 for v in nodes.values()), f"{tag}: bin overflow")
+    off = composite_offset(nodes["single-device"], nodes["sort-last"])
+    print(f"{tag}: the sort-last lit pass against single-device: {fmt_composite(off)} [{card}]")
+    check(off["color_off"] <= SL_SHARE and off["depth_off"] <= SL_SHARE,
+          f"{tag}: the sort-last lit pass differs from single-device beyond "
+          f"test_sort_last.py's tolerance: {off}")
+    shown1, shown_sl, _ = twin_apps(dev, flags, (single, options["sort-last"]), SL_TWIN_FRAMES)
+    offs = [band_offset(a, b) for a, b in zip(shown1, shown_sl)]
+    check(len(offs) == SL_TWIN_FRAMES and all(band_offset_ok(o) for o in offs),
+          f"{tag}: a sort-last frame differs from single-device beyond the band-offset "
+          f"tolerance: {offs}")
+    print(f"{tag}: {SL_TWIN_FRAMES} presented sort-last frames of twin apps against "
+          f"single-device: " + "; ".join(fmt_offset(o) for o in offs))
+    launches["K1"] += raster_segmented.launches
+    raster_segmented.launches = 0
+    print(f"phase 20e-i/iii took {time.perf_counter() - t0:.1f} s")
+
+    # -- 20e-ii. auto on a clustered and a spread scene --------------------------
+    t0 = time.perf_counter()
+    for placement, want in (("clustered", "sort_last"), ("spread", "sort_first")):
+        app_cls = trio_app(placement)
+        with recording_modes() as modes:
+            shown1, shown_auto, _ = twin_apps(dev, flags, (single, auto), SL_TWIN_FRAMES,
+                                              app_cls=app_cls)
+        auto_modes = [m for m in modes if m]
+        check(auto_modes and all(m == {"shadow": "sort_first", "forward": want}
+                                 for m in auto_modes),
+              f"{tag} auto {placement}: node modes {auto_modes}")
+        twin = app_cls(EngineArgs.parse_args(["--log-level", "warn", *flags]))
+        twin.prepare(device, Window(width=SPMD_W, height=SPMD_H, title="nodes"))
+        hint = band_hint_for(twin.renderer.scene.objects,
+                             range(len(twin.renderer.scene.objects)), twin.camera)
+        guns = [h for h in hint if h[0] > 2]
+        total = sum(t for t, _, _ in guns)
+        check(total >= AUTO_SL_MIN_TRIS, f"{tag}: {total} hinted triangles")
+        if placement == "clustered":
+            check(all(y1 <= 0.25 for _, _, y1 in guns), f"{tag}: the trio spans {guns}")
+        check(_auto_prefers_sort_last(hint, n) == (want == "sort_last"),
+              f"{tag}: the hint {hint} decides against {want}")
+        out = {label: forward_nodes(device, twin.renderer, twin.camera, opt)
+               for label, opt in (("single-device", single), ("auto", auto))}
+        torch.cuda.synchronize()
+        check(out["auto"][2]["forward"] == want, f"{tag}: {out['auto'][2]}")
+        off = composite_offset(out["single-device"], out["auto"])
+        check(off["color_off"] <= SL_SHARE and off["depth_off"] <= SL_SHARE,
+              f"{tag} auto {placement}: the lit pass differs from single-device: {off}")
+        offs = [band_offset(a, b) for a, b in zip(shown1, shown_auto)]
+        check(len(offs) == SL_TWIN_FRAMES and all(band_offset_ok(o) for o in offs),
+              f"{tag} auto {placement}: a frame beyond the band-offset tolerance: {offs}")
+        print(f"{tag}: auto, the trio {placement} (hint "
+              + ", ".join(f"{t} triangles in rows {y0:.3f}-{y1:.3f}" for t, y0, y1 in guns)
+              + f"): shadow sort_first, forward {want}; the lit pass against single-device: "
+              f"{fmt_composite(off)}; presented frames: "
+              + "; ".join(fmt_offset(o) for o in offs) + f" [{card}]")
+        launches["K1"] += raster_segmented.launches
+        raster_segmented.launches = 0
+    print(f"phase 20e-ii took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -5376,9 +5663,11 @@ def main() -> int:
     anim = timed("phase 19", anim_phases, dev, card, plain)
     viewer = timed("phase 20a", viewer_phase, dev, card)
     spmd = timed("phases 20b-20d", spmd_phases, dev, card, plain)
+    sl = timed("phase 20e", sort_last_phases, dev, card, plain)
     k1_def = deferred["k1"]
     deferred["k2"]["launches"] += (glass_launches["K2"] + textured["K2"] + terrain["K2"]
-                                   + layered["K2"] + extras["K2"] + anim["K2"] + spmd["K2"])
+                                   + layered["K2"] + extras["K2"] + anim["K2"] + spmd["K2"]
+                                   + sl["K2"])
     kernels = [{
         "name": "K1 segmented raster (_segmented_kernel)",
         "route": "cuda",
@@ -5386,7 +5675,7 @@ def main() -> int:
         "replaces": "zenith_tpu/ops/raster.py:311",
         "launches": (main_launches + deferred["k1_launches"] + glass_launches["K1"]
                      + textured["K1"] + forward["K1"] + terrain["K1"] + layered["K1"]
-                     + extras["K1"] + anim["K1"] + viewer["K1"] + spmd["K1"]),
+                     + extras["K1"] + anim["K1"] + viewer["K1"] + spmd["K1"] + sl["K1"]),
         "max_abs_err": max(max_err, k1_def["max_abs_err"]),
         "ms": k1_def["ms"],
         "plain_ms": k1_def["plain_ms"],
@@ -5406,7 +5695,8 @@ def main() -> int:
           f"{extras['K1']} (IBL, post extras, temporal passes and the probe, phase 18) + "
           f"{anim['K1']} (DoF, HUD, particles, skins, morphs and picking, phase 19) + "
           f"{viewer['K1']} (FlyApp served, phase 20a) + {spmd['K1']} (SceneApp and the "
-          f"stand-alone steps in bands, phases 20b-20c); K2 "
+          f"stand-alone steps in bands, phases 20b-20c) + {sl['K1']} (forward SceneApp "
+          f"single-device, banded, sort-last and auto, phase 20e); K2 "
           f"{deferred['k2']['launches']} (phases 7, 11, 14a, 16c, 17, 18, 19 and 20b); "
           + "; ".join(f"{r['name'][:2]} {r['launches']}" for r in translucent)
           + f" (phases 11-12; K3 {forward['K3']}, K4 {forward['K4']} and K5 {forward['K5']} "

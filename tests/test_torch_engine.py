@@ -236,20 +236,28 @@ def test_kernel_build_is_keyed_by_the_sources_and_needs_nvcc(monkeypatch, tmp_pa
 
 
 def test_unported_graph_modes_raise():
-    """The triangle-sharded graph modes still raise naming ROADMAP item 24;
-    ``serve=`` (once a raise naming item 23) now serves and stops: port 0
-    picks a free port, the loop renders its frames behind the viewer and
-    the viewer's thread is gone afterwards."""
+    """A graph mode the port does not have raises ValueError naming the
+    ones it has, with no mesh as with one; those (sort_first and the
+    triangle-sharded sort_last and auto) compile without a mesh and render
+    the single-device frame. ``serve=`` serves and stops: port 0 picks a
+    free port, the loop renders its frames behind the viewer and the
+    viewer's thread is gone afterwards."""
     import threading
 
     device = RhiCore(CPU).create_render_device()
     vb = Buffer.from_numpy("tri.vb", TRI_VB, device=CPU)
     ib = Buffer.from_numpy("tri.ib", TRI_IB, device=CPU)
     tex = Texture(TextureDesc.color("swap", W, H), device=CPU)
-    graph, _ = build_triangle_graph(vb, ib, tex, 0.5)
-    for mode in ("sort_last", "auto"):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 24"):
-            graph.compile(device, PipelineCache(), CompileOptions(parallel=mode))
+    graph, swap = build_triangle_graph(vb, ib, tex, 0.5)
+    with pytest.raises(ValueError, match="expected one of"):
+        graph.compile(device, PipelineCache(), CompileOptions(parallel="sort_middle"))
+    frames = []
+    for mode in ("sort_first", "sort_last", "auto"):
+        compiled = graph.compile(device, PipelineCache(), CompileOptions(parallel=mode))
+        compiled.execute(device)
+        frames.append(compiled.value(swap))
+        assert graph.parallel_modes == {}
+    assert torch.equal(frames[0], frames[1]) and torch.equal(frames[0], frames[2])
     from zenith_tpu_torch.sandbox.simple import SimpleApp
 
     loop = launch(SimpleApp, argv=[], window=Window(width=W, height=H), max_frames=2,

@@ -217,17 +217,20 @@ def test_default_mesh_needs_the_cuda_devices_it_names(monkeypatch):
 
 
 def test_graph_modes_and_mesh_limits_raise():
-    """parallel="sort_last"/"auto" raise naming ROADMAP item 24 with a mesh
-    too; an attachment height that does not tile the mesh and a
-    render-to-mip target under a mesh raise ValueError."""
+    """parallel="sort_last"/"auto" compile and run on the mesh and report
+    each node's mode (a depth-writing GREATER node takes sort-last when
+    asked, a colour-only one stays banded); an unknown mode, an attachment
+    height that does not tile the mesh (banded: mesh size x tile_h;
+    sort-last: mesh size) and a render-to-mip target under a mesh raise
+    ValueError."""
     from zenith_tpu_torch.rendergraph import CompileOptions, RenderGraphBuilder
     from zenith_tpu_torch.rhi import TextureDesc
 
     device = RhiCore(CPU).create_render_device()
     mesh = default_mesh(8, device="cpu")
-    pipe = make_pipeline(depth=False)
 
-    def graph(h, mip_levels=1, mip=0):
+    def graph(h, mip_levels=1, mip=0, depth=False):
+        pipe = make_pipeline(depth=depth)
         b = RenderGraphBuilder()
         desc = TextureDesc.color("rt", W, h)
         if mip_levels > 1:
@@ -236,20 +239,34 @@ def test_graph_modes_and_mesh_limits_raise():
         b.export(rt)
         node = b.add_graphic_node("n")
         w_ = node.write(rt, mip=mip) if mip else node.write(rt)
+        ds = node.write(b.create(TextureDesc.depth("ds", W, h))) if depth else None
         with node.pipeline(pipe.desc.shader_input, pipe.desc.state) as binder:
             binder.push_color(w_, ColorAttachmentDesc())
+            if depth:
+                binder.set_depth(ds, pipe.desc.state.depth_stencil)
         node.execute(lambda ctx: None)
-        return b.build()
+        return b.build(), rt
 
-    for mode in ("sort_last", "auto"):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 24"):
-            graph(H).compile(device, PipelineCache(),
-                             CompileOptions(tile_h=8, mesh=mesh, parallel=mode))
+    for mode, modes in (("sort_last", {"n": "sort_last"}), ("auto", {"n": "sort_first"})):
+        for depth in (False, True):
+            g, rt = graph(H, depth=depth)
+            c = g.compile(device, PipelineCache(), CompileOptions(tile_h=8, mesh=mesh,
+                                                                  parallel=mode))
+            c.execute(device)
+            assert g.parallel_modes == (modes if depth else {"n": "sort_first"})
+            assert c.value(rt).shape == (H, W, 4)
+    with pytest.raises(ValueError, match="expected one of"):
+        graph(H)[0].compile(device, PipelineCache(), CompileOptions(mesh=mesh, parallel="rows"))
     with pytest.raises(ValueError, match="must divide by mesh size 8 x tile_h 8"):
-        c = graph(72).compile(device, PipelineCache(), CompileOptions(tile_h=8, mesh=mesh))
+        c = graph(72)[0].compile(device, PipelineCache(), CompileOptions(tile_h=8, mesh=mesh))
+        c.execute(device)
+    with pytest.raises(ValueError, match="must divide by mesh size 8 for the sort-last"):
+        c = graph(60, depth=True)[0].compile(device, PipelineCache(),
+                                          CompileOptions(tile_h=8, mesh=mesh,
+                                                         parallel="sort_last"))
         c.execute(device)
     with pytest.raises(ValueError, match="render-to-mip"):
-        c = graph(128, mip_levels=2, mip=1).compile(device, PipelineCache(),
+        c = graph(128, mip_levels=2, mip=1)[0].compile(device, PipelineCache(),
                                                     CompileOptions(tile_h=8, mesh=mesh))
         c.execute(device)
 

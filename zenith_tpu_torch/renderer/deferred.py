@@ -115,7 +115,7 @@ from zenith_tpu_torch.renderer.forward import (
     sun_view_projection,
 )
 from zenith_tpu_torch.renderer.omni import omni_face_matrices, omni_reference_z
-from zenith_tpu_torch.renderer.scene import Scene, stacked_models
+from zenith_tpu_torch.renderer.scene import Scene, band_hint_for, stacked_models
 from zenith_tpu_torch.renderer.volumetric import view_rays
 from zenith_tpu_torch.renderer.static_batch import StaticGeometryCache
 from zenith_tpu_torch.rhi import (
@@ -1327,6 +1327,10 @@ class DeferredRenderer:
 
         # -- node: G-buffer (MRT) ---------------------------------------------
         node = builder.add_graphic_node("gbuffer")
+        # The SPMD auto-decomposition hint (deferred.py:1608-1613): lazy, so
+        # the AABB projections run only when a compile is in auto mode.
+        node.set_band_hint(lambda objs=objects, ixs=tuple(plain_ix), cam=camera:
+                           band_hint_for(objs, ixs, cam))
         accesses, s_acc = geometry_reads(node)
         atlas_accesses = {name: node.read(h) for name, h in atlas_handles.items()}
         a_rt = node.write(g_albedo)

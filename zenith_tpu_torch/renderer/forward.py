@@ -16,8 +16,8 @@ Graph nodes:
 
 The shadow map is read by the forward node directly: the stream orders the
 passes. Under an SPMD mesh both forward nodes read it whole
-(``ctx.get_full``). The reference's band hint for the ``auto`` mode
-(``scene.band_hint_for``) is not set: that mode is ROADMAP item 24.
+(``ctx.get_full``). The ``forward`` node carries the band hint of the
+``auto`` mode (``scene.band_hint_for``), evaluated only by such a compile.
 
 The module also holds the helpers the deferred renderer shares: the sun's
 light camera, the shadow vertex stages, the shadow compare sampler and the
@@ -37,7 +37,7 @@ from zenith_tpu_torch.core.camera import Camera
 from zenith_tpu_torch.ops.sampling import sample_shadow_pcf
 from zenith_tpu_torch.rendergraph import RenderGraphBuilder
 from zenith_tpu_torch.rendergraph.resource import RenderGraphResource
-from zenith_tpu_torch.renderer.scene import DirectionalLight, Scene, stacked_models
+from zenith_tpu_torch.renderer.scene import DirectionalLight, Scene, band_hint_for, stacked_models
 from zenith_tpu_torch.renderer.static_batch import StaticGeometryCache
 from zenith_tpu_torch.rhi import (
     ColorAttachmentDesc,
@@ -390,6 +390,9 @@ class ForwardShadowRenderer:
 
         # -- node 2: forward lit --------------------------------------------
         node2 = builder.add_graphic_node("forward")
+        # The SPMD auto-decomposition hint, lazy (forward.py:438-443).
+        node2.set_band_hint(lambda objs=objects, ixs=tuple(plain_ix), cam=camera:
+                            band_hint_for(objs, ixs, cam))
         accesses2, s_acc2 = geometry_reads(node2)
         sm_read = node2.read(shadow_map)
         rt = node2.write(output)

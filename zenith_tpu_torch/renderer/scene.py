@@ -5,10 +5,8 @@ The minimal object/light model of BASELINE.md configs #3-#5: drawables with
 mesh buffers, transforms and PBR material factors; a sun, point and spot
 lights; ambient light and an optional cube-map skybox. Buffers live on the
 render device's ``torch.device``; everything else is host NumPy that the
-renderers send as per-frame dynamics.
-
-Not ported yet: ``band_hint_for`` (the SPMD auto-decomposition hint,
-ROADMAP item 24).
+renderers send as per-frame dynamics. ``band_hint_for`` projects the
+objects' bounds to screen rows for the SPMD ``auto`` decomposition.
 """
 
 from __future__ import annotations
@@ -286,6 +284,46 @@ def stacked_models(objects: "list[SceneObject]") -> np.ndarray:
         np.asarray(o.model_matrix, np.float32) if o.visible else _ZERO_MODEL
         for o in objects
     ])
+
+
+def band_hint_for(objects, ixs, camera) -> list:
+    """Screen-row occupancy spans for CompileOptions(parallel="auto")
+    (scene.py:318-360): one (tri_count, y0, y1) per drawn object, y0/y1
+    fractional screen rows in [0, 1], from its AABB corners projected
+    through the camera. An object without bounds, an instanced one, or one
+    crossing the near plane hints the full extent, which never tips the
+    choice toward sort-last. Host NumPy only; renderers pass it lazily
+    (GraphicNodeBuilder.set_band_hint), so it runs only when a compile is in
+    auto mode."""
+    vp = np.asarray(camera.render_view_projection, np.float32)
+    out = []
+    for i in ixs:
+        o = objects[i]
+        tri = int(getattr(o, "tri_count", 0) or 0)
+        if tri <= 0 or not o.visible:
+            continue
+        b = getattr(o, "bounds", None)
+        if b is None or o.instance_offsets is not None:
+            out.append((tri * max(1, getattr(o, "instance_count", 1) or 1), 0.0, 1.0))
+            continue
+        lo, hi = np.asarray(b[0]), np.asarray(b[1])
+        corners = np.array(
+            [[x, y, z, 1.0]
+             for x in (lo[0], hi[0])
+             for y in (lo[1], hi[1])
+             for z in (lo[2], hi[2])],
+            np.float32,
+        )
+        clip = corners @ (vp @ np.asarray(o.model_matrix, np.float32)).T
+        w = clip[:, 3]
+        if np.any(w <= 1e-6):
+            out.append((tri, 0.0, 1.0))
+            continue
+        y = clip[:, 1] / w
+        y0 = float(np.clip((y.min() + 1.0) * 0.5, 0.0, 1.0))
+        y1 = float(np.clip((y.max() + 1.0) * 0.5, 0.0, 1.0))
+        out.append((tri, y0, y1))
+    return out
 
 
 @dataclass

@@ -55,8 +55,10 @@ branches of their nodes (``ctx.sharded``, ``ctx.num_shards``,
 banded export comes back as a ``ShardedTensor`` and ``value`` returns it
 whole, on the mesh's first device. Attachment heights must divide by the
 mesh size × ``tile_h``, and render-to-mip or -layer is refused under a
-mesh. The sort-last and ``auto`` modes (triangle sharding) are not ported
-yet (ROADMAP item 24) and raise when asked for.
+mesh. ``parallel="sort_last"`` and ``"auto"`` shard the triangles of the
+eligible graphic nodes instead (see ``CompileOptions``): each shard
+rasterizes its contiguous slice at full resolution, and a binary-swap
+depth composite at the node's end lands the result in the row-band layout.
 """
 
 from __future__ import annotations
@@ -79,6 +81,7 @@ from zenith_tpu_torch.ops.draw import (
     draw_indexed_batch,
 )
 from zenith_tpu_torch.parallel import spmd
+from zenith_tpu_torch.parallel.sharding import ORDER_BACKGROUND, composite_depth_planes
 from zenith_tpu_torch.rendergraph.builder import GraphNode, RenderGraphBuilder
 from zenith_tpu_torch.rendergraph.resource import (
     InitialResourceStorage,
@@ -89,7 +92,7 @@ from zenith_tpu_torch.rhi.device import RenderDevice
 from zenith_tpu_torch.rhi.pipeline import GraphicPipeline, PipelineCache
 from zenith_tpu_torch.rhi.resource import Buffer, Texture, TextureDesc
 from zenith_tpu_torch.rhi.shader import Shader as _Shader
-from zenith_tpu_torch.rhi.state import LoadOp
+from zenith_tpu_torch.rhi.state import CompareOp, LoadOp, PolygonMode, PrimitiveTopology
 
 logger = log.get(__name__)
 
@@ -145,9 +148,34 @@ class CompileOptions:
 
     ``mesh`` (a ``parallel.spmd.Mesh``, e.g. ``default_mesh(4,
     device="cuda:0")``) turns on SPMD rendering in row bands over
-    ``mesh[shard_axis]`` (see the module docstring). ``parallel`` keeps the
-    reference's field: "sort_first" is ported; "sort_last" and "auto"
-    raise (ROADMAP item 24)."""
+    ``mesh[shard_axis]`` (see the module docstring).
+
+    ``parallel`` picks the work decomposition of GRAPHIC nodes under a
+    mesh (graph.py:107-138). ``"sort_first"`` (default): row bands, no
+    collective while rasterizing, but geometry that clusters in a few bands
+    loads one shard with nearly all of it. ``"sort_last"``: eligible nodes
+    shard their TRIANGLES contiguously over the mesh instead; every shard
+    rasterizes its T/n slice at full resolution, then a binary-swap depth
+    composite (``parallel.sharding.composite_depth_planes``) lands the
+    result in the row-band layout, so the nodes downstream run exactly as
+    in sort-first. A node is eligible when it has full-surface attachments,
+    a depth attachment with test and write on and the GREATER compare, no
+    stencil and no blended colour attachment; MSAA qualifies (the composite
+    runs per sample plane). Blending and stencil are submission-order state
+    machines that do not commute across triangle shards, so those nodes
+    stay banded in the same frame. A per-pixel submission-order plane
+    breaks equal-z ties across shards as sequential draws would (up to
+    ties between records of one batched draw that land on different
+    shards). The attachment height must divide by the mesh size.
+
+    ``"auto"``: a choice per node at compile time. An eligible node takes
+    sort-last when its ``band_hint`` (renderers project object AABBs to
+    screen rows, ``GraphicNodeBuilder.set_band_hint``) shows the triangle
+    load clustering into few bands: the fullest band's estimate is over
+    ``AUTO_SL_IMBALANCE`` times the uniform share, with at least
+    ``AUTO_SL_MIN_TRIS`` triangles. Nodes without a hint stay banded. The
+    resolved choices enter the frame-function key, so a camera move that
+    flips one switches between two cached frame functions."""
 
     tile_h: int = 32
     tile_w: int = 128
@@ -158,6 +186,40 @@ class CompileOptions:
     # Multiplies every draw's entry budget; the engine doubles it when a
     # frame reports bin overflow.
     budget_scale: int = 1
+
+
+# parallel="auto" thresholds (graph.py:153-159): sort-last pays a
+# binary-swap composite of O(H·W) per shard whatever the triangle count, so
+# it only wins when sort-first's fullest band holds well over the uniform
+# share of a large triangle load.
+AUTO_SL_IMBALANCE = 2.0
+AUTO_SL_MIN_TRIS = 65536
+
+PARALLEL_MODES = ("sort_first", "sort_last", "auto")
+
+
+def _auto_prefers_sort_last(hint, n_shards: int) -> bool:
+    """The band-occupancy test of CompileOptions(parallel="auto")
+    (graph.py:162-186): spread each draw's triangles evenly over the bands
+    its screen-row extent covers and prefer sort-last when the fullest band
+    exceeds AUTO_SL_IMBALANCE times the uniform share."""
+    if not hint or n_shards <= 1:
+        return False
+    total = sum(t for t, _, _ in hint)
+    if total < AUTO_SL_MIN_TRIS:
+        return False
+    bands = [0.0] * n_shards
+    for t, y0, y1 in hint:
+        y0 = min(max(float(y0), 0.0), 1.0)
+        y1 = min(max(float(y1), 0.0), 1.0)
+        if y1 <= y0:
+            y1 = min(1.0, y0 + 1e-6)
+        for b in range(n_shards):
+            b0, b1 = b / n_shards, (b + 1) / n_shards
+            ov = min(y1, b1) - max(y0, b0)
+            if ov > 0:
+                bands[b] += t * ov / (y1 - y0)
+    return max(bands) > AUTO_SL_IMBALANCE * (total / n_shards)
 
 
 def _desc_key(desc):
@@ -466,7 +528,7 @@ class GraphicNodeExecutionContext(_NodeContextBase):
                  colors: List[Any], depth: Optional[Any],
                  bin_capacity: int, stencil: Optional[Any] = None,
                  budget_scale: int = 1, viewport: Optional[tuple] = None,
-                 shard_ctx=None):
+                 shard_ctx=None, sort_last: bool = False):
         super().__init__(graph, node, state, dynamics, device, shard_ctx)
         self._budget_scale = budget_scale
         # (x0, y0, full_w, full_h): the band's place in the full surface.
@@ -479,6 +541,76 @@ class GraphicNodeExecutionContext(_NodeContextBase):
         self._bindings: Dict[str, Any] = {}
         self._bin_capacity = bin_capacity
         self.stats: List[Any] = []
+        # Sort-last triangle sharding (graph.py:588-592): whether this
+        # node's draws shard their triangles over the mesh axis, the
+        # per-pixel submission-order plane and the next draw's sequence
+        # number.
+        self._sort_last = sort_last
+        self._order: Optional[torch.Tensor] = None
+        self._draw_seq = 0
+
+    def _shard_ib(self, ib):
+        """This shard's contiguous slice of a TRIANGLE_LIST index buffer
+        (graph.py:594-621): ceil(T/n) triangles from ``rank * per``, a short
+        tail padded with copies of the first triple. A re-drawn triangle
+        fails the strict GREATER test everywhere, and a duplicate on another
+        shard composites to the same values. Other topologies and non-FILL
+        polygon modes draw replicated: the composite resolves identical
+        fragments to rank 0, so they stay right, only not faster."""
+        st = self.pipeline.desc.state
+        if (st.input_assembly.topology != PrimitiveTopology.TRIANGLE_LIST
+                or st.rasterization.polygon_mode != PolygonMode.FILL):
+            return ib
+        axis, n = self._shard_ctx[0], self._shard_ctx[1]
+        tri = ib.reshape(-1, 3)
+        t = tri.shape[0]
+        per = -(-t // n)
+        pad = per * n - t
+        if pad:
+            tri = torch.cat([tri, tri[:1].expand(pad, 3)], dim=0)
+        # The rank and the offset are host integers: slicing takes no read.
+        start = spmd.axis_index(axis) * per
+        return tri[start:start + per]
+
+    def _stamp_order(self, z_before: torch.Tensor) -> None:
+        """Record the pixels this draw won (graph.py:623-640): its depth
+        changed, as under strict GREATER a later equal-z fragment never
+        writes. The sort-last composite breaks cross-shard equal-z ties by
+        this plane, in submission order. ``z_before`` stays what it was:
+        every draw path returns a new depth tensor (the raster pads a copy
+        of its seed, MSAA stacks new planes)."""
+        if self._order is None:
+            # The depth plane's shape: (H, W), or (S, H, W) under MSAA.
+            self._order = torch.full(z_before.shape, ORDER_BACKGROUND, dtype=torch.int32,
+                                     device=z_before.device)
+        self._order = self._order.masked_fill(self._depth != z_before, self._draw_seq)
+        self._draw_seq += 1
+
+    def _composite(self) -> None:
+        """The sort-last node's end (graph.py:1390-1425): merge the shards'
+        full-resolution planes by depth, ties by submission order, into
+        the row-band layout the nodes downstream read. Every shard reaches
+        every collective, whether or not it drew: a node that recorded no
+        draw composites with an order plane of ORDER_BACKGROUND. Under MSAA
+        each sample plane composites on its own, in the same order on every
+        shard, into banded (S, band_h, W, ...) planes."""
+        axis = self._shard_ctx[0]
+        samples = self.pipeline.desc.state.multisample.samples
+        order = self._order
+        if order is None:
+            order = torch.full(self._depth.shape, ORDER_BACKGROUND, dtype=torch.int32,
+                               device=self._depth.device)
+        if samples == 1:
+            planes, self._depth, _ = composite_depth_planes(
+                list(self._colors), self._depth, order, axis, band_output=True)
+            self._colors = planes
+            return
+        per_sample = [composite_depth_planes([c[s] for c in self._colors], self._depth[s],
+                                             order[s], axis, band_output=True)
+                      for s in range(samples)]
+        self._colors = [torch.stack([p[0][i] for p in per_sample])
+                        for i in range(len(self._colors))]
+        self._depth = torch.stack([p[1] for p in per_sample])
 
     @property
     def extent(self) -> "Tuple[int, int]":
@@ -550,6 +682,9 @@ class GraphicNodeExecutionContext(_NodeContextBase):
         merged = dict(self._bindings)
         if resources:
             merged.update(resources)
+        z_before = self._depth
+        if self._sort_last:
+            ib = self._shard_ib(ib)
         self._colors, self._depth, stats = draw_indexed(
             self._colors,
             self._depth,
@@ -566,6 +701,8 @@ class GraphicNodeExecutionContext(_NodeContextBase):
             instance_data=instance_data,
             budget_scale=self._budget_scale,
         )
+        if self._sort_last:
+            self._stamp_order(z_before)
         self.stats.append(stats.bin_overflow)
         if stats.stencil is not None:
             self._stencil = stats.stencil
@@ -590,10 +727,13 @@ class GraphicNodeExecutionContext(_NodeContextBase):
             merged = dict(self._bindings)
             if res:
                 merged.update(res)
+            if self._sort_last:
+                ib_v = self._shard_ib(ib_v)
             if len(draw) > 3 and draw[3]:
                 resolved.append((vb_v, ib_v, merged, draw[3]))
             else:
                 resolved.append((vb_v, ib_v, merged))
+        z_before = self._depth
         self._colors, self._depth, stats = draw_indexed_batch(
             self._colors,
             self._depth,
@@ -607,6 +747,10 @@ class GraphicNodeExecutionContext(_NodeContextBase):
             budget_scale=self._budget_scale,
             peel_layers=peel_layers,
         )
+        if self._sort_last:
+            # One stamp a batch: the kernel orders records within a shard;
+            # equal-z ties across shards within one batch resolve by rank.
+            self._stamp_order(z_before)
         self.stats.append(stats.bin_overflow)
         if stats.stencil is not None:
             self._stencil = stats.stencil
@@ -693,11 +837,13 @@ class RenderGraph:
                     out.append(a.resource_id)
         return out
 
-    def _structure_key(self, options: CompileOptions, dyn_sig: tuple, device: torch.device):
+    def _structure_key(self, options: CompileOptions, dyn_sig: tuple, device: torch.device,
+                       extra: tuple = ()):
         """The frame-function cache key as a nested hashable tuple (same
         contents as the reference's key, graph.py:868-935, plus the device
-        and the dynamics' (name, shape, dtype) signature)."""
-        parts = [options, _validate_enabled(), str(device)]
+        and the dynamics' (name, shape, dtype) signature). ``extra`` carries
+        the resolved ``auto`` choices."""
+        parts = [options, _validate_enabled(), str(device), extra]
         add = parts.append
         memo: dict = {}
 
@@ -791,11 +937,8 @@ class RenderGraph:
         pipeline_cache: PipelineCache,
         options: CompileOptions = CompileOptions(),
     ) -> "CompiledRenderGraph":
-        if options.parallel != "sort_first":
-            raise NotImplementedError(
-                f"parallel={options.parallel!r} (triangle-sharded SPMD) is not ported "
-                f"yet (ROADMAP item 24: parallel); the port renders sort_first row bands"
-            )
+        if options.parallel not in PARALLEL_MODES:
+            raise ValueError(f"parallel={options.parallel!r}: expected one of {PARALLEL_MODES}")
         active_nodes: List[GraphNode] = []
         for node in self.nodes:
             if not node.is_complete:
@@ -812,7 +955,28 @@ class RenderGraph:
 
         dev = device.device
         dyn_sig = _dynamic_signature(self.dynamics)
-        key = _HKey(self._structure_key(options, dyn_sig, dev))
+        # parallel="auto" (graph.py:985-1005): each graphic node's choice,
+        # from its band hint evaluated now, enters the key, so a cached
+        # frame function always matches its choices. Without a mesh the
+        # hints are never read.
+        auto_pref: Dict[int, bool] = {}
+        auto_key: tuple = ()
+        if options.mesh is not None and options.parallel == "auto":
+            n_sh = options.mesh.shape[options.shard_axis]
+            auto_pref = {
+                node.index: _auto_prefers_sort_last(
+                    node.band_hint() if callable(node.band_hint) else node.band_hint, n_sh)
+                for node in active_nodes if node.kind == "graphic"
+            }
+            auto_key = ("auto_sl",) + tuple(sorted(auto_pref.items()))
+        sort_last = {node.index for node in active_nodes
+                     if self._takes_sort_last(node, options, auto_pref)}
+        # Each graphic node's decomposition (graph.py:1087, 1223-1226).
+        self.parallel_modes: Dict[str, str] = {} if options.mesh is None else {
+            node.name: "sort_last" if node.index in sort_last else "sort_first"
+            for node in active_nodes if node.kind == "graphic"
+        }
+        key = _HKey(self._structure_key(options, dyn_sig, dev, extra=auto_key))
         cached = _FRAME_PROGRAM_CACHE.get(key)
         global _MISS_STREAK
         if cached is not None:
@@ -821,7 +985,7 @@ class RenderGraph:
             if _validate_enabled():
                 self._capture_self_check(key)
         else:
-            cached = self._build_frame_fn(active_nodes, options, dev)
+            cached = self._build_frame_fn(active_nodes, options, dev, sort_last)
             _FRAME_PROGRAM_CACHE[key] = cached
             if len(_FRAME_PROGRAM_CACHE) > _FRAME_PROGRAM_CACHE_MAX:
                 _FRAME_PROGRAM_CACHE.popitem(last=False)
@@ -845,8 +1009,28 @@ class RenderGraph:
         dynamics = _dynamics_to_device(self.dynamics, dev)
         return CompiledRenderGraph(self, cached, imports, dynamics, key, dyn_sig, dev)
 
+    def _takes_sort_last(self, node: GraphNode, options: CompileOptions,
+                         auto_pref: Dict[int, bool]) -> bool:
+        """Whether a graphic node shards its triangles (graph.py:1195-1240):
+        asked for by ``parallel`` (or by its ``auto`` choice), and opaque
+        over a full-surface depth attachment written under GREATER with no
+        stencil."""
+        if options.mesh is None or node.kind != "graphic":
+            return False
+        if not (options.parallel == "sort_last"
+                or (options.parallel == "auto" and auto_pref.get(node.index, False))):
+            return False
+        ds = self._pipelines[node.index].desc.state.depth_stencil
+        return (not _subresource_target(node)
+                and node.stencil_attachment is None
+                and node.depth_attachment is not None
+                and ds.depth_test_enable
+                and ds.depth_write_enable
+                and ds.depth_compare_op == CompareOp.GREATER
+                and not any(cd.blend_enable for _, cd, _, _ in node.color_attachments))
+
     def _build_frame_fn(self, active_nodes: List[GraphNode], options: CompileOptions,
-                        device: torch.device):
+                        device: torch.device, sort_last: "frozenset | set" = frozenset()):
         resources = self.resources
         pipelines = self._pipelines
         output_ids = list(dict.fromkeys(self._written_imports() + self.exports))
@@ -874,6 +1058,7 @@ class RenderGraph:
                     overflow, nan_pixels = self._run_node(
                         node, state, msaa_state, dynamics, device, pipelines, options,
                         resources, overflow, nan_pixels, validate, shard_ctx,
+                        node.index in sort_last,
                     )
 
             outputs = {str(rid): state[rid] for rid in output_ids if rid in state}
@@ -914,9 +1099,12 @@ class RenderGraph:
         return frame_fn
 
     def _run_node(self, node, state, msaa_state, dynamics, device, pipelines, options,
-                  resources, overflow, nan_pixels, validate, shard_ctx=None):
+                  resources, overflow, nan_pixels, validate, shard_ctx=None,
+                  node_sl: bool = False):
         """Run one node of the frame function; returns the running
-        (overflow, nan_pixels) counters."""
+        (overflow, nan_pixels) counters. ``node_sl``: a sort-last node,
+        which rasterizes its triangle shard at full resolution and
+        composites into row bands at its end."""
         n_shards = shard_ctx[1] if shard_ctx is not None else 1
         banded = shard_ctx[2] if shard_ctx is not None else ()
         if node.kind == "lambda":
@@ -953,33 +1141,46 @@ class RenderGraph:
         att_w = max(1, tdesc.width >> first_mip)
         full_h = max(1, tdesc.height >> first_mip)
         viewport = None
+        local_h = full_h
         if shard_ctx is not None:
-            subres = any(m != 0 or l is not None for _, _, m, l in node.color_attachments) or (
-                node.depth_attachment is not None
-                and (node.depth_attachment[2] != 0 or node.depth_attachment[3] is not None))
-            if subres:
+            if _subresource_target(node):
                 raise ValueError(
                     f"node '{node.name}': render-to-mip/-layer attachments are single-device "
                     f"(no SPMD mesh)")
-            if full_h % (n_shards * options.tile_h):
-                raise ValueError(
-                    f"node '{node.name}': attachment height {full_h} must divide by mesh "
-                    f"size {n_shards} x tile_h {options.tile_h}")
-            # The band viewport (graph.py:1292-1295): rows y0 .. y0 + band.
-            band_h = full_h // n_shards
-            viewport = (0, spmd.axis_index(shard_ctx[0]) * band_h, att_w, full_h)
+            if node_sl:
+                # Full-resolution raster on every shard; the composite
+                # bands the result at the node's end.
+                if full_h % n_shards:
+                    raise ValueError(
+                        f"node '{node.name}': attachment height {full_h} must divide by mesh "
+                        f"size {n_shards} for the sort-last composite")
+            else:
+                if full_h % (n_shards * options.tile_h):
+                    raise ValueError(
+                        f"node '{node.name}': attachment height {full_h} must divide by mesh "
+                        f"size {n_shards} x tile_h {options.tile_h}")
+                # The band viewport (graph.py:1292-1295): rows y0 .. y0 + band.
+                local_h = full_h // n_shards
+                viewport = (0, spmd.axis_index(shard_ctx[0]) * local_h, att_w, full_h)
         # A render-to-mip surface is one level (graph.py:1163-1180).
         grid = TileGrid(
             width=att_w,
-            height=full_h // n_shards,
+            height=local_h,
             tile_h=options.tile_h,
             tile_w=options.tile_w,
         )
 
         def band_of(rid, arr):
-            """The shard's row band of an attachment (slices a replicated
-            full-height value the first time a graphic node touches it)."""
-            if viewport is None or rid in banded:
+            """A loaded attachment in this node's layout: the shard's row
+            band (a replicated full-height value is sliced the first time a
+            graphic node touches it), or for a sort-last node the full
+            surface (a banded value gathered)."""
+            if shard_ctx is None:
+                return arr
+            if node_sl:
+                return spmd.all_gather(arr, shard_ctx[0], axis=0, tiled=True) \
+                    if rid in banded else arr
+            if rid in banded:
                 return arr
             return arr[viewport[1]:viewport[1] + grid.height]
 
@@ -1008,6 +1209,9 @@ class RenderGraph:
             if samples > 1:
                 kept = msaa_state.get((rid, mip, layer))
                 if kept is not None and kept[0] == samples:
+                    if node_sl and rid in banded:
+                        # (S, band_h, W, ...) bands: gather the row axis.
+                        return spmd.all_gather(kept[1], shard_ctx[0], axis=1, tiled=True)
                     return kept[1]
             return to_samples(resolve(cur))
 
@@ -1048,8 +1252,11 @@ class RenderGraph:
             self, node, state, dynamics, device, pipeline, grid,
             colors, depth, options.bin_capacity, stencil,
             budget_scale=options.budget_scale, viewport=viewport, shard_ctx=shard_ctx,
+            sort_last=node_sl,
         )
         node.job(ctx)
+        if node_sl:
+            ctx._composite()
 
         # Epilogue: store attachments back (store-op STORE semantics), the
         # MSAA planes resolved (colour: mean; depth and stencil: sample 0)
@@ -1091,6 +1298,13 @@ class RenderGraph:
                 nan_pixels = nan_pixels + torch.isnan(ctx._depth).sum().to(torch.int32)
 
         return overflow, nan_pixels
+
+
+def _subresource_target(node: GraphNode) -> bool:
+    """Whether a graphic node renders into one mip level or array layer."""
+    return any(m != 0 or l is not None for _, _, m, l in node.color_attachments) or (
+        node.depth_attachment is not None
+        and (node.depth_attachment[2] != 0 or node.depth_attachment[3] is not None))
 
 
 # Frame-function cache: structure key → frame function. Module-level so
