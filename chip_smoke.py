@@ -276,6 +276,26 @@ other than 0, no result line) on the first phase that fails:
     (100,629 triangles, over AUTO_SL_MIN_TRIS): in the top quarter of the
     rows the lit pass resolves to sort-last, spread over the height to
     sort-first, the shadow pass to sort-first, each held as before.
+21. the reference's random state sweeps and split draws (the draws of
+    tests/test_torch_property.py and tests/test_torch_raster_parts.py, the
+    port's twins of test_property.py, test_property_matrix.py and
+    test_raster_parts.py). (21a) the 32 sweep draws (topology, cull x
+    winding, all eight depth compares x write, one- and two-face stencil
+    with random ops and masks, sample offsets on the 1/16 lattice) through
+    K1, or K3 with stencil, at 128x64 with 8x128 tiles within the
+    reference's tolerances of tests/np_reference.py (coverage and stencil
+    exact, z 1e-4, varyings 2e-3) and bit-equal to the plain versions, and
+    the same clip-space draws at 1920x1080 bit-equal to the plain
+    versions; (21b) test_property_matrix.py's 12 blend equations, and more
+    seeds until all ten factor codes and five ops are drawn in a written
+    channel, each a translucent draw of 48 random triangles over a random
+    HDR target at 128x64 and 1920x1080 through K5, six also with a random
+    two-face stencil through K6: z and stencil bit-equal, colour within
+    atol 1e-5 + rtol 1e-5; (21c) the seven splits (ops.draw's record cap
+    64 and primitive cap 16, restored in a finally) bit-equal to the
+    unsplit renders through K1, K3, K5 and K1 at each of 4 MSAA samples.
+    Negative controls: a plain K3 with two stencil ops swapped and a plain
+    K5 with the SRC/DST alpha factors swapped must be caught.
 
 Every kernel and its plain version are timed with CUDA events (median; a
 plain version that runs for seconds twice, not warmed up) and set beside
@@ -284,7 +304,7 @@ rows of the bins, not their padding; each plane read or written once) over
 3.35 TB/s and the fp32 operations these inputs need over 67 TFLOP/s.
 
 The line before the last is a JSON object listing each kernel (K1-K8) with
-its launches on the main paths (phases 4, 7, 11-20e), its largest
+its launches on the main paths (phases 4, 7, 11-21), its largest
 difference from the plain version, its time, the plain version's, its bound
 and what bounds it, and the inputs these were taken at; the last line is the
 device record.
@@ -947,9 +967,10 @@ __device__ __forceinline__ void zn_fragment(const float* a, float frag_x, float 
   rgba[3] = c[3] * g[3];
 }
 """
-# The record columns of the three blend shaders the script builds ahead (the
-# 1/w column not included), in the order draw._batch_records lays them out.
-# Phases 10-12 fail if a draw's own layout misses these builds.
+# The record columns of three of the four blend shaders the script builds
+# ahead (SOUP_LAYOUT, phase 21's, is the fourth; the 1/w column not
+# included), in the order draw._batch_records lays them out. Phases 10-12
+# and 21 fail if a draw's own layout misses these builds.
 STRESS_LAYOUT = [("color", 4), ("__draw_id", 1), ("__u_Gain", 4), ("__front", 1)]
 GLASS_LAYOUT = [("normal", 3), ("__draw_id", 1), ("__u_BaseColor", 4), ("__u_SunDir", 3),
                 ("__front", 1)]
@@ -5342,6 +5363,348 @@ def sort_last_phases(dev, card: str, plain_k1) -> dict:
     return launches
 
 
+# The fragment shader of tests/test_torch_raster_parts.py (the interpolated
+# vertex colour) made kernel-safe, so that phase 21c's blended split draws
+# run K5, and the record columns of its single-draw blend batch.
+SOUP_FS_CUDA = """
+__device__ __forceinline__ void zn_fragment(const float* a, float frag_x, float frag_y,
+                                            float depth, bool front_facing, float draw_id,
+                                            float* rgba) {
+  const float* c = a + ZN_V_rgba;
+  rgba[0] = c[0];
+  rgba[1] = c[1];
+  rgba[2] = c[2];
+  rgba[3] = c[3];
+}
+"""
+SOUP_LAYOUT = [("rgba", 4), ("__draw_id", 1), ("__front", 1)]
+# Phase 21b: the cells (columns, rows) of a blend draw, one random
+# triangle each, and the seeds of test_property_matrix.py's blend
+# equations that also draw with a random two-face stencil (K6).
+SWEEP_BLEND_CELLS = (8, 6)
+SWEEP_STENCIL_SEEDS = (0, 2, 4, 6, 8, 10)
+
+
+def sweep_modules():
+    """tests/test_torch_property.py and tests/test_torch_raster_parts.py,
+    whose draws phase 21 runs (they import numpy, torch, pytest, the port
+    and tests/np_reference.py, nothing of JAX). Importing them leaves
+    torch's CPU thread count as it was."""
+    import importlib
+
+    import torch
+
+    tests = str(REPO / "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    threads = torch.get_num_threads()
+    try:
+        return (importlib.import_module("test_torch_property"),
+                importlib.import_module("test_torch_raster_parts"))
+    finally:
+        torch.set_num_threads(threads)
+
+
+def sweep_blend_draw(seed: int, width: int, height: int, dev):
+    """Phase 21b's draw for blend seed ``seed``: a random triangle in each
+    of SWEEP_BLEND_CELLS (mixed winding, z in (0.05, 0.95), colour up to
+    1.5 and alpha, a draw id and a Gain per triangle: the stress shader's
+    columns) binned
+    at ``width`` x ``height``, a random HDR target and z plane, and a
+    random stencil plane. Returns (bins, grid, init z, colour, stencil)."""
+    import torch
+
+    from zenith_tpu_torch.ops.binning import TileGrid, bin_segmented
+    from zenith_tpu_torch.ops.geometry import setup_with_attrs
+    from zenith_tpu_torch.rhi.state import CullMode
+
+    rng = np.random.default_rng(21000 + seed)
+    cols, rows = SWEEP_BLEND_CELLS
+    nt = cols * rows
+    nv = 3 * nt
+    # One triangle a cell, its corners anywhere in the cell widened by 35%
+    # a side: neighbours overlap, at most a few layers deep, so equations
+    # that square the destination (DST_COLOR on both sides) stay finite.
+    cell = np.stack(np.meshgrid(np.arange(cols), np.arange(rows)), -1).reshape(nt, 1, 2)
+    size = np.array([2.0 / cols, 2.0 / rows])
+    xy = (-1.0 + (cell + rng.uniform(-0.35, 1.35, (nt, 3, 2))) * size).reshape(nv, 2)
+    clip = np.concatenate([xy, rng.uniform(0.05, 0.95, (nv, 1)), np.ones((nv, 1))],
+                          1).astype(np.float32)
+    per_tri = np.concatenate([np.arange(nt)[:, None] % 8, rng.uniform(0.5, 1.0, (nt, 4))], 1)
+    vary = np.concatenate([rng.uniform(0.0, 1.5, (nv, 3)), rng.uniform(0.1, 0.9, (nv, 1)),
+                           np.repeat(per_tri, 3, 0)], 1).astype(np.float32)
+    idx = np.arange(nv, dtype=np.int32).reshape(nt, 3)
+    grid = TileGrid(width, height) if width > 128 else TileGrid(width, height, 8, 128)
+    rec, corner = setup_with_attrs(*(torch.from_numpy(a).to(dev) for a in (clip, idx, vary)),
+                                   width, height, cull_mode=CullMode.NONE)
+    bins = bin_segmented(rec, corner, grid)
+    init = torch.from_numpy(rng.uniform(0.0, 0.6, (height, width)).astype(np.float32)).to(dev)
+    color = torch.from_numpy(rng.uniform(0.0, 2.0, (height, width, 4)).astype(np.float32))
+    sten = torch.from_numpy(rng.integers(0, 256, (height, width)).astype(np.int32))
+    return bins, grid, init, color.to(dev), sten.to(dev)
+
+
+def sweep_phases(dev, card: str, plain_k1) -> dict:
+    """Phase 21: the reference's random state sweeps and split draws on the
+    card. (21a) the 32 draws of test_property.py and test_property_matrix.py
+    (topology, cull x winding, all eight depth compares x write, one- and
+    two-face stencil with random ops and masks, sample offsets on the 1/16
+    lattice) through K1, and K3 where the draw has stencil, at 128x64 with
+    8x128 tiles against np_reference.render_reference at the reference's
+    tolerances, and there and at 1920x1080 bit-equal to the plain versions;
+    (21b) test_property_matrix.py's blend equations, each as a translucent
+    draw of random triangles over a random HDR target at 128x64 and
+    1920x1080 through K5, six with a random two-face stencil through K6, z
+    and stencil bit-equal and colour within atol 1e-5 + rtol 1e-5 of the
+    plain version, seeds added past the reference's 12 until every factor
+    code and op has been drawn in a written channel; (21c)
+    test_raster_parts.py's seven splits (ops.draw's record and primitive
+    caps set tiny, restored in a finally), every split render bit-equal to
+    its unsplit render through K1, K3 and K5 (the blended draws with a
+    kernel-safe copy of the test's shader) and K1 at each of 4 MSAA
+    samples. Two negative controls: a 21a stencil draw against a plain K3
+    whose stencil op table has two ops swapped, and a 21b draw against a
+    plain K5 whose SRC_ALPHA and DST_ALPHA factors (and their ONE_MINUS
+    forms) are swapped, must both be caught. Returns the launches of K1,
+    K3, K5 and K6 and K5/K6's largest colour difference."""
+    import torch
+
+    from zenith_tpu_torch.ops import blend as blend_mod
+    from zenith_tpu_torch.ops import raster as raster_mod
+    from zenith_tpu_torch.ops import runtime
+    from zenith_tpu_torch.ops.binning import TileGrid
+    from zenith_tpu_torch.ops.raster import raster_segmented, raster_segmented_blend
+    from zenith_tpu_torch.rhi import Shader, uniform
+    from zenith_tpu_torch.rhi.state import BlendFactor, CompareOp, StencilOp
+
+    tp, trp = sweep_modules()
+    counters = {"K1": (raster_segmented, "launches"),
+                "K3": (raster_segmented, "stencil_launches"),
+                "K5": (raster_segmented_blend, "launches"),
+                "K6": (raster_segmented_blend, "stencil_launches")}
+    total = {k: 0 for k in counters}
+    builds_at_start = runtime.shader_builds
+
+    def run_counted(fn):
+        """``fn()`` with every count set to 0 just before; returns (its
+        result, the launches it made), the launches added to the phase's."""
+        for f, name in counters.values():
+            setattr(f, name, 0)
+        out = fn()
+        torch.cuda.synchronize()
+        got = {k: getattr(f, name) for k, (f, name) in counters.items()}
+        for k, n in got.items():
+            total[k] += n
+        return out, got
+
+    def fmt(launches):
+        return ", ".join(f"{k} {n}" for k, n in launches.items() if n)
+
+    def exact(k, p, what, names):
+        for a, b, name in zip(k, p, names):
+            if a is None and b is None:
+                continue
+            check(torch.equal(a, b), f"{what}: {name} differs from the plain version (max "
+                  f"{(a.float() - b.float()).abs().max().item():.3e})")
+
+    # -- 21a. the state sweeps through K1 and K3 --------------------------------
+    t0 = time.perf_counter()
+    cases = ([tp.property_case(s) for s in tp.PROPERTY_SEEDS]
+             + [tp.matrix_case(s) for s in tp.MATRIX_SEEDS])
+    grids = {"128x64": tp.GRID, f"{W}x{H}": TileGrid(W, H)}
+    a_launches = {k: 0 for k in counters}
+    z_err = var_err = 0.0
+    covered = 0
+    for case in cases:
+        want = "K1" if case["front_st"] is None else "K3"
+        for tag, grid in grids.items():
+            bins = tp.bins_of(case, grid, dev)
+            k, got = run_counted(lambda: tp.raster_case(case, bins, grid, dev))
+            check(got[want] == 1 and sum(got.values()) == 1,
+                  f"21a {case['label']} at {tag}: launches {got}, not one {want}")
+            for name, n in got.items():
+                a_launches[name] += n
+            with plain_versions(plain_k1):
+                p = tp.raster_case(case, bins, grid, dev)
+            torch.cuda.synchronize()
+            exact(k, p, f"21a {case['label']} at {tag}", ("z", "planes", "stencil"))
+            if grid is tp.GRID:
+                z, acc, sten = (None if t is None else t.cpu().numpy() for t in k)
+                ref = tp.oracle(case)
+                try:
+                    tp.assert_matches_oracle(case, z, acc, sten, ref)
+                except AssertionError as e:
+                    fail(f"21a {case['label']}: the card's K1/K3 disagree with np_reference: {e}")
+                cov = ref["tri"] >= 0
+                covered += int(cov.sum())
+                z_err = max(z_err, float(np.abs(z - ref["z"]).max()))
+                if cov.any():
+                    interp = np.moveaxis(acc[:3] / np.maximum(acc[-1], 1e-12), 0, -1)[cov]
+                    var_err = max(var_err, float(np.abs(interp - ref["c"][cov]).max()))
+    n_sten = sum(c["front_st"] is not None for c in cases)
+    print(f"phase 21a: {len(cases)} sweep draws ({n_sten} with stencil) at 128x64 (8x128 tiles) "
+          f"and {W}x{H}: launches {fmt(a_launches)}; at 128x64 within the reference's "
+          f"tolerances of np_reference ({covered} px covered, worst |z| {z_err:.3e} of 1e-4, "
+          f"worst varying {var_err:.3e} of 2e-3, coverage and stencil exact); bit-equal to the "
+          f"plain versions at both sizes; {time.perf_counter() - t0:.1f} s [{card}]")
+
+    # The negative control: a plain K3 whose op table has the pass op of
+    # matrix seed 3003 (one face, DECREMENT_AND_CLAMP on pass) swapped with
+    # KEEP must disagree with the card's K3 on that draw.
+    control = tp.matrix_case(3)
+    swap = {control["front_st"].pass_op: StencilOp.KEEP,
+            StencilOp.KEEP: control["front_st"].pass_op}
+    real_apply = raster_mod._stencil_apply
+    bins = tp.bins_of(control, tp.GRID, dev)
+    k = tp.raster_case(control, bins, tp.GRID, dev)
+    with plain_versions(plain_k1), mock.patch.object(
+            raster_mod, "_stencil_apply",
+            lambda op, s, ref: real_apply(swap.get(op, op), s, ref)):
+        broken = tp.raster_case(control, bins, tp.GRID, dev)
+    torch.cuda.synchronize()
+    off = int((k[2] != broken[2]).sum())
+    check(off > 0, "21a negative control: K3 agreed with a plain version whose stencil ops "
+          "were swapped")
+    print(f"phase 21a: negative control: a plain K3 with {control['front_st'].pass_op.name} and "
+          f"KEEP swapped in its op table differs from the card's K3 at {off} stencil values "
+          f"of matrix seed 3003: caught")
+
+    # -- 21b. the blend equations through K5 and K6 ------------------------------
+    t0 = time.perf_counter()
+    fs = Shader.fragment("stress.fs", stress_fs, bindings=[uniform("Gain")], kernel_safe=True,
+                         device_source=STRESS_FS_CUDA)
+    alpha_factors = {BlendFactor.SRC_ALPHA, BlendFactor.DST_ALPHA,
+                     BlendFactor.ONE_MINUS_SRC_ALPHA, BlendFactor.ONE_MINUS_DST_ALPHA}
+    factors, ops = set(), set()
+    seeds = []
+    while len(seeds) < len(tp.BLEND_SEEDS) or len(factors) < len(BlendFactor) or len(ops) < 5:
+        s = len(seeds)
+        desc = tp.blend_case(s)[0]
+        seeds.append((s, desc))
+        if any(desc.write_mask[:3]):
+            factors |= {desc.src_color_blend, desc.dst_color_blend}
+            ops.add(desc.color_blend_op)
+        if desc.write_mask[3]:
+            factors |= {desc.src_alpha_blend, desc.dst_alpha_blend}
+            ops.add(desc.alpha_blend_op)
+    draws = {tag: {} for tag in grids}
+    b_launches = {k: 0 for k in counters}
+    c_err = 0.0
+    n_draws = 0
+    control_call = None
+    for s, desc in seeds:
+        for tag in grids:
+            wh = (128, 64) if tag == "128x64" else (W, H)
+            bins, grid, init, color, sten0 = sweep_blend_draw(s, *wh, dev)
+            variants = [None]
+            if s in SWEEP_STENCIL_SEEDS:
+                frng = np.random.default_rng(22000 + s)
+                variants.append((tp.rand_face(frng), tp.rand_face(frng)))
+            for faces in variants:
+                kw = dict(compare_op=CompareOp.GREATER, depth_write=False, fragment_shader=fs,
+                          attr_layout=STRESS_LAYOUT, color_desc=desc)
+                if faces is not None:
+                    kw.update(init_stencil=sten0, stencil_front=faces[0], stencil_back=faces[1])
+
+                def run(bins=bins, grid=grid, init=init, color=color, kw=kw):
+                    return raster_segmented_blend(bins, grid, init, color, None, **kw)
+
+                want = "K5" if faces is None else "K6"
+                k, got = run_counted(run)
+                check(got[want] == 1 and sum(got.values()) == 1,
+                      f"21b seed {7000 + s} at {tag}: launches {got}, not one {want}")
+                for name, n in got.items():
+                    b_launches[name] += n
+                with plain_versions(plain_k1):
+                    p = run()
+                torch.cuda.synchronize()
+                what = f"21b seed {7000 + s} {want} at {tag}"
+                check(bool(torch.isfinite(k[1]).all()), f"{what}: non-finite colour")
+                exact((k[0], *k[2:]), (p[0], *p[2:]), what, ("z", "stencil"))
+                err = (k[1] - p[1]).abs()
+                bad = int((err > 1e-5 + 1e-5 * p[1].abs()).sum())
+                check(bad == 0, f"{what}: {bad} colour values beyond atol 1e-5 + rtol 1e-5 of "
+                      f"the plain version (max {err.max().item():.3e})")
+                c_err = max(c_err, err.max().item())
+                n_draws += 1
+                uses = ((any(desc.write_mask[:3])
+                         and {desc.src_color_blend, desc.dst_color_blend} & alpha_factors)
+                        or (desc.write_mask[3]
+                            and {desc.src_alpha_blend, desc.dst_alpha_blend} & alpha_factors))
+                if control_call is None and faces is None and tag == "128x64" and uses:
+                    control_call = (s, run, k)
+    runtime_builds = runtime.shader_builds - builds_at_start
+    check(runtime_builds == 0, f"21b: {runtime_builds} blend kernels were compiled in the phase")
+    print(f"phase 21b: {len(seeds)} blend equations (seeds {7000}-{7000 + len(seeds) - 1}; "
+          f"{len(tp.BLEND_SEEDS)} are test_property_matrix.py's, the rest added until every "
+          f"code was drawn in a written channel), {n_draws} draws of "
+          f"{SWEEP_BLEND_CELLS[0] * SWEEP_BLEND_CELLS[1]} triangles over a random HDR target at 128x64 and {W}x{H}, "
+          f"{len(SWEEP_STENCIL_SEEDS)} equations also with a random two-face stencil: launches "
+          f"{fmt(b_launches)}; factor codes drawn "
+          f"{sorted(f.value for f in factors)} ({len(factors)} of {len(BlendFactor)}), ops "
+          f"{sorted(o.value for o in ops)} ({len(ops)} of 5); z and stencil bit-equal, colour "
+          f"max |kernel - plain| {c_err:.3e} (atol 1e-5 + rtol 1e-5); "
+          f"{time.perf_counter() - t0:.1f} s [{card}]")
+    check(len(factors) == len(BlendFactor) and len(ops) == 5, "21b: a code was not drawn")
+
+    # The negative control: SRC_ALPHA and DST_ALPHA (and their ONE_MINUS
+    # forms) swapped in a copy of the plain version's factor table.
+    check(control_call is not None, "21b: no equation uses an alpha factor")
+    s, run, k = control_call
+    swapped = {BlendFactor.SRC_ALPHA: BlendFactor.DST_ALPHA,
+               BlendFactor.DST_ALPHA: BlendFactor.SRC_ALPHA,
+               BlendFactor.ONE_MINUS_SRC_ALPHA: BlendFactor.ONE_MINUS_DST_ALPHA,
+               BlendFactor.ONE_MINUS_DST_ALPHA: BlendFactor.ONE_MINUS_SRC_ALPHA}
+    real_factor = blend_mod._factor
+    with plain_versions(plain_k1), mock.patch.object(
+            blend_mod, "_factor", lambda f, *a: real_factor(swapped.get(f, f), *a)):
+        broken = run()
+    torch.cuda.synchronize()
+    off = int(((k[1] - broken[1]).abs() > 1e-5 + 1e-5 * broken[1].abs()).sum())
+    check(off > 0, "21b negative control: K5 agreed with a plain version whose alpha factors "
+          "were swapped")
+    print(f"phase 21b: negative control: a plain K5 with the SRC/DST alpha factors swapped "
+          f"differs from the card's K5 beyond the tolerance at {off} colour values of seed "
+          f"{7000 + s}: caught")
+
+    # -- 21c. the split draws through K1, K3 and K5 ------------------------------
+    t0 = time.perf_counter()
+    soup_fs = Shader.fragment("p.fs.kernel", trp._fs, kernel_safe=True,
+                              device_source=SOUP_FS_CUDA)
+    c_launches = {k: 0 for k in counters}
+    lines = []
+    for name, (which, renders) in trp.SPLIT_CASES.items():
+        for state, kw in renders:
+            blended = kw.get("alpha", 1.0) < 1.0
+            fs_c = soup_fs if blended else trp.FS
+            samples = state.multisample.samples
+            want = ("K5" if blended else "K3" if state.depth_stencil.stencil_test_enable
+                    else "K1")
+            full, n_full = run_counted(lambda: trp.render_soup(state, device=dev, fs=fs_c, **kw))
+            with trp.split_caps(which) as parts:
+                split, n_split = run_counted(
+                    lambda: trp.render_soup(state, device=dev, fs=fs_c, **kw))
+            check(parts and max(parts) > 1, f"21c {name}: the draw did not split ({parts})")
+            for got in (n_full, n_split):
+                check(got[want] >= samples, f"21c {name}: launches {got}, {want} not at each "
+                      f"of {samples} samples")
+                for k_name, n in got.items():
+                    c_launches[k_name] += n
+            for key in full:
+                check(np.array_equal(full[key], split[key]),
+                      f"21c {name}: the split render's {key} differs from the unsplit render "
+                      f"(max {np.abs(full[key] - split[key]).max():.3e})")
+            if all(state is not s for s in trp.DRAWS_NOTHING):
+                check(bool((full["color"][..., :3] > 0).any()), f"21c {name}: nothing drawn")
+            lines.append(f"{name} ({which} cap, {max(parts)} parts, {want} {n_full[want]} -> "
+                         f"{n_split[want]})")
+    check(runtime.shader_builds == builds_at_start, "21c: a blend kernel was compiled in the phase")
+    print(f"phase 21c: {len(lines)} split renders bit-equal to their unsplit renders at 128x64: "
+          f"{'; '.join(lines)}; launches {fmt(c_launches)}; {time.perf_counter() - t0:.1f} s "
+          f"[{card}]")
+    return dict(total, blend_err=c_err)
+
+
 def main() -> int:
     import torch
 
@@ -5382,18 +5745,19 @@ def main() -> int:
 
     from zenith_tpu_torch.renderer.deferred import glass_device_source
 
-    with ThreadPoolExecutor(max_workers=4) as pool:
+    with ThreadPoolExecutor(max_workers=5) as pool:
         jobs = [pool.submit(runtime.build_kernels),
                 pool.submit(runtime.load_blend_kernel, glass_device_source(False), GLASS_LAYOUT),
                 pool.submit(runtime.load_blend_kernel, glass_device_source(True),
                             GLASS_TEX_LAYOUT),
-                pool.submit(runtime.load_blend_kernel, STRESS_FS_CUDA, STRESS_LAYOUT)]
+                pool.submit(runtime.load_blend_kernel, STRESS_FS_CUDA, STRESS_LAYOUT),
+                pool.submit(runtime.load_blend_kernel, SOUP_FS_CUDA, SOUP_LAYOUT)]
         so = jobs[0].result()
         for job in jobs[1:]:
             job.result()
     runtime.load_kernels()
     print(f"phase 1: {'built' if fresh else 'reused'} {so.relative_to(REPO)} and the blend "
-          f"kernels of 3 fragment shaders in {time.perf_counter() - t0:.1f} s (one nvcc per "
+          f"kernels of 4 fragment shaders in {time.perf_counter() - t0:.1f} s (one nvcc per "
           f"source and per shader, all in parallel, + link + load)")
     log_path = so.with_suffix(".log")
     if log_path.exists():
@@ -5664,6 +6028,7 @@ def main() -> int:
     viewer = timed("phase 20a", viewer_phase, dev, card)
     spmd = timed("phases 20b-20d", spmd_phases, dev, card, plain)
     sl = timed("phase 20e", sort_last_phases, dev, card, plain)
+    sweep = timed("phase 21", sweep_phases, dev, card, plain)
     k1_def = deferred["k1"]
     deferred["k2"]["launches"] += (glass_launches["K2"] + textured["K2"] + terrain["K2"]
                                    + layered["K2"] + extras["K2"] + anim["K2"] + spmd["K2"]
@@ -5675,7 +6040,8 @@ def main() -> int:
         "replaces": "zenith_tpu/ops/raster.py:311",
         "launches": (main_launches + deferred["k1_launches"] + glass_launches["K1"]
                      + textured["K1"] + forward["K1"] + terrain["K1"] + layered["K1"]
-                     + extras["K1"] + anim["K1"] + viewer["K1"] + spmd["K1"] + sl["K1"]),
+                     + extras["K1"] + anim["K1"] + viewer["K1"] + spmd["K1"] + sl["K1"]
+                     + sweep["K1"]),
         "max_abs_err": max(max_err, k1_def["max_abs_err"]),
         "ms": k1_def["ms"],
         "plain_ms": k1_def["plain_ms"],
@@ -5685,7 +6051,10 @@ def main() -> int:
         "shape": "deferred G-buffer pass 1080p",
     }, dict(deferred["k2"], shape="1080p G-buffer, 100 point lights"), *translucent, *capped]
     for row in translucent:
-        row["launches"] += forward.get(row["name"][:2], 0) + spmd.get(row["name"][:2], 0)
+        row["launches"] += (forward.get(row["name"][:2], 0) + spmd.get(row["name"][:2], 0)
+                            + sweep.get(row["name"][:2], 0))
+        if row["name"][:2] in ("K5", "K6"):
+            row["max_abs_err"] = max(row["max_abs_err"], sweep["blend_err"])
     print(f"  launches on the main paths: K1 {main_launches} (triangle, phase 4) + "
           f"{deferred['k1_launches']} (deferred, phase 7) + {glass_launches['K1']} (glass and "
           f"stencil frames, phases 11-12) + {textured['K1']} (textured, phase 14a) + "
@@ -5696,11 +6065,14 @@ def main() -> int:
           f"{anim['K1']} (DoF, HUD, particles, skins, morphs and picking, phase 19) + "
           f"{viewer['K1']} (FlyApp served, phase 20a) + {spmd['K1']} (SceneApp and the "
           f"stand-alone steps in bands, phases 20b-20c) + {sl['K1']} (forward SceneApp "
-          f"single-device, banded, sort-last and auto, phase 20e); K2 "
+          f"single-device, banded, sort-last and auto, phase 20e) + {sweep['K1']} (the state "
+          f"sweeps and the split draws, phase 21); K2 "
           f"{deferred['k2']['launches']} (phases 7, 11, 14a, 16c, 17, 18, 19 and 20b); "
           + "; ".join(f"{r['name'][:2]} {r['launches']}" for r in translucent)
           + f" (phases 11-12; K3 {forward['K3']}, K4 {forward['K4']} and K5 {forward['K5']} "
-          f"of them under 4x MSAA, phase 15b, K5 {spmd['K5']} in bands, phase 20d); "
+          f"of them under 4x MSAA, phase 15b, K5 {spmd['K5']} in bands, phase 20d, K3 "
+          f"{sweep['K3']}, K5 {sweep['K5']} and K6 {sweep['K6']} in the sweeps and splits, "
+          f"phase 21); "
           + "; ".join(f"{r['name'][:2]} {r['launches']}" for r in capped) + " (phase 13)")
     print(f"the whole script took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

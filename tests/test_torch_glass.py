@@ -180,10 +180,12 @@ def test_peel_drops_and_counts_layers_beyond_its_depth():
 
 
 def test_glass_renderer_rejects_what_is_not_ported():
-    """glass_mode is validated; a textured opaque object beside glass turns
-    the G-buffer's textured mode on (item 13 is ported), textured glass alone
-    does not (ROADMAP §3, "Glass"); a kernel-safe shader without device
-    source names what it lacks."""
+    """The renderer's options and shaders are checked: an unknown
+    glass_mode is refused; a textured opaque object beside glass turns the
+    G-buffer's textured mode on, textured glass alone turns on only the
+    glass shader's textured variant; the glass shader is kernel-safe with
+    device source, and a shader given device source without kernel_safe is
+    refused."""
     from zenith_tpu_torch.renderer import Scene, SceneObject
     from zenith_tpu_torch.rhi import Shader, Texture
 

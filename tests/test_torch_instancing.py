@@ -1,11 +1,15 @@
-"""Deferred opaque instancing in the port (the ``shadow.inst`` and
-``gbuffer.inst`` nodes) against the reference package: twins of
-tests/test_instancing.py::TestInstancedScene's deferred cases on
-test_renderers.py's cube and ground at 128×64, the scenes built by the
-reference and carried across by zenith_tpu_torch.interop.
+"""Instancing in the port against the reference package: twins of
+tests/test_instancing.py's five cases. TestInstancedScene's deferred cases
+(the ``shadow.inst`` and ``gbuffer.inst`` nodes) on test_renderers.py's
+cube and ground at 128×64, the scenes built by the reference and carried
+across by zenith_tpu_torch.interop; its forward case (``shadow.inst`` and
+``forward.inst``) and TestInstancing's two ``draw_indexed`` cases on the
+port alone, with the reference's own oracle (N instances equal N separate
+draws or objects).
 
 Tolerances: the reference's own between instanced and separate objects
-(HDR atol 2e-3); against the JAX frame, the encoded frame ≤ 1 LSB with < 1%
+(HDR atol 2e-3; depth equal and colour atol 2e-6 between one instanced
+draw and separate draws); against the JAX frame, the encoded frame ≤ 1 LSB with < 1%
 of values differing (the golden tolerance) and the HDR at test_torch_
 deferred.py's rtol 1e-2 / atol 1e-3 (world positions on the near-clipped
 ground round apart, ROADMAP §3 "FMA").
@@ -168,11 +172,164 @@ def test_retained_frame_with_moved_instances_equals_a_rebuild():
 
 
 def test_device_resident_offsets_need_the_unported_velocity_plane():
-    """velocity=None turns the velocity plane on for device-resident offsets
-    (reference deferred.py:598-604), ported since item 21.6; host offsets
-    render with it off."""
+    """With velocity=None the renderer turns its velocity plane on for
+    instance offsets held as a device tensor, which animate the scene, and
+    leaves it off for host offsets (reference deferred.py:598-604)."""
     scene = interop.scene_from(_jax_scenes()["instanced"], CPU)
     assert not TDeferred(scene).velocity
     scene.objects[0].instance_offsets = torch.from_numpy(OFFSETS)
     renderer = TDeferred(scene)
     assert renderer.velocity and renderer.scene_animated
+
+
+def _inst_pipeline(vs, fs, depth: bool):
+    from zenith_tpu_torch.rhi import Format, Shader
+    from zenith_tpu_torch.rhi.pipeline import (
+        GraphicPipeline,
+        GraphicPipelineDesc,
+        GraphicShaderInput,
+    )
+    from zenith_tpu_torch.rhi.state import (
+        ColorAttachmentDesc,
+        CullMode,
+        DepthStencilDesc,
+        GraphicPipelineAttachments,
+        GraphicPipelineState,
+        RasterizationState,
+        VertexLayout,
+    )
+
+    return GraphicPipeline(GraphicPipelineDesc(
+        shader_input=GraphicShaderInput(Shader.vertex(f"{vs.__name__}.vs", vs),
+                                        Shader.fragment("inst.fs", fs),
+                                        VertexLayout.from_fields(("position", 4))),
+        state=GraphicPipelineState(
+            rasterization=RasterizationState(cull_mode=CullMode.NONE),
+            depth_stencil=DepthStencilDesc().reverse_z() if depth else DepthStencilDesc()),
+        attachments=GraphicPipelineAttachments(color_formats=(Format.RGBA32F,),
+                                               depth_format=Format.D32F if depth else None),
+        color_attachment_descs=(ColorAttachmentDesc(),),
+    ))
+
+
+def _inst_fs(varyings, res, builtins):
+    c = varyings["color"]
+    return torch.cat([c, torch.ones_like(c[..., :1])], -1)
+
+
+def test_instanced_equals_separate_draws():
+    """TestInstancing::test_instanced_equals_separate_draws: five instances
+    through one draw (per-instance offset and colour) equal five separate
+    draws with the offsets baked in."""
+    from zenith_tpu_torch.ops import TileGrid, clear_color, clear_depth
+    from zenith_tpu_torch.ops.draw import draw_indexed
+
+    grid = TileGrid(width=128, height=32, tile_h=8, tile_w=128)
+
+    def vs(attrs, res):
+        p = attrs["position"]
+        off = attrs.get("offset", torch.zeros((p.shape[0], 4)))
+        col = attrs.get("inst_color", torch.ones((p.shape[0], 3)))
+        return {"position": p + off, "color": col}
+
+    pipeline = _inst_pipeline(vs, _inst_fs, depth=True)
+    vb = torch.tensor([[-0.15, -0.3, 0.5, 1.0], [0.15, 0.3, 0.5, 1.0],
+                       [-0.15, 0.3, 0.5, 1.0]])
+    ib = torch.tensor([[0, 1, 2]], dtype=torch.int32)
+    n_inst = 5
+    offs = np.zeros((n_inst, 4), np.float32)
+    offs[:, 0] = np.linspace(-0.7, 0.7, n_inst)  # spread along x
+    offs[:, 2] = np.linspace(0.1, 0.3, n_inst)  # distinct depths
+    cols = np.eye(3)[np.arange(n_inst) % 3].astype(np.float32)
+
+    colors, depth, stats = draw_indexed(
+        [clear_color(32, 128, (0, 0, 0, 1), CPU)], clear_depth(32, 128, 0.0, CPU), pipeline,
+        vb, ib, {}, grid, instance_count=n_inst,
+        instance_data={"offset": torch.from_numpy(offs), "inst_color": torch.from_numpy(cols)})
+    inst_img, inst_z = colors[0].numpy(), depth.numpy()
+    assert int(stats.bin_overflow) == 0
+
+    colors = [clear_color(32, 128, (0, 0, 0, 1), CPU)]
+    depth = clear_depth(32, 128, 0.0, CPU)
+    for i in range(n_inst):
+        def vs_i(attrs, res, c=cols[i]):
+            p = attrs["position"]
+            return {"position": p, "color": torch.from_numpy(c).expand(p.shape[0], 3)}
+
+        colors, depth, _ = draw_indexed(colors, depth, _inst_pipeline(vs_i, _inst_fs, True),
+                                        vb + torch.from_numpy(offs[i])[None, :], ib, {}, grid)
+    np.testing.assert_array_equal(inst_z, depth.numpy())
+    np.testing.assert_allclose(inst_img, colors[0].numpy(), atol=2e-6)
+    assert (inst_img[..., 0] > 0.5).any() and (inst_img[..., 1] > 0.5).any()
+
+
+def test_instance_index_builtin():
+    """TestInstancing::test_instance_index_builtin: the gl_InstanceIndex
+    analog reaches the vertex stage (instance 1, red, sits right of
+    instance 0, green)."""
+    from zenith_tpu_torch.ops import TileGrid, clear_color
+    from zenith_tpu_torch.ops.draw import draw_indexed
+
+    def vs(attrs, res):
+        p = attrs["position"]
+        ii = attrs["instance_index"]  # (Nv, 1)
+        return {"position": p + torch.cat([ii * 0.4 - 0.4, torch.zeros_like(p[:, :3])], 1),
+                "color": torch.cat([ii, 1.0 - ii, torch.zeros_like(ii)], -1)
+                .expand(p.shape[0], 3)}
+
+    vb = torch.tensor([[0.0, -0.4, 0.5, 1.0], [0.2, 0.4, 0.5, 1.0], [-0.2, 0.4, 0.5, 1.0]])
+    colors, _, _ = draw_indexed(
+        [clear_color(32, 128, (0, 0, 0, 1), CPU)], None, _inst_pipeline(vs, _inst_fs, False),
+        vb, torch.tensor([[0, 1, 2]], dtype=torch.int32), {},
+        TileGrid(width=128, height=32, tile_h=8, tile_w=128), instance_count=2)
+    img = colors[0].numpy()
+    reds, greens = img[..., 0] > 0.5, img[..., 1] > 0.5
+    assert reds.any() and greens.any()
+    assert np.where(reds)[1].mean() > np.where(greens)[1].mean()
+
+
+def test_instanced_forward_matches_separate_objects():
+    """TestInstancedScene::test_instanced_forward_matches_separate_objects:
+    one instanced cube through the forward shadow and lit passes
+    (``shadow.inst`` and ``forward.inst``) equals three separate cubes at
+    translated model matrices."""
+    from test_torch_renderers import make_camera, make_cube
+
+    from zenith_tpu_torch.core import mathtypes as m
+    from zenith_tpu_torch.renderer import (
+        DirectionalLight,
+        ForwardShadowRenderer,
+        Scene,
+        SceneObject,
+    )
+
+    device = TCore(CPU).create_render_device()
+    cam = make_camera()
+    cube_kwargs = dict(base_color=(0.2, 0.6, 0.8, 1.0), roughness=0.5, bin_capacity=64)
+    ground = SceneObject.quad(device, "ground", size=200.0, z=0.0,
+                              base_color=(0.4, 0.4, 0.42, 1.0), roughness=0.9)
+    sun = DirectionalLight(direction=(0.2, -0.1, 1.0), intensity=2.5, shadow_map_size=128,
+                           shadow_extent=70.0)
+
+    def render(scene):
+        renderer = ForwardShadowRenderer(scene)
+        builder = TBuilder()
+        out = builder.create(TDesc.color("rt", 128, 64))
+        depth = builder.create(TDesc.depth("ds", 128, 64))
+        builder.export(out)
+        renderer.render_to(builder, out, depth, cam)
+        nodes = [n.name for n in builder.nodes]
+        compiled = builder.build().compile(device, TCache(), TOptions(tile_h=8, tile_w=128))
+        compiled.execute(device)
+        return compiled.value(out).numpy(), nodes
+
+    inst = SceneObject.from_mesh(device, make_cube(size=8.0, z0=4.0), "cube",
+                                 instance_offsets=OFFSETS, **cube_kwargs)
+    img_inst, nodes = render(Scene(objects=[inst, ground], sun=sun, ambient=(0.05,) * 3))
+    separate = [SceneObject.from_mesh(device, make_cube(size=8.0, z0=4.0), f"cube{k}",
+                                      model_matrix=m.mat4_translation(OFFSETS[k]), **cube_kwargs)
+                for k in range(3)]
+    img_sep, _ = render(Scene(objects=[*separate, ground], sun=sun, ambient=(0.05,) * 3))
+    assert "shadow.inst" in nodes and "forward.inst" in nodes, nodes
+    assert img_inst[..., :3].std() > 0.02
+    np.testing.assert_allclose(img_inst, img_sep, atol=2e-3)
